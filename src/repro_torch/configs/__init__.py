@@ -1,0 +1,14 @@
+"""Architecture registry. The port serves the dense ``smollm-135m``; the
+other architectures arrive with their families (ROADMAP §1 item 10)."""
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
+    ModelConfig,
+    ShapeConfig,
+    get_config,
+    list_configs,
+    pad_to_multiple,
+    register,
+)
+
+# Importing each module registers its config.
+from repro_torch.configs import smollm_135m  # noqa: F401,E402

@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``.cu`` under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` (one
+process per source, all started together) and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The library
+lands in ``build/kernels/<hash>/`` at the repository root, keyed by a
+hash of the sources and flags, so a checkout builds once at first use
+and an edited source rebuilds. Nothing here runs at import time: the
+CPU-only test host has neither ``nvcc`` nor a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+)
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a CUDA host")
+    return path
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(nvcc: str, out: Path) -> None:
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(str(obj))
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        failed = []
+        for src, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                failed.append(f"{src.name}:\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+        so = Path(tmp) / out.name
+        subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(so)],
+            check=True, capture_output=True, text=True,
+        )
+        os.replace(so, out)  # atomic: a concurrent builder sees all or nothing
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    out = BUILD_ROOT / _digest() / "librepro_torch_kernels.so"
+    if not out.exists():
+        nvcc = _nvcc()  # before touching the build directory
+        out.parent.mkdir(parents=True, exist_ok=True)
+        _compile(nvcc, out)
+    lib = ctypes.CDLL(str(out))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.paged_decode_attention.argtypes = [i, p, p, p, p, p, p] + [i] * 7 + [f, p]
+    lib.paged_decode_attention.restype = i
+    lib.flash_attention.argtypes = [i, p, p, p, p] + [i] * 7 + [f, p]
+    lib.flash_attention.restype = i
+    _lib = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a kernel's C entry point reports a CUDA error."""
+    if err:
+        raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")

@@ -1,0 +1,164 @@
+// Shared pieces of the two attention kernels: the shared-memory layout,
+// the online-softmax step over one key tile, and the launch helper.
+//
+// One thread block owns R query rows (the g query heads of one kv group,
+// times T verify queries or BQ prefill positions). Per key tile it
+// (1) scores every (row, key) pair into shared memory, (2) lets one warp
+// per row fold the tile into the row's running max m and sum l, turning
+// the scores into weights in place, and (3) updates the float32
+// accumulator acc = acc * exp(m_old - m_new) + P V. Every row reduces in
+// the same order whatever R is, which is what makes the paged kernel's
+// verify (T > 1) bitwise equal to its decode (T = 1). A key tile that is
+// masked for a row gives that row weight 0 and rescale exactly 1.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro_attn {
+
+constexpr float NEG = -1e30f;  // the JAX package's mask value
+constexpr int THREADS = 128;
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Shared-memory workspace for R rows against key tiles of BK keys.
+struct Smem {
+  float* q;     // [R][hd]
+  float* acc;   // [R][hd]
+  float* s;     // [R][BK] scores, then weights
+  float* k;     // [BK][hd + 1] (padded: threads of a warp read different keys)
+  float* v;     // [BK][hd]
+  float* m;     // [R] running max
+  float* l;     // [R] running sum
+  float* corr;  // [R] this tile's rescale
+  int* lim;     // [R] row attends key positions < lim
+};
+
+inline size_t smem_bytes(int R, int BK, int hd) {
+  return sizeof(float) * ((size_t)2 * R * hd + (size_t)R * BK +
+                          (size_t)BK * (hd + 1) + (size_t)BK * hd + 3 * (size_t)R) +
+         sizeof(int) * (size_t)R;
+}
+
+__device__ inline Smem carve(char* base, int R, int BK, int hd) {
+  Smem sm;
+  float* f = reinterpret_cast<float*>(base);
+  sm.q = f;
+  f += R * hd;
+  sm.acc = f;
+  f += R * hd;
+  sm.s = f;
+  f += R * BK;
+  sm.k = f;
+  f += BK * (hd + 1);
+  sm.v = f;
+  f += BK * hd;
+  sm.m = f;
+  f += R;
+  sm.l = f;
+  f += R;
+  sm.corr = f;
+  f += R;
+  sm.lim = reinterpret_cast<int*>(f);
+  return sm;
+}
+
+__device__ inline void init_rows(Smem sm, int R, int hd) {
+  for (int i = threadIdx.x; i < R * hd; i += blockDim.x) sm.acc[i] = 0.f;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    sm.m[r] = NEG;
+    sm.l[r] = 0.f;
+  }
+}
+
+// Fold one key tile into every row. The tile's keys sit at positions
+// pos0 .. pos0 + BK - 1; sm.k / sm.v hold the first n of them (loaded and
+// synchronised by the caller). Keys at j >= n or at positions >= lim[r]
+// are masked for row r.
+__device__ inline void tile_step(Smem sm, int R, int BK, int hd, int pos0, int n,
+                                 float scale) {
+  const int hp = hd + 1;
+  for (int idx = threadIdx.x; idx < R * BK; idx += blockDim.x) {
+    const int r = idx / BK, j = idx - r * BK;
+    float sc = NEG;
+    if (j < n && pos0 + j < sm.lim[r]) {
+      const float* qr = sm.q + r * hd;
+      const float* kj = sm.k + j * hp;
+      float d = 0.f;
+      for (int c = 0; c < hd; ++c) d = fmaf(qr[c], kj[c], d);
+      sc = d * scale;
+    }
+    sm.s[idx] = sc;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  for (int r = warp; r < R; r += nw) {
+    float* sr = sm.s + r * BK;
+    float mx = NEG;
+    for (int j = lane; j < BK; j += 32) mx = fmaxf(mx, sr[j]);
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float m_prev = sm.m[r];
+    const float m_new = fmaxf(m_prev, mx);
+    float sum = 0.f;
+    for (int j = lane; j < BK; j += 32) {
+      const bool valid = j < n && pos0 + j < sm.lim[r];
+      const float p = valid ? expf(sr[j] - m_new) : 0.f;
+      sr[j] = p;
+      sum += p;
+    }
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) {
+      const float c = expf(m_prev - m_new);
+      sm.corr[r] = c;
+      sm.l[r] = sm.l[r] * c + sum;
+      sm.m[r] = m_new;
+    }
+  }
+  __syncthreads();
+
+  for (int idx = threadIdx.x; idx < R * hd; idx += blockDim.x) {
+    const int r = idx / hd, c = idx - r * hd;
+    const float* pr = sm.s + r * BK;
+    float pv = 0.f;
+    for (int j = 0; j < n; ++j) pv = fmaf(pr[j], sm.v[j * hd + c], pv);
+    sm.acc[idx] = sm.acc[idx] * sm.corr[r] + pv;
+  }
+  __syncthreads();
+}
+
+// Launch on `stream` with `smem` bytes of dynamic shared memory (raising
+// the kernel's limit above the 48 KB default when needed) and return the
+// launch's error code: a refused launch never runs, and a later
+// synchronise would not report it.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace repro_attn

@@ -1,0 +1,70 @@
+"""Causal GQA flash attention with a query offset (kernel 2 of the port).
+
+Replaces the JAX package's Pallas TPU kernel
+``kernels/flash_attention.py::flash_attention`` and extends it with
+``q_offset`` and ragged Sq/Skv, which the serving prefill needs; the CUDA
+source is ``csrc/flash_attention.cu`` (its header says what bounds it on
+the H100 and what the design does about it).
+
+``flash_attention`` dispatches on the tensors' device: CPU tensors take
+the plain PyTorch version (``plain_flash_attention``, the full-softmax
+oracle), CUDA tensors the kernel — or it raises. Its ``launches``
+attribute counts kernel launches.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import attention_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def plain_flash_attention(q, k, v, q_offset: int = 0):
+    """The kernel's function in plain PyTorch: causal, query i at
+    position ``q_offset + i``."""
+    return attention_ref(q, k, v, causal=True, q_offset=q_offset)
+
+
+def flash_attention(q, k, v, q_offset: int = 0):
+    """q [B,Sq,H,hd]; k, v [B,Skv,KV,hd] (H a multiple of KV) → [B,Sq,H,hd].
+    Query i attends keys j ≤ ``q_offset + i``."""
+    if q.device.type == "cpu":
+        return plain_flash_attention(q, k, v, q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    B, Sq, H, hd = q.shape
+    Bk, Skv, KV, hd_k = k.shape
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash_attention: q/k/v must share float32 or bfloat16, got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if v.shape != k.shape or Bk != B or hd_k != hd or H % KV or q_offset < 0:
+        raise ValueError(
+            f"flash_attention: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+            f"v{tuple(v.shape)} q_offset={q_offset}"
+        )
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    out = torch.empty_like(q)
+    if B == 0 or Sq == 0:
+        return out
+    err = _build.library().flash_attention(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Sq, Skv, H, KV, hd, int(q_offset), 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

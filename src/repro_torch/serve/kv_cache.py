@@ -1,0 +1,285 @@
+"""KV-cache pools for continuous batching: slotted and block-paged.
+
+Port of the JAX package's ``serve/kv_cache.py`` (single device; the
+serving mesh waits for ROADMAP §1 item 9). ``SlotKVCache`` owns a fixed
+pool of ``max_batch`` decode-cache slots; ``PagedKVCache`` maps
+``max_batch`` decode rows through per-row block tables into a pool of
+fixed-size blocks, with a prefix trie that lets prompts sharing a prefix
+alias the same immutable blocks. Pool tensors live on the model's device
+and are updated in place; block tables and lengths are host numpy, with
+device copies refreshed only when they change (``kernel_inputs``).
+"""
+from __future__ import annotations
+
+import bisect
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.serve.block import BlockAllocator, PrefixCache
+
+
+class SlotKVCache:
+    """Fixed pool of cache slots: allocate on admit, free on finish."""
+
+    def __init__(self, model, max_batch: int, max_seq: int):
+        self.model = model
+        self.max_batch = int(max_batch)
+        self.max_seq = int(max_seq)
+        if self.max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        self.cache = model.init_cache(self.max_batch, self.max_seq)
+        self._free: list[int] = list(range(self.max_batch))  # ascending
+        self._owner: list[Optional[int]] = [None] * self.max_batch  # slot → rid
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def alloc(self, rid: int) -> int:
+        """Claim the lowest free slot for request ``rid``."""
+        if not self._free:
+            raise RuntimeError("no free cache slot (pool exhausted)")
+        slot = self._free.pop(0)
+        self._owner[slot] = rid
+        return slot
+
+    def free(self, slot: int) -> None:
+        if not 0 <= slot < self.max_batch:
+            raise IndexError(f"slot {slot} out of range")
+        if self._owner[slot] is None:
+            raise RuntimeError(f"double free of slot {slot}")
+        self._owner[slot] = None
+        bisect.insort(self._free, slot)
+
+    def write(self, slot: int, slot_cache) -> None:
+        """Install a batch=1 cache (a request's prefill) into ``slot``."""
+        if self._owner[slot] is None:
+            raise RuntimeError(f"write into free slot {slot}")
+        self.model.write_cache_slot(self.cache, slot_cache, slot)
+
+    def check_invariants(self) -> None:
+        """Free and live slots partition the pool; the free list is sorted
+        and duplicate-free."""
+        live = {i for i, o in enumerate(self._owner) if o is not None}
+        free = set(self._free)
+        assert len(self._free) == len(free), "duplicate in free list"
+        assert not (free & live), "slot both free and live"
+        assert free | live == set(range(self.max_batch)), "slot leaked"
+        assert self._free == sorted(self._free), "free list unsorted"
+
+
+class PagedKVCache:
+    """Block-paged KV cache with shared-prefix reuse.
+
+    ``max_batch`` decode rows map through per-row block tables into a
+    pool of ``num_blocks`` blocks of ``block_size`` tokens, plus one null
+    block (id ``num_blocks``) that unowned table entries point at, so dead
+    rows' writes land in scratch. Admission charges the worst-case block
+    budget; physical blocks are claimed as a request reaches them, and
+    prefix-shared blocks are charged once."""
+
+    def __init__(
+        self,
+        model,
+        max_batch: int,
+        max_seq: int,
+        *,
+        block_size: int = 8,
+        num_blocks: Optional[int] = None,
+        prefix_cache: bool = True,
+    ):
+        self.model = model
+        self.max_batch = int(max_batch)
+        self.max_seq = int(max_seq)
+        self.block_size = int(block_size)
+        if self.max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if self.max_seq % self.block_size:
+            raise ValueError(
+                f"max_seq={max_seq} must be a multiple of block_size={block_size}"
+            )
+        self.blocks_per_row = self.max_seq // self.block_size
+        if num_blocks is None:
+            num_blocks = self.max_batch * self.blocks_per_row
+        self.num_blocks = int(num_blocks)
+        self.null_block = self.num_blocks
+        self.pool = model.init_paged_cache(self.num_blocks + 1, self.block_size)
+        # the dense family's suffix prefill equals a cold prefill, so
+        # prompts sharing a prefix may alias its blocks
+        self.prefix = PrefixCache(self.block_size) if prefix_cache else None
+        self.allocator = BlockAllocator(
+            self.num_blocks,
+            on_evict=self.prefix.drop_block if self.prefix is not None else None,
+            is_leaf=self.prefix.is_leaf if self.prefix is not None else None,
+        )
+        self.block_tables = np.full(
+            (self.max_batch, self.blocks_per_row), self.null_block, np.int32
+        )
+        self.cache_len = np.zeros((self.max_batch,), np.int32)
+        # kernel_inputs() device copies, refreshed by version counter:
+        # tables change only on admission / tail claim / free, so a steady
+        # decode step uploads only the lengths vector
+        self._tables_version = 0
+        self._dev_tables = None
+        self._dev_tables_version = -1
+        self._len_version = 0
+        self._dev_len = None
+        self._dev_len_version = -1
+        self._row_free: list[int] = list(range(self.max_batch))  # ascending
+        self._row_owner: list[Optional[int]] = [None] * self.max_batch
+        self._row_blocks: list[list[int]] = [[] for _ in range(self.max_batch)]
+        self._row_outstanding = [0] * self.max_batch  # reserved, unallocated
+        self._outstanding_total = 0
+
+    def blocks_for(self, n_tokens: int) -> int:
+        return math.ceil(n_tokens / self.block_size)
+
+    # ------------------------------------------------------------------
+    # admission
+    def lookup(self, tokens) -> list[int]:
+        """Block ids of the longest cached full-block prefix of ``tokens``."""
+        return self.prefix.match(tokens) if self.prefix is not None else []
+
+    def try_admit(self, rid: int, tokens, budget: int):
+        """Admit ``rid`` into a free row if its block budget fits: returns
+        (row, hit_ids) or None. Shared prefix blocks alias (refcount++),
+        fresh prompt blocks are allocated now, the decode tail is only
+        reserved (claimed lazily by ``ensure_tail``)."""
+        if not self._row_free:
+            return None
+        S = len(tokens)
+        hit_ids = self.lookup(tokens)
+        n_total = self.blocks_for(S + budget)
+        n_prompt = self.blocks_for(S)
+        n_parked_hits = sum(self.allocator.is_parked(b) for b in hit_ids)
+        # after reactivating parked hits, enough must remain for this
+        # request's fresh blocks AND every live row's reservations
+        need = (n_total - len(hit_ids)) + n_parked_hits
+        if self.allocator.n_available < self._outstanding_total + need:
+            return None
+        for b in hit_ids:  # alias FIRST so eviction can't take them
+            self.allocator.share(b)
+        blocks = list(hit_ids)
+        for _ in range(n_prompt - len(hit_ids)):
+            blocks.append(self.allocator.alloc())
+        row = self._row_free.pop(0)
+        self._row_owner[row] = rid
+        self._row_blocks[row] = blocks
+        self._row_outstanding[row] = n_total - n_prompt
+        self._outstanding_total += self._row_outstanding[row]
+        self.block_tables[row, : len(blocks)] = blocks
+        self.cache_len[row] = S
+        self._tables_version += 1
+        self._len_version += 1
+        if self.prefix is not None:
+            # the prompt's full blocks are immutable: decode never writes
+            # before position S
+            self.prefix.insert(tokens, blocks[: S // self.block_size])
+        return row, hit_ids
+
+    # ------------------------------------------------------------------
+    # cache I/O
+    def kernel_inputs(self):
+        """``(pool, block_tables, cache_len)`` with tables/lengths as
+        device int32 tensors — what ``Model.decode_step_paged`` and the
+        paged kernel take. Pool leaves are ``[L, NB+1, BS, KV, hd]``."""
+        dev = self.model.device
+        if self._dev_tables_version != self._tables_version:
+            self._dev_tables = torch.from_numpy(self.block_tables.copy()).to(dev)
+            self._dev_tables_version = self._tables_version
+        if self._dev_len_version != self._len_version:
+            self._dev_len = torch.from_numpy(self.cache_len.copy()).to(dev)
+            self._dev_len_version = self._len_version
+        return self.pool, self._dev_tables, self._dev_len
+
+    def gather_prefix(self, hit_ids: list[int]):
+        """(k, v) [L, 1, h, KV, hd] — a hit chain's post-RoPE KV rows,
+        gathered on the device for ``Model.prefill_with_prefix``."""
+        ids = torch.as_tensor(hit_ids, dtype=torch.long, device=self.model.device)
+        L, _, BS, KV, hd = self.pool["k"].shape
+        h = len(hit_ids) * BS
+        return tuple(
+            self.pool[name][:, ids].reshape(L, 1, h, KV, hd) for name in ("k", "v")
+        )
+
+    def write_prefill(self, row: int, dense_cache, skip_blocks: int = 0) -> None:
+        """Install a request's batch=1 dense prefill cache into its fresh
+        prompt blocks, on the device. ``skip_blocks`` leading blocks are a
+        prefix hit — shared and immutable, so not rewritten."""
+        if self._row_owner[row] is None:
+            raise RuntimeError(f"write into free row {row}")
+        bs = self.block_size
+        n_prompt = self.blocks_for(int(self.cache_len[row]))
+        ids = self._row_blocks[row][skip_blocks:n_prompt]
+        if not ids:
+            return
+        idx = torch.as_tensor(ids, dtype=torch.long, device=self.model.device)
+        for name, leaf in self.pool.items():
+            d = dense_cache[name][:, 0, skip_blocks * bs : n_prompt * bs]
+            leaf[:, idx] = d.reshape((d.shape[0], len(ids), bs) + tuple(d.shape[2:])).to(leaf.dtype)
+
+    def ensure_tail(self, row: int) -> None:
+        """Claim the block the row's next decode write lands in, from its
+        admission reservation, if it has none yet."""
+        need = self.blocks_for(int(self.cache_len[row]) + 1)
+        while len(self._row_blocks[row]) < need:
+            bi = len(self._row_blocks[row])
+            assert bi < self.blocks_per_row
+            assert self._row_outstanding[row] > 0, "tail block was not reserved"
+            b = self.allocator.alloc()
+            self._row_blocks[row].append(b)
+            self.block_tables[row, bi] = b
+            self._tables_version += 1
+            self._row_outstanding[row] -= 1
+            self._outstanding_total -= 1
+
+    def advance(self, row: int) -> None:
+        self.cache_len[row] += 1
+        self._len_version += 1
+
+    def free_row(self, row: int) -> None:
+        """Retire a request: drop one referent per block (registered
+        blocks with no referents park for future prefix hits), release
+        the unclaimed reservation, reset the table row."""
+        if not 0 <= row < self.max_batch:
+            raise IndexError(f"row {row} out of range")
+        if self._row_owner[row] is None:
+            raise RuntimeError(f"double free of row {row}")
+        for b in self._row_blocks[row]:
+            self.allocator.free(
+                b, park=self.prefix is not None and self.prefix.registered(b)
+            )
+        self._outstanding_total -= self._row_outstanding[row]
+        self._row_outstanding[row] = 0
+        self._row_blocks[row] = []
+        self._row_owner[row] = None
+        self.block_tables[row, :] = self.null_block
+        self.cache_len[row] = 0
+        self._tables_version += 1
+        self._len_version += 1
+        bisect.insort(self._row_free, row)
+
+    def check_invariants(self) -> None:
+        """Rows and blocks stay consistent: the allocator partition holds,
+        tables mirror the owned-block lists, every block referent is one
+        row, and reservations never exceed what the pool can provide."""
+        self.allocator.check_invariants()
+        live_rows = {i for i, o in enumerate(self._row_owner) if o is not None}
+        free_rows = set(self._row_free)
+        assert not (free_rows & live_rows), "row both free and live"
+        assert free_rows | live_rows == set(range(self.max_batch)), "row leaked"
+        refs = [0] * self.num_blocks
+        for row in range(self.max_batch):
+            blocks = self._row_blocks[row]
+            if row not in live_rows:
+                assert not blocks and self._row_outstanding[row] == 0
+            for j, b in enumerate(blocks):
+                assert self.block_tables[row, j] == b, "table/block-list skew"
+                refs[b] += 1
+            assert (self.block_tables[row, len(blocks):] == self.null_block).all()
+        assert refs == self.allocator.refcount, "refcounts not conserved"
+        assert self._outstanding_total == sum(self._row_outstanding)
+        assert self.allocator.n_available >= self._outstanding_total

@@ -1,0 +1,71 @@
+"""Open-loop load generation for the serving core.
+
+Port of the JAX package's ``serve/load.py``: Poisson arrivals
+(exponential inter-arrival gaps) with randomized prompt lengths and
+token budgets. Drawn from a numpy ``Generator``, so the same seed gives
+the same workload to both packages.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.serve.request import Request
+
+
+def make_requests(
+    n: int,
+    rate_rps: float,
+    *,
+    vocab: int,
+    max_new_tokens: int,
+    prompt_lens=(4, 8, 12, 16),
+    rng: np.random.Generator,
+):
+    """n Poisson-arrival requests at ``rate_rps``, each with a random
+    prompt length from ``prompt_lens`` and a random budget in
+    [min(2, max_new_tokens), max_new_tokens]."""
+    lo = min(2, max_new_tokens)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate_rps, size=n))
+    reqs = []
+    for i in range(n):
+        s0 = int(rng.choice(prompt_lens))
+        prompt = rng.integers(0, vocab, size=(s0,)).astype(np.int32)
+        reqs.append(
+            Request(
+                prompt=prompt,
+                max_new_tokens=int(rng.integers(lo, max_new_tokens + 1)),
+                arrival_time=float(arrivals[i]),
+            )
+        )
+    return reqs
+
+
+def make_shared_prefix_requests(
+    n: int,
+    rate_rps: float,
+    *,
+    vocab: int,
+    prefix_len: int,
+    suffix_len: int,
+    max_new_tokens: int,
+    rng: np.random.Generator,
+    prefix=None,
+):
+    """n Poisson-arrival requests whose prompts share one ``prefix_len``-
+    token prefix (a system prompt, the workload the prefix cache targets)
+    followed by a per-request random ``suffix_len``-token tail."""
+    if prefix is None:
+        prefix = rng.integers(0, vocab, size=(prefix_len,)).astype(np.int32)
+    assert len(prefix) == prefix_len
+    arrivals = np.cumsum(rng.exponential(1.0 / rate_rps, size=n))
+    reqs = []
+    for i in range(n):
+        suffix = rng.integers(0, vocab, size=(suffix_len,)).astype(np.int32)
+        reqs.append(
+            Request(
+                prompt=np.concatenate([prefix, suffix]),
+                max_new_tokens=max_new_tokens,
+                arrival_time=float(arrivals[i]),
+            )
+        )
+    return reqs
