@@ -9,8 +9,10 @@ Phases, in order; any failure exits non-zero before the final line:
 2. build — the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
    ``build/``), with the build time;
 3. kernels — each kernel against its plain PyTorch version on the card,
-   float32 and bfloat16, at full-width smollm-135m shapes, with the paged
-   kernel's verify-equals-decode contract checked bitwise; median kernel,
+   float32 and bfloat16, at full-width smollm-135m shapes (the paged
+   kernel at both layouts' shapes: the paged pool, and the slot cache's
+   identity-table view), with the paged kernel's verify-equals-decode
+   contract checked bitwise; median kernel,
    plain and library times beside the least time the card could take;
 4. serving — smollm-135m at full width (bf16, seeded random weights) served
    through ``ServingEngine.serve()``: an open-loop workload and a
@@ -119,6 +121,24 @@ def paged_case(dtype, T, seed=0, B=8, H=9, KV=3, hd=64, BS=16, MB=128):
     return tuple(t.to(dev, dtype) for t in (q, kp, vp)) + (tables.to(dev), lengths.to(dev))
 
 
+def slot_case(dtype, seed=0, B=4, Smax=2048, H=9, KV=3, hd=64):
+    """The slot layout's decode input to the paged kernel, built as the
+    model builds it: a dense cache [B, Smax, KV, hd] viewed as a pool of
+    ``_dense_block_size(Smax)`` = 256-key blocks (MB = 8, well above the
+    48 KB shared-memory default) with an identity table."""
+    from repro_torch.models.attention import _dense_as_pool, _dense_block_size
+
+    g = torch.Generator().manual_seed(seed)
+    bs = _dense_block_size(Smax)
+    dev = torch.device("cuda")
+    q = torch.randn(B, 1, H, hd, generator=g).to(dev, dtype)
+    kc = torch.randn(B, Smax, KV, hd, generator=g).to(dev, dtype)
+    vc = torch.randn(B, Smax, KV, hd, generator=g).to(dev, dtype)
+    tables = torch.arange(B * (Smax // bs), dtype=torch.int32, device=dev).view(B, Smax // bs)
+    lengths = torch.tensor([0, bs - 1, Smax - 2, Smax - 1], dtype=torch.int32, device=dev)
+    return q, _dense_as_pool(kc, bs), _dense_as_pool(vc, bs), tables, lengths
+
+
 def paged_bound(q, kp, tables, lengths, dtype):
     B, T, H, hd = q.shape
     BS, KV = kp.shape[1], kp.shape[2]
@@ -152,10 +172,7 @@ def sdpa_ms(q, k, v, off):
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     mask = (torch.arange(Sq, device="cuda")[:, None] + off) >= torch.arange(Skv, device="cuda")[None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    try:
-        return cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
-    except TypeError:  # a torch without enable_gqa has no single-call counterpart
-        return None
+    return cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
 
 
 def check_kernels():
@@ -166,8 +183,12 @@ def check_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         outs = {}
-        for T in (1, 4):
-            q, kp, vp, tables, lengths = paged_case(dtype, T)
+        for key, label, case in (
+            ("decode", "paged layout B=8 T=1 H=9 KV=3 hd=64 BS=16 MB=128", lambda: paged_case(dtype, 1)),
+            ("verify", "paged layout B=8 T=4 H=9 KV=3 hd=64 BS=16 MB=128", lambda: paged_case(dtype, 4)),
+            ("slot", "slot view B=4 T=1 H=9 KV=3 hd=64 BS=256 MB=8", lambda: slot_case(dtype)),
+        ):
+            q, kp, vp, tables, lengths = case()
             out = pda.paged_decode_attention(q, kp, vp, tables, lengths)
             torch.cuda.synchronize()
             ref = pda.plain_paged_decode_attention(q, kp, vp, tables, lengths)
@@ -175,17 +196,17 @@ def check_kernels():
             ms = cuda_ms(lambda: pda.paged_decode_attention(q, kp, vp, tables, lengths))
             plain = cuda_ms(lambda: pda.plain_paged_decode_attention(q, kp, vp, tables, lengths), iters=5)
             bms, by = paged_bound(q, kp, tables, lengths, dtype)
-            log(f"paged_decode_attention {dn} B=8 T={T} H=9 KV=3 hd=64 BS=16 MB=128: "
+            log(f"paged_decode_attention {dn} {label} lengths={lengths[:4].tolist()}: "
                 f"max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) ms={ms:.4f} plain_ms={plain:.4f} "
                 f"bound_ms={bms:.5f} ({by}) library_ms=null")
-            require(err <= TOL[dtype], f"paged kernel disagrees with its plain version: {err}")
-            require(torch.isfinite(out).all(), "paged kernel output not finite")
-            outs[T] = (q, kp, vp, tables, lengths, out)
-            if T == 1:
+            require(err <= TOL[dtype], f"paged kernel ({label}) disagrees with its plain version: {err}")
+            require(torch.isfinite(out).all(), f"paged kernel ({label}) output not finite")
+            outs[key] = (q, kp, vp, tables, lengths, out)
+            if key == "decode":
                 rows[("paged", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                                              bound_by=by, library_ms=None)
         # verify (T=4) equals decode (T=1) bitwise, query by query
-        q, kp, vp, tables, lengths, out = outs[4]
+        q, kp, vp, tables, lengths, out = outs["verify"]
         for t in range(4):
             dec = pda.paged_decode_attention(q[:, t : t + 1].contiguous(), kp, vp, tables, lengths + t)
             require(torch.equal(dec[:, 0], out[:, t]), f"verify != decode at query {t} ({dn})")
@@ -203,7 +224,7 @@ def check_kernels():
             lib = sdpa_ms(q, k, v, off)
             log(f"flash_attention {dn} B=2 Sq={Sq} Skv={Skv} q_offset={off} H=9 KV=3 hd=64: "
                 f"max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) ms={ms:.4f} plain_ms={plain:.4f} "
-                f"bound_ms={bms:.5f} ({by}) library_ms={'null' if lib is None else f'{lib:.4f}'}")
+                f"bound_ms={bms:.5f} ({by}) library_ms={lib:.4f}")
             require(err <= TOL[dtype], f"flash kernel disagrees with its plain version: {err}")
             require(torch.isfinite(out).all(), "flash kernel output not finite")
             if (Sq, Skv, off) == (512, 512, 0):

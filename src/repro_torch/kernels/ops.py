@@ -1,14 +1,15 @@
-"""Attention-backend registry and the serving-attention entry points.
+"""Attention-backend registry.
 
-Port of the attention half of the JAX package's ``kernels/ops.py``.
+Port of the backend half of the JAX package's ``kernels/ops.py``.
 ``ATTENTION_BACKENDS`` are ``"reference"`` (the plain PyTorch oracles)
 and ``"kernel"`` (the hand-written CUDA kernels). A backend name comes
 from the call, else ``set_attention_backend``, else the
 ``REPRO_ATTENTION_BACKEND`` environment variable (read once), else
 ``"auto"``; ``"auto"`` means ``"kernel"`` for CUDA tensors and
 ``"reference"`` for CPU tensors. Bad names fail loudly with the valid
-choices. ``"kernel"`` with CPU tensors raises: a kernel path never
-degrades to a plain version silently. (The Pallas ``interpret`` mode and
+choices. ``models/attention.py`` calls the kernel wrappers itself and
+raises for ``"kernel"`` with CPU tensors: a kernel path never degrades
+to a plain version silently. (The Pallas ``interpret`` mode and
 the TPU VMEM check have no Hopper meaning and are not ported.)
 """
 from __future__ import annotations
@@ -18,10 +19,6 @@ import os
 from typing import Optional
 
 import torch
-
-from repro_torch.kernels import flash_attention as _flash
-from repro_torch.kernels import paged_decode_attention as _paged
-from repro_torch.kernels import ref as ref_ops
 
 ATTENTION_BACKENDS = ("reference", "kernel")
 
@@ -65,32 +62,3 @@ def resolve_attention_backend(
         on_cuda = device is not None and torch.device(device).type == "cuda"
         return "kernel" if on_cuda else "reference"
     return name
-
-
-def _kernel_device(q, backend: str, what: str) -> None:
-    if q.device.type != "cuda":
-        raise ValueError(
-            f"{what}: backend {backend!r} needs CUDA tensors, got {q.device} "
-            "(use backend='reference' on the CPU)"
-        )
-
-
-def paged_attention(q, k_pool, v_pool, block_tables, lengths, *, backend=None):
-    """Block-paged decode/verify attention straight off the pool: q
-    [B,T,H,hd]; pools [NB,BS,KV,hd]; tables [B,MB]; lengths [B] committed
-    lengths. ``"reference"`` is the dense-gather oracle."""
-    backend = resolve_attention_backend(backend, q.device)
-    if backend == "reference":
-        return ref_ops.paged_attention_ref(q, k_pool, v_pool, block_tables, lengths)
-    _kernel_device(q, backend, "paged_attention")
-    return _paged.paged_decode_attention(q, k_pool, v_pool, block_tables, lengths)
-
-
-def flash_attention(q, k, v, *, q_offset: int = 0, backend=None):
-    """Causal GQA attention with queries at ``q_offset + i``;
-    ``"reference"`` is the full-softmax oracle."""
-    backend = resolve_attention_backend(backend, q.device)
-    if backend == "reference":
-        return ref_ops.attention_ref(q, k, v, causal=True, q_offset=q_offset)
-    _kernel_device(q, backend, "flash_attention")
-    return _flash.flash_attention(q, k, v, q_offset)

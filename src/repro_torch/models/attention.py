@@ -18,7 +18,9 @@ import math
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.models.layers import apply_rope, rope_tables
 
 NEG = -1e30
@@ -29,6 +31,16 @@ def _repeat_kv(k, n_rep):
         return k
     b, s, kv, hd = k.shape
     return k[:, :, :, None, :].expand(b, s, kv, n_rep, hd).reshape(b, s, kv * n_rep, hd)
+
+
+def _kernel_device(q, what: str) -> None:
+    """The kernel wrappers run their plain versions on CPU tensors; an
+    explicit ``"kernel"`` backend must not, so it raises here."""
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"{what}: backend 'kernel' needs CUDA tensors, got {q.device} "
+            "(use backend='reference' on the CPU)"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -56,9 +68,9 @@ def gqa_attention(q, k, v, *, q_offset=0, chunk: int = 512, backend=None):
     reference scans KV chunks with a running max, as the JAX package's
     ``masked`` blocking does."""
     if kernel_ops.resolve_attention_backend(backend, q.device) == "kernel":
-        return kernel_ops.flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            q_offset=int(q_offset), backend="kernel",
+        _kernel_device(q, "gqa_attention")
+        return _flash.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), int(q_offset)
         )
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -127,9 +139,9 @@ def _dense_block_size(smax, bs=256):
     return bs
 
 
-def _kernel_cached_attention(q, k_cache, v_cache, cache_len, backend):
-    """Dense-cache decode/verify through the block-paged kernel with an
-    identity block table. ``cache_len`` is the committed length — query
+def _kernel_cached_attention(q, k_cache, v_cache, cache_len):
+    """Dense-cache decode/verify through the block-paged kernel's wrapper
+    with an identity block table. ``cache_len`` is the committed length — query
     t attends positions < cache_len + t + 1. Unlike the reference, which
     falls back to its jnp numerics when ``max_seq`` has no divisor ≥ 8,
     the kernel runs at whatever block size divides, down to 1: a
@@ -139,9 +151,9 @@ def _kernel_cached_attention(q, k_cache, v_cache, cache_len, backend):
     tables = torch.arange(
         B * (Smax // bs), dtype=torch.int32, device=q.device
     ).view(B, Smax // bs)
-    return kernel_ops.paged_attention(
+    return _paged.paged_decode_attention(
         q, _dense_as_pool(k_cache, bs), _dense_as_pool(v_cache, bs), tables,
-        cache_len.to(torch.int32), backend=backend,
+        cache_len.to(torch.int32),
     )
 
 
@@ -177,9 +189,9 @@ def _cached_attention(q, k_cache, v_cache, cache_len, *, backend=None):
     """Dense decode-cache attention (``cache_len`` committed): the
     ``"kernel"`` backend views the cache as an identity-table block pool
     and runs the paged kernel; the reference keeps the jnp numerics."""
-    backend = kernel_ops.resolve_attention_backend(backend, q.device)
-    if backend == "kernel":
-        return _kernel_cached_attention(q, k_cache, v_cache, cache_len, backend)
+    if kernel_ops.resolve_attention_backend(backend, q.device) == "kernel":
+        _kernel_device(q, "_cached_attention")
+        return _kernel_cached_attention(q, k_cache, v_cache, cache_len)
     return decode_attention(q, k_cache, v_cache, cache_len + 1)
 
 
@@ -188,10 +200,10 @@ def paged_attention(q, k_pool, v_pool, block_tables, cache_len, *, backend=None)
     [NB,BS,KV,hd]; ``cache_len`` [B] committed lengths (the new token rows
     are already written). The kernel walks the tables; the reference
     gathers each row's dense view first."""
-    backend = kernel_ops.resolve_attention_backend(backend, q.device)
-    if backend == "kernel":
-        return kernel_ops.paged_attention(
-            q, k_pool, v_pool, block_tables, cache_len.to(torch.int32), backend=backend
+    if kernel_ops.resolve_attention_backend(backend, q.device) == "kernel":
+        _kernel_device(q, "paged_attention")
+        return _paged.paged_decode_attention(
+            q, k_pool, v_pool, block_tables, cache_len.to(torch.int32)
         )
     kd = gather_block_rows(k_pool[None], block_tables)[0]  # [B, MB·BS, KV, hd]
     vd = gather_block_rows(v_pool[None], block_tables)[0]

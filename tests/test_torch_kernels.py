@@ -95,13 +95,14 @@ def test_identity_table_view_matches_dense_decode(smax):
     """The slot layout's route into the paged kernel: the dense cache
     viewed as a pool with an identity table (any block size that divides
     max_seq, down to 1 for a prime above 256), run here through the
-    registry's reference oracle, equals the dense decode reference."""
+    kernel wrapper's plain version on CPU tensors, equals the dense
+    decode reference."""
     rng = np.random.default_rng(smax)
     q = torch.from_numpy(rng.normal(size=(2, 1, 6, 16)).astype(np.float32))
     kc = torch.from_numpy(rng.normal(size=(2, smax, 2, 16)).astype(np.float32))
     vc = torch.from_numpy(rng.normal(size=(2, smax, 2, 16)).astype(np.float32))
     clen = torch.tensor([3, smax - 1], dtype=torch.int32)
-    got = tattn._kernel_cached_attention(q, kc, vc, clen, "reference")
+    got = tattn._kernel_cached_attention(q, kc, vc, clen)
     want = tattn.decode_attention(q, kc, vc, clen + 1)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=ATOL)
 
@@ -110,11 +111,12 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     q, kp, vp, tbl, lens = (torch.from_numpy(a) for a in _paged_inputs(3, 1, seed=0))
     pda.paged_decode_attention.launches = fa.flash_attention.launches = 0
     pda.paged_decode_attention(q, kp, vp, tbl, lens)
-    tops.paged_attention(q, kp, vp, tbl, lens)  # auto on CPU → reference
+    tattn.paged_attention(q, kp, vp, tbl, lens)  # auto on CPU → reference
     x = torch.randn(1, 8, 6, 16)
     kv = torch.randn(1, 8, 2, 16)
     fa.flash_attention(x, kv, kv)
-    tops.flash_attention(x, kv, kv)
+    tattn.gqa_attention(x, kv, kv)
+    tattn._cached_attention(x[:, :1], kv, kv, torch.tensor([3]))
     assert pda.paged_decode_attention.launches == 0
     assert fa.flash_attention.launches == 0
     assert _build._lib is None  # nothing was built or loaded
@@ -123,10 +125,12 @@ def test_cpu_tensors_take_plain_versions_without_launching():
 def test_kernel_backend_on_cpu_tensors_raises():
     q, kp, vp, tbl, lens = (torch.from_numpy(a) for a in _paged_inputs(2, 1, seed=1))
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        tops.paged_attention(q, kp, vp, tbl, lens, backend="kernel")
+        tattn.paged_attention(q, kp, vp, tbl, lens, backend="kernel")
     x = torch.randn(1, 4, 2, 16)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        tops.flash_attention(x, x, x, backend="kernel")
+        tattn.gqa_attention(x, x, x, backend="kernel")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tattn._cached_attention(x[:, :1], x, x, torch.tensor([2]), backend="kernel")
 
 
 def test_backend_registry_resolution(monkeypatch):
