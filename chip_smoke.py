@@ -9,23 +9,30 @@ Phases, in order; any failure exits non-zero before the final line:
 2. build — the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
    ``build/``), with the build time;
 3. kernels — each kernel against its plain PyTorch version on the card,
-   float32 and bfloat16, at full-width smollm-135m shapes (the paged
-   kernel at both layouts' shapes: the paged pool, and the slot cache's
-   identity-table view), with the paged kernel's verify-equals-decode
-   contract checked bitwise; median kernel,
-   plain and library times beside the least time the card could take;
+   float32 and bfloat16: the attention kernels at full-width smollm-135m
+   shapes (the paged kernel at both layouts' shapes: the paged pool, and
+   the slot cache's identity-table view), with the paged kernel's
+   verify-equals-decode contract checked bitwise; the SSD scan kernel at
+   full-width mamba2-370m shapes (H=32, hd=64, N=128), y and final state,
+   at S = 1024, 1000 and 1021 (B=1: a multiple of the chunk, a length the
+   plain version chunks by 125, a prime it chunks by 1) and S = 256 (B=4);
+   median kernel, plain and library times beside the least time the card
+   could take;
 4. serving — smollm-135m at full width (bf16, seeded random weights) served
    through ``ServingEngine.serve()``: an open-loop workload and a
    shared-prefix workload on the paged layout, a small one on the slot
    layout; every decode step must launch the paged kernel once per layer
-   and every prefill the flash kernel once per layer, and all logits must
-   be finite;
-   then the host wall time of one decode step and one prefill against the
-   device time the profiler finds in their kernels;
-5. parity — a float32 workload served through the kernels and through the
-   plain reference backend must give the same greedy tokens (a difference
-   counts as a tie only where the reference's top-2 logit margin is below
-   the stated tolerance).
+   and every prefill the flash kernel once per layer; then mamba2-370m at
+   full width on the slot layout, every prefill launching the SSD kernel
+   once per layer; all logits must be finite and every request must
+   finish with tokens;
+   then, for each model, the host wall time of one decode step at 8 rows
+   and one 1024-token prefill against the device time the profiler finds
+   in their kernels;
+5. parity — float32 workloads of both models served through the kernels
+   and through the plain reference backend must give the same greedy
+   tokens (a difference counts as a tie only where the reference's top-2
+   logit margin is below the stated tolerance).
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -46,11 +53,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no sparsity
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # max |kernel - plain|
+# SSD scan: max |kernel - plain| <= rel * max |plain| + abs, for y and the
+# final state. float32: the kernel chunks by 128 with a ragged last chunk
+# where the plain version shrinks the chunk to a divisor of S, so the sums
+# round differently (exact arithmetic agrees); bfloat16: one rounding of y
+# to bf16 (2^-8 relative) on either side, plus the float32 difference.
+SSD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 0.0)}
 LOGIT_TIE_TOL = 1e-3  # top-2 margin under which a float32 argmax flip is a tie
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_decode_attention.cu"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 PAGED_TPU = "src/repro/kernels/paged_decode_attention.py:214"
 FLASH_TPU = "src/repro/kernels/flash_attention.py:103"
+SSD_TPU = "src/repro/kernels/ssd_scan.py:86"
 
 
 def require(ok, msg: str) -> None:
@@ -233,6 +248,68 @@ def check_kernels():
     return rows
 
 
+def ssd_case(dtype, B, S, seed=0, H=32, hd=64, N=128):
+    """SSD scan inputs built the way the model builds them: dt =
+    softplus(. + dt_bias) with the init's dt_bias = -2, a = exp(dt * A)
+    with the init's A = -1."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, hd, generator=g)
+    b = torch.randn(B, S, N, generator=g)
+    c = torch.randn(B, S, N, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g) - 2.0)
+    dev = torch.device("cuda")
+    return (x.to(dev, dtype), torch.exp(-dt).to(dev), b.to(dev, dtype), c.to(dev, dtype),
+            dt.to(dev))
+
+
+def ssd_bound(x, b, dtype, chunk=128):
+    """Bytes: x and y, a and dt, b and c, the final state, once each.
+    Operations per (batch row, head, chunk of q positions), as the Pallas
+    kernel does them: 2 q^2 N (c.b) + 2 q^2 hd (att x) + 4 q N hd (the
+    state's read into y and its update)."""
+    B, S, H, hd = x.shape
+    N = b.shape[-1]
+    it = x.element_size()
+    nbytes = 2 * x.numel() * it + 2 * B * S * H * 4 + 2 * b.numel() * it + B * H * hd * N * 4
+    qs = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
+    flops = B * H * sum(2 * q * q * N + 2 * q * q * hd + 4 * q * N * hd for q in qs)
+    return bound(nbytes, flops, dtype)
+
+
+def check_ssd():
+    from repro_torch.kernels import ssd_scan as ssd
+
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        rel, absol = SSD_TOL[dtype]
+        for B, S in ((1, 1024), (1, 1000), (1, 1021), (4, 256)):
+            x, a, b, c, dt = ssd_case(dtype, B, S)
+            y, st = ssd.ssd_scan(x, a, b, c, dt, 128)
+            torch.cuda.synchronize()
+            y_ref, st_ref = ssd.plain_ssd_scan(x, a, b, c, dt, 128)
+            errs, max_err = [], {}
+            for name, got, want in (("y", y, y_ref), ("state", st, st_ref)):
+                err = (got.float() - want.float()).abs().max().item()
+                tol = rel * want.float().abs().max().item() + absol
+                require(torch.isfinite(got).all(), f"SSD kernel {name} not finite (B={B} S={S} {dn})")
+                require(err <= tol, f"SSD kernel {name} disagrees with its plain version "
+                                    f"(B={B} S={S} {dn}): {err} > {tol}")
+                errs.append(f"{name} max_abs_err={err:.3e} (tol {tol:.2e})")
+                max_err[name] = err
+            ms = cuda_ms(lambda: ssd.ssd_scan(x, a, b, c, dt, 128))
+            # the plain version of a prime S runs 1021 one-position chunks
+            plain = cuda_ms(lambda: ssd.plain_ssd_scan(x, a, b, c, dt, 128), iters=5) if S != 1021 else None
+            bms, by = ssd_bound(x, b, dtype)
+            plain_s = f"{plain:.4f}" if plain is not None else "not timed"
+            log(f"ssd_scan {dn} B={B} S={S} H=32 hd=64 N=128 chunk=128: {', '.join(errs)} "
+                f"ms={ms:.4f} plain_ms={plain_s} bound_ms={bms:.5f} ({by}) library_ms=null")
+            if (B, S) == (1, 1024):
+                rows[("ssd", dtype)] = dict(max_abs_err=max_err["y"], ms=ms, plain_ms=plain,
+                                            bound_ms=bms, bound_by=by, library_ms=None)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4/5: serving
 
@@ -267,10 +344,18 @@ def headline(label, stats, card):
     return s
 
 
-def serve_full_width(card):
-    from repro_torch.configs import get_config
+def _launch_counters():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import ssd_scan as ssd
+
+    return {"paged": pda.paged_decode_attention, "flash": fa.flash_attention, "ssd": ssd.ssd_scan}
+
+
+def serve_full_width(card):
+    """smollm-135m on both layouts; each run's launch counts are read from
+    zero, and its decode steps and prefills must account for all of them."""
+    from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.serve import ServingEngine, make_requests, make_shared_prefix_requests
 
@@ -294,37 +379,102 @@ def serve_full_width(card):
     # warm the path (allocator, library load) outside the measured runs
     engine.serve(make_requests(2, 1e3, vocab=cfg.vocab_size, max_new_tokens=4,
                                prompt_lens=(128,), rng=np.random.default_rng(9)))
+    counters = _launch_counters()
     totals = {"paged": 0, "flash": 0}
     for label, layout, mb, make in runs:
         watch.calls.clear()
-        pda.paged_decode_attention.launches = 0
-        fa.flash_attention.launches = 0
+        for k in counters.values():
+            k.launches = 0
         out = engine.serve(make(np.random.default_rng(1)), kv_layout=layout, max_batch=mb)
-        n_paged, n_flash = pda.paged_decode_attention.launches, fa.flash_attention.launches
+        n = {key: k.launches for key, k in counters.items()}
         decodes = watch.n("decode_step", "decode_step_paged")
         prefills = watch.n("prefill", "prefill_with_prefix")
         s = headline(label, engine.stats, card)
-        log(f"serve[{label}]: {decodes} decode steps -> {n_paged} paged launches; "
-            f"{prefills} prefill calls -> {n_flash} flash launches")
-        require(decodes > 0 and n_paged == L * decodes, "decode did not run through the paged kernel")
-        require(prefills > 0 and n_flash == L * prefills, "prefill did not run through the flash kernel")
+        log(f"serve[{label}]: {decodes} decode steps -> {n['paged']} paged launches; "
+            f"{prefills} prefill calls -> {n['flash']} flash launches")
+        require(decodes > 0 and n["paged"] == L * decodes, "decode did not run through the paged kernel")
+        require(prefills > 0 and n["flash"] == L * prefills, "prefill did not run through the flash kernel")
+        require(n["ssd"] == 0, "a dense model launched the SSD kernel")
         require(not bool(watch.bad), "non-finite logits")
         require(s["n_requests"] == len(out) and all(len(t) > 0 for t in out.values()),
                 "not every request finished with tokens")
         if "prefix" in label:
             require(watch.n("prefill_with_prefix") > 0 and s["prefix_hit_rate"] > 0, "no prefix hits")
-        totals["paged"] += n_paged
-        totals["flash"] += n_flash
+        totals["paged"] += n["paged"]
+        totals["flash"] += n["flash"]
     return totals, params
 
 
-def time_split(params, card):
-    """Where a full-width decode step and a prefill spend their time: host
-    wall clock (synchronised) against the device time the profiler sums
-    over the kernels of the same work (one stream, so kernels never
-    overlap and the difference is device idle time)."""
+def serve_mamba2(card):
+    """mamba2-370m at full width on the slot layout: 12 open-loop requests
+    on 8 rows; every prefill call must launch the SSD kernel once per
+    layer, and nothing may launch an attention kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServingEngine, make_requests
+
+    cfg = get_config("mamba2-370m")
+    model = Model(cfg)
+    params = model.init(seed=0)
+    L = cfg.num_layers
+    engine = ServingEngine(model, params, max_seq=2048, kv_layout="slot", max_batch=8)
+    watch = Watch(model)
+    engine.serve(make_requests(2, 1e3, vocab=cfg.vocab_size, max_new_tokens=4,
+                               prompt_lens=(128,), rng=np.random.default_rng(9)))
+    counters = _launch_counters()
+    watch.calls.clear()
+    for k in counters.values():
+        k.launches = 0
+    out = engine.serve(make_requests(12, 20.0, vocab=cfg.vocab_size, max_new_tokens=64,
+                                     prompt_lens=tuple(range(128, 1025)),
+                                     rng=np.random.default_rng(1)))
+    n = {key: k.launches for key, k in counters.items()}
+    decodes, prefills = watch.n("decode_step"), watch.n("prefill")
+    s = headline("mamba2 slot", engine.stats, card)
+    log(f"serve[mamba2 slot]: {decodes} decode steps, {prefills} prefill calls -> "
+        f"{n['ssd']} SSD launches ({L} layers)")
+    require(prefills > 0 and n["ssd"] == L * prefills, "prefill did not run through the SSD kernel")
+    require(decodes > 0, "no decode step ran")
+    require(n["paged"] == 0 and n["flash"] == 0, "the SSM model launched an attention kernel")
+    require(not bool(watch.bad), "non-finite logits")
+    require(s["n_requests"] == len(out) == 12 and all(len(t) > 0 for t in out.values()),
+            "not every request finished with tokens")
+    return n["ssd"], params
+
+
+def profile_split(label, fn, kernel, card):
+    """Host wall clock of ``fn`` (synchronised) against the device time the
+    profiler sums over the kernels of the same work (one stream, so
+    kernels never overlap and the difference is device idle time), and
+    the share of it in kernels whose name holds ``kernel``."""
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 5 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    # device-side events only (kernels, copies): CPU-side op rows repeat
+    # the device time of the kernels they launched
+    gpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_all = sum(e.time_range.elapsed_us() for e in gpu) / 3e3
+    dev_kernel = sum(e.time_range.elapsed_us() for e in gpu if kernel in e.name) / 3e3
+    launches = len(gpu) / 3
+    busy = f"{dev_all:.2f} ms ({dev_all / wall:.0%} of wall)" if gpu else "not measured"
+    log(f"time[{label}] on {card}: wall {wall:.2f} ms, device busy {busy}, "
+        f"{kernel} {dev_kernel:.2f} ms, {launches:.0f} device operations")
+
+
+def time_split(params, card):
+    """Where a full-width smollm-135m decode step (8 paged rows) and a
+    1024-token prefill spend their time."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.serve.kv_cache import PagedKVCache
@@ -349,48 +499,51 @@ def time_split(params, card):
         for r in range(8):
             kv.advance(r)
 
-    def prefill():
-        model.prefill(params, prompt, 2048)
-
-    for label, fn, kernel in (("decode step, 8 paged rows", decode, "paged_decode_kernel"),
-                              ("prefill, 1024 tokens", prefill, "flash_kernel")):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            fn()
-            torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / 5 * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-        # device-side events only (kernels, copies): CPU-side op rows repeat
-        # the device time of the kernels they launched
-        gpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_all = sum(e.time_range.elapsed_us() for e in gpu) / 3e3
-        dev_kernel = sum(e.time_range.elapsed_us() for e in gpu if kernel in e.name) / 3e3
-        launches = len(gpu) / 3
-        busy = f"{dev_all:.2f} ms ({dev_all / wall:.0%} of wall)" if gpu else "not measured"
-        log(f"time[{label}] on {card}: wall {wall:.2f} ms, device busy {busy}, "
-            f"{kernel} {dev_kernel:.2f} ms, {launches:.0f} device operations")
+    profile_split("decode step, 8 paged rows", decode, "paged_decode_kernel", card)
+    profile_split("prefill, 1024 tokens", lambda: model.prefill(params, prompt, 2048),
+                  "flash_kernel", card)
 
 
-def parity_f32():
+def time_split_mamba2(params, card):
+    """The same split for full-width mamba2-370m: a decode step over 8
+    slot rows holding states of 128-1024-token prompts, and a 1024-token
+    prefill. Decode runs no kernel of the port (the one-step recurrence is
+    plain PyTorch), so its SSD share is 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    cfg = get_config("mamba2-370m")
+    model = Model(cfg)
+    cache = model.init_cache(8, 2048)
+    rng = np.random.default_rng(0)
+    for r in range(8):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, int(rng.integers(128, 1025)))))
+        _, slot_cache = model.prefill(params, toks.cuda(), 2048)
+        model.write_cache_slot(cache, slot_cache, r)
+    tok = torch.zeros((8, 1), dtype=torch.long, device="cuda")
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1024))).cuda()
+    profile_split("mamba2 decode step, 8 slot rows", lambda: model.decode_step(params, cache, tok),
+                  "ssd_scan_kernel", card)
+    profile_split("mamba2 prefill, 1024 tokens", lambda: model.prefill(params, prompt, 2048),
+                  "ssd_scan_kernel", card)
+
+
+def parity_f32(arch, layouts, prompt_lens):
+    """A float32 ``arch`` served through the kernels and through the plain
+    reference backend, on each layout: the same greedy tokens, or a tie."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.serve import ServingEngine, make_requests
 
-    cfg = dataclasses.replace(get_config("smollm-135m"), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
     model = Model(cfg)
     params = model.init(seed=1)
-    for layout in ("paged", "slot"):
+    for layout in layouts:
         engine = ServingEngine(model, params, max_seq=512, kv_layout=layout, block_size=16, max_batch=4)
         streams = {}
         for backend in ("kernel", "reference"):
             reqs = make_requests(4, 50.0, vocab=cfg.vocab_size, max_new_tokens=16,
-                                 prompt_lens=tuple(range(64, 257)), rng=np.random.default_rng(3))
+                                 prompt_lens=prompt_lens, rng=np.random.default_rng(3))
             out = engine.serve(reqs, attention_backend=backend)
             streams[backend] = [(np.asarray(r.prompt), out[r.rid]) for r in reqs]
         ties = 0
@@ -402,10 +555,12 @@ def parity_f32():
             logits, _ = model.prefill(params, ctx, ctx.shape[1], backend="reference")
             top2 = torch.topk(logits[0].float(), 2).values
             margin = float(top2[0] - top2[1])
-            require(margin < LOGIT_TIE_TOL, f"{layout}: kernel and reference tokens differ at {p} (margin {margin:.2e})")
+            require(margin < LOGIT_TIE_TOL,
+                    f"{arch} {layout}: kernel and reference tokens differ at {p} (margin {margin:.2e})")
             ties += 1
-        log(f"parity[{layout}] float32 kernel vs reference: {len(streams['kernel']) - ties} streams "
-            f"identical, {ties} ties (top-2 margin < {LOGIT_TIE_TOL:g})")
+        log(f"parity[{arch} {layout}] float32 kernel vs reference: "
+            f"{len(streams['kernel']) - ties} streams identical, {ties} ties "
+            f"(top-2 margin < {LOGIT_TIE_TOL:g})")
 
 
 def main() -> int:
@@ -428,13 +583,21 @@ def main() -> int:
     log(f"build and load: {time.perf_counter() - t0:.1f} s")
 
     rows = check_kernels()
+    rows.update(check_ssd())
     launches, params = serve_full_width(card)
     time_split(params, card)
-    parity_f32()
+    launches["ssd"], params = serve_mamba2(card)
+    time_split_mamba2(params, card)
+    del params
+    parity_f32("smollm-135m", ("paged", "slot"), tuple(range(64, 257)))
+    # lengths the plain scan chunks by 16 or more (a prime would run
+    # one-position chunks)
+    parity_f32("mamba2-370m", ("slot",), tuple(range(64, 257, 16)))
 
     table = []
     for key, name, src, tpu in (("paged", "paged_decode_attention", PAGED_SRC, PAGED_TPU),
-                                ("flash", "flash_attention", FLASH_SRC, FLASH_TPU)):
+                                ("flash", "flash_attention", FLASH_SRC, FLASH_TPU),
+                                ("ssd", "ssd_scan", SSD_SRC, SSD_TPU)):
         r = rows[(key, torch.bfloat16)]
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,

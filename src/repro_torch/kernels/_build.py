@@ -89,6 +89,8 @@ def library() -> ctypes.CDLL:
     lib.paged_decode_attention.restype = i
     lib.flash_attention.argtypes = [i, p, p, p, p] + [i] * 7 + [f, p]
     lib.flash_attention.restype = i
+    lib.ssd_scan.argtypes = [i] + [p] * 7 + [i] * 6 + [p]
+    lib.ssd_scan.restype = i
     _lib = lib
     return lib
 

@@ -1,5 +1,6 @@
 // Shared pieces of the two attention kernels: the shared-memory layout,
-// the online-softmax step over one key tile, and the launch helper.
+// the online-softmax step over one key tile, and the launch helper (the
+// SSD scan kernel uses the type conversions and the launch helper too).
 //
 // One thread block owns R query rows (the g query heads of one kv group,
 // times T verify queries or BQ prefill positions). Per key tile it
@@ -150,14 +151,14 @@ __device__ inline void tile_step(Smem sm, int R, int BK, int hd, int pos0, int n
 // the kernel's limit above the 48 KB default when needed) and return the
 // launch's error code: a refused launch never runs, and a later
 // synchronise would not report it.
-template <typename Kernel, typename... Args>
+template <int Threads = THREADS, typename Kernel, typename... Args>
 int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  kernel<<<grid, Threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Attention-backend registry.
+"""Kernel-backend registry (attention and the SSD scan).
 
 Port of the backend half of the JAX package's ``kernels/ops.py``.
 ``ATTENTION_BACKENDS`` are ``"reference"`` (the plain PyTorch oracles)
@@ -7,10 +7,11 @@ from the call, else ``set_attention_backend``, else the
 ``REPRO_ATTENTION_BACKEND`` environment variable (read once), else
 ``"auto"``; ``"auto"`` means ``"kernel"`` for CUDA tensors and
 ``"reference"`` for CPU tensors. Bad names fail loudly with the valid
-choices. ``models/attention.py`` calls the kernel wrappers itself and
-raises for ``"kernel"`` with CPU tensors: a kernel path never degrades
-to a plain version silently. (The Pallas ``interpret`` mode and
-the TPU VMEM check have no Hopper meaning and are not ported.)
+choices. ``models/attention.py`` and ``models/ssm.py`` call the kernel
+wrappers themselves and raise for ``"kernel"`` with CPU tensors
+(``require_cuda``): a kernel path never degrades to a plain version
+silently. (The Pallas ``interpret`` mode and the TPU VMEM check have no
+Hopper meaning and are not ported.)
 """
 from __future__ import annotations
 
@@ -62,3 +63,13 @@ def resolve_attention_backend(
         on_cuda = device is not None and torch.device(device).type == "cuda"
         return "kernel" if on_cuda else "reference"
     return name
+
+
+def require_cuda(t: torch.Tensor, what: str) -> None:
+    """The kernel wrappers run their plain versions on CPU tensors; an
+    explicit ``"kernel"`` backend must not, so it raises here."""
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"{what}: backend 'kernel' needs CUDA tensors, got {t.device} "
+            "(use backend='reference' on the CPU)"
+        )

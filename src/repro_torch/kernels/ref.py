@@ -1,9 +1,9 @@
-"""Plain PyTorch oracles for the attention kernels (the allclose targets).
+"""Plain PyTorch oracles for the kernels (the allclose targets).
 
 Torch copies of the JAX package's ``kernels/ref.py`` ``attention_ref``
-(with an explicit ``q_offset``) and ``paged_attention_ref``. Both
-compute in float32 and cast the result to the query dtype. The other
-oracles (matmul, dense decode, SSD) arrive with their kernels
+(with an explicit ``q_offset``), ``paged_attention_ref`` and ``ssd_ref``.
+Each computes in float32 and casts the result to the input dtype. The
+other oracles (matmul, dense decode) arrive with their kernels
 (ROADMAP §2).
 """
 from __future__ import annotations
@@ -55,3 +55,22 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths):
     s = s.masked_fill(~valid[:, :, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bths,bshd->bthd", p, vd).to(q.dtype)
+
+
+def ssd_ref(xh, a, b, c, dt):
+    """Sequential (unchunked) SSD recurrence, the ground truth.
+
+    xh [B,S,H,hd]; a [B,S,H] (decay = exp(dt·A)); b,c [B,S,N]; dt [B,S,H].
+    h_t = a_t·h_{t-1} + dt_t·(b_t ⊗ x_t);  y_t = c_t·h_t
+    """
+    B, S, H, hd = xh.shape
+    N = b.shape[-1]
+    state = torch.zeros((B, H, hd, N), dtype=torch.float32, device=xh.device)
+    xf, bf, cf = xh.float(), b.float(), c.float()
+    ys = []
+    for t in range(S):
+        state = state * a[:, t, :, None, None] + torch.einsum(
+            "bhd,bn,bh->bhdn", xf[:, t], bf[:, t], dt[:, t]
+        )
+        ys.append(torch.einsum("bn,bhdn->bhd", cf[:, t], state))
+    return torch.stack(ys, dim=1).to(xh.dtype)  # [B,S,H,hd]

@@ -1,0 +1,117 @@
+"""Mamba2 SSD chunked scan (kernel 3 of the port).
+
+Replaces the JAX package's Pallas TPU kernel ``kernels/ssd_scan.py::ssd_scan``
+and adds the final state, which the serving prefill keeps, and sequences
+of any length (a masked ragged last chunk); the CUDA source is
+``csrc/ssd_scan.cu`` (its header says what bounds it on the H100 and what
+the design does about it).
+
+``ssd_scan`` dispatches on the tensors' device: CPU tensors take the plain
+PyTorch version (``plain_ssd_scan``, the JAX model path's chunked scan,
+which shrinks the chunk to a divisor of S), CUDA tensors the kernel — or
+it raises. Its ``launches`` attribute counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# shared-memory limits of csrc/ssd_scan.cu: b, c and the chunk's att matrix
+# are staged in float32, (2 Q (N+1) + Q (Q+1)) words, and head-dim columns
+# go 16 to a thread block
+MAX_CHUNK, MAX_STATE, HEAD_DIM_SLICE = 128, 128, 16
+
+
+def plain_ssd_scan(xh, a, b, c, dt, chunk: int = 128):
+    """The kernel's function in plain PyTorch, as the JAX model path's
+    ``_ssd_chunk_scan`` computes it: the chunk length Q shrinks to the
+    largest divisor of S that is ≤ ``chunk``, the quadratic form runs
+    within each chunk and a float32 state [B,H,hd,N] carries between
+    chunks. Returns (y [B,S,H,hd] in xh's dtype, final state)."""
+    B, S, H, hd = xh.shape
+    N = b.shape[-1]
+    Q = min(chunk, S)
+    while S % Q:
+        Q -= 1
+    nc = S // Q
+    xf = xh.float().reshape(B, nc, Q, H, hd)
+    bf = b.float().reshape(B, nc, Q, N)
+    cf = c.float().reshape(B, nc, Q, N)
+    dtc = dt.reshape(B, nc, Q, H)
+    la = torch.cumsum(torch.log(torch.clamp(a, min=1e-20)).reshape(B, nc, Q, H), dim=2)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
+    state = torch.zeros((B, H, hd, N), dtype=torch.float32, device=xh.device)
+    ys = []
+    for k in range(nc):
+        lak, xk, bk, ck, dk = la[:, k], xf[:, k], bf[:, k], cf[:, k], dtc[:, k]
+        # intra-chunk (causal quadratic): att[i,j] = (c_i·b_j)·exp(la_i-la_j)·dt_j
+        seg = torch.exp(torch.clamp(lak[:, :, None, :] - lak[:, None, :, :], -60.0, 0.0))
+        cb = torch.einsum("bin,bjn->bij", ck, bk)
+        att = cb[..., None] * seg * dk[:, None, :, :]
+        att = torch.where(causal[None, :, :, None], att, 0.0)
+        y_intra = torch.einsum("bijh,bjhd->bihd", att, xk)
+        # inter-chunk: contribution of the carried state
+        y_inter = torch.einsum("bin,bhdn,bih->bihd", ck, state, torch.exp(lak))
+        # S' = S·exp(la_end) + Σ_j b_j ⊗ (x_j·dt_j·exp(la_end-la_j))
+        w = dk * torch.exp(torch.clamp(lak[:, -1:] - lak, -60.0, 60.0))
+        state = state * torch.exp(lak[:, -1])[:, :, None, None] + torch.einsum(
+            "bjhd,bjn,bjh->bhdn", xk, bk, w
+        )
+        ys.append((y_intra + y_inter).to(xh.dtype))
+    return torch.stack(ys, dim=1).reshape(B, S, H, hd), state
+
+
+def ssd_scan(xh, a, b, c, dt, chunk: int = 128):
+    """xh [B,S,H,hd]; a, dt [B,S,H] float32; b, c [B,S,N] in xh's dtype
+    → (y [B,S,H,hd] in xh's dtype, final state [B,H,hd,N] float32).
+    The kernel runs chunks of ``chunk`` positions with a masked ragged
+    last chunk; the plain version shrinks the chunk to a divisor of S."""
+    tensors = (("xh", xh), ("a", a), ("b", b), ("c", c), ("dt", dt))
+    for name, t in tensors[1:]:
+        if t.device != xh.device:
+            raise ValueError(f"ssd_scan: {name} on {t.device}, xh on {xh.device}")
+    if xh.device.type == "cpu":
+        return plain_ssd_scan(xh, a, b, c, dt, chunk)
+    if xh.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for device {xh.device}")
+    B, S, H, hd = xh.shape
+    N = b.shape[-1]
+    if xh.dtype not in _DTYPES or b.dtype != xh.dtype or c.dtype != xh.dtype:
+        raise TypeError(
+            f"ssd_scan: xh/b/c must share float32 or bfloat16, got "
+            f"{xh.dtype}/{b.dtype}/{c.dtype}"
+        )
+    if a.dtype != torch.float32 or dt.dtype != torch.float32:
+        raise TypeError(f"ssd_scan: a and dt must be float32, got {a.dtype}/{dt.dtype}")
+    if (a.shape != (B, S, H) or dt.shape != (B, S, H) or b.shape != (B, S, N)
+            or c.shape != (B, S, N)):
+        raise ValueError(
+            f"ssd_scan: bad shapes xh{tuple(xh.shape)} a{tuple(a.shape)} "
+            f"b{tuple(b.shape)} c{tuple(c.shape)} dt{tuple(dt.shape)}"
+        )
+    if not (1 <= chunk <= MAX_CHUNK and 1 <= N <= MAX_STATE and hd % HEAD_DIM_SLICE == 0):
+        raise ValueError(
+            f"ssd_scan: the kernel takes chunk ≤ {MAX_CHUNK}, N ≤ {MAX_STATE} and a "
+            f"head dim that is a multiple of {HEAD_DIM_SLICE}; got chunk={chunk}, "
+            f"N={N}, hd={hd}"
+        )
+    for name, t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan: {name} must be contiguous")
+    y = torch.empty_like(xh)
+    if B == 0 or S == 0 or H == 0:
+        return y, torch.zeros((B, H, hd, N), dtype=torch.float32, device=xh.device)
+    state = torch.empty((B, H, hd, N), dtype=torch.float32, device=xh.device)
+    err = _build.library().ssd_scan(
+        _DTYPES[xh.dtype], xh.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        dt.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, hd, N, min(chunk, S),
+        torch.cuda.current_stream(xh.device).cuda_stream,
+    )
+    _build.check(err, "ssd_scan")
+    ssd_scan.launches += 1
+    return y, state
+
+
+ssd_scan.launches = 0

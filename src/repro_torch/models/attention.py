@@ -33,16 +33,6 @@ def _repeat_kv(k, n_rep):
     return k[:, :, :, None, :].expand(b, s, kv, n_rep, hd).reshape(b, s, kv * n_rep, hd)
 
 
-def _kernel_device(q, what: str) -> None:
-    """The kernel wrappers run their plain versions on CPU tensors; an
-    explicit ``"kernel"`` backend must not, so it raises here."""
-    if q.device.type != "cuda":
-        raise ValueError(
-            f"{what}: backend 'kernel' needs CUDA tensors, got {q.device} "
-            "(use backend='reference' on the CPU)"
-        )
-
-
 # ---------------------------------------------------------------------------
 # prefill
 
@@ -68,7 +58,7 @@ def gqa_attention(q, k, v, *, q_offset=0, chunk: int = 512, backend=None):
     reference scans KV chunks with a running max, as the JAX package's
     ``masked`` blocking does."""
     if kernel_ops.resolve_attention_backend(backend, q.device) == "kernel":
-        _kernel_device(q, "gqa_attention")
+        kernel_ops.require_cuda(q, "gqa_attention")
         return _flash.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), int(q_offset)
         )
@@ -190,7 +180,7 @@ def _cached_attention(q, k_cache, v_cache, cache_len, *, backend=None):
     ``"kernel"`` backend views the cache as an identity-table block pool
     and runs the paged kernel; the reference keeps the jnp numerics."""
     if kernel_ops.resolve_attention_backend(backend, q.device) == "kernel":
-        _kernel_device(q, "_cached_attention")
+        kernel_ops.require_cuda(q, "_cached_attention")
         return _kernel_cached_attention(q, k_cache, v_cache, cache_len)
     return decode_attention(q, k_cache, v_cache, cache_len + 1)
 
@@ -201,7 +191,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, cache_len, *, backend=None)
     are already written). The kernel walks the tables; the reference
     gathers each row's dense view first."""
     if kernel_ops.resolve_attention_backend(backend, q.device) == "kernel":
-        _kernel_device(q, "paged_attention")
+        kernel_ops.require_cuda(q, "paged_attention")
         return _paged.paged_decode_attention(
             q, k_pool, v_pool, block_tables, cache_len.to(torch.int32)
         )

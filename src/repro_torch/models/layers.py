@@ -1,4 +1,4 @@
-"""Shared building blocks: RMSNorm, RoPE, SwiGLU, embeddings.
+"""Shared building blocks: RMSNorm (plain and gated), RoPE, SwiGLU, embeddings.
 
 Port of the JAX package's ``models/layers.py`` (the serving subset),
 with the same rounding order.
@@ -16,6 +16,11 @@ def rms_norm(x, scale, eps):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(dt) * scale
+
+
+def gated_rms_norm(x, z, scale, eps):
+    """Mamba2 output norm: rmsnorm(x * silu(z)) * scale."""
+    return rms_norm(x * F.silu(z), scale, eps)
 
 
 def rope_tables(positions, head_dim, theta):

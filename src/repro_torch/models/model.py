@@ -1,13 +1,17 @@
-"""The dense decoder: init, forward, prefill and the decode steps.
+"""The dense decoder and the SSM stack: init, forward, prefill and the
+decode steps.
 
-Port of the JAX package's ``models/model.py`` for family ``"dense"``.
-Parameters are a plain dict of tensors in the JAX package's layouts,
-layer-stacked along a leading [L] axis (``wq [L,D,H,hd]``, ``wo
-[L,H,hd,D]``, ``w1 [L,D,F]``, …); ``params_from_reference`` turns the
-JAX package's parameter pytree, given as numpy arrays, into them. The
-layer stack is a Python loop (PyTorch runs eagerly: there is no trace to
-keep compact). Speculative verify and chunked prefill wait for ROADMAP
-§1 item 6; the other families for item 10.
+Port of the JAX package's ``models/model.py`` for families ``"dense"``
+and ``"ssm"``. Parameters are a plain dict of tensors in the JAX
+package's layouts, layer-stacked along a leading [L] axis (``wq
+[L,D,H,hd]``, ``wo [L,H,hd,D]``, ``w1 [L,D,F]``, ``ssm/wx [L,D,Di]``, …);
+``params_from_reference`` turns the JAX package's parameter pytree, given
+as numpy arrays, into them. The layer stack is a Python loop (PyTorch
+runs eagerly: there is no trace to keep compact). The SSM family serves
+on the slot layout only: its decode cache is a recurrent state per layer
+(``ssm_state``), with no sequence axis to page. Speculative verify and
+chunked prefill wait for ROADMAP §1 item 6; the other families for item
+10.
 """
 from __future__ import annotations
 
@@ -20,7 +24,20 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import embed_tokens, rms_norm, swiglu
+
+# Families whose decode cache is addressed by position (the JAX package's
+# ``ATTN_FAMILIES``): only they can page it.
+ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
+
+# Families whose prefill may be right-padded to a bucketed shape without
+# changing tokens: pad keys sit after every real query, so causal masking
+# hides them. SSM is out: recurrent state integrates every position, pads
+# included.
+PAD_PREFILL_FAMILIES = ("dense", "audio", "vlm")
+
+PORTED_FAMILIES = ("dense", "ssm")
 
 
 def prefill_bucket(n: int, cap: Optional[int] = None) -> int:
@@ -36,15 +53,23 @@ def _index(tree, i):
     return tree[i]
 
 
+def _map_leaves(fn, tree, *rest, name=None):
+    """``fn(key, leaf, *matching leaves of rest)`` over a nested dict,
+    keeping its structure; ``key`` is the leaf's own dict key."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, *(r[k] for r in rest), name=k) for k, v in tree.items()}
+    return fn(name, tree, *rest)
+
+
 class Model:
     """Stateless model wrapper: methods take the parameters explicitly.
     ``device`` defaults to CUDA and raises when none is present."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        if cfg.family != "dense":
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP §1 item 10); "
-                "the port serves the dense family"
+                f"the port serves {PORTED_FAMILIES}"
             )
         if cfg.kv_quant:
             raise NotImplementedError(
@@ -76,7 +101,14 @@ class Model:
         params: dict[str, Any] = {
             "embed": normal((V, D), D**-0.5),
             "final_norm": ones(D),
-            "layers": {
+        }
+        if cfg.family == "ssm":
+            params["layers"] = {
+                "ssm": ssm_mod.init_ssm(cfg, dt, gen, lead=(L,)),
+                "norm": ones(L, D),
+            }
+        else:
+            params["layers"] = {
                 "attn": {
                     "wq": normal((L, D, H, hd), D**-0.5),
                     "wk": normal((L, D, KV, hd), D**-0.5),
@@ -90,8 +122,7 @@ class Model:
                     "w3": normal((L, D, F), D**-0.5),
                     "w2": normal((L, F, D), F**-0.5),
                 },
-            },
-        }
+            }
         if not cfg.tie_embeddings:
             params["lm_head"] = normal((D, V), D**-0.5)
         return params
@@ -99,12 +130,16 @@ class Model:
     def params_from_reference(self, tree) -> dict:
         """The JAX package's parameter pytree (nested dicts of numpy
         arrays, e.g. ``jax.tree.map(np.asarray, params)``) as the port's
-        parameters: same keys and layouts, on this model's device and
-        dtype."""
-        if isinstance(tree, dict):
-            return {k: self.params_from_reference(v) for k, v in tree.items()}
-        arr = np.array(tree, dtype=np.float32)  # a writable copy
-        return torch.from_numpy(arr).to(device=self.device, dtype=self.dtype)
+        parameters: same keys and layouts, on this model's device, in its
+        dtype except the SSM scalars (``ssm.FLOAT32_PARAMS``), which stay
+        float32 as the JAX package keeps them."""
+
+        def leaf(name, arr):
+            dt = torch.float32 if name in ssm_mod.FLOAT32_PARAMS else self.dtype
+            arr = np.array(arr, dtype=np.float32)  # a writable copy
+            return torch.from_numpy(arr).to(device=self.device, dtype=dt)
+
+        return _map_leaves(leaf, tree)
 
     def _layer_params(self, params):
         """Per-layer views of the stacked parameters, cached for the last
@@ -133,51 +168,91 @@ class Model:
         x = x + swiglu(hin, lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])
         return x, new_kv
 
+    def _ssm_layer(self, x, lp, backend, state=None, want_state=False):
+        cfg = self.cfg
+        h, new_state = ssm_mod.ssm_block(
+            lp["ssm"], rms_norm(x, lp["norm"], cfg.norm_eps), cfg,
+            state=state, want_state=want_state, backend=backend,
+        )
+        return x + h, new_state
+
     def forward(self, params, tokens, *, backend=None):
-        """tokens [B,S] → (final-normed hidden [B,S,D], per-layer (k, v)
-        [B,S,KV,hd] for the cache)."""
+        """tokens [B,S] → (final-normed hidden [B,S,D], per-layer cache
+        entries: (k, v) [B,S,KV,hd] for the dense family, the final state
+        dict for the SSM family)."""
         backend = kernel_ops.resolve_attention_backend(backend, self.device)
         x = embed_tokens(params["embed"], self._tokens(tokens))
         caches = []
         for lp in self._layer_params(params):
-            x, kv = self._dense_layer(x, lp, backend)
-            caches.append(kv)
+            if self.cfg.family == "ssm":
+                x, entry = self._ssm_layer(x, lp, backend, want_state=True)
+            else:
+                x, entry = self._dense_layer(x, lp, backend)
+            caches.append(entry)
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps), caches
 
     # ------------------------------------------------------------------
     # caches
     def init_cache(self, batch, max_seq):
-        """Dense decode cache: k/v [L,B,max_seq,KV,hd] and ``len`` [B] int32."""
-        cfg = self.cfg
-        shape = (cfg.num_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        return {
-            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=self.device),
+        """Decode cache with ``len`` [B] int32. Dense: k/v
+        [L,B,max_seq,KV,hd]. SSM: ``ssm_state`` leaves stacked over layers,
+        ``ssm`` [L,B,H,hd,N] float32 and ``conv_x``/``conv_B``/``conv_C``
+        [L,B,K-1,C] in the model dtype."""
+        cfg, L = self.cfg, self.cfg.num_layers
+        cache: dict[str, Any] = {
+            "len": torch.zeros((batch,), dtype=torch.int32, device=self.device)
         }
+        if cfg.family == "ssm":
+            st = ssm_mod.init_ssm_state(cfg, batch, self.dtype, self.device)
+            cache["ssm_state"] = {k: v.new_zeros((L,) + tuple(v.shape)) for k, v in st.items()}
+        else:
+            shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+            cache["k"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
+            cache["v"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        return cache
 
     def init_paged_cache(self, num_blocks, block_size):
-        """Physical block pool: k/v [L, num_blocks, block_size, KV, hd]."""
+        """Physical block pool: k/v [L, num_blocks, block_size, KV, hd].
+        Attention families only: SSM state has no sequence axis to page."""
+        if self.cfg.family not in ATTN_FAMILIES:
+            raise ValueError(
+                f"paged KV cache needs an attention family, got {self.cfg.family!r}"
+            )
         pool = self.init_cache(num_blocks, block_size)
         pool.pop("len")
         return pool
 
     def read_cache_slot(self, pool, slot):
         """Batch slot ``slot`` of a pooled decode cache as a batch=1 cache
-        (views into the pool)."""
-        return {
-            "k": pool["k"][:, slot : slot + 1],
-            "v": pool["v"][:, slot : slot + 1],
-            "len": pool["len"][slot : slot + 1],
-        }
+        (views into the pool). Every leaf but ``len`` has its batch on
+        axis 1, after the layer axis."""
+        return _map_leaves(
+            lambda name, t: t[slot : slot + 1] if name == "len" else t[:, slot : slot + 1],
+            pool,
+        )
 
     def write_cache_slot(self, pool, slot_cache, slot):
         """Write a batch=1 cache into slot ``slot`` of ``pool``, in place
-        (the reference returns an updated copy). Returns ``pool``."""
-        S = slot_cache["k"].shape[2]
-        pool["k"][:, slot, :S] = slot_cache["k"][:, 0].to(pool["k"].dtype)
-        pool["v"][:, slot, :S] = slot_cache["v"][:, 0].to(pool["v"].dtype)
-        pool["len"][slot] = slot_cache["len"][0]
+        (the reference returns an updated copy). Every state leaf of the
+        slot is replaced whole, so a reused slot keeps nothing of its last
+        owner; k/v rows may be shorter than the pool's ``max_seq``.
+        Returns ``pool``."""
+
+        def put(name, leaf, src):
+            if name == "len":
+                leaf[slot] = src[0]
+                return
+            ok = src.shape[:2] == (leaf.shape[0], 1) and src.shape[3:] == leaf.shape[3:]
+            ok = ok and (src.shape[2] <= leaf.shape[2] if name in ("k", "v")
+                         else src.shape[2] == leaf.shape[2])
+            if not ok:
+                raise ValueError(
+                    f"cache leaf {name!r}: slot write of shape {tuple(src.shape)} "
+                    f"into a pool of shape {tuple(leaf.shape)}"
+                )
+            leaf[:, slot, : src.shape[2]] = src[:, 0].to(leaf.dtype)
+
+        _map_leaves(put, pool, slot_cache)
         return pool
 
     def _fill_cache(self, B, max_seq, kvs, lengths):
@@ -195,9 +270,18 @@ class Model:
         ``prompt_len`` [B] marks real lengths when ``tokens`` is
         right-padded to a ``prefill_bucket``: logits come from each row's
         last real token and ``len`` is the real length (pad keys sit after
-        every real query, so causal masking hides them)."""
+        every real query, so causal masking hides them). The SSM family
+        takes no ``prompt_len``: its state would integrate the pads; its
+        cache holds each layer's final state."""
+        cfg = self.cfg
+        if prompt_len is not None and cfg.family not in PAD_PREFILL_FAMILIES:
+            raise ValueError(
+                f"padded prefill is only token-identical for "
+                f"{PAD_PREFILL_FAMILIES}, got {cfg.family!r} (recurrent state "
+                "integrates pad positions; MoE capacity depends on tokens-per-call)"
+            )
         tokens = self._tokens(tokens)
-        x, kvs = self.forward(params, tokens, backend=backend)
+        x, caches = self.forward(params, tokens, backend=backend)
         B, S = tokens.shape
         if prompt_len is None:
             lengths = torch.full((B,), S, dtype=torch.int32)
@@ -205,7 +289,14 @@ class Model:
             lengths = torch.as_tensor(np.asarray(prompt_len), dtype=torch.int32)
         idx = lengths.to(self.device).long() - 1
         x_last = x[torch.arange(B, device=self.device), idx]
-        return x_last @ self._head(params), self._fill_cache(B, max_seq, kvs, lengths)
+        logits = x_last @ self._head(params)
+        if cfg.family == "ssm":
+            cache = {
+                "ssm_state": {k: torch.stack([st[k] for st in caches]) for k in caches[0]},
+                "len": lengths.to(self.device),
+            }
+            return logits, cache
+        return logits, self._fill_cache(B, max_seq, caches, lengths)
 
     def prefill_with_prefix(
         self, params, tokens, prefix_k, prefix_v, max_seq, suffix_len=None, *, backend=None
@@ -241,21 +332,31 @@ class Model:
     # decode
     def decode_step(self, params, cache, tokens, *, backend=None):
         """Slot layout: tokens [B,1] → (logits [B,V], cache with each
-        row's token written at its own length and ``len`` + 1). The k/v
-        tensors are updated in place."""
+        row's token written at its own length and ``len`` + 1; for the SSM
+        family, each layer's state advanced one step). The cache tensors
+        are updated in place."""
         backend = kernel_ops.resolve_attention_backend(backend, self.device)
         tokens = self._tokens(tokens)
         x = embed_tokens(params["embed"], tokens)
         cache_len = cache["len"]
-        positions = cache_len[:, None].long()
-        for li, lp in enumerate(self._layer_params(params)):
-            x, _ = self._dense_layer(
-                x, lp, backend, positions=positions,
-                cache=(cache["k"], cache["v"], li), cache_len=cache_len,
-            )
+        if self.cfg.family == "ssm":
+            states = cache["ssm_state"]
+            for li, lp in enumerate(self._layer_params(params)):
+                st = {k: v[li] for k, v in states.items()}
+                x, new_st = self._ssm_layer(x, lp, backend, state=st)
+                for k, v in new_st.items():
+                    states[k][li].copy_(v)
+            new_cache = {"ssm_state": states, "len": cache_len + 1}
+        else:
+            positions = cache_len[:, None].long()
+            for li, lp in enumerate(self._layer_params(params)):
+                x, _ = self._dense_layer(
+                    x, lp, backend, positions=positions,
+                    cache=(cache["k"], cache["v"], li), cache_len=cache_len,
+                )
+            new_cache = {"k": cache["k"], "v": cache["v"], "len": cache_len + 1}
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        logits = (x @ self._head(params))[:, 0]
-        return logits, {"k": cache["k"], "v": cache["v"], "len": cache_len + 1}
+        return (x @ self._head(params))[:, 0], new_cache
 
     def decode_step_paged(self, params, pool, block_tables, cache_len, tokens, *, backend=None):
         """Paged layout: one decode token per row over the block pool

@@ -4,7 +4,8 @@ Port of the JAX package's ``serve/kv_cache.py`` (single device; the
 serving mesh waits for ROADMAP §1 item 9). ``SlotKVCache`` owns a fixed
 pool of ``max_batch`` decode-cache slots; ``PagedKVCache`` maps
 ``max_batch`` decode rows through per-row block tables into a pool of
-fixed-size blocks, with a prefix trie that lets prompts sharing a prefix
+fixed-size blocks (attention families only: the model refuses to page
+an SSM state), with a prefix trie that lets prompts sharing a prefix
 alias the same immutable blocks. Pool tensors live on the model's device
 and are updated in place; block tables and lengths are host numpy, with
 device copies refreshed only when they change (``kernel_inputs``).
@@ -22,7 +23,10 @@ from repro_torch.serve.block import BlockAllocator, PrefixCache
 
 
 class SlotKVCache:
-    """Fixed pool of cache slots: allocate on admit, free on finish."""
+    """Fixed pool of cache slots: allocate on admit, free on finish. The
+    pool is the model's decode cache (k/v rows, or the SSM family's
+    per-layer states); ``write`` replaces a slot's leaves whole and
+    refuses a slot cache whose leaves do not match the pool's."""
 
     def __init__(self, model, max_batch: int, max_seq: int):
         self.model = model

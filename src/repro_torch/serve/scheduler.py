@@ -4,8 +4,9 @@ Port of the core of the JAX package's ``serve/scheduler.py``. Each
 ``step()``:
 
   1. admits arrived queued requests: slotted admission prefills a wave of
-     same-bucket prompts as one batched call and writes each row into its
-     slot; paged admission charges blocks one request at a time and, on a
+     same-bucket prompts as one batched call (same-length prompts for the
+     SSM family, whose state would integrate pads) and writes each row
+     into its slot; paged admission charges blocks one request at a time and, on a
      prefix-cache hit, prefills only the un-cached suffix. The first token
      is sampled from the prefill logits (that instant is the TTFT);
   2. runs ONE batched decode over the full fixed-size row pool — dead
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.model import prefill_bucket
+from repro_torch.models.model import PAD_PREFILL_FAMILIES, prefill_bucket
 from repro_torch.serve.kv_cache import PagedKVCache, SlotKVCache
 from repro_torch.serve.request import DECODE, FINISHED, PREFILL, QUEUED, Request, ServeStats
 
@@ -69,6 +70,9 @@ class Scheduler:
         self.attention_backend = kernel_ops.resolve_attention_backend(
             attention_backend, self.device
         )
+        # pow2 prompt-shape bucketing (pad + mask) only where pads cannot
+        # change tokens; other families group prompts by exact length
+        self._bucket = model.cfg.family in PAD_PREFILL_FAMILIES
         self._queue: list[Request] = []  # sorted by (arrival_time, rid)
         self._active: dict[int, Request] = {}  # row → request
         self._n_admitted = 0  # per-run admission ordinal (seeds sampling)
@@ -159,18 +163,19 @@ class Scheduler:
         return torch.from_numpy(mat).to(self.device), lens
 
     def _admit(self, reqs: list, now: float) -> None:
-        """Slotted admission of a wave: prompts of one pow2 bucket prefill
-        as ONE batched call, each row then written into its own slot."""
+        """Slotted admission of a wave: prompts of one pow2 bucket (of one
+        length, without bucketing) prefill as ONE batched call, each row
+        then written into its own slot."""
         ordinals = {r.rid: self._note_admitted(r, now) for r in reqs}
         groups: dict[int, list] = {}
         for req in reqs:
             S = int(np.asarray(req.prompt).shape[0])
-            W = prefill_bucket(S)
+            W = prefill_bucket(S) if self._bucket else S
             groups.setdefault(S if W > self.max_seq else W, []).append(req)
         for W, group in groups.items():
             toks, lens = self._padded([np.asarray(r.prompt) for r in group], W)
             logits, cache = self.model.prefill(
-                self.params, toks, self.max_seq, prompt_len=lens,
+                self.params, toks, self.max_seq, prompt_len=lens if self._bucket else None,
                 backend=self.attention_backend,
             )
             for i, req in enumerate(group):

@@ -19,6 +19,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         "sys.modules['repro'] = None\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
         "import repro_torch.serve.engine, repro_torch.models.model, repro_torch.kernels.ops\n"
+        "import repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
         "import repro_torch.serve, repro_torch.configs\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items() if v is not None]\n"

@@ -155,7 +155,7 @@ def test_kernel_modules_import_without_nvcc_or_cuda():
         "import os, shutil; os.environ['PATH'] = ''\n"
         "import torch; assert not torch.cuda.is_available()  # CUDA hidden\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.flash_attention\n"
-        "import repro_torch.kernels.paged_decode_attention as p\n"
+        "import repro_torch.kernels.paged_decode_attention as p, repro_torch.kernels.ssd_scan\n"
         "from repro_torch.kernels import _build; assert _build._lib is None\n"
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -179,4 +179,5 @@ def test_build_key_follows_the_sources(monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build._digest() != key  # a flag change rebuilds, as a source change does
     names = {p.name for p in _build._sources()}
-    assert {"paged_decode_attention.cu", "flash_attention.cu", "attention_tile.cuh"} <= names
+    assert {"paged_decode_attention.cu", "flash_attention.cu", "ssd_scan.cu",
+            "attention_tile.cuh"} <= names
