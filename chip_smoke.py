@@ -16,23 +16,29 @@ Phases, in order; any failure exits non-zero before the final line:
    full-width mamba2-370m shapes (H=32, hd=64, N=128), y and final state,
    at S = 1024, 1000 and 1021 (B=1: a multiple of the chunk, a length the
    plain version chunks by 125, a prime it chunks by 1) and S = 256 (B=4);
-   median kernel, plain and library times beside the least time the card
-   could take;
+   the paged kernel's int8 mode (int8 pools, bf16 scales) at zamba2-2.7b's
+   slot shape (H=KV=32, hd=80, 256-key identity-table blocks) and on a
+   paged pool at g = 1 and g = 3; the flash and SSD kernels at zamba2's
+   prefill shapes (hd=80, g=1; H=80, hd=64, N=64); median kernel, plain
+   and library times beside the least time the card could take;
 4. serving — smollm-135m at full width (bf16, seeded random weights) served
    through ``ServingEngine.serve()``: an open-loop workload and a
    shared-prefix workload on the paged layout, a small one on the slot
    layout; every decode step must launch the paged kernel once per layer
    and every prefill the flash kernel once per layer; then mamba2-370m at
    full width on the slot layout, every prefill launching the SSD kernel
-   once per layer; all logits must be finite and every request must
-   finish with tokens;
+   once per layer; then zamba2-2.7b at full width on the slot layout
+   (int8 KV cache), every prefill launching the SSD kernel once per layer
+   and the flash kernel once per attention site, every decode step the
+   int8 paged kernel once per site and no float-pool paged kernel; all
+   logits must be finite and every request must finish with tokens;
    then, for each model, the host wall time of one decode step at 8 rows
    and one 1024-token prefill against the device time the profiler finds
    in their kernels;
-5. parity — float32 workloads of both models served through the kernels
-   and through the plain reference backend must give the same greedy
-   tokens (a difference counts as a tie only where the reference's top-2
-   logit margin is below the stated tolerance).
+5. parity — float32 workloads of the three models served through the
+   kernels and through the plain reference backend must give the same
+   greedy tokens (a difference counts as a tie only where the reference's
+   top-2 logit margin is below the stated tolerance).
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -59,11 +65,17 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # max |kernel - plain|
 # round differently (exact arithmetic agrees); bfloat16: one rounding of y
 # to bf16 (2^-8 relative) on either side, plus the float32 difference.
 SSD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 0.0)}
+# int8 mode: max |kernel - plain| over each batch row <= rel * max |plain|
+# of that row + abs. float32: as TOL; bfloat16: 1e-2 plus one bf16 ulp
+# (2^-7) of the row's largest output, since the rows over 1-2k random keys
+# average to outputs of ~0.03, too small for TOL's absolute 2e-2.
+INT8_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (1e-2 + 2**-7, 0.0)}
 LOGIT_TIE_TOL = 1e-3  # top-2 margin under which a float32 argmax flip is a tie
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_decode_attention.cu"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 PAGED_TPU = "src/repro/kernels/paged_decode_attention.py:214"
+PAGED_INT8_TPU = "src/repro/kernels/paged_decode_attention.py:84"  # the int8 dequant
 FLASH_TPU = "src/repro/kernels/flash_attention.py:103"
 SSD_TPU = "src/repro/kernels/ssd_scan.py:86"
 
@@ -115,7 +127,18 @@ def bound(nbytes, flops, dtype):
 # phase 3: kernels against their plain versions
 
 
-def paged_case(dtype, T, seed=0, B=8, H=9, KV=3, hd=64, BS=16, MB=128):
+def int8_pools(kp, vp):
+    """Float pools quantized as the model's int8 cache stores them:
+    (k int8, v int8, k_scale bf16, v_scale bf16)."""
+    from repro_torch.models.attention import quantize_kv
+
+    (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+    return kq, vq, ks, vs
+
+
+def paged_case(dtype, T, seed=0, B=8, H=9, KV=3, hd=64, BS=16, MB=128, int8=False):
+    """Inputs of the paged kernel: q, k/v pools, tables, lengths, then
+    (k_scale, v_scale) for int8 pools or (None, None)."""
     g = torch.Generator().manual_seed(seed)
     NB = B * MB + 1  # the last block is the null block
     null = NB - 1
@@ -133,12 +156,17 @@ def paged_case(dtype, T, seed=0, B=8, H=9, KV=3, hd=64, BS=16, MB=128):
     kp = torch.randn(NB, BS, KV, hd, generator=g)
     vp = torch.randn(NB, BS, KV, hd, generator=g)
     dev = torch.device("cuda")
-    return tuple(t.to(dev, dtype) for t in (q, kp, vp)) + (tables.to(dev), lengths.to(dev))
+    q, kp, vp = (t.to(dev, dtype) for t in (q, kp, vp))
+    scales = (None, None)
+    if int8:
+        kp, vp, *scales = int8_pools(kp.float(), vp.float())
+    return (q, kp, vp, tables.to(dev), lengths.to(dev)) + tuple(scales)
 
 
-def slot_case(dtype, seed=0, B=4, Smax=2048, H=9, KV=3, hd=64):
+def slot_case(dtype, seed=0, B=4, Smax=2048, H=9, KV=3, hd=64, lengths=None, int8=False):
     """The slot layout's decode input to the paged kernel, built as the
-    model builds it: a dense cache [B, Smax, KV, hd] viewed as a pool of
+    model builds it: a dense cache [B, Smax, KV, hd] (and, for an int8
+    cache, its scales [B, Smax, KV]) viewed as a pool of
     ``_dense_block_size(Smax)`` = 256-key blocks (MB = 8, well above the
     48 KB shared-memory default) with an identity table."""
     from repro_torch.models.attention import _dense_as_pool, _dense_block_size
@@ -149,18 +177,29 @@ def slot_case(dtype, seed=0, B=4, Smax=2048, H=9, KV=3, hd=64):
     q = torch.randn(B, 1, H, hd, generator=g).to(dev, dtype)
     kc = torch.randn(B, Smax, KV, hd, generator=g).to(dev, dtype)
     vc = torch.randn(B, Smax, KV, hd, generator=g).to(dev, dtype)
+    scales = (None, None)
+    if int8:
+        kc, vc, *scales = int8_pools(kc.float(), vc.float())
+        scales = tuple(_dense_as_pool(s, bs) for s in scales)
     tables = torch.arange(B * (Smax // bs), dtype=torch.int32, device=dev).view(B, Smax // bs)
-    lengths = torch.tensor([0, bs - 1, Smax - 2, Smax - 1], dtype=torch.int32, device=dev)
-    return q, _dense_as_pool(kc, bs), _dense_as_pool(vc, bs), tables, lengths
+    if lengths is None:
+        lengths = [0, bs - 1, Smax - 2, Smax - 1]
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return (q, _dense_as_pool(kc, bs), _dense_as_pool(vc, bs), tables, lengths) + scales
 
 
 def paged_bound(q, kp, tables, lengths, dtype):
+    """Bytes: q and out, the attended keys and values (lengths + T a row,
+    at most the table's reach; int8 pools: one byte an element plus a
+    2-byte bf16 scale per vector), tables, lengths. Operations: 4 hd per
+    (query head, attended key)."""
     B, T, H, hd = q.shape
     BS, KV = kp.shape[1], kp.shape[2]
     it = q.element_size()
+    vec = hd * kp.element_size() + (2 if kp.dtype == torch.int8 else 0)
     lens = lengths.cpu().long()
-    blocks = torch.clamp((lens + T + BS - 1) // BS, max=tables.shape[1]).sum().item()
-    nbytes = 2 * q.numel() * it + blocks * BS * KV * hd * it * 2 + 4 * (tables.numel() + B)
+    keys = torch.clamp(lens + T, max=tables.shape[1] * BS).sum().item()
+    nbytes = 2 * q.numel() * it + keys * KV * vec * 2 + 4 * (tables.numel() + B)
     pairs = sum(int(l) * T + T * (T + 1) // 2 for l in lens)
     return bound(nbytes, 4 * hd * H * pairs, dtype)
 
@@ -203,7 +242,7 @@ def check_kernels():
             ("verify", "paged layout B=8 T=4 H=9 KV=3 hd=64 BS=16 MB=128", lambda: paged_case(dtype, 4)),
             ("slot", "slot view B=4 T=1 H=9 KV=3 hd=64 BS=256 MB=8", lambda: slot_case(dtype)),
         ):
-            q, kp, vp, tables, lengths = case()
+            q, kp, vp, tables, lengths, _, _ = case()
             out = pda.paged_decode_attention(q, kp, vp, tables, lengths)
             torch.cuda.synchronize()
             ref = pda.plain_paged_decode_attention(q, kp, vp, tables, lengths)
@@ -227,8 +266,11 @@ def check_kernels():
             require(torch.equal(dec[:, 0], out[:, t]), f"verify != decode at query {t} ({dn})")
         log(f"paged_decode_attention {dn}: verify (T=4) equals decode bitwise")
 
-        for Sq, Skv, off in ((1, 1, 0), (37, 37, 0), (512, 512, 0), (2048, 2048, 0), (64, 576, 512)):
-            q, k, v = flash_case(dtype, Sq, Skv)
+        flash_shapes = [(2, Sq, Skv, off, 9, 3, 64) for Sq, Skv, off in (
+            (1, 1, 0), (37, 37, 0), (512, 512, 0), (2048, 2048, 0), (64, 576, 512))]
+        flash_shapes.append((1, 1024, 1024, 0, 32, 32, 80))  # zamba2-2.7b's prefill
+        for B, Sq, Skv, off, H, KV, hd in flash_shapes:
+            q, k, v = flash_case(dtype, Sq, Skv, B=B, H=H, KV=KV, hd=hd)
             out = fa.flash_attention(q, k, v, off)
             torch.cuda.synchronize()
             ref = fa.plain_flash_attention(q, k, v, off)
@@ -237,14 +279,61 @@ def check_kernels():
             plain = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, off), iters=5)
             bms, by = flash_bound(q, k, off, dtype)
             lib = sdpa_ms(q, k, v, off)
-            log(f"flash_attention {dn} B=2 Sq={Sq} Skv={Skv} q_offset={off} H=9 KV=3 hd=64: "
-                f"max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) ms={ms:.4f} plain_ms={plain:.4f} "
-                f"bound_ms={bms:.5f} ({by}) library_ms={lib:.4f}")
+            log(f"flash_attention {dn} B={B} Sq={Sq} Skv={Skv} q_offset={off} H={H} KV={KV} "
+                f"hd={hd}: max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) ms={ms:.4f} "
+                f"plain_ms={plain:.4f} bound_ms={bms:.5f} ({by}) library_ms={lib:.4f}")
             require(err <= TOL[dtype], f"flash kernel disagrees with its plain version: {err}")
             require(torch.isfinite(out).all(), "flash kernel output not finite")
             if (Sq, Skv, off) == (512, 512, 0):
                 rows[("flash", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                                              bound_by=by, library_ms=lib)
+    return rows
+
+
+def check_int8():
+    """The paged kernel's int8 mode (int8 pools, bf16 per-vector scales)
+    against its plain version, q in float32 and bf16: at zamba2-2.7b's
+    slot shape (8 rows, max_seq 2048 as 256-key identity-table blocks,
+    H = KV = 32, hd = 80: ~166 KB of shared memory) and on a paged pool
+    (B=8, BS=16, MB=128, random tables) at g = 1 and g = 3."""
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    g = torch.Generator().manual_seed(5)
+    lens = [0, 255, 1024, 2047] + torch.randint(1, 2047, (4,), generator=g).tolist()
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for key, label, case in (
+            ("slot", "zamba2 slot view B=8 T=1 H=32 KV=32 hd=80 BS=256 MB=8",
+             lambda: slot_case(dtype, B=8, H=32, KV=32, hd=80, lengths=lens, int8=True)),
+            ("g1", "paged layout B=8 T=1 H=32 KV=32 hd=80 BS=16 MB=128",
+             lambda: paged_case(dtype, 1, H=32, KV=32, hd=80, int8=True)),
+            ("g3", "paged layout B=8 T=1 H=9 KV=3 hd=64 BS=16 MB=128",
+             lambda: paged_case(dtype, 1, int8=True)),
+        ):
+            args = case()
+            q, kp, _, tables, lengths, _, _ = args
+            out = pda.paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            ref = pda.plain_paged_decode_attention(*args)
+            row_err = (out.float() - ref.float()).abs().flatten(1).amax(1)
+            rel, absol = INT8_TOL[dtype]
+            row_tol = rel * ref.float().abs().flatten(1).amax(1) + absol
+            err = row_err.max().item()
+            ms = cuda_ms(lambda: pda.paged_decode_attention(*args))
+            plain = cuda_ms(lambda: pda.plain_paged_decode_attention(*args), iters=5)
+            bms, by = paged_bound(q, kp, tables, lengths, dtype)
+            log(f"paged_decode_attention[int8] {dn} {label} lengths={lengths.tolist()}: "
+                f"max_abs_err={err:.3e} (per row <= {rel:.3g}*max|plain|+{absol:.0e}; "
+                f"worst err/tol {(row_err / row_tol).max().item():.3e}) ms={ms:.4f} "
+                f"plain_ms={plain:.4f} bound_ms={bms:.5f} ({by}) library_ms=null")
+            require(bool((row_err <= row_tol).all()),
+                    f"int8 paged kernel ({label}, {dn}) disagrees with its plain version: "
+                    f"per-row errors {row_err.tolist()} over limits {row_tol.tolist()}")
+            require(torch.isfinite(out).all(), f"int8 paged kernel ({label}) output not finite")
+            if key == "slot":
+                rows[("paged_int8", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                                   bound_ms=bms, bound_by=by, library_ms=None)
     return rows
 
 
@@ -283,8 +372,10 @@ def check_ssd():
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         rel, absol = SSD_TOL[dtype]
-        for B, S in ((1, 1024), (1, 1000), (1, 1021), (4, 256)):
-            x, a, b, c, dt = ssd_case(dtype, B, S)
+        # mamba2-370m's shapes, then zamba2-2.7b's prefill (H=80, N=64)
+        for B, S, H, N in ((1, 1024, 32, 128), (1, 1000, 32, 128), (1, 1021, 32, 128),
+                           (4, 256, 32, 128), (1, 1024, 80, 64)):
+            x, a, b, c, dt = ssd_case(dtype, B, S, H=H, N=N)
             y, st = ssd.ssd_scan(x, a, b, c, dt, 128)
             torch.cuda.synchronize()
             y_ref, st_ref = ssd.plain_ssd_scan(x, a, b, c, dt, 128)
@@ -292,9 +383,9 @@ def check_ssd():
             for name, got, want in (("y", y, y_ref), ("state", st, st_ref)):
                 err = (got.float() - want.float()).abs().max().item()
                 tol = rel * want.float().abs().max().item() + absol
-                require(torch.isfinite(got).all(), f"SSD kernel {name} not finite (B={B} S={S} {dn})")
+                require(torch.isfinite(got).all(), f"SSD kernel {name} not finite (B={B} S={S} H={H} {dn})")
                 require(err <= tol, f"SSD kernel {name} disagrees with its plain version "
-                                    f"(B={B} S={S} {dn}): {err} > {tol}")
+                                    f"(B={B} S={S} H={H} {dn}): {err} > {tol}")
                 errs.append(f"{name} max_abs_err={err:.3e} (tol {tol:.2e})")
                 max_err[name] = err
             ms = cuda_ms(lambda: ssd.ssd_scan(x, a, b, c, dt, 128))
@@ -302,9 +393,9 @@ def check_ssd():
             plain = cuda_ms(lambda: ssd.plain_ssd_scan(x, a, b, c, dt, 128), iters=5) if S != 1021 else None
             bms, by = ssd_bound(x, b, dtype)
             plain_s = f"{plain:.4f}" if plain is not None else "not timed"
-            log(f"ssd_scan {dn} B={B} S={S} H=32 hd=64 N=128 chunk=128: {', '.join(errs)} "
+            log(f"ssd_scan {dn} B={B} S={S} H={H} hd=64 N={N} chunk=128: {', '.join(errs)} "
                 f"ms={ms:.4f} plain_ms={plain_s} bound_ms={bms:.5f} ({by}) library_ms=null")
-            if (B, S) == (1, 1024):
+            if (B, S, H) == (1, 1024, 32):
                 rows[("ssd", dtype)] = dict(max_abs_err=max_err["y"], ms=ms, plain_ms=plain,
                                             bound_ms=bms, bound_by=by, library_ms=None)
     return rows
@@ -345,11 +436,23 @@ def headline(label, stats, card):
 
 
 def _launch_counters():
+    """kernel row key → (wrapper, name of its launch counter)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import ssd_scan as ssd
 
-    return {"paged": pda.paged_decode_attention, "flash": fa.flash_attention, "ssd": ssd.ssd_scan}
+    return {"paged": (pda.paged_decode_attention, "launches"),
+            "paged_int8": (pda.paged_decode_attention, "launches_int8"),
+            "flash": (fa.flash_attention, "launches"), "ssd": (ssd.ssd_scan, "launches")}
+
+
+def reset_launches():
+    for fn, attr in _launch_counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_launches():
+    return {key: getattr(fn, attr) for key, (fn, attr) in _launch_counters().items()}
 
 
 def serve_full_width(card):
@@ -379,14 +482,12 @@ def serve_full_width(card):
     # warm the path (allocator, library load) outside the measured runs
     engine.serve(make_requests(2, 1e3, vocab=cfg.vocab_size, max_new_tokens=4,
                                prompt_lens=(128,), rng=np.random.default_rng(9)))
-    counters = _launch_counters()
     totals = {"paged": 0, "flash": 0}
     for label, layout, mb, make in runs:
         watch.calls.clear()
-        for k in counters.values():
-            k.launches = 0
+        reset_launches()
         out = engine.serve(make(np.random.default_rng(1)), kv_layout=layout, max_batch=mb)
-        n = {key: k.launches for key, k in counters.items()}
+        n = read_launches()
         decodes = watch.n("decode_step", "decode_step_paged")
         prefills = watch.n("prefill", "prefill_with_prefix")
         s = headline(label, engine.stats, card)
@@ -394,7 +495,8 @@ def serve_full_width(card):
             f"{prefills} prefill calls -> {n['flash']} flash launches")
         require(decodes > 0 and n["paged"] == L * decodes, "decode did not run through the paged kernel")
         require(prefills > 0 and n["flash"] == L * prefills, "prefill did not run through the flash kernel")
-        require(n["ssd"] == 0, "a dense model launched the SSD kernel")
+        require(n["ssd"] == 0 and n["paged_int8"] == 0,
+                "a dense model with a float cache launched the SSD or int8 paged kernel")
         require(not bool(watch.bad), "non-finite logits")
         require(s["n_requests"] == len(out) and all(len(t) > 0 for t in out.values()),
                 "not every request finished with tokens")
@@ -421,32 +523,71 @@ def serve_mamba2(card):
     watch = Watch(model)
     engine.serve(make_requests(2, 1e3, vocab=cfg.vocab_size, max_new_tokens=4,
                                prompt_lens=(128,), rng=np.random.default_rng(9)))
-    counters = _launch_counters()
     watch.calls.clear()
-    for k in counters.values():
-        k.launches = 0
+    reset_launches()
     out = engine.serve(make_requests(12, 20.0, vocab=cfg.vocab_size, max_new_tokens=64,
                                      prompt_lens=tuple(range(128, 1025)),
                                      rng=np.random.default_rng(1)))
-    n = {key: k.launches for key, k in counters.items()}
+    n = read_launches()
     decodes, prefills = watch.n("decode_step"), watch.n("prefill")
     s = headline("mamba2 slot", engine.stats, card)
     log(f"serve[mamba2 slot]: {decodes} decode steps, {prefills} prefill calls -> "
         f"{n['ssd']} SSD launches ({L} layers)")
     require(prefills > 0 and n["ssd"] == L * prefills, "prefill did not run through the SSD kernel")
     require(decodes > 0, "no decode step ran")
-    require(n["paged"] == 0 and n["flash"] == 0, "the SSM model launched an attention kernel")
+    require(n["paged"] == n["paged_int8"] == n["flash"] == 0,
+            "the SSM model launched an attention kernel")
     require(not bool(watch.bad), "non-finite logits")
     require(s["n_requests"] == len(out) == 12 and all(len(t) > 0 for t in out.values()),
             "not every request finished with tokens")
     return n["ssd"], params
 
 
-def profile_split(label, fn, kernel, card):
+def serve_zamba2(card):
+    """zamba2-2.7b at full width on the slot layout (int8 KV cache): 12
+    open-loop requests on 8 rows. Every prefill call must launch the SSD
+    kernel once per layer (54) and the flash kernel once per attention
+    site (9); every decode step the int8 paged kernel once per site, and
+    no float-pool paged kernel may run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServingEngine, make_requests
+
+    cfg = get_config("zamba2-2.7b")
+    model = Model(cfg)
+    params = model.init(seed=0)
+    L, G = cfg.num_layers, cfg.num_layers // cfg.attn_every
+    engine = ServingEngine(model, params, max_seq=2048, kv_layout="slot", max_batch=8)
+    watch = Watch(model)
+    engine.serve(make_requests(2, 1e3, vocab=cfg.vocab_size, max_new_tokens=4,
+                               prompt_lens=(128,), rng=np.random.default_rng(9)))
+    watch.calls.clear()
+    reset_launches()
+    out = engine.serve(make_requests(12, 20.0, vocab=cfg.vocab_size, max_new_tokens=64,
+                                     prompt_lens=tuple(range(128, 1025)),
+                                     rng=np.random.default_rng(1)))
+    n = read_launches()
+    decodes, prefills = watch.n("decode_step"), watch.n("prefill")
+    s = headline("zamba2 slot", engine.stats, card)
+    log(f"serve[zamba2 slot]: {decodes} decode steps -> {n['paged_int8']} int8 paged launches "
+        f"({G} sites); {prefills} prefill calls -> {n['ssd']} SSD ({L} layers) and "
+        f"{n['flash']} flash launches")
+    require(prefills > 0 and n["ssd"] == L * prefills, "prefill did not run through the SSD kernel")
+    require(n["flash"] == G * prefills, "prefill did not run through the flash kernel")
+    require(decodes > 0 and n["paged_int8"] == G * decodes,
+            "decode did not run through the int8 paged kernel")
+    require(n["paged"] == 0, "the int8 cache launched a float-pool paged kernel")
+    require(not bool(watch.bad), "non-finite logits")
+    require(s["n_requests"] == len(out) == 12 and all(len(t) > 0 for t in out.values()),
+            "not every request finished with tokens")
+    return n, params
+
+
+def profile_split(label, fn, kernels, card):
     """Host wall clock of ``fn`` (synchronised) against the device time the
     profiler sums over the kernels of the same work (one stream, so
     kernels never overlap and the difference is device idle time), and
-    the share of it in kernels whose name holds ``kernel``."""
+    the share of it in kernels whose name holds each of ``kernels``."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -465,11 +606,13 @@ def profile_split(label, fn, kernel, card):
     # the device time of the kernels they launched
     gpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_all = sum(e.time_range.elapsed_us() for e in gpu) / 3e3
-    dev_kernel = sum(e.time_range.elapsed_us() for e in gpu if kernel in e.name) / 3e3
+    shares = ", ".join(
+        f"{k} {sum(e.time_range.elapsed_us() for e in gpu if k in e.name) / 3e3:.2f} ms"
+        for k in kernels)
     launches = len(gpu) / 3
     busy = f"{dev_all:.2f} ms ({dev_all / wall:.0%} of wall)" if gpu else "not measured"
     log(f"time[{label}] on {card}: wall {wall:.2f} ms, device busy {busy}, "
-        f"{kernel} {dev_kernel:.2f} ms, {launches:.0f} device operations")
+        f"{shares}, {launches:.0f} device operations")
 
 
 def time_split(params, card):
@@ -499,20 +642,20 @@ def time_split(params, card):
         for r in range(8):
             kv.advance(r)
 
-    profile_split("decode step, 8 paged rows", decode, "paged_decode_kernel", card)
+    profile_split("decode step, 8 paged rows", decode, ("paged_decode_kernel",), card)
     profile_split("prefill, 1024 tokens", lambda: model.prefill(params, prompt, 2048),
-                  "flash_kernel", card)
+                  ("flash_kernel",), card)
 
 
-def time_split_mamba2(params, card):
-    """The same split for full-width mamba2-370m: a decode step over 8
-    slot rows holding states of 128-1024-token prompts, and a 1024-token
-    prefill. Decode runs no kernel of the port (the one-step recurrence is
-    plain PyTorch), so its SSD share is 0."""
+def time_split_slots(arch, params, card, kernels):
+    """The same split for a full-width model on the slot layout: a decode
+    step over 8 slot rows holding the caches of 128-1024-token prompts,
+    and a 1024-token prefill. A mamba2 decode runs no kernel of the port
+    (the one-step recurrence is plain PyTorch), so its SSD share is 0."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
-    cfg = get_config("mamba2-370m")
+    cfg = get_config(arch)
     model = Model(cfg)
     cache = model.init_cache(8, 2048)
     rng = np.random.default_rng(0)
@@ -522,10 +665,11 @@ def time_split_mamba2(params, card):
         model.write_cache_slot(cache, slot_cache, r)
     tok = torch.zeros((8, 1), dtype=torch.long, device="cuda")
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1024))).cuda()
-    profile_split("mamba2 decode step, 8 slot rows", lambda: model.decode_step(params, cache, tok),
-                  "ssd_scan_kernel", card)
-    profile_split("mamba2 prefill, 1024 tokens", lambda: model.prefill(params, prompt, 2048),
-                  "ssd_scan_kernel", card)
+    name = arch.split("-")[0]
+    profile_split(f"{name} decode step, 8 slot rows",
+                  lambda: model.decode_step(params, cache, tok), kernels, card)
+    profile_split(f"{name} prefill, 1024 tokens", lambda: model.prefill(params, prompt, 2048),
+                  kernels, card)
 
 
 def parity_f32(arch, layouts, prompt_lens):
@@ -583,19 +727,31 @@ def main() -> int:
     log(f"build and load: {time.perf_counter() - t0:.1f} s")
 
     rows = check_kernels()
+    rows.update(check_int8())
     rows.update(check_ssd())
     launches, params = serve_full_width(card)
     time_split(params, card)
     launches["ssd"], params = serve_mamba2(card)
-    time_split_mamba2(params, card)
+    time_split_slots("mamba2-370m", params, card, ("ssd_scan_kernel",))
     del params
+    n, params = serve_zamba2(card)
+    time_split_slots("zamba2-2.7b", params, card,
+                     ("ssd_scan_kernel", "flash_kernel", "paged_decode_kernel"))
+    del params
+    torch.cuda.empty_cache()  # the bf16 model goes before the float32 ones
+    launches["paged_int8"] = n["paged_int8"]
+    launches["flash"] += n["flash"]
+    launches["ssd"] += n["ssd"]
     parity_f32("smollm-135m", ("paged", "slot"), tuple(range(64, 257)))
     # lengths the plain scan chunks by 16 or more (a prime would run
     # one-position chunks)
     parity_f32("mamba2-370m", ("slot",), tuple(range(64, 257, 16)))
+    parity_f32("zamba2-2.7b", ("slot",), tuple(range(64, 257, 16)))
 
     table = []
     for key, name, src, tpu in (("paged", "paged_decode_attention", PAGED_SRC, PAGED_TPU),
+                                ("paged_int8", "paged_decode_attention[int8]", PAGED_SRC,
+                                 PAGED_INT8_TPU),
                                 ("flash", "flash_attention", FLASH_SRC, FLASH_TPU),
                                 ("ssd", "ssd_scan", SSD_SRC, SSD_TPU)):
         r = rows[(key, torch.bfloat16)]

@@ -85,7 +85,7 @@ def library() -> ctypes.CDLL:
         _compile(nvcc, out)
     lib = ctypes.CDLL(str(out))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.paged_decode_attention.argtypes = [i, p, p, p, p, p, p] + [i] * 7 + [f, p]
+    lib.paged_decode_attention.argtypes = [i, i] + [p] * 8 + [i] * 7 + [f, p]
     lib.paged_decode_attention.restype = i
     lib.flash_attention.argtypes = [i, p, p, p, p] + [i] * 7 + [f, p]
     lib.flash_attention.restype = i

@@ -2,15 +2,18 @@
 
 Replaces the JAX package's Pallas TPU kernel
 ``kernels/paged_decode_attention.py::paged_decode_attention`` for T ≥ 1
-queries over float32 or bfloat16 pools; the CUDA source is
+queries over float32 or bfloat16 pools, and its int8 mode: int8 pools
+with per-vector bfloat16 scales ``[NB,BS,KV]``, dequantized in the kernel
+as ``int8 · scale / 127``. The CUDA source is
 ``csrc/paged_decode_attention.cu`` (its header says what bounds it on the
-H100 and what the design does about it). The int8-dequant and partials
-modes wait for ROADMAP §2 item 1.
+H100 and what the design does about it). The partials mode waits for
+ROADMAP §2 item 1.
 
-``paged_decode_attention`` dispatches on the tensors' device: CPU tensors
-take the plain PyTorch version (``plain_paged_decode_attention``, the
-dense-gather oracle), CUDA tensors the kernel — or it raises. Its
-``launches`` attribute counts kernel launches.
+``paged_decode_attention`` checks its arguments, then dispatches on the
+tensors' device: CPU tensors take the plain PyTorch version
+(``plain_paged_decode_attention``, the dense-gather oracle), CUDA tensors
+the kernel — or it raises. Its ``launches`` attribute counts kernel
+launches over float pools, ``launches_int8`` those over int8 pools.
 """
 from __future__ import annotations
 
@@ -21,28 +24,45 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_attention_ref as plain_paged_decode_attention
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INT8 = 2  # the C entry point's code for int8 pools
 
 
-def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
-    """q [B,T,H,hd]; pools [NB,BS,KV,hd]; ``block_tables`` [B,MB] int32
-    block ids (< NB); ``lengths`` [B] int32 committed lengths (query t
-    attends positions < lengths + t + 1) → [B,T,H,hd] in q's dtype."""
-    if q.device.type == "cpu":
-        return plain_paged_decode_attention(q, k_pool, v_pool, block_tables, lengths)
+def _check(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale):
+    """Raise on anything the kernel does not take; returns the C code of
+    the pool type."""
     B, T, H, hd = q.shape
     NB, BS, KV, hd_k = k_pool.shape
     MB = block_tables.shape[1] if block_tables.dim() == 2 else -1
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: no kernel for device {q.device}")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("lengths", lengths)):
-        if t.device != q.device:
-            raise ValueError(f"paged_decode_attention: {name} on {t.device}, q on {q.device}")
-    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+    tensors = [("k_pool", k_pool), ("v_pool", v_pool), ("block_tables", block_tables),
+               ("lengths", lengths)]
+    if q.dtype not in _Q_DTYPES:
+        raise TypeError(f"paged_decode_attention: q must be float32 or bfloat16, got {q.dtype}")
+    if k_pool.dtype == torch.int8:
+        if k_scale is None or v_scale is None:
+            raise ValueError("paged_decode_attention: int8 pools need k_scale and v_scale")
+        for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if s.dtype != torch.bfloat16 or s.shape != k_pool.shape[:3]:
+                raise ValueError(
+                    f"paged_decode_attention: {name} must be bfloat16 of shape "
+                    f"{tuple(k_pool.shape[:3])}, got {s.dtype} {tuple(s.shape)}"
+                )
+        tensors += [("k_scale", k_scale), ("v_scale", v_scale)]
+        kv_code = _INT8
+    elif k_scale is not None or v_scale is not None:
+        raise ValueError(
+            f"paged_decode_attention: scales go with int8 pools only, got a {k_pool.dtype} pool"
+        )
+    elif k_pool.dtype == q.dtype:
+        kv_code = _Q_DTYPES[q.dtype]
+    else:
         raise TypeError(
-            f"paged_decode_attention: q/k/v must share float32 or bfloat16, got "
-            f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}"
+            f"paged_decode_attention: a float pool must share q's type, got "
+            f"q {q.dtype}, pool {k_pool.dtype}"
+        )
+    if v_pool.dtype != k_pool.dtype:
+        raise TypeError(
+            f"paged_decode_attention: k_pool {k_pool.dtype} and v_pool {v_pool.dtype} differ"
         )
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("paged_decode_attention: block_tables and lengths must be int32")
@@ -53,22 +73,62 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
             f"v{tuple(v_pool.shape)} tables{tuple(block_tables.shape)} "
             f"lengths{tuple(lengths.shape)}"
         )
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("lengths", lengths)):
+    for name, t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"paged_decode_attention: {name} on {t.device}, q on {q.device}")
+    for name, t in [("q", q)] + tensors:
         if not t.is_contiguous():
             raise ValueError(f"paged_decode_attention: {name} must be contiguous")
+    return kv_code
+
+
+def _check_int8_staging(k_pool, v_pool):
+    """The CUDA kernel's own limit on int8 pools: it stages 16 values at a
+    time, so the head dim is a multiple of 16 and the pools are 16-byte
+    aligned. The plain version takes any int8 pool."""
+    hd = k_pool.shape[-1]
+    if hd % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError(
+            "paged_decode_attention: the kernel needs int8 pools with a head dim that is "
+            f"a multiple of 16 and 16-byte aligned storage, got hd={hd}"
+        )
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None):
+    """q [B,T,H,hd] float32/bfloat16; pools [NB,BS,KV,hd] in q's type, or
+    int8 with ``k_scale``/``v_scale`` [NB,BS,KV] bfloat16; ``block_tables``
+    [B,MB] int32 block ids (< NB); ``lengths`` [B] int32 committed lengths
+    (query t attends positions < lengths + t + 1) → [B,T,H,hd] in q's
+    dtype."""
+    kv_code = _check(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return plain_paged_decode_attention(
+            q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: no kernel for device {q.device}")
+    B, T, H, hd = q.shape
+    NB, BS, KV, _ = k_pool.shape
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out
+    int8 = kv_code == _INT8
+    if int8:
+        _check_int8_staging(k_pool, v_pool)
     err = _build.library().paged_decode_attention(
-        _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        _Q_DTYPES[q.dtype], kv_code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, T, H, KV, hd, BS, MB, 1.0 / math.sqrt(hd),
+        B, T, H, KV, hd, BS, block_tables.shape[1], 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    if int8:
+        paged_decode_attention.launches_int8 += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_int8 = 0

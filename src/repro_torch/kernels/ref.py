@@ -1,7 +1,8 @@
 """Plain PyTorch oracles for the kernels (the allclose targets).
 
 Torch copies of the JAX package's ``kernels/ref.py`` ``attention_ref``
-(with an explicit ``q_offset``), ``paged_attention_ref`` and ``ssd_ref``.
+(with an explicit ``q_offset``), ``paged_attention_ref`` (int8 pools with
+their scales too) and ``ssd_ref``.
 Each computes in float32 and casts the result to the input dtype. The
 other oracles (matmul, dense decode) arrive with their kernels
 (ROADMAP §2).
@@ -34,11 +35,13 @@ def attention_ref(q, k, v, causal: bool = True, q_offset: Optional[int] = None):
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
-def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths):
+def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None):
     """Dense-gather oracle for the block-paged decode/verify kernel.
 
     q [B,T,H,hd]; pools [NB,BS,KV,hd]; tables [B,MB] block ids; lengths
-    [B] committed lengths (query t attends positions < lengths + t + 1)."""
+    [B] committed lengths (query t attends positions < lengths + t + 1).
+    int8 pools pass per-vector scales [NB,BS,KV] and dequantize as
+    ``int8 · (scale / 127)`` in float32."""
     B, T, H, hd = q.shape
     BS, KV = k_pool.shape[1], k_pool.shape[2]
     MB = block_tables.shape[1]
@@ -46,6 +49,11 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths):
     tables = block_tables.long()
     kd = k_pool[tables].reshape(B, MB * BS, KV, hd).float()
     vd = v_pool[tables].reshape(B, MB * BS, KV, hd).float()
+    if k_scale is not None:
+        ks = k_scale[tables].reshape(B, MB * BS, KV).float()
+        vs = v_scale[tables].reshape(B, MB * BS, KV).float()
+        kd = kd * (ks / 127.0)[..., None]
+        vd = vd * (vs / 127.0)[..., None]
     kd = kd.repeat_interleave(g, dim=2)
     vd = vd.repeat_interleave(g, dim=2)
     s = torch.einsum("bthd,bshd->bths", q.float(), kd) / math.sqrt(hd)

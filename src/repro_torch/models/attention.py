@@ -1,4 +1,4 @@
-"""GQA attention for prefill and decode: the dense serving subset.
+"""GQA attention for prefill and decode: the serving subset.
 
 Port of the JAX package's ``models/attention.py``. Prefill runs
 ``gqa_attention`` — the chunked running-max reference, or the causal
@@ -6,7 +6,10 @@ flash kernel on the ``"kernel"`` backend. Decode runs through the
 block-paged decode kernel on both KV layouts: the paged pool directly,
 the slot cache viewed as a pool with an identity block table. The
 ``"reference"`` backend keeps the JAX package's jnp numerics (dense
-gather + masked softmax), the differential oracle.
+gather + masked softmax), the differential oracle. An int8 slot cache
+(``kv_quant``) stores each new key and value vector quantized
+(``quantize_kv``) beside its bfloat16 scale; the kernel dequantizes in
+place, the reference dequantizes the layer's cache to q's dtype first.
 
 KV writes update the cache tensors in place (``index_put_``), where the
 reference returns new arrays (``.at[].set``): an eager port would
@@ -129,9 +132,10 @@ def _dense_block_size(smax, bs=256):
     return bs
 
 
-def _kernel_cached_attention(q, k_cache, v_cache, cache_len):
+def _kernel_cached_attention(q, k_cache, v_cache, cache_len, k_scale=None, v_scale=None):
     """Dense-cache decode/verify through the block-paged kernel's wrapper
-    with an identity block table. ``cache_len`` is the committed length — query
+    with an identity block table; an int8 cache's scales [B,Smax,KV] take
+    the same pool view. ``cache_len`` is the committed length — query
     t attends positions < cache_len + t + 1. Unlike the reference, which
     falls back to its jnp numerics when ``max_seq`` has no divisor ≥ 8,
     the kernel runs at whatever block size divides, down to 1: a
@@ -141,9 +145,10 @@ def _kernel_cached_attention(q, k_cache, v_cache, cache_len):
     tables = torch.arange(
         B * (Smax // bs), dtype=torch.int32, device=q.device
     ).view(B, Smax // bs)
+    scales = [None if s is None else _dense_as_pool(s, bs) for s in (k_scale, v_scale)]
     return _paged.paged_decode_attention(
         q, _dense_as_pool(k_cache, bs), _dense_as_pool(v_cache, bs), tables,
-        cache_len.to(torch.int32),
+        cache_len.to(torch.int32), *scales,
     )
 
 
@@ -175,13 +180,20 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     return out.reshape(B, T, H, hd)
 
 
-def _cached_attention(q, k_cache, v_cache, cache_len, *, backend=None):
+def _cached_attention(
+    q, k_cache, v_cache, cache_len, *, k_scale=None, v_scale=None, backend=None
+):
     """Dense decode-cache attention (``cache_len`` committed): the
     ``"kernel"`` backend views the cache as an identity-table block pool
-    and runs the paged kernel; the reference keeps the jnp numerics."""
+    and runs the paged kernel (int8 caches dequantize in it); the
+    reference keeps the jnp numerics, dequantizing an int8 cache to q's
+    dtype first."""
     if kernel_ops.resolve_attention_backend(backend, q.device) == "kernel":
         kernel_ops.require_cuda(q, "_cached_attention")
-        return _kernel_cached_attention(q, k_cache, v_cache, cache_len)
+        return _kernel_cached_attention(q, k_cache, v_cache, cache_len, k_scale, v_scale)
+    if k_scale is not None:
+        k_cache = dequantize_kv(k_cache, k_scale, q.dtype)
+        v_cache = dequantize_kv(v_cache, v_scale, q.dtype)
     return decode_attention(q, k_cache, v_cache, cache_len + 1)
 
 
@@ -201,6 +213,24 @@ def paged_attention(q, k_pool, v_pool, block_tables, cache_len, *, backend=None)
 
 
 # ---------------------------------------------------------------------------
+# int8 KV-cache quantization
+
+
+def quantize_kv(x):
+    """x [..., hd] → (int8 values, bfloat16 per-vector scale [...]): the
+    scale is max |x| over hd (at least 1e-6) and values round half to
+    even, as ``jnp.round`` does."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True).clamp(min=1e-6)
+    q = torch.round(xf / scale * 127.0).to(torch.int8)
+    return q, scale[..., 0].to(torch.bfloat16)
+
+
+def dequantize_kv(q, scale, dtype):
+    return (q.float() * (scale.float() / 127.0)[..., None]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
 # full block
 
 
@@ -214,8 +244,10 @@ def attention_block(
     are returned for the caller's cache. Suffix prefill: ``prefix_kv`` =
     (k, v) [B,h,KV,hd] of a cached prompt prefix; x is the suffix and
     attends over prefix + suffix at ``q_offset = h``. Slot decode: cache
-    = (k_all, v_all, li), layer-stacked [L,B,Smax,KV,hd] tensors and the
-    layer index; each row's new token is written at its own length.
+    = (k_all, v_all, k_scale, v_scale, li): layer-stacked [L,B,Smax,KV,hd]
+    tensors, their bfloat16 scales [L,B,Smax,KV] for an int8 cache (None
+    for a float one) and the layer index; each row's new token is written
+    (quantized, for int8) at its own length.
     Paged decode: cache = {k, v, tables, li} with pool leaves
     [L,NB,BS,KV,hd]; new tokens go to each row's tail block and attention
     walks the tables."""
@@ -252,17 +284,27 @@ def attention_block(
         )
         new_kv = (cache["k"], cache["v"])
     else:
-        k_all, v_all, li = cache
+        k_all, v_all, ks_all, vs_all, li = cache
         T = k.shape[1]
         rows = torch.arange(B, device=x.device)[:, None]
         # dead slots keep decoding and their lengths keep growing; clamp the
-        # write start the way the reference's dynamic_update_slice does
+        # write start of every leaf the way the reference's
+        # dynamic_update_slice does
         start = cache_len.long().clamp(max=k_all.shape[2] - T)
         pos = start[:, None] + torch.arange(T, device=x.device)[None, :]
-        k_all[li][rows, pos] = k.to(k_all.dtype)
-        v_all[li][rows, pos] = v.to(v_all.dtype)
-        out = _cached_attention(q, k_all[li], v_all[li], cache_len, backend=backend)
-        new_kv = (k_all, v_all)
+        if ks_all is None:
+            writes = ((k_all, k), (v_all, v))
+        else:
+            (kq, ksc), (vq, vsc) = quantize_kv(k), quantize_kv(v)
+            writes = ((k_all, kq), (ks_all, ksc), (v_all, vq), (vs_all, vsc))
+        for stack, val in writes:
+            stack[li][rows, pos] = val.to(stack.dtype)
+        ks = None if ks_all is None else ks_all[li]
+        vs = None if vs_all is None else vs_all[li]
+        out = _cached_attention(
+            q, k_all[li], v_all[li], cache_len, k_scale=ks, v_scale=vs, backend=backend
+        )
+        new_kv = (k_all, v_all, ks_all, vs_all)
 
     out = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), params["wo"])
     return out, new_kv

@@ -1,17 +1,22 @@
-"""The dense decoder and the SSM stack: init, forward, prefill and the
-decode steps.
+"""The dense decoder, the SSM stack and the hybrid: init, forward,
+prefill and the decode steps.
 
-Port of the JAX package's ``models/model.py`` for families ``"dense"``
-and ``"ssm"``. Parameters are a plain dict of tensors in the JAX
-package's layouts, layer-stacked along a leading [L] axis (``wq
+Port of the JAX package's ``models/model.py`` for families ``"dense"``,
+``"ssm"`` and ``"hybrid"``. Parameters are a plain dict of tensors in the
+JAX package's layouts, layer-stacked along a leading [L] axis (``wq
 [L,D,H,hd]``, ``wo [L,H,hd,D]``, ``w1 [L,D,F]``, ``ssm/wx [L,D,Di]``, …);
-``params_from_reference`` turns the JAX package's parameter pytree, given
-as numpy arrays, into them. The layer stack is a Python loop (PyTorch
-runs eagerly: there is no trace to keep compact). The SSM family serves
-on the slot layout only: its decode cache is a recurrent state per layer
-(``ssm_state``), with no sequence axis to page. Speculative verify and
-chunked prefill wait for ROADMAP §1 item 6; the other families for item
-10.
+the hybrid's one shared attention block (``params["shared"]``) has no
+layer axis. ``params_from_reference`` turns the JAX package's parameter
+pytree, given as numpy arrays, into them. The layer stack is a Python
+loop (PyTorch runs eagerly: there is no trace to keep compact). The SSM
+family and the hybrid serve on the slot layout only: their decode cache
+holds a recurrent state per layer (``ssm_state``), with no sequence axis
+to page. The hybrid (Zamba2) runs G = L / ``attn_every`` groups of
+``attn_every`` SSM layers, each group followed by the shared attention
+block and its SwiGLU MLP with a KV cache of its own (one per site).
+``kv_quant`` stores the slot layout's KV cache in int8 with bfloat16
+per-vector scales. Speculative verify and chunked prefill wait for
+ROADMAP §1 item 6; the other families for item 10.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
 # included.
 PAD_PREFILL_FAMILIES = ("dense", "audio", "vlm")
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def prefill_bucket(n: int, cap: Optional[int] = None) -> int:
@@ -71,10 +76,6 @@ class Model:
                 f"family {cfg.family!r} is not ported yet (ROADMAP §1 item 10); "
                 f"the port serves {PORTED_FAMILIES}"
             )
-        if cfg.kv_quant:
-            raise NotImplementedError(
-                "int8 KV (kv_quant) is not ported yet (ROADMAP §1 item 3, §2 item 1)"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -102,27 +103,35 @@ class Model:
             "embed": normal((V, D), D**-0.5),
             "final_norm": ones(D),
         }
-        if cfg.family == "ssm":
+
+        def attn_block(lead):
+            """An attention layer and its SwiGLU MLP, each leaf with the
+            leading dims ``lead`` (``(L,)`` stacked, ``()`` shared)."""
+            return {
+                "attn": {
+                    "wq": normal(lead + (D, H, hd), D**-0.5),
+                    "wk": normal(lead + (D, KV, hd), D**-0.5),
+                    "wv": normal(lead + (D, KV, hd), D**-0.5),
+                    "wo": normal(lead + (H, hd, D), (H * hd) ** -0.5),
+                },
+                "attn_norm": ones(*lead, D),
+                "mlp_norm": ones(*lead, D),
+                "mlp": {
+                    "w1": normal(lead + (D, F), D**-0.5),
+                    "w3": normal(lead + (D, F), D**-0.5),
+                    "w2": normal(lead + (F, D), F**-0.5),
+                },
+            }
+
+        if cfg.family in ("ssm", "hybrid"):
             params["layers"] = {
                 "ssm": ssm_mod.init_ssm(cfg, dt, gen, lead=(L,)),
                 "norm": ones(L, D),
             }
         else:
-            params["layers"] = {
-                "attn": {
-                    "wq": normal((L, D, H, hd), D**-0.5),
-                    "wk": normal((L, D, KV, hd), D**-0.5),
-                    "wv": normal((L, D, KV, hd), D**-0.5),
-                    "wo": normal((L, H, hd, D), (H * hd) ** -0.5),
-                },
-                "attn_norm": ones(L, D),
-                "mlp_norm": ones(L, D),
-                "mlp": {
-                    "w1": normal((L, D, F), D**-0.5),
-                    "w3": normal((L, D, F), D**-0.5),
-                    "w2": normal((L, F, D), F**-0.5),
-                },
-            }
+            params["layers"] = attn_block((L,))
+        if cfg.family == "hybrid":
+            params["shared"] = attn_block(())
         if not cfg.tie_embeddings:
             params["lm_head"] = normal((D, V), D**-0.5)
         return params
@@ -176,47 +185,87 @@ class Model:
         )
         return x + h, new_state
 
+    def _hybrid_groups(self, params):
+        """The hybrid's layer stack as G = L / ``attn_every`` groups of
+        (layer index, per-layer views): each group's SSM layers run before
+        one application of the shared block."""
+        per = self.cfg.attn_every
+        views = self._layer_params(params)
+        G = self.cfg.num_layers // per
+        return [[(i, views[i]) for i in range(gi * per, (gi + 1) * per)] for gi in range(G)]
+
     def forward(self, params, tokens, *, backend=None):
-        """tokens [B,S] → (final-normed hidden [B,S,D], per-layer cache
-        entries: (k, v) [B,S,KV,hd] for the dense family, the final state
-        dict for the SSM family)."""
+        """tokens [B,S] → (final-normed hidden [B,S,D], cache entries):
+        per layer (k, v) [B,S,KV,hd] for the dense family and the final
+        state dict for the SSM family; for the hybrid, the pair (per-site
+        (k, v) of the shared block, per-layer states). Prefill attention
+        runs on the unquantized k/v; only a cache stores them in int8."""
         backend = kernel_ops.resolve_attention_backend(backend, self.device)
         x = embed_tokens(params["embed"], self._tokens(tokens))
         caches = []
-        for lp in self._layer_params(params):
-            if self.cfg.family == "ssm":
-                x, entry = self._ssm_layer(x, lp, backend, want_state=True)
-            else:
-                x, entry = self._dense_layer(x, lp, backend)
-            caches.append(entry)
+        if self.cfg.family == "hybrid":
+            kvs = []
+            for group in self._hybrid_groups(params):
+                for _, lp in group:
+                    x, entry = self._ssm_layer(x, lp, backend, want_state=True)
+                    caches.append(entry)
+                x, kv = self._dense_layer(x, params["shared"], backend)
+                kvs.append(kv)
+            caches = (kvs, caches)
+        else:
+            for lp in self._layer_params(params):
+                if self.cfg.family == "ssm":
+                    x, entry = self._ssm_layer(x, lp, backend, want_state=True)
+                else:
+                    x, entry = self._dense_layer(x, lp, backend)
+                caches.append(entry)
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps), caches
 
     # ------------------------------------------------------------------
     # caches
+    @property
+    def kv_names(self) -> tuple:
+        """The KV leaves of a decode cache."""
+        return ("k", "v", "k_scale", "v_scale") if self.cfg.kv_quant else ("k", "v")
+
     def init_cache(self, batch, max_seq):
         """Decode cache with ``len`` [B] int32. Dense: k/v
         [L,B,max_seq,KV,hd]. SSM: ``ssm_state`` leaves stacked over layers,
         ``ssm`` [L,B,H,hd,N] float32 and ``conv_x``/``conv_B``/``conv_C``
-        [L,B,K-1,C] in the model dtype."""
+        [L,B,K-1,C] in the model dtype. Hybrid: ``ssm_state`` over all L
+        layers and k/v over the G attention sites. ``kv_quant``: k/v int8
+        and ``k_scale``/``v_scale`` [n,B,max_seq,KV] bfloat16."""
         cfg, L = self.cfg, self.cfg.num_layers
         cache: dict[str, Any] = {
             "len": torch.zeros((batch,), dtype=torch.int32, device=self.device)
         }
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             st = ssm_mod.init_ssm_state(cfg, batch, self.dtype, self.device)
             cache["ssm_state"] = {k: v.new_zeros((L,) + tuple(v.shape)) for k, v in st.items()}
-        else:
-            shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-            cache["k"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
-            cache["v"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        if cfg.family == "ssm":
+            return cache
+        n = L // cfg.attn_every if cfg.family == "hybrid" else L
+        shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        kv_dtype = torch.int8 if cfg.kv_quant else self.dtype
+        for name in self.kv_names:
+            if name.endswith("_scale"):
+                cache[name] = torch.zeros(shape[:4], dtype=torch.bfloat16, device=self.device)
+            else:
+                cache[name] = torch.zeros(shape, dtype=kv_dtype, device=self.device)
         return cache
 
     def init_paged_cache(self, num_blocks, block_size):
         """Physical block pool: k/v [L, num_blocks, block_size, KV, hd].
-        Attention families only: SSM state has no sequence axis to page."""
+        Attention families only: SSM state has no sequence axis to page.
+        An int8 pool waits for ROADMAP §1 item 10."""
         if self.cfg.family not in ATTN_FAMILIES:
             raise ValueError(
                 f"paged KV cache needs an attention family, got {self.cfg.family!r}"
+            )
+        if self.cfg.kv_quant:
+            raise NotImplementedError(
+                "an int8 (kv_quant) paged pool is not ported yet: its pool writes and "
+                "gather_prefix dequant wait for ROADMAP §1 item 10; use the slot layout"
             )
         pool = self.init_cache(num_blocks, block_size)
         pool.pop("len")
@@ -235,15 +284,15 @@ class Model:
         """Write a batch=1 cache into slot ``slot`` of ``pool``, in place
         (the reference returns an updated copy). Every state leaf of the
         slot is replaced whole, so a reused slot keeps nothing of its last
-        owner; k/v rows may be shorter than the pool's ``max_seq``.
-        Returns ``pool``."""
+        owner; KV rows (and their scales) may be shorter than the pool's
+        ``max_seq``. Returns ``pool``."""
 
         def put(name, leaf, src):
             if name == "len":
                 leaf[slot] = src[0]
                 return
             ok = src.shape[:2] == (leaf.shape[0], 1) and src.shape[3:] == leaf.shape[3:]
-            ok = ok and (src.shape[2] <= leaf.shape[2] if name in ("k", "v")
+            ok = ok and (src.shape[2] <= leaf.shape[2] if name in self.kv_names
                          else src.shape[2] == leaf.shape[2])
             if not ok:
                 raise ValueError(
@@ -256,10 +305,16 @@ class Model:
         return pool
 
     def _fill_cache(self, B, max_seq, kvs, lengths):
+        """A decode cache holding the (k, v) rows of each layer (or site),
+        quantized for ``kv_quant``, with ``len`` = ``lengths``."""
         cache = self.init_cache(B, max_seq)
         for li, (k, v) in enumerate(kvs):
-            cache["k"][li, :, : k.shape[1]] = k
-            cache["v"][li, :, : v.shape[1]] = v
+            vals = {"k": k, "v": v}
+            if self.cfg.kv_quant:
+                (vals["k"], vals["k_scale"]), (vals["v"], vals["v_scale"]) = (
+                    attn.quantize_kv(k), attn.quantize_kv(v))
+            for name, val in vals.items():
+                cache[name][li, :, : val.shape[1]] = val
         cache["len"] = lengths.to(device=self.device, dtype=torch.int32)
         return cache
 
@@ -272,7 +327,8 @@ class Model:
         last real token and ``len`` is the real length (pad keys sit after
         every real query, so causal masking hides them). The SSM family
         takes no ``prompt_len``: its state would integrate the pads; its
-        cache holds each layer's final state."""
+        cache holds each layer's final state, and so does the hybrid's,
+        beside its per-site KV."""
         cfg = self.cfg
         if prompt_len is not None and cfg.family not in PAD_PREFILL_FAMILIES:
             raise ValueError(
@@ -290,13 +346,15 @@ class Model:
         idx = lengths.to(self.device).long() - 1
         x_last = x[torch.arange(B, device=self.device), idx]
         logits = x_last @ self._head(params)
+        if cfg.family == "dense":
+            return logits, self._fill_cache(B, max_seq, caches, lengths)
         if cfg.family == "ssm":
-            cache = {
-                "ssm_state": {k: torch.stack([st[k] for st in caches]) for k in caches[0]},
-                "len": lengths.to(self.device),
-            }
-            return logits, cache
-        return logits, self._fill_cache(B, max_seq, caches, lengths)
+            cache = {"len": lengths.to(self.device)}
+        else:
+            kvs, caches = caches
+            cache = self._fill_cache(B, max_seq, kvs, lengths)
+        cache["ssm_state"] = {k: torch.stack([st[k] for st in caches]) for k in caches[0]}
+        return logits, cache
 
     def prefill_with_prefix(
         self, params, tokens, prefix_k, prefix_v, max_seq, suffix_len=None, *, backend=None
@@ -333,30 +391,40 @@ class Model:
     def decode_step(self, params, cache, tokens, *, backend=None):
         """Slot layout: tokens [B,1] → (logits [B,V], cache with each
         row's token written at its own length and ``len`` + 1; for the SSM
-        family, each layer's state advanced one step). The cache tensors
-        are updated in place."""
+        family and the hybrid, each layer's state advanced one step). The
+        cache tensors are updated in place."""
         backend = kernel_ops.resolve_attention_backend(backend, self.device)
         tokens = self._tokens(tokens)
         x = embed_tokens(params["embed"], tokens)
         cache_len = cache["len"]
-        if self.cfg.family == "ssm":
-            states = cache["ssm_state"]
-            for li, lp in enumerate(self._layer_params(params)):
-                st = {k: v[li] for k, v in states.items()}
-                x, new_st = self._ssm_layer(x, lp, backend, state=st)
-                for k, v in new_st.items():
-                    states[k][li].copy_(v)
-            new_cache = {"ssm_state": states, "len": cache_len + 1}
+        positions = cache_len[:, None].long()
+        family = self.cfg.family
+
+        def ssm_step(x, li, lp):
+            st = {k: v[li] for k, v in cache["ssm_state"].items()}
+            x, new_st = self._ssm_layer(x, lp, backend, state=st)
+            for k, v in new_st.items():
+                st[k].copy_(v)
+            return x
+
+        def attn_step(x, li, lp):
+            kv = (cache["k"], cache["v"], cache.get("k_scale"), cache.get("v_scale"), li)
+            x, _ = self._dense_layer(
+                x, lp, backend, positions=positions, cache=kv, cache_len=cache_len
+            )
+            return x
+
+        if family == "hybrid":
+            for gi, group in enumerate(self._hybrid_groups(params)):
+                for li, lp in group:
+                    x = ssm_step(x, li, lp)
+                x = attn_step(x, gi, params["shared"])
         else:
-            positions = cache_len[:, None].long()
+            step = ssm_step if family == "ssm" else attn_step
             for li, lp in enumerate(self._layer_params(params)):
-                x, _ = self._dense_layer(
-                    x, lp, backend, positions=positions,
-                    cache=(cache["k"], cache["v"], li), cache_len=cache_len,
-                )
-            new_cache = {"k": cache["k"], "v": cache["v"], "len": cache_len + 1}
+                x = step(x, li, lp)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return (x @ self._head(params))[:, 0], new_cache
+        return (x @ self._head(params))[:, 0], {**cache, "len": cache_len + 1}
 
     def decode_step_paged(self, params, pool, block_tables, cache_len, tokens, *, backend=None):
         """Paged layout: one decode token per row over the block pool
