@@ -26,6 +26,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
+# thread blocks that keep the H100's 132 SMs busy, two each: the kernels
+# that split one output's work across blocks (the GEMV's K, the dense
+# decode's keys) aim for this many
+TARGET_BLOCKS = 264
+
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -85,12 +90,17 @@ def library() -> ctypes.CDLL:
         _compile(nvcc, out)
     lib = ctypes.CDLL(str(out))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.paged_decode_attention.argtypes = [i, i] + [p] * 8 + [i] * 7 + [f, p]
-    lib.paged_decode_attention.restype = i
-    lib.flash_attention.argtypes = [i, p, p, p, p] + [i] * 7 + [f, p]
-    lib.flash_attention.restype = i
-    lib.ssd_scan.argtypes = [i] + [p] * 7 + [i] * 6 + [p]
-    lib.ssd_scan.restype = i
+    argtypes = {
+        "paged_decode_attention": [i, i] + [p] * 11 + [i] * 8 + [f, p],
+        "flash_attention": [i, p, p, p, p] + [i] * 8 + [f, p],
+        "ssd_scan": [i] + [p] * 7 + [i] * 6 + [p],
+        "relic_matmul": [i, p, p, p, i, i, i, p],
+        "relic_gemv": [i, p, p, p, p, i, i, i, i, p],
+        "decode_attention": [i] + [p] * 8 + [i] * 6 + [f, p],
+    }
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = types, i
     _lib = lib
     return lib
 

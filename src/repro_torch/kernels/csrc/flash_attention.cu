@@ -1,4 +1,5 @@
-// Causal GQA flash attention with a query offset, for Hopper (sm_90a).
+// GQA flash attention, causal with a query offset or non-causal, for
+// Hopper (sm_90a).
 //
 // Replaces the JAX package's Pallas TPU kernel
 // kernels/flash_attention.py::flash_attention (_flash_kernel), and extends
@@ -7,9 +8,10 @@
 // and ragged Sq / Skv (no multiple-of-tile requirement).
 //
 // What it computes: q [B,Sq,H,hd]; k, v [B,Skv,KV,hd] -> [B,Sq,H,hd].
-// Query i sits at position q_offset + i and attends keys j <= that
-// position; query head h reads kv head h / g (g = H / KV), and K/V are
-// never repeated in memory.
+// Causal: query i sits at position q_offset + i and attends keys j <= that
+// position. Non-causal (the Pallas kernel's causal=False): every query
+// attends all Skv keys. Query head h reads kv head h / g (g = H / KV), and
+// K/V are never repeated in memory.
 //
 // What bounds it on the H100: at prefill lengths of a few hundred tokens
 // and more, operations (about 4 * hd flops per (query, key) pair against
@@ -22,8 +24,10 @@
 // the g query heads of the kv group ride together as BQ * g rows, so one
 // K/V tile in shared memory serves all of them. The Pallas grid's
 // sequential kv axis becomes a loop over BK-key tiles that stops at the
-// block's causal limit (tiles above the diagonal are never read); the
-// ragged last query block and key tile are masked. Softmax and the
+// block's causal limit (tiles above the diagonal are never read), or at
+// Skv when non-causal (a template parameter: with a runtime flag the
+// causal kernel ran ~40% slower at smollm's prefill shapes); the ragged
+// last query block and key tile are masked. Softmax and the
 // accumulator are float32 (attention_tile.cuh).
 #include "attention_tile.cuh"
 
@@ -32,7 +36,7 @@ using namespace repro_attn;
 constexpr int BQ = 16;  // query positions per block
 constexpr int BK = 32;  // keys per tile
 
-template <typename T>
+template <typename T, bool kCausal>
 __global__ void __launch_bounds__(THREADS)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
@@ -52,12 +56,12 @@ __global__ void __launch_bounds__(THREADS)
   }
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
     const int qi = q0 + r / g;
-    sm.lim[r] = qi < Sq ? q_offset + qi + 1 : 0;
+    sm.lim[r] = qi >= Sq ? 0 : kCausal ? q_offset + qi + 1 : Skv;
   }
   init_rows(sm, R, hd);
   __syncthreads();
 
-  const int kv_end = min(Skv, q_offset + min(q0 + BQ, Sq));
+  const int kv_end = kCausal ? min(Skv, q_offset + min(q0 + BQ, Sq)) : Skv;
   for (int j0 = 0; j0 < kv_end; j0 += BK) {
     const int n = min(BK, Skv - j0);
     for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
@@ -80,22 +84,24 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. causal: 1 = causal from q_offset,
+// 0 = every query attends every key (q_offset unused). Returns a
+// cudaError_t (0 = launched).
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,
                                void* out, int B, int Sq, int Skv, int H, int KV,
-                               int hd, int q_offset, float scale, void* stream) {
+                               int hd, int q_offset, int causal, float scale,
+                               void* stream) {
   const size_t smem = smem_bytes(BQ * (H / KV), BK, hd);
   const dim3 grid((Sq + BQ - 1) / BQ, B * KV);
+#define REPRO_FLASH_LAUNCH(T, C)                                                              \
+  launch(flash_kernel<T, C>, grid, smem, stream, static_cast<const T*>(q),                   \
+         static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, \
+         H, KV, hd, q_offset, scale)
   if (dtype == 0)
-    return launch(flash_kernel<float>, grid, smem, stream, static_cast<const float*>(q),
-                  static_cast<const float*>(k), static_cast<const float*>(v),
-                  static_cast<float*>(out), Sq, Skv, H, KV, hd, q_offset, scale);
+    return causal ? REPRO_FLASH_LAUNCH(float, true) : REPRO_FLASH_LAUNCH(float, false);
   if (dtype == 1)
-    return launch(flash_kernel<__nv_bfloat16>, grid, smem, stream,
-                  static_cast<const __nv_bfloat16*>(q),
-                  static_cast<const __nv_bfloat16*>(k),
-                  static_cast<const __nv_bfloat16*>(v),
-                  static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KV, hd, q_offset,
-                  scale);
+    return causal ? REPRO_FLASH_LAUNCH(__nv_bfloat16, true)
+                  : REPRO_FLASH_LAUNCH(__nv_bfloat16, false);
+#undef REPRO_FLASH_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -3,15 +3,22 @@
 // Replaces the JAX package's Pallas TPU kernel
 // kernels/paged_decode_attention.py::paged_decode_attention (_paged_kernel),
 // for T >= 1 queries over float32 or bfloat16 pools, and its int8 mode:
-// int8 pools with per-vector bfloat16 scales, dequantized in the kernel.
-// The partials (sequence-split) mode is not ported yet (ROADMAP §2).
+// int8 pools with per-vector bfloat16 scales, dequantized in the kernel,
+// and its partials mode for the kv-sequence split: an `owned` [B,MB] mask
+// whose zero entries are skipped like blocks past the window, and the
+// unnormalised float32 triple (m, l, acc) as the result.
 //
 // What it computes: q [B,T,H,hd]; pools [NB,BS,KV,hd]; tables [B,MB] int32
 // block ids; lengths [B] int32 committed lengths. Query t of row b attends
 // key positions < lengths[b] + t + 1, gathered block by block through the
 // row's table; the result is [B,T,H,hd] in q's type. In the int8 mode the
 // scales are [NB,BS,KV] and each key or value element is used as
-// float(int8) * (float(scale) / 127), the Pallas kernel's dequant.
+// float(int8) * (float(scale) / 127), the Pallas kernel's dequant. In the
+// partials mode the result is m, l [B,T,H] and acc [B,T,H,hd], all
+// float32 whatever q's type: the running max over the attended keys of
+// owned blocks, the sum of exp(score - m) and the sum of exp(score - m) v;
+// a query row with no such key gives exactly (-1e30, 0, 0), which the
+// cross-rank combine scales to 0.
 //
 // What bounds it on the H100: memory. Each KV byte is read once and used
 // for T*g query rows (g = H / KV: 3 for smollm-135m, 1 for zamba2-2.7b),
@@ -54,7 +61,9 @@ __global__ void __launch_bounds__(THREADS)
                         const __nv_bfloat16* __restrict__ k_scale,
                         const __nv_bfloat16* __restrict__ v_scale,
                         const int* __restrict__ tables, const int* __restrict__ lengths,
-                        TQ* __restrict__ out, int nq, int H, int KV, int hd, int BS,
+                        const int* __restrict__ owned, TQ* __restrict__ out,
+                        float* __restrict__ p_m, float* __restrict__ p_l,
+                        float* __restrict__ p_acc, int nq, int H, int KV, int hd, int BS,
                         int MB, float scale) {
   constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
   const int b = blockIdx.x, kv = blockIdx.y;
@@ -76,6 +85,9 @@ __global__ void __launch_bounds__(THREADS)
   const int n_live = min(MB, (len + nq + BS - 1) / BS);
   const int* tb = tables + (size_t)b * MB;
   for (int mb = 0; mb < n_live; ++mb) {
+    // a block another rank owns is skipped like one past the window (the
+    // same branch for every thread of the block)
+    if (owned != nullptr && owned[(size_t)b * MB + mb] == 0) continue;
     const size_t blk = (size_t)tb[mb];
     // (key s, kv head) vector of this block: (blk * BS + s) * KV + kv
     if constexpr (kInt8) {
@@ -112,8 +124,18 @@ __global__ void __launch_bounds__(THREADS)
   for (int idx = threadIdx.x; idx < R * hd; idx += blockDim.x) {
     const int r = idx / hd, c = idx - r * hd;
     const int t = r / g, j = r - t * g;
-    out[(((size_t)b * nq + t) * H + kv * g + j) * hd + c] =
-        from_f<TQ>(sm.acc[idx] / fmaxf(sm.l[r], 1e-30f));
+    const size_t o = (((size_t)b * nq + t) * H + kv * g + j) * hd + c;
+    if (p_acc != nullptr)
+      p_acc[o] = sm.acc[idx];
+    else
+      out[o] = from_f<TQ>(sm.acc[idx] / fmaxf(sm.l[r], 1e-30f));
+  }
+  if (p_acc == nullptr) return;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    const int t = r / g, j = r - t * g;
+    const size_t o = ((size_t)b * nq + t) * H + kv * g + j;
+    p_m[o] = sm.m[r];
+    p_l[o] = sm.l[r];
   }
 }
 
@@ -121,31 +143,38 @@ template <typename TQ, typename TKV>
 static int launch_typed(dim3 grid, size_t smem, void* stream, const void* q,
                         const void* k_pool, const void* v_pool, const void* k_scale,
                         const void* v_scale, const int* tables, const int* lengths,
-                        void* out, int T, int H, int KV, int hd, int BS, int MB,
-                        float scale) {
+                        const int* owned, void* out, float* p_m, float* p_l, int T, int H,
+                        int KV, int hd, int BS, int MB, int partials, float scale) {
   return launch(paged_decode_kernel<TQ, TKV>, grid, smem, stream,
                 static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
                 static_cast<const TKV*>(v_pool),
                 static_cast<const __nv_bfloat16*>(k_scale),
-                static_cast<const __nv_bfloat16*>(v_scale), tables, lengths,
-                static_cast<TQ*>(out), T, H, KV, hd, BS, MB, scale);
+                static_cast<const __nv_bfloat16*>(v_scale), tables, lengths, owned,
+                partials ? nullptr : static_cast<TQ*>(out), partials ? p_m : nullptr,
+                partials ? p_l : nullptr, partials ? static_cast<float*>(out) : nullptr, T,
+                H, KV, hd, BS, MB, scale);
 }
 
 // q_dtype: 0 = float32, 1 = bfloat16 (q and out). kv_dtype: 0 = float32,
 // 1 = bfloat16 (the same type as q), 2 = int8 with bfloat16 scales
 // [NB,BS,KV] (null otherwise), hd a multiple of 16 and 16-byte aligned
-// pools. Returns a cudaError_t (0 = launched).
+// pools. owned: [B,MB] int32, 0 = skip the block, or null (every block).
+// partials = 0: out [B,T,H,hd] in q's type, p_m / p_l unused; partials = 1:
+// out is acc [B,T,H,hd] float32 and p_m, p_l [B,T,H] float32 take m and l.
+// Returns a cudaError_t (0 = launched).
 extern "C" int paged_decode_attention(int q_dtype, int kv_dtype, const void* q,
                                       const void* k_pool, const void* v_pool,
                                       const void* k_scale, const void* v_scale,
-                                      const int* tables, const int* lengths, void* out,
-                                      int B, int T, int H, int KV, int hd, int BS,
-                                      int MB, float scale, void* stream) {
+                                      const int* tables, const int* lengths,
+                                      const int* owned, void* out, float* p_m, float* p_l,
+                                      int B, int T, int H, int KV, int hd, int BS, int MB,
+                                      int partials, float scale, void* stream) {
+  if (partials && (p_m == nullptr || p_l == nullptr)) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(T * (H / KV), BS, hd);
   const dim3 grid(B, KV);
 #define REPRO_PAGED_ARGS \
-  grid, smem, stream, q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, T, H, \
-      KV, hd, BS, MB, scale
+  grid, smem, stream, q, k_pool, v_pool, k_scale, v_scale, tables, lengths, owned, out, p_m, \
+      p_l, T, H, KV, hd, BS, MB, partials, scale
   if (q_dtype == 0 && kv_dtype == 0) return launch_typed<float, float>(REPRO_PAGED_ARGS);
   if (q_dtype == 1 && kv_dtype == 1)
     return launch_typed<__nv_bfloat16, __nv_bfloat16>(REPRO_PAGED_ARGS);

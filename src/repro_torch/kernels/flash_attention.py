@@ -1,15 +1,17 @@
-"""Causal GQA flash attention with a query offset (kernel 2 of the port).
+"""GQA flash attention, causal with a query offset or non-causal (kernel 2
+of the port).
 
 Replaces the JAX package's Pallas TPU kernel
-``kernels/flash_attention.py::flash_attention`` and extends it with
-``q_offset`` and ragged Sq/Skv, which the serving prefill needs; the CUDA
-source is ``csrc/flash_attention.cu`` (its header says what bounds it on
-the H100 and what the design does about it).
+``kernels/flash_attention.py::flash_attention`` in both its modes and
+extends the causal one with ``q_offset`` and ragged Sq/Skv, which the
+serving prefill needs; the CUDA source is ``csrc/flash_attention.cu`` (its
+header says what bounds it on the H100 and what the design does about it).
 
 ``flash_attention`` dispatches on the tensors' device: CPU tensors take
 the plain PyTorch version (``plain_flash_attention``, the full-softmax
 oracle), CUDA tensors the kernel — or it raises. Its ``launches``
-attribute counts kernel launches.
+attribute counts causal kernel launches, ``launches_noncausal`` the
+others.
 """
 from __future__ import annotations
 
@@ -23,17 +25,18 @@ from repro_torch.kernels.ref import attention_ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def plain_flash_attention(q, k, v, q_offset: int = 0):
-    """The kernel's function in plain PyTorch: causal, query i at
-    position ``q_offset + i``."""
-    return attention_ref(q, k, v, causal=True, q_offset=q_offset)
+def plain_flash_attention(q, k, v, q_offset: int = 0, causal: bool = True):
+    """The kernel's function in plain PyTorch: causal with query i at
+    position ``q_offset + i``, or non-causal."""
+    return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
 
 
-def flash_attention(q, k, v, q_offset: int = 0):
+def flash_attention(q, k, v, q_offset: int = 0, causal: bool = True):
     """q [B,Sq,H,hd]; k, v [B,Skv,KV,hd] (H a multiple of KV) → [B,Sq,H,hd].
-    Query i attends keys j ≤ ``q_offset + i``."""
+    Causal: query i attends keys j ≤ ``q_offset + i``; non-causal: every
+    query attends every key (``q_offset`` unused)."""
     if q.device.type == "cpu":
-        return plain_flash_attention(q, k, v, q_offset)
+        return plain_flash_attention(q, k, v, q_offset, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     B, Sq, H, hd = q.shape
@@ -59,12 +62,16 @@ def flash_attention(q, k, v, q_offset: int = 0):
         return out
     err = _build.library().flash_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Skv, H, KV, hd, int(q_offset), 1.0 / math.sqrt(hd),
+        B, Sq, Skv, H, KV, hd, int(q_offset), int(causal), 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    if causal:
+        flash_attention.launches += 1
+    else:
+        flash_attention.launches_noncausal += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_noncausal = 0

@@ -1,17 +1,28 @@
-"""Kernel-backend registry (attention and the SSD scan).
+"""The kernel library's entry points and the backend registry.
 
-Port of the backend half of the JAX package's ``kernels/ops.py``.
-``ATTENTION_BACKENDS`` are ``"reference"`` (the plain PyTorch oracles)
-and ``"kernel"`` (the hand-written CUDA kernels). A backend name comes
-from the call, else ``set_attention_backend``, else the
-``REPRO_ATTENTION_BACKEND`` environment variable (read once), else
-``"auto"``; ``"auto"`` means ``"kernel"`` for CUDA tensors and
-``"reference"`` for CPU tensors. Bad names fail loudly with the valid
-choices. ``models/attention.py`` and ``models/ssm.py`` call the kernel
-wrappers themselves and raise for ``"kernel"`` with CPU tensors
-(``require_cuda``): a kernel path never degrades to a plain version
-silently. (The Pallas ``interpret`` mode and the TPU VMEM check have no
-Hopper meaning and are not ported.)
+Port of the JAX package's ``kernels/ops.py``: ``matmul``, ``gemv``,
+``flash_attention``, ``decode_attention`` and ``ssd`` (the generic kernel
+wrappers, with the JAX signatures and defaults), ``paged_attention`` and
+``paged_attention_partials`` (the serving-attention surface).
+
+Two registries pick plain PyTorch or a hand-written CUDA kernel:
+
+- ``KERNEL_MODES`` are ``"ref"`` (the plain oracles of ``kernels/ref.py``)
+  and ``"kernel"``, for the generic wrappers. A ``mode`` comes from the
+  call, else the ``REPRO_KERNEL_MODE`` environment variable (read once),
+  else ``"auto"``.
+- ``ATTENTION_BACKENDS`` are ``"reference"`` and ``"kernel"``, for the
+  serving attention. A backend name comes from the call, else
+  ``set_attention_backend``, else ``REPRO_ATTENTION_BACKEND`` (read once),
+  else ``"auto"``.
+
+``"auto"`` means the kernel for CUDA tensors and the plain version for CPU
+tensors. Bad names fail loudly with the valid choices. The kernel choice
+on CPU tensors raises (``require_cuda``): a kernel path never degrades to
+a plain version silently. The Pallas ``interpret`` mode and the TPU VMEM
+check (``check_vmem``) have no Hopper meaning and are not ported; the
+block-shape arguments keep the JAX functions' divisibility contracts
+where their kernels have one (``matmul``, ``gemv``, ``decode_attention``).
 """
 from __future__ import annotations
 
@@ -21,11 +32,56 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
+from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
+from repro_torch.kernels.paged_decode_attention import paged_decode_attention as _paged_kernel
+from repro_torch.kernels.relic_matmul import relic_gemv, relic_matmul
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
+
+KERNEL_MODES = ("ref", "kernel")
 ATTENTION_BACKENDS = ("reference", "kernel")
 
 log = logging.getLogger("repro_torch.kernels")
 
+_KERNEL_MODE: Optional[str] = None  # the REPRO_KERNEL_MODE choice
 _ATTN_BACKEND: Optional[str] = None  # the set_attention_backend / env choice
+
+
+def _on_cuda(device) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def _validate_mode(name: str, source: str) -> str:
+    if name not in KERNEL_MODES + ("auto",):
+        raise ValueError(
+            f"{source}={name!r} is not a valid kernel mode; choose one of "
+            f"{('auto',) + KERNEL_MODES} (Pallas interpret mode has no Hopper counterpart)"
+        )
+    return name
+
+
+def default_kernel_mode(device: Optional[torch.device] = None) -> str:
+    """The ``mode="auto"`` resolution of the generic wrappers:
+    ``REPRO_KERNEL_MODE`` (read and logged once; bad values fail loudly),
+    else ``"auto"``, which means ``"kernel"`` on a CUDA ``device`` and
+    ``"ref"`` otherwise."""
+    global _KERNEL_MODE
+    if _KERNEL_MODE is None:
+        raw = os.environ.get("REPRO_KERNEL_MODE", "auto")
+        _KERNEL_MODE = _validate_mode(raw, "REPRO_KERNEL_MODE")
+        log.info("kernel mode resolved once: %s", _KERNEL_MODE)
+    if _KERNEL_MODE == "auto":
+        return "kernel" if _on_cuda(device) else "ref"
+    return _KERNEL_MODE
+
+
+def _mode(mode: str, t: torch.Tensor, what: str) -> str:
+    """A generic wrapper's mode for input ``t``; the kernel needs CUDA."""
+    mode = default_kernel_mode(t.device) if mode == "auto" else _validate_mode(mode, "mode")
+    if mode == "kernel":
+        require_cuda(t, what)
+    return mode
 
 
 def _validate_backend(name: str, source: str) -> str:
@@ -60,16 +116,112 @@ def resolve_attention_backend(
             log.info("attention backend resolved once: %s", _ATTN_BACKEND)
         name = _ATTN_BACKEND
     if name == "auto":
-        on_cuda = device is not None and torch.device(device).type == "cuda"
-        return "kernel" if on_cuda else "reference"
+        return "kernel" if _on_cuda(device) else "reference"
     return name
 
 
 def require_cuda(t: torch.Tensor, what: str) -> None:
     """The kernel wrappers run their plain versions on CPU tensors; an
-    explicit ``"kernel"`` backend must not, so it raises here."""
+    explicit ``"kernel"`` mode or backend must not, so it raises here."""
     if t.device.type != "cuda":
         raise ValueError(
-            f"{what}: backend 'kernel' needs CUDA tensors, got {t.device} "
-            "(use backend='reference' on the CPU)"
+            f"{what}: 'kernel' needs CUDA tensors, got {t.device} "
+            "(use the reference on the CPU)"
         )
+
+
+# ---------------------------------------------------------------------------
+# generic kernel wrappers
+
+
+def matmul(x, w, *, bm=256, bk=512, bn=256, mode="auto"):
+    """x [M,K] @ w [K,N] → [M,N] in x's type, float32 accumulation; the
+    kernel takes M, K, N multiples of min(bm, M), min(bk, K), min(bn, N)."""
+    if _mode(mode, x, "matmul") == "ref":
+        return ref.matmul_ref(x, w)
+    return relic_matmul(x, w, bm=bm, bk=bk, bn=bn)
+
+
+def gemv(x, w, *, bk=1024, bn=512, mode="auto"):
+    """x [B,K] @ w [K,N] for a few decode rows, as ``matmul``; the kernel
+    takes K, N multiples of min(bk, K), min(bn, N)."""
+    if _mode(mode, x, "gemv") == "ref":
+        return ref.matmul_ref(x, w)
+    return relic_gemv(x, w, bk=bk, bn=bn)
+
+
+def flash_attention(q, k, v, *, causal=True, bq=256, bk=512, mode="auto"):
+    """q [B,Sq,H,hd]; k, v [B,Skv,KV,hd] → [B,Sq,H,hd]. Causal queries are
+    the last Sq of the Skv positions (``ref.attention_ref``'s offset). The
+    CUDA kernel tiles Sq and Skv itself and takes ragged shapes, so ``bq``
+    and ``bk`` (the Pallas kernel's blocks) set nothing here."""
+    if _mode(mode, q, "flash_attention") == "ref":
+        return ref.attention_ref(q, k, v, causal=causal)
+    return _flash_kernel(q, k, v, k.shape[1] - q.shape[1] if causal else 0, causal)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, bk=512, mode="auto"):
+    """q [B,H,hd]; caches [B,Smax,KV,hd]; ``cache_len`` [B] → [B,H,hd]; a
+    row with ``cache_len`` 0 gives zeros. The kernel takes Smax a multiple
+    of min(bk, Smax)."""
+    if _mode(mode, q, "decode_attention") == "ref":
+        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len)
+    return _decode_kernel(q, k_cache, v_cache, cache_len.to(torch.int32), bk=bk)
+
+
+def ssd(xh, a, b, c, dt, *, chunk=128, mode="auto"):
+    """The SSD scan's y [B,S,H,hd] (``ref.ssd_ref``'s recurrence); the
+    kernel's final state is dropped, as the JAX entry point has none."""
+    if _mode(mode, xh, "ssd") == "ref":
+        return ref.ssd_ref(xh, a, b, c, dt)
+    return _ssd_kernel(xh, a, b, c, dt, chunk)[0]
+
+
+# ---------------------------------------------------------------------------
+# serving attention
+
+
+def _attention_backend(mode, q, what):
+    backend = resolve_attention_backend("reference" if mode == "ref" else mode, q.device)
+    if backend == "kernel":
+        require_cuda(q, what)
+    return backend
+
+
+def paged_attention(
+    q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None, *, mode="auto"
+):
+    """Block-paged decode/verify attention straight off the pool: q
+    [B,T,H,hd]; pools [NB,BS,KV,hd] (int8 with ``k_scale``/``v_scale``
+    [NB,BS,KV]); ``block_tables`` [B,MB]; ``lengths`` [B] committed lengths
+    (query t attends positions < lengths + t + 1). ``mode`` resolves
+    through the attention registry (``"ref"`` is spelled ``"reference"``
+    there)."""
+    if _attention_backend(mode, q, "paged_attention") == "reference":
+        return ref.paged_attention_ref(
+            q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale
+        )
+    return _paged_kernel(
+        q, k_pool, v_pool, block_tables.to(torch.int32), lengths.to(torch.int32),
+        k_scale, v_scale,
+    )
+
+
+def paged_attention_partials(
+    q, k_pool, v_pool, block_tables, lengths, owned, k_scale=None, v_scale=None, *,
+    mode="auto",
+):
+    """The kernel's partials mode for the kv-sequence split: the inputs of
+    ``paged_attention`` on this rank's pool shard plus ``owned`` [B,MB]
+    (nonzero: this rank holds the block) → float32 ``(m, l, acc)``,
+    unnormalised, for a cross-rank softmax combine. Kernel backend only:
+    the reference partials are ``models/attention.py::paged_flash_partials``."""
+    if _attention_backend(mode, q, "paged_attention_partials") == "reference":
+        raise ValueError(
+            "paged_attention_partials is the kernel-backend surface; the "
+            "reference partials are models/attention.paged_flash_partials"
+        )
+    return _paged_kernel(
+        q, k_pool, v_pool, block_tables.to(torch.int32), lengths.to(torch.int32),
+        k_scale, v_scale, owned=owned.to(torch.int32), partials=True,
+    )

@@ -4,16 +4,19 @@ Replaces the JAX package's Pallas TPU kernel
 ``kernels/paged_decode_attention.py::paged_decode_attention`` for T ≥ 1
 queries over float32 or bfloat16 pools, and its int8 mode: int8 pools
 with per-vector bfloat16 scales ``[NB,BS,KV]``, dequantized in the kernel
-as ``int8 · scale / 127``. The CUDA source is
-``csrc/paged_decode_attention.cu`` (its header says what bounds it on the
-H100 and what the design does about it). The partials mode waits for
-ROADMAP §2 item 1.
+as ``int8 · scale / 127``, and its partials mode for the kv-sequence
+split: ``owned`` [B,MB] marks the table entries whose blocks this rank
+holds (the others are skipped), and ``partials=True`` returns the
+unnormalised float32 triple ``(m, l, acc)`` for a cross-rank softmax
+combine. The CUDA source is ``csrc/paged_decode_attention.cu`` (its header
+says what bounds it on the H100 and what the design does about it).
 
 ``paged_decode_attention`` checks its arguments, then dispatches on the
 tensors' device: CPU tensors take the plain PyTorch version
-(``plain_paged_decode_attention``, the dense-gather oracle), CUDA tensors
+(``plain_paged_decode_attention``, the dense-gather oracles), CUDA tensors
 the kernel — or it raises. Its ``launches`` attribute counts kernel
-launches over float pools, ``launches_int8`` those over int8 pools.
+launches over float pools, ``launches_int8`` those over int8 pools and
+``launches_partials`` those in the partials mode (over either pool).
 """
 from __future__ import annotations
 
@@ -22,13 +25,30 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import paged_attention_ref as plain_paged_decode_attention
+from repro_torch.kernels.ref import paged_attention_ref, paged_partials_ref
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8 = 2  # the C entry point's code for int8 pools
 
 
-def _check(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale):
+def plain_paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale=None,
+                                 v_scale=None, owned=None, partials=False):
+    """The kernel's function in plain PyTorch: the dense-gather oracle, or
+    with ``owned`` / ``partials`` the partials oracle (normalised as the
+    kernel normalises when ``partials`` is False)."""
+    if owned is None and not partials:
+        return paged_attention_ref(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)
+    if owned is None:
+        owned = torch.ones(block_tables.shape, dtype=torch.int32, device=q.device)
+    m, l, acc = paged_partials_ref(
+        q, k_pool, v_pool, block_tables, lengths, owned, k_scale, v_scale
+    )
+    if partials:
+        return m, l, acc
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def _check(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale, owned):
     """Raise on anything the kernel does not take; returns the C code of
     the pool type."""
     B, T, H, hd = q.shape
@@ -66,6 +86,13 @@ def _check(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale):
         )
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("paged_decode_attention: block_tables and lengths must be int32")
+    if owned is not None:
+        if owned.dtype != torch.int32 or owned.shape != block_tables.shape:
+            raise ValueError(
+                f"paged_decode_attention: owned must be int32 of the tables' shape "
+                f"{tuple(block_tables.shape)}, got {owned.dtype} {tuple(owned.shape)}"
+            )
+        tensors.append(("owned", owned))
     if (v_pool.shape != k_pool.shape or hd_k != hd or H % KV
             or block_tables.shape != (B, MB) or lengths.shape != (B,)):
         raise ValueError(
@@ -94,35 +121,49 @@ def _check_int8_staging(k_pool, v_pool):
         )
 
 
-def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None):
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None,
+                           *, owned=None, partials: bool = False):
     """q [B,T,H,hd] float32/bfloat16; pools [NB,BS,KV,hd] in q's type, or
     int8 with ``k_scale``/``v_scale`` [NB,BS,KV] bfloat16; ``block_tables``
     [B,MB] int32 block ids (< NB); ``lengths`` [B] int32 committed lengths
     (query t attends positions < lengths + t + 1) → [B,T,H,hd] in q's
-    dtype."""
-    kv_code = _check(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)
+    dtype. ``owned`` [B,MB] int32: table entries whose value is 0 are
+    skipped. ``partials=True`` returns ``(m, l, acc)`` instead: float32
+    [B,T,H], [B,T,H] and [B,T,H,hd], unnormalised, exactly
+    (-1e30, 0, 0) for a query that attends no key."""
+    kv_code = _check(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale, owned)
     if q.device.type == "cpu":
         return plain_paged_decode_attention(
-            q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale
+            q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale, owned, partials
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for device {q.device}")
     B, T, H, hd = q.shape
     NB, BS, KV, _ = k_pool.shape
-    out = torch.empty_like(q)
+    if partials:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        m, l = torch.empty((B, T, H), **f32), torch.empty((B, T, H), **f32)
+        out = torch.empty((B, T, H, hd), **f32)
+    else:
+        out = torch.empty_like(q)
     if B == 0 or T == 0:
-        return out
+        return (m, l, out) if partials else out
     int8 = kv_code == _INT8
     if int8:
         _check_int8_staging(k_pool, v_pool)
     err = _build.library().paged_decode_attention(
         _Q_DTYPES[q.dtype], kv_code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, T, H, KV, hd, BS, block_tables.shape[1], 1.0 / math.sqrt(hd),
+        block_tables.data_ptr(), lengths.data_ptr(),
+        None if owned is None else owned.data_ptr(), out.data_ptr(),
+        m.data_ptr() if partials else None, l.data_ptr() if partials else None,
+        B, T, H, KV, hd, BS, block_tables.shape[1], int(partials), 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "paged_decode_attention")
+    if partials:
+        paged_decode_attention.launches_partials += 1
+        return m, l, out
     if int8:
         paged_decode_attention.launches_int8 += 1
     else:
@@ -132,3 +173,4 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale=Non
 
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_int8 = 0
+paged_decode_attention.launches_partials = 0

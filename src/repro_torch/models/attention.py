@@ -24,6 +24,7 @@ import torch
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import paged_decode_attention as _paged
+from repro_torch.kernels.ref import paged_partials_ref
 from repro_torch.models.layers import apply_rope, rope_tables
 
 NEG = -1e30
@@ -210,6 +211,28 @@ def paged_attention(q, k_pool, v_pool, block_tables, cache_len, *, backend=None)
     kd = gather_block_rows(k_pool[None], block_tables)[0]  # [B, MB·BS, KV, hd]
     vd = gather_block_rows(v_pool[None], block_tables)[0]
     return decode_attention(q, kd, vd, cache_len + 1)
+
+
+def paged_flash_partials(
+    q, k_pool, v_pool, block_tables, cache_len, owned, *, k_scale=None, v_scale=None,
+    backend=None,
+):
+    """Per-rank flash partials for kv-sequence-split serving: the inputs of
+    ``paged_attention`` on this rank's pool shard (tables localised, unowned
+    entries pointing at a scratch block) plus ``owned`` [B,MB] marking the
+    entries this rank holds → float32 ``m``, ``l`` [B,T,H] and ``acc``
+    [B,T,H,hd] over owned positions only, unnormalised; a query with none
+    reports (-1e30, 0, 0), which the cross-rank combine scales to 0. The
+    kernel backend runs the paged kernel's partials mode, the reference the
+    dense-gather partials oracle. (The sequence split that calls it is not
+    ported yet.)"""
+    if kernel_ops.resolve_attention_backend(backend, q.device) == "kernel":
+        return kernel_ops.paged_attention_partials(
+            q, k_pool, v_pool, block_tables, cache_len, owned, k_scale, v_scale, mode="kernel"
+        )
+    return paged_partials_ref(
+        q, k_pool, v_pool, block_tables, cache_len, owned, k_scale, v_scale
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
         "import repro_torch.serve.engine, repro_torch.models.model, repro_torch.kernels.ops\n"
         "import repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.kernels.relic_matmul, repro_torch.kernels.decode_attention\n"
         "import repro_torch.serve, repro_torch.configs, repro_torch.configs.zamba2_2p7b\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items() if v is not None]\n"

@@ -156,6 +156,7 @@ def test_kernel_modules_import_without_nvcc_or_cuda():
         "import torch; assert not torch.cuda.is_available()  # CUDA hidden\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.paged_decode_attention as p, repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.kernels.relic_matmul, repro_torch.kernels.decode_attention\n"
         "from repro_torch.kernels import _build; assert _build._lib is None\n"
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -180,4 +181,4 @@ def test_build_key_follows_the_sources(monkeypatch):
     assert _build._digest() != key  # a flag change rebuilds, as a source change does
     names = {p.name for p in _build._sources()}
     assert {"paged_decode_attention.cu", "flash_attention.cu", "ssd_scan.cu",
-            "attention_tile.cuh"} <= names
+            "relic_matmul.cu", "decode_attention.cu", "attention_tile.cuh"} <= names
