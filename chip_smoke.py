@@ -18,9 +18,13 @@ Phases, in order; any failure exits non-zero before the final line:
    plain version chunks by 125, a prime it chunks by 1) and S = 256 (B=4);
    the paged kernel's int8 mode (int8 pools, bf16 scales) at zamba2-2.7b's
    slot shape (H=KV=32, hd=80, 256-key identity-table blocks) and on a
-   paged pool at g = 1 and g = 3; the flash and SSD kernels at zamba2's
-   prefill shapes (hd=80, g=1; H=80, hd=64, N=64); median kernel, plain
-   and library times beside the least time the card could take;
+   paged pool at g = 1 and g = 3; the flash kernel at smollm's serving
+   prefill (B=1, S=1024, H=9); the flash and SSD kernels at zamba2's
+   prefill shapes (hd=80, g=1; H=80, hd=64, N=64); kernel, plain and
+   library times (device time a call over back-to-back calls) beside the
+   least time the card could take, and the path each flash call took
+   (bf16 hd 64/80: wgmma, timed beside the CUDA-core kernel too; else
+   CUDA cores);
 4. entry points — every entry point of ``repro_torch.kernels.ops`` called
    once with mode "auto" on bf16 CUDA tensors at full-width shapes, from
    launch counts of 0: each must launch its own kernel once and agree with
@@ -33,7 +37,8 @@ Phases, in order; any failure exits non-zero before the final line:
    0, 1, 2047, 2048 and random, the paged kernel's partials mode (smollm's
    pool at T = 1 and 4, zamba2's int8 slot view; an unowned row exactly
    (-1e30, 0, 0); complementary ownerships combine to the unsplit
-   kernel), the flash kernel's non-causal mode at B=2, S=512; with times;
+   kernel), the flash kernel's non-causal mode at B=2, S=512; with times,
+   each matmul's path, and the bf16 matmul at both tile widths;
 5. serving — smollm-135m at full width (bf16, seeded random weights) served
    through ``ServingEngine.serve()``: an open-loop workload and a
    shared-prefix workload on the paged layout, a small one on the slot
@@ -84,6 +89,7 @@ SSD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 0.0)}
 # (2^-7) of the row's largest output, since the rows over 1-2k random keys
 # average to outputs of ~0.03, too small for TOL's absolute 2e-2.
 INT8_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (1e-2 + 2**-7, 0.0)}
+SPIN_CYCLES = 50_000_000  # ~30 ms at the H100's clock: covers enqueueing a timed run
 LOGIT_TIE_TOL = 1e-3  # top-2 margin under which a float32 argmax flip is a tie
 # relic_matmul / relic_gemv: max |kernel - plain| <= rel * max |plain|.
 # float32: the same float32 products summed in another order (~1e-6 of
@@ -131,20 +137,22 @@ def gpu_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warm: int = 3) -> float:
-    """Median device time of one call, from CUDA events around each call."""
+    """Device time of one call: CUDA events around ``iters`` calls launched
+    back to back, over ``iters``. A spin kernel queued first keeps the card
+    busy while the host enqueues them, so the host's launch gaps (tens of
+    microseconds a call from Python) do not enter a kernel's time."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
     for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def bound(nbytes, flops, dtype):
@@ -263,6 +271,25 @@ def sdpa_ms(q, k, v, off, causal=True):
     return cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
 
 
+def cuda_core_flash(q, k, v, off, causal, path):
+    """Where a call took the wgmma path: the same call on the CUDA-core
+    kernel (the bf16 flash kernel before the wgmma one, still built for
+    other head sizes), held to the same tolerance and timed alike, as a
+    log suffix."""
+    from repro_torch.kernels import flash_attention as fa
+
+    if path != "wgmma":
+        return ""
+    B, Sq, H, hd = q.shape
+    plan = fa.flash_plan(q.dtype, B, Sq, H, k.shape[2], hd, path="cuda_cores")
+    got = fa.launch_flash(q, k, v, off, causal, plan)
+    torch.cuda.synchronize()
+    ref = fa.plain_flash_attention(q, k, v, off, causal)
+    err = (got.float() - ref.float()).abs().max().item()
+    require(err <= TOL[q.dtype], f"the CUDA-core flash kernel disagrees with its plain version: {err}")
+    return f" cuda_cores_ms={cuda_ms(lambda: fa.launch_flash(q, k, v, off, causal, plan)):.4f}"
+
+
 def check_kernels():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
@@ -302,6 +329,7 @@ def check_kernels():
 
         flash_shapes = [(2, Sq, Skv, off, 9, 3, 64) for Sq, Skv, off in (
             (1, 1, 0), (37, 37, 0), (512, 512, 0), (2048, 2048, 0), (64, 576, 512))]
+        flash_shapes.append((1, 1024, 1024, 0, 9, 3, 64))  # smollm-135m's serving prefill
         flash_shapes.append((1, 1024, 1024, 0, 32, 32, 80))  # zamba2-2.7b's prefill
         for B, Sq, Skv, off, H, KV, hd in flash_shapes:
             q, k, v = flash_case(dtype, Sq, Skv, B=B, H=H, KV=KV, hd=hd)
@@ -313,9 +341,11 @@ def check_kernels():
             plain = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, off), iters=5)
             bms, by = flash_bound(q, k, off, dtype)
             lib = sdpa_ms(q, k, v, off)
+            path = fa.flash_plan(dtype, B, Sq, H, KV, hd)["path"]
             log(f"flash_attention {dn} B={B} Sq={Sq} Skv={Skv} q_offset={off} H={H} KV={KV} "
-                f"hd={hd}: max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) ms={ms:.4f} "
-                f"plain_ms={plain:.4f} bound_ms={bms:.5f} ({by}) library_ms={lib:.4f}")
+                f"hd={hd} path={path}: max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) ms={ms:.4f} "
+                f"plain_ms={plain:.4f} bound_ms={bms:.5f} ({by}) library_ms={lib:.4f}"
+                + cuda_core_flash(q, k, v, off, True, path))
             require(err <= TOL[dtype], f"flash kernel disagrees with its plain version: {err}")
             require(torch.isfinite(out).all(), "flash kernel output not finite")
             if (Sq, Skv, off) == (512, 512, 0):
@@ -647,10 +677,22 @@ def check_entry_kernels():
             plain = cuda_ms(lambda: rm.plain_relic_matmul(x, w), iters=10)
             lib = cuda_ms(lambda: torch.matmul(x, w), iters=10)
             bms, by = matmul_bound(x, w, dtype)
-            log(f"relic_matmul {dn} M={M} K={K} N={N} {blocks}: max_abs_err={err:.3e} (tol {lim:.2e}) "
+            plan = rm.matmul_plan(dtype, M, K, N)
+            log(f"relic_matmul {dn} M={M} K={K} N={N} {blocks} path={plan['path']} "
+                f"tile={plan['tile']}: max_abs_err={err:.3e} (tol {lim:.2e}) "
                 f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bms:.5f} ({by}) library_ms={lib:.4f}")
             require(err <= lim and torch.isfinite(out).all(),
                     f"relic_matmul disagrees with its plain version (M={M} K={K} N={N} {dn}): {err} > {lim}")
+            if plan["path"] == "wgmma":  # both tile widths, each held to the same limit
+                for tn in (64, 128):
+                    p = rm.matmul_plan(dtype, M, K, N, tile_n=tn)
+                    got = rm.launch_matmul(x, w, p)
+                    torch.cuda.synchronize()
+                    e = (got.float() - ref.float()).abs().max().item()
+                    t = cuda_ms(lambda: rm.launch_matmul(x, w, p), iters=10)
+                    log(f"relic_matmul {dn} M={M} K={K} N={N} tile={p['tile']} grid={p['grid']}: "
+                        f"max_abs_err={e:.3e} (tol {lim:.2e}) ms={t:.4f}")
+                    require(e <= lim, f"relic_matmul tile width {tn} disagrees (M={M} K={K} N={N}): {e}")
             if (M, K, N) == (1024, 576, 1536):
                 rows[("relic_matmul", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                                      bound_ms=bms, bound_by=by, library_ms=lib)
@@ -745,9 +787,11 @@ def check_entry_kernels():
         plain = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, causal=False), iters=5)
         lib = sdpa_ms(q, k, v, 0, causal=False)
         bms, by = flash_bound(q, k, k.shape[1], dtype)
-        log(f"flash_attention[non-causal] {dn} B=2 Sq=Skv=512 H=9 KV=3 hd=64: max_abs_err={err:.3e} "
-            f"(tol {TOL[dtype]:.0e}) ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bms:.5f} ({by}) "
-            f"library_ms={lib:.4f}")
+        path = fa.flash_plan(dtype, 2, 512, 9, 3, 64)["path"]
+        log(f"flash_attention[non-causal] {dn} B=2 Sq=Skv=512 H=9 KV=3 hd=64 path={path}: "
+            f"max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) ms={ms:.4f} plain_ms={plain:.4f} "
+            f"bound_ms={bms:.5f} ({by}) library_ms={lib:.4f}"
+            + cuda_core_flash(q, k, v, 0, False, path))
         require(err <= TOL[dtype] and torch.isfinite(out).all(),
                 f"non-causal flash disagrees with its plain version: {err}")
         rows[("flash_noncausal", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,

@@ -2,7 +2,11 @@
 
 Every ``.cu`` under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` (one
 process per source, all started together) and linked into one shared
-library with a plain C interface, loaded with ``ctypes``. The library
+library with a plain C interface, loaded with ``ctypes``. The bf16 matmul
+and flash kernels' TMA descriptors come from the driver's
+``cuTensorMapEncodeTiled``, looked up at run time through
+``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``), so the link needs no
+``-lcuda``. The library
 lands in ``build/kernels/<hash>/`` at the repository root, keyed by a
 hash of the sources and flags, so a checkout builds once at first use
 and an edited source rebuilds. Nothing here runs at import time: the
@@ -26,10 +30,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-# thread blocks that keep the H100's 132 SMs busy, two each: the kernels
-# that split one output's work across blocks (the GEMV's K, the dense
-# decode's keys) aim for this many
-TARGET_BLOCKS = 264
+# the H100's streaming multiprocessors; the kernels that split one
+# output's work across blocks (the GEMV's K, the dense decode's keys) aim
+# for two blocks on each
+SMS = 132
+TARGET_BLOCKS = 2 * SMS
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -92,9 +97,9 @@ def library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     argtypes = {
         "paged_decode_attention": [i, i] + [p] * 11 + [i] * 8 + [f, p],
-        "flash_attention": [i, p, p, p, p] + [i] * 8 + [f, p],
+        "flash_attention": [i, p, p, p, p] + [i] * 8 + [f, i, p],
         "ssd_scan": [i] + [p] * 7 + [i] * 6 + [p],
-        "relic_matmul": [i, p, p, p, i, i, i, p],
+        "relic_matmul": [i, p, p, p, i, i, i, i, p],
         "relic_gemv": [i, p, p, p, p, i, i, i, i, p],
         "decode_attention": [i] + [p] * 8 + [i] * 6 + [f, p],
     }
@@ -105,7 +110,18 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+# csrc/hopper.cuh: an entry point returns TMA_REFUSED + the driver's
+# CUresult when cuTensorMapEncodeTiled refuses a TMA descriptor, and
+# TMA_REFUSED + 0xFFFF when the driver has no such entry point
+TMA_REFUSED = 1 << 20
+
+
 def check(err: int, name: str) -> None:
-    """Raise when a kernel's C entry point reports a CUDA error."""
+    """Raise when a kernel's C entry point reports a CUDA error or a
+    refused TMA descriptor."""
+    if err >= TMA_REFUSED:
+        code = err - TMA_REFUSED
+        why = "no cuTensorMapEncodeTiled in the driver" if code == 0xFFFF else f"CUresult {code}"
+        raise RuntimeError(f"{name}: the driver refused a TMA descriptor ({why})")
     if err:
         raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")

@@ -8,28 +8,51 @@
 // What they compute: x [M,K] @ w [K,N] -> [M,N] in x's type (float32 or
 // bfloat16, w the same), every product summed in float32 and rounded once
 // at the end, as jnp.dot(..., preferred_element_type=float32).astype does.
-// Any M, N, K: ragged edges are masked here. The wrappers keep the JAX
-// functions' block-divisibility contract; the tiles below do not depend on
-// the caller's bm / bk / bn.
+// Any M; the wrappers keep the JAX functions' block-divisibility contract,
+// and the tiles below do not depend on the caller's bm / bk / bn.
 //
 // What bounds them on the H100:
-// - relic_matmul at prefill sizes (M ~ 1k tokens): operations. This first
-//   version runs them on the CUDA cores in float32 (67 TFLOP/s peak), not
-//   on the tensor cores (989 TFLOP/s bf16), so in bf16 it sits far below
-//   its bound; wgmma tiles fed by TMA are the step for speed.
+// - relic_matmul at prefill sizes (M ~ 1k tokens): operations. At
+//   smollm's (1024, 576, 1536) the 1.8 GFLOP take 1.8 us at the bf16
+//   tensor-core peak (989 TFLOP/s) against 1.4 us to move the 5 MB, and at
+//   zamba2's (1024, 2560, 10240) 54 GFLOP take 54 us against 23 us.
 // - relic_gemv (B of 1-8 decode rows): bytes. Every weight is read once and
 //   used for B rows, far below the ~295 operations per byte at which the
 //   tensor cores would become the limit, so the design only has to stream
 //   w at the memory rate.
 //
-// Design, matmul: the Pallas grid (M/bm, N/bn, K/bk) with K sequential
-// becomes one thread block per 128x128 output tile that loops over K in
-// 16-deep slices. The Relic pair (DMA of the next block while the MXU
-// contracts this one) becomes two shared-memory buffers: each thread
-// issues its global loads for slice k+1 into registers, multiplies slice k
-// out of shared memory, then stores slice k+1 into the other buffer, one
-// barrier a slice. 256 threads each own an 8x8 block of outputs (two 4x4
-// quads per dimension, so a warp's shared-memory reads are conflict-free).
+// Design, bf16 matmul (matmul_kernel_wgmma): only wgmma reaches the
+// tensor cores' bf16 rate, so the products run there, fed by TMA. One
+// thread block per 128 x BN output tile; the Pallas grid's sequential K
+// axis becomes a ring of 4 shared-memory stages of 64-deep slices (x's
+// [128 x 64] K-major and w's [64 x BN] N-major, both 128-byte swizzled).
+// One producer thread keeps TMA loads in flight; two consumer warpgroups
+// each own 64 rows and run m64nBNk16 wgmma on every stage that has landed
+// (w with the transpose bit), releasing a stage once the wgmma that read
+// it have completed; setmaxnreg moves registers from the producer
+// warpgroup to the consumers. The epilogue rounds the float32
+// accumulators to bf16 and stores them, masked at ragged M and N; TMA
+// fills loads past an edge with zeros, so a ragged K adds nothing. TMA
+// needs 16-byte row strides, so K and N must be multiples of 8 (the
+// wrapper raises otherwise). Blocks walk M fastest, so the blocks in
+// flight share w's column tiles in L2 (zamba2's w is 52 MB, more than L2
+// holds). Tile width (kernels/relic_matmul.py::matmul_plan): BN = 128
+// when the 128 x 128 tiles fill the 132 SMs (zamba2's 640), else BN = 64
+// with two blocks an SM (smollm's 1536 columns give 96 tiles of 128 x 128
+// but 192 of 128 x 64); chip_smoke.py times both widths at both shapes.
+// K is never split: that would need a second launch, or atomics whose
+// order changes the bf16 rounding.
+//
+// Design, float32 matmul (matmul_kernel): stays on the CUDA cores.
+// wgmma's float32 inputs are TF32, which keeps about three decimal digits;
+// the float32 contract (chip_smoke.py's MATMUL_TOL of 1e-5 of the largest
+// output, float32 token parity in serving) needs full float32 products.
+// The Pallas grid becomes one thread block per 128x128 output tile that
+// loops over K in 16-deep slices, double-buffered in shared memory: each
+// thread issues its global loads for slice k+1 into registers, multiplies
+// slice k, then stores slice k+1 into the other buffer, one barrier a
+// slice. 256 threads each own an 8x8 block of outputs (two 4x4 quads per
+// dimension, so a warp's shared-memory reads are conflict-free).
 //
 // Design, GEMV: one thread block per 128-column panel of w (32 lanes x 4
 // adjacent columns, one 8- or 16-byte load a lane) and per slice of K.
@@ -44,6 +67,7 @@
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "hopper.cuh"
 
 using repro_attn::from_f;
 using repro_attn::launch;
@@ -134,6 +158,155 @@ __global__ void __launch_bounds__(MM_THREADS)
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16: TMA-fed wgmma
+
+constexpr int WG_BM = 128, WG_BK = 64, WG_STAGES = 4;
+constexpr int WG_THREADS = 384;  // warpgroup 0 the producer, 1-2 the consumers
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;  // x's [128 x 64] slice
+constexpr int WG_B_CHUNK = WG_BK * 64 * 2;     // one [64 x 64] box of w
+
+template <int BN>
+struct WgCfg;  // blocks an SM, and the producer's / consumers' registers
+template <>
+struct WgCfg<128> {
+  static constexpr int kBlocks = 1, kProducerRegs = 40, kConsumerRegs = 232;
+};
+template <>
+struct WgCfg<64> {
+  static constexpr int kBlocks = 2, kProducerRegs = 24, kConsumerRegs = 104;
+};
+
+template <int BN>
+__host__ __device__ constexpr int wg_stage_bytes() { return WG_A_BYTES + WG_BK * BN * 2; }
+template <int BN>
+__host__ __device__ constexpr size_t wg_smem_bytes() {  // + 1 KB to align the ring to 1024 bytes
+  return 1024 + (size_t)WG_STAGES * wg_stage_bytes<BN>() + 2 * WG_STAGES * sizeof(uint64_t);
+}
+
+template <int BN>
+__device__ __forceinline__ void mm_wgmma(float (&acc)[BN / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (BN == 128)
+    hopper::wgmma_ss_n128<1>(acc, da, db, accumulate);
+  else
+    hopper::wgmma_ss_n64<1>(acc, da, db, accumulate);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(WG_THREADS, WgCfg<BN>::kBlocks)
+    matmul_kernel_wgmma(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap wmap,
+                        __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+  using namespace hopper;
+  constexpr int STAGE = wg_stage_bytes<BN>();
+  extern __shared__ __align__(1024) uint8_t wg_smem[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(wg_smem) + 1023) &
+                                             ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WG_STAGES * STAGE);
+  uint64_t* empty = full + WG_STAGES;
+  const int m0 = blockIdx.x * WG_BM, n0 = blockIdx.y * BN;
+  const int nk = (K + WG_BK - 1) / WG_BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
+      mbar_init(&empty[s], 8);  // one arrive from each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one thread issues every load
+    setmaxnreg_dec<WgCfg<BN>::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % WG_STAGES;
+        mbar_wait(&empty[s], ((kb / WG_STAGES) & 1) ^ 1);
+        uint8_t* a = smem + s * STAGE;
+        mbar_arrive_expect_tx(&full[s], STAGE);
+        tma_load_2d(a, &xmap, &full[s], kb * WG_BK, m0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_2d(a + WG_A_BYTES + j * WG_B_CHUNK, &wmap, &full[s], n0 + 64 * j, kb * WG_BK);
+      }
+    }
+  } else {  // consumers: warpgroup c owns rows 64c .. 64c + 63 of the tile
+    setmaxnreg_inc<WgCfg<BN>::kConsumerRegs>();
+    const int c = wg - 1;
+    // no zero-fill: the first slice's wgmma overwrites (scale-d 0), so no
+    // ordinary instruction writes an accumulator while wgmma are in flight
+    // (ptxas would serialize them)
+    float acc[BN / 2];
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = kb % WG_STAGES;
+      mbar_wait(&full[s], (kb / WG_STAGES) & 1);
+      uint8_t* a = smem + s * STAGE;
+      // x: K-major, rows of 128 bytes, 8-row groups 1024 bytes apart.
+      // w: N-major, [64 K-rows x 64 N] boxes 8 KB apart (LBO), 8-row
+      // groups of K 1024 bytes apart (SBO).
+      const uint64_t da = make_desc(a + c * 64 * 128, 16, 1024, SW128);
+      const uint64_t db = make_desc(a + WG_A_BYTES, WG_B_CHUNK, 1024, SW128);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        mm_wgmma<BN>(acc, desc_advance(da, 32 * kk), desc_advance(db, 16 * 128 * kk),
+                     kb > 0 || kk > 0);
+      wgmma_commit();
+      // the previous stage's products are done once at most this one is
+      // in flight: hand that stage back to the producer
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (kb > 0 && threadIdx.x % 32 == 0) mbar_arrive(&empty[(kb - 1) % WG_STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    const int w = (threadIdx.x % 128) / 32, l = threadIdx.x % 32;
+    const int r0 = m0 + 64 * c + 16 * w + l / 4;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int col = n0 + 8 * i + 2 * (l % 4);
+      if (col >= N) continue;  // N is even, so col + 1 < N too
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        if (row < M)
+          *reinterpret_cast<uint32_t*>(out + (size_t)row * N + col) =
+              pack_bf16(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+int matmul_wgmma(const void* x, const void* w, void* out, int M, int N, int K, int bn,
+                 void* stream) {
+  if ((bn != 64 && bn != 128) || K % 8 || N % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[2] = {(uint64_t)K, (uint64_t)M}, xstride[1] = {(uint64_t)K * 2};
+  const uint32_t xbox[2] = {WG_BK, WG_BM};
+  int err = hopper::encode_tma(&xmap, x, 2, xdims, xstride, xbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  const uint64_t wdims[2] = {(uint64_t)N, (uint64_t)K}, wstride[1] = {(uint64_t)N * 2};
+  const uint32_t wbox[2] = {64, WG_BK};
+  err = hopper::encode_tma(&wmap, w, 2, wdims, wstride, wbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  if (bn == 128)
+    return launch<WG_THREADS>(matmul_kernel_wgmma<128>,
+                              dim3((M + WG_BM - 1) / WG_BM, (N + 127) / 128),
+                              wg_smem_bytes<128>(), stream, xmap, wmap, o, M, N, K);
+  return launch<WG_THREADS>(matmul_kernel_wgmma<64>, dim3((M + WG_BM - 1) / WG_BM, (N + 63) / 64),
+                            wg_smem_bytes<64>(), stream, xmap, wmap, o, M, N, K);
+}
+
+// ---------------------------------------------------------------------------
+// GEMV
 
 constexpr int GV_THREADS = 256, GV_WARPS = GV_THREADS / 32;
 constexpr int GV_ROWS = 8;                 // rows of x per pass over w
@@ -258,20 +431,18 @@ int gemv_typed(const void* x, const void* w, void* out, void* ws, int B, int K, 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and out). Returns a cudaError_t
-// (0 = launched).
+// dtype: 0 = float32 (x, w and out), on the CUDA cores; 1 = bfloat16, on
+// wgmma with BN-wide tiles (bn = 64 or 128; K and N multiples of 8, x and
+// w 16-byte aligned). Returns a cudaError_t (0 = launched), or
+// hopper::TMA_REFUSED + the driver's CUresult for a refused TMA descriptor.
 extern "C" int relic_matmul(int dtype, const void* x, const void* w, void* out, int M,
-                            int N, int K, void* stream) {
-  const dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
+                            int N, int K, int bn, void* stream) {
   if (dtype == 0)
-    return launch<MM_THREADS>(matmul_kernel<float>, grid, 0, stream,
+    return launch<MM_THREADS>(matmul_kernel<float>,
+                              dim3((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM), 0, stream,
                               static_cast<const float*>(x), static_cast<const float*>(w),
                               static_cast<float*>(out), M, N, K);
-  if (dtype == 1)
-    return launch<MM_THREADS>(matmul_kernel<__nv_bfloat16>, grid, 0, stream,
-                              static_cast<const __nv_bfloat16*>(x),
-                              static_cast<const __nv_bfloat16*>(w),
-                              static_cast<__nv_bfloat16*>(out), M, N, K);
+  if (dtype == 1) return matmul_wgmma(x, w, out, M, N, K, bn, stream);
   return (int)cudaErrorInvalidValue;
 }
 

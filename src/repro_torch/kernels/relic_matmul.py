@@ -12,6 +12,10 @@ the blocks, and they mask ragged edges.) Each wrapper dispatches on the
 tensors' device: CPU tensors take the plain PyTorch version (``x @ w``
 summed in float32 and rounded once to x's type), CUDA tensors the kernel —
 or it raises. Each has a ``launches`` attribute that counts its launches.
+
+On the card, ``matmul_plan`` decides how ``relic_matmul`` launches: bf16
+on the tensor cores (TMA-fed ``wgmma``, 128 x 64 or 128 x 128 tiles; K and
+N must be multiples of 8, or it raises), float32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -27,6 +31,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # across thread blocks until the grid reaches _build.TARGET_BLOCKS, each
 # split keeping at least 64 rows of w
 GEMV_PANEL, GEMV_MIN_SPLIT_ROWS = 128, 64
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _check(name, x, w, blocks):
@@ -57,6 +65,50 @@ def _check_kernel_inputs(name, x, w):
             raise ValueError(f"{name}: {t_name} must be contiguous")
 
 
+def matmul_plan(dtype, M: int, K: int, N: int, tile_n=None) -> dict:
+    """How ``csrc/relic_matmul.cu`` computes x [M,K] @ w [K,N] of ``dtype``
+    on the card: its path, output tile (rows, columns, K slice), grid
+    (x, y), and for the ``wgmma`` path the ring's stages and the TMA boxes
+    (elements, innermost first) of x and w. bf16 takes the tensor cores,
+    with 128-column tiles when they alone fill the card's SMs and 64-column
+    ones (two blocks an SM) otherwise, or ``tile_n`` when given; it raises
+    unless K and N are multiples of 8 (TMA's 16-byte row strides). float32
+    stays on the CUDA cores (wgmma's float32 inputs are TF32)."""
+    if dtype == torch.float32:
+        return {"path": "cuda_cores", "tile": (128, 128, 16), "grid": (_cdiv(N, 128), _cdiv(M, 128))}
+    if dtype != torch.bfloat16:
+        raise TypeError(f"relic_matmul: no kernel for {dtype}")
+    if K % 8 or N % 8:
+        raise ValueError(
+            f"relic_matmul: bf16 K={K} and N={N} must be multiples of 8 "
+            "(the TMA loads need 16-byte row strides)"
+        )
+    if tile_n is None:
+        tile_n = 128 if _cdiv(M, 128) * _cdiv(N, 128) >= _build.SMS else 64
+    if tile_n not in (64, 128):
+        raise ValueError(f"relic_matmul: tile width {tile_n} is not 64 or 128")
+    return {"path": "wgmma", "tile": (128, tile_n, 64), "grid": (_cdiv(M, 128), _cdiv(N, tile_n)),
+            "stages": 4, "x_box": (64, 128), "w_box": (64, 64), "w_boxes": tile_n // 64}
+
+
+def launch_matmul(x, w, plan: dict):
+    """Launch the kernel ``plan`` describes on checked CUDA tensors and
+    return the output; counts nothing (``relic_matmul`` counts)."""
+    M, K = x.shape
+    N = w.shape[1]
+    if plan["path"] == "wgmma":
+        for t_name, t in (("x", x), ("w", w)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"relic_matmul: bf16 {t_name} must be 16-byte aligned for TMA")
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    err = _build.library().relic_matmul(
+        _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, plan["tile"][1],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "relic_matmul")
+    return out
+
+
 def relic_matmul(x, w, *, bm: int = 256, bk: int = 512, bn: int = 256):
     """x [M,K] @ w [K,N] → [M,N] in x's type, float32 accumulation; M, K,
     N multiples of min(bm, M), min(bk, K), min(bn, N)."""
@@ -64,12 +116,7 @@ def relic_matmul(x, w, *, bm: int = 256, bk: int = 512, bn: int = 256):
     if x.device.type == "cpu":
         return plain_relic_matmul(x, w)
     _check_kernel_inputs("relic_matmul", x, w)
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    err = _build.library().relic_matmul(
-        _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(err, "relic_matmul")
+    out = launch_matmul(x, w, matmul_plan(x.dtype, M, K, N))
     relic_matmul.launches += 1
     return out
 

@@ -181,4 +181,105 @@ def test_build_key_follows_the_sources(monkeypatch):
     assert _build._digest() != key  # a flag change rebuilds, as a source change does
     names = {p.name for p in _build._sources()}
     assert {"paged_decode_attention.cu", "flash_attention.cu", "ssd_scan.cu",
-            "relic_matmul.cu", "decode_attention.cu", "attention_tile.cuh"} <= names
+            "relic_matmul.cu", "decode_attention.cu", "attention_tile.cuh", "hopper.cuh"} <= names
+
+
+def test_refused_tma_descriptor_raises_with_its_cause():
+    """An entry point returns TMA_REFUSED + the driver's CUresult for a TMA
+    descriptor cuTensorMapEncodeTiled refused; it must raise, never pass."""
+    with pytest.raises(RuntimeError, match=r"refused a TMA descriptor \(CUresult 1\)"):
+        _build.check(_build.TMA_REFUSED + 1, "relic_matmul")
+    with pytest.raises(RuntimeError, match="no cuTensorMapEncodeTiled"):
+        _build.check(_build.TMA_REFUSED + 0xFFFF, "flash_attention")
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        _build.check(1, "flash_attention")
+    _build.check(0, "flash_attention")
+
+
+# The flash shapes of chip_smoke.py's phases 3-4: (B, Sq, Skv, q_offset, H,
+# KV, hd, causal); the last causal one is zamba2-2.7b's prefill at hd 80.
+CHIP_FLASH_SHAPES = [
+    (2, 1, 1, 0, 9, 3, 64, True), (2, 37, 37, 0, 9, 3, 64, True),
+    (2, 512, 512, 0, 9, 3, 64, True), (2, 2048, 2048, 0, 9, 3, 64, True),
+    (2, 64, 576, 512, 9, 3, 64, True), (1, 1024, 1024, 0, 9, 3, 64, True),
+    (1, 1024, 1024, 0, 32, 32, 80, True), (2, 512, 512, 0, 9, 3, 64, False),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,off,H,KV,hd,causal", CHIP_FLASH_SHAPES)
+def test_flash_plan_at_chip_shapes(B, Sq, Skv, off, H, KV, hd, causal):
+    """bf16 at hd 64 / 80 takes wgmma: one block per (64 query rows, query
+    head, batch row), 64-key tiles in a 2-stage ring; Q, K and V arrive as
+    [64 rows x 64 columns] boxes of one head, plus a 16-column box at hd
+    80. float32 keeps the CUDA-core kernel: a block per (16 positions,
+    batch row, kv head)."""
+    plan = fa.flash_plan(torch.bfloat16, B, Sq, H, KV, hd)
+    assert plan["path"] == "wgmma" and (plan["rows"], plan["keys"], plan["stages"]) == (64, 64, 2)
+    assert plan["threads"] == 160 and plan["grid"] == (-(-Sq // 64) * H * B,)
+    assert plan["boxes"] == [(64, 1, 64, 1)] + ([(16, 1, 64, 1)] if hd == 80 else [])
+    f32 = fa.flash_plan(torch.float32, B, Sq, H, KV, hd)
+    assert f32 == {"path": "cuda_cores", "rows": 16 * (H // KV), "keys": 32, "threads": 128,
+                   "grid": (-(-Sq // 16), B * KV)}
+    assert fa.flash_plan(torch.bfloat16, B, Sq, H, KV, hd, path="cuda_cores")["path"] == "cuda_cores"
+
+
+def test_flash_plan_grid_at_smollm_serving_prefill():
+    # 16 q-blocks x 9 heads: all 144 blocks resident at once on 132 SMs
+    assert fa.flash_plan(torch.bfloat16, 1, 1024, 9, 3, 64)["grid"] == (144,)
+
+
+@pytest.mark.parametrize("hd,path", [(16, "cuda_cores"), (96, "cuda_cores"), (128, "cuda_cores"),
+                                     (64, "wgmma"), (80, "wgmma")])
+def test_flash_plan_bf16_head_sizes(hd, path):
+    assert fa.flash_plan(torch.bfloat16, 1, 128, 4, 2, hd)["path"] == path
+
+
+@pytest.mark.parametrize("hd", [8, 40, 72, 100])
+def test_flash_plan_refuses_bf16_head_size_off_a_k_slice(hd):
+    with pytest.raises(ValueError, match="not a multiple of 16"):
+        fa.flash_plan(torch.bfloat16, 1, 128, 4, 2, hd)
+    assert fa.flash_plan(torch.float32, 1, 128, 4, 2, hd)["path"] == "cuda_cores"
+
+
+def _online_softmax_bf16_p(q, k, v, q_offset, causal, tile=64):
+    """The wgmma kernel's arithmetic in plain PyTorch (a test-local copy):
+    float32 scores from bf16 q and k, 64-key tiles folded into a running
+    max m and sum l, P rounded to bf16 before P·V with l summing the
+    rounded weights, float32 accumulators, acc / max(l, 1e-30) rounded
+    once to bf16."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    m = torch.full((B, H, Sq), -1e30)
+    l = torch.zeros((B, H, Sq))
+    acc = torch.zeros((B, H, Sq, hd))
+    pos = torch.arange(Sq) + q_offset
+    for j0 in range(0, Skv, tile):
+        keys = torch.arange(j0, min(j0 + tile, Skv))
+        s = qf @ kf[:, :, keys].transpose(-1, -2) / hd**0.5
+        valid = keys[None, :] <= pos[:, None] if causal else torch.ones(Sq, len(keys), dtype=torch.bool)
+        s = s.masked_fill(~valid, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0).bfloat16().float()
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + p @ vf[:, :, keys]
+        m = m_new
+    return (acc / l.clamp(min=1e-30)[..., None]).permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,off,H,KV,hd,causal", CHIP_FLASH_SHAPES)
+def test_bf16_p_rounding_stays_inside_the_chip_tolerance(B, Sq, Skv, off, H, KV, hd, causal):
+    """P rounded to bf16 before P·V (the wgmma kernel's A operand) keeps
+    the output within chip_smoke.py's bf16 TOL of 2e-2 of the plain
+    version, on the inputs chip_smoke.py makes for the same shapes."""
+    g = torch.Generator().manual_seed(0)  # chip_smoke.py's flash_case, seed 0
+    q, k, v = (torch.randn(*shape, generator=g).to(torch.bfloat16)
+               for shape in ((B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)))
+    got = _online_softmax_bf16_p(q, k, v, off, causal)
+    want = fa.plain_flash_attention(q, k, v, off, causal)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2, err

@@ -381,3 +381,40 @@ def test_decode_split_plan(B, KV, Smax, splits):
     per = -(-tiles // got)
     assert per * got >= tiles and per * (got - 1) < tiles  # every split has a tile
 
+
+
+# the launch plan of relic_matmul on the card, at chip_smoke.py's phase-4
+# shapes: bf16 on TMA-fed wgmma (128-column tiles once they fill the 132
+# SMs, 64-column ones below that), float32 on the CUDA cores
+@pytest.mark.parametrize("M,K,N,path,tile,grid", [
+    (1024, 576, 1536, "wgmma", (128, 64, 64), (8, 24)),       # smollm: 96 tiles of 128 x 128
+    (1000, 576, 1536, "wgmma", (128, 64, 64), (8, 24)),       # a ragged M
+    (1024, 2560, 10240, "wgmma", (128, 128, 64), (8, 80)),    # zamba2: 640 tiles
+    (8, 576, 1536, "wgmma", (128, 64, 64), (1, 24)),
+])
+def test_matmul_plan_bf16(M, K, N, path, tile, grid):
+    plan = rm.matmul_plan(torch.bfloat16, M, K, N)
+    assert (plan["path"], plan["tile"], plan["grid"]) == (path, tile, grid)
+    # x arrives as [128 rows x 64 K] boxes, w as [64 K x 64 N] boxes, one
+    # per 64 columns of the tile, into a 4-stage ring
+    assert plan["x_box"] == (64, 128) and plan["w_box"] == (64, 64)
+    assert plan["w_boxes"] == tile[1] // 64 and plan["stages"] == 4
+    forced = rm.matmul_plan(torch.bfloat16, M, K, N, tile_n=192 - tile[1])  # the other width
+    assert forced["tile"] == (128, 192 - tile[1], 64) and forced["grid"][1] == -(-N // forced["tile"][1])
+
+
+@pytest.mark.parametrize("M,K,N,grid", [
+    (1024, 576, 1536, (12, 8)), (1000, 576, 1536, (12, 8)), (1024, 2560, 10240, (80, 8)),
+])
+def test_matmul_plan_float32_stays_on_cuda_cores(M, K, N, grid):
+    assert rm.matmul_plan(torch.float32, M, K, N) == {
+        "path": "cuda_cores", "tile": (128, 128, 16), "grid": grid}
+
+
+@pytest.mark.parametrize("K,N", [(572, 1536), (576, 1532), (20, 8), (8, 12)])
+def test_matmul_plan_refuses_bf16_strides_tma_cannot_take(K, N):
+    with pytest.raises(ValueError, match="multiples of 8"):
+        rm.matmul_plan(torch.bfloat16, 1024, K, N)
+    assert rm.matmul_plan(torch.float32, 1024, K, N)["path"] == "cuda_cores"  # float32 takes any
+    with pytest.raises(ValueError, match="not 64 or 128"):
+        rm.matmul_plan(torch.bfloat16, 1024, 576, 1536, tile_n=256)
