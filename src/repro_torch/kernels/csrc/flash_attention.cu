@@ -43,8 +43,8 @@
 // all resident at once on the 132 SMs; the time is the longest block's 16
 // key tiles.
 //
-// Design, float32 and other bf16 head sizes (flash_kernel): the CUDA
-// cores. wgmma's float32 inputs are TF32, which keeps about three decimal
+// Design, float32 and other bf16 head sizes that are multiples of 16
+// (flash_kernel; the wrapper refuses the rest): the CUDA cores. wgmma's float32 inputs are TF32, which keeps about three decimal
 // digits; the float32 contract (chip_smoke.py's TOL of 2e-5, float32 token
 // parity in serving) needs full float32 products. One thread block per (BQ
 // query positions, batch row, kv head): the g query heads of the kv group

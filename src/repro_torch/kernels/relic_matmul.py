@@ -65,13 +65,13 @@ def _check_kernel_inputs(name, x, w):
             raise ValueError(f"{name}: {t_name} must be contiguous")
 
 
-def matmul_plan(dtype, M: int, K: int, N: int, tile_n=None) -> dict:
+def matmul_plan(dtype, M: int, K: int, N: int) -> dict:
     """How ``csrc/relic_matmul.cu`` computes x [M,K] @ w [K,N] of ``dtype``
     on the card: its path, output tile (rows, columns, K slice), grid
     (x, y), and for the ``wgmma`` path the ring's stages and the TMA boxes
     (elements, innermost first) of x and w. bf16 takes the tensor cores,
     with 128-column tiles when they alone fill the card's SMs and 64-column
-    ones (two blocks an SM) otherwise, or ``tile_n`` when given; it raises
+    ones (two blocks an SM) otherwise; it raises
     unless K and N are multiples of 8 (TMA's 16-byte row strides). float32
     stays on the CUDA cores (wgmma's float32 inputs are TF32)."""
     if dtype == torch.float32:
@@ -83,17 +83,16 @@ def matmul_plan(dtype, M: int, K: int, N: int, tile_n=None) -> dict:
             f"relic_matmul: bf16 K={K} and N={N} must be multiples of 8 "
             "(the TMA loads need 16-byte row strides)"
         )
-    if tile_n is None:
-        tile_n = 128 if _cdiv(M, 128) * _cdiv(N, 128) >= _build.SMS else 64
-    if tile_n not in (64, 128):
-        raise ValueError(f"relic_matmul: tile width {tile_n} is not 64 or 128")
+    tile_n = 128 if _cdiv(M, 128) * _cdiv(N, 128) >= _build.SMS else 64
     return {"path": "wgmma", "tile": (128, tile_n, 64), "grid": (_cdiv(M, 128), _cdiv(N, tile_n)),
             "stages": 4, "x_box": (64, 128), "w_box": (64, 64), "w_boxes": tile_n // 64}
 
 
-def launch_matmul(x, w, plan: dict):
+def _launch_matmul(x, w, plan: dict):
     """Launch the kernel ``plan`` describes on checked CUDA tensors and
-    return the output; counts nothing (``relic_matmul`` counts)."""
+    return the output. It counts nothing: ``relic_matmul`` counts its
+    launches, and only a measurement harness calls this directly (to time
+    the other tile width on the same inputs)."""
     M, K = x.shape
     N = w.shape[1]
     if plan["path"] == "wgmma":
@@ -116,7 +115,7 @@ def relic_matmul(x, w, *, bm: int = 256, bk: int = 512, bn: int = 256):
     if x.device.type == "cpu":
         return plain_relic_matmul(x, w)
     _check_kernel_inputs("relic_matmul", x, w)
-    out = launch_matmul(x, w, matmul_plan(x.dtype, M, K, N))
+    out = _launch_matmul(x, w, matmul_plan(x.dtype, M, K, N))
     relic_matmul.launches += 1
     return out
 

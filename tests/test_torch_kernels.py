@@ -220,7 +220,6 @@ def test_flash_plan_at_chip_shapes(B, Sq, Skv, off, H, KV, hd, causal):
     f32 = fa.flash_plan(torch.float32, B, Sq, H, KV, hd)
     assert f32 == {"path": "cuda_cores", "rows": 16 * (H // KV), "keys": 32, "threads": 128,
                    "grid": (-(-Sq // 16), B * KV)}
-    assert fa.flash_plan(torch.bfloat16, B, Sq, H, KV, hd, path="cuda_cores")["path"] == "cuda_cores"
 
 
 def test_flash_plan_grid_at_smollm_serving_prefill():
@@ -274,12 +273,16 @@ def _online_softmax_bf16_p(q, k, v, q_offset, causal, tile=64):
 @pytest.mark.parametrize("B,Sq,Skv,off,H,KV,hd,causal", CHIP_FLASH_SHAPES)
 def test_bf16_p_rounding_stays_inside_the_chip_tolerance(B, Sq, Skv, off, H, KV, hd, causal):
     """P rounded to bf16 before P·V (the wgmma kernel's A operand) keeps
-    the output within chip_smoke.py's bf16 TOL of 2e-2 of the plain
-    version, on the inputs chip_smoke.py makes for the same shapes."""
+    the output within chip_smoke.py's bf16 checks of the plain version, on
+    the inputs chip_smoke.py makes for the same shapes: TOL's absolute
+    2e-2, and each query's output vector within 2e-2 of its largest
+    |plain| value (+1e-6)."""
     g = torch.Generator().manual_seed(0)  # chip_smoke.py's flash_case, seed 0
     q, k, v = (torch.randn(*shape, generator=g).to(torch.bfloat16)
                for shape in ((B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)))
-    got = _online_softmax_bf16_p(q, k, v, off, causal)
-    want = fa.plain_flash_attention(q, k, v, off, causal)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= 2e-2, err
+    got = _online_softmax_bf16_p(q, k, v, off, causal).float().flatten(0, 2)
+    want = fa.plain_flash_attention(q, k, v, off, causal).float().flatten(0, 2)
+    per_query = (got - want).abs().amax(1)
+    assert per_query.max().item() <= 2e-2, per_query.max().item()
+    limit = 2e-2 * want.abs().amax(1) + 1e-6
+    assert bool((per_query <= limit).all()), (per_query / limit).max().item()

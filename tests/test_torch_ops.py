@@ -399,8 +399,6 @@ def test_matmul_plan_bf16(M, K, N, path, tile, grid):
     # per 64 columns of the tile, into a 4-stage ring
     assert plan["x_box"] == (64, 128) and plan["w_box"] == (64, 64)
     assert plan["w_boxes"] == tile[1] // 64 and plan["stages"] == 4
-    forced = rm.matmul_plan(torch.bfloat16, M, K, N, tile_n=192 - tile[1])  # the other width
-    assert forced["tile"] == (128, 192 - tile[1], 64) and forced["grid"][1] == -(-N // forced["tile"][1])
 
 
 @pytest.mark.parametrize("M,K,N,grid", [
@@ -416,5 +414,3 @@ def test_matmul_plan_refuses_bf16_strides_tma_cannot_take(K, N):
     with pytest.raises(ValueError, match="multiples of 8"):
         rm.matmul_plan(torch.bfloat16, 1024, K, N)
     assert rm.matmul_plan(torch.float32, 1024, K, N)["path"] == "cuda_cores"  # float32 takes any
-    with pytest.raises(ValueError, match="not 64 or 128"):
-        rm.matmul_plan(torch.bfloat16, 1024, 576, 1536, tile_n=256)
