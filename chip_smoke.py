@@ -26,7 +26,12 @@ Phases, in order; any failure exits non-zero before the final line:
    the card could take, and the path each flash call took (bf16 hd 64/80:
    wgmma, checked and timed beside the CUDA-core kernel too; else CUDA
    cores); bf16 flash is held to TOL and, per query, to 2e-2 of the
-   query's largest output;
+   query's largest output; then the bf16 inputs the tensor-core paths
+   cannot take, on the CUDA-core kernels: flash at head sizes 40 and 72
+   (causal with a q_offset, and non-causal) and on q/k/v 2 bytes off a
+   16-byte boundary, relic_matmul at K or N off a multiple of 8 and on
+   misaligned operands, each launching its kernel once and printing its
+   path;
 4. entry points — every entry point of ``repro_torch.kernels.ops`` called
    once with mode "auto" on bf16 CUDA tensors at full-width shapes, from
    launch counts of 0: each must launch its own kernel once and agree with
@@ -36,7 +41,8 @@ Phases, in order; any failure exits non-zero before the final line:
    (K=2560, N=10240) prefill projections, relic_gemv at 1 and 8 rows over
    (K, N) = (576, 1536), (576, 49152), (2560, 10240), (10240, 2560),
    decode_attention over smollm's and zamba2's slot caches with cache_len
-   0, 1, 2047, 2048 and random, the paged kernel's partials mode (smollm's
+   0, 1, 2047, 2048 and random (each GEMV and decode line prints its
+   launch plan), the paged kernel's partials mode (smollm's
    pool at T = 1 and 4, zamba2's int8 slot view; an unowned row exactly
    (-1e30, 0, 0); complementary ownerships combine to the unsplit
    kernel), the flash kernel's non-causal mode at B=2, S=512; with times,
@@ -59,7 +65,11 @@ Phases, in order; any failure exits non-zero before the final line:
 6. parity — float32 workloads of the three models served through the
    kernels and through the plain reference backend must give the same
    greedy tokens (a difference counts as a tie only where the reference's
-   top-2 logit margin is below the stated tolerance).
+   top-2 logit margin is below the stated tolerance); then smollm-135m and
+   zamba2-2.7b in bf16 at full width, whose prefill runs the wgmma flash
+   kernel: the prefill's and the first decode step's logits through the
+   kernels, each row no further from the float32 plain path's (same
+   weights, upcast) than ``E2E_BF16_RATIO`` times the bf16 plain path's.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -93,6 +103,16 @@ SSD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 0.0)}
 INT8_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (1e-2 + 2**-7, 0.0)}
 SPIN_CYCLES = 50_000_000  # ~30 ms at the H100's clock: covers enqueueing a timed run
 LOGIT_TIE_TOL = 1e-3  # top-2 margin under which a float32 argmax flip is a tie
+# bf16 end to end: each bf16 path's distance from the float32 plain path on
+# the same (upcast) weights, ||logits - logits_f32|| / ||logits_f32|| per
+# row. The kernel path (its attention and SSD kernels in place of their
+# plain versions) must come no further from it than the bf16 plain path
+# does, up to a quarter: both carry the same bf16 roundings of every
+# other op, and a kernel that computed less accurately than its plain
+# version would add its own error on top. (A fixed bound on the two bf16
+# paths' difference measures the model instead: random-weight zamba2-2.7b
+# amplifies bf16 rounding to ~10% of its logits on either path.)
+E2E_BF16_RATIO = 1.25
 # relic_matmul / relic_gemv: max |kernel - plain| <= rel * max |plain|.
 # float32: the same float32 products summed in another order (~1e-6 of
 # the largest output at K = 10240); bf16: both round the float32 sum to
@@ -504,6 +524,78 @@ def check_ssd():
     return rows
 
 
+def misaligned(t):
+    """A copy of ``t`` whose data starts one element (2 bytes in bf16) past
+    a 16-byte boundary: TMA and 16-byte copies cannot take it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_repaired():
+    """The bf16 inputs that the tensor-core paths cannot take, on the
+    CUDA-core kernels, against their plain versions: flash at head sizes
+    40 and 72 (causal with a q_offset, non-causal) and at hd 64 on q/k/v
+    off a 16-byte boundary; relic_matmul with K or N off a multiple of 8,
+    at M = K = N = 100, and on misaligned x and w. Each call must launch
+    its kernel once, and each line prints the path its plan took."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import relic_matmul as rm
+
+    bf = torch.bfloat16
+    for hd, Sq, Skv, off, causal, skew in ((40, 64, 576, 512, True, False),
+                                           (40, 512, 512, 0, False, False),
+                                           (72, 64, 576, 512, True, False),
+                                           (72, 512, 512, 0, False, False),
+                                           (64, 512, 512, 0, True, True)):
+        q, k, v = flash_case(bf, Sq, Skv, hd=hd)
+        if skew:
+            q, k, v = (misaligned(t) for t in (q, k, v))
+        key = "launches" if causal else "launches_noncausal"
+        before = getattr(fa.flash_attention, key)
+        out = fa.flash_attention(q, k, v, off, causal)
+        torch.cuda.synchronize()
+        require(getattr(fa.flash_attention, key) == before + 1, "flash did not launch its kernel once")
+        ref = fa.plain_flash_attention(q, k, v, off, causal)
+        path = fa.flash_plan(bf, 2, Sq, 9, 3, hd, _build.aligned16(q, k, v))["path"]
+        label = (f"flash_attention bf16 B=2 Sq={Sq} Skv={Skv} q_offset={off} H=9 KV=3 hd={hd} "
+                 f"{'causal' if causal else 'non-causal'}{' misaligned' if skew else ''}")
+        require(path == "cuda_cores", f"{label}: path {path}, not the CUDA-core kernel")
+        err, text = flash_check(out, ref, bf, label)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, off, causal))
+        plain = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, off, causal), iters=5)
+        bms, by = flash_bound(q, k, off if causal else Skv, bf)
+        log(f"{label} path={path}: {text} ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
+            f"bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(sdpa_ms(q, k, v, off, causal))}")
+    for M, K, N, blocks, skew in ((1024, 572, 1536, dict(bk=572), False),
+                                  (1024, 576, 1532, dict(bk=576, bn=1532), False),
+                                  (100, 100, 100, {}, False),
+                                  (1024, 576, 1536, dict(bk=576), True)):
+        x, w = matmul_case(bf, M, K, N)
+        if skew:
+            x, w = misaligned(x), misaligned(w)
+        before = rm.relic_matmul.launches
+        out = rm.relic_matmul(x, w, **blocks)
+        torch.cuda.synchronize()
+        require(rm.relic_matmul.launches == before + 1, "relic_matmul did not launch its kernel once")
+        ref = rm.plain_relic_matmul(x, w)
+        err = (out.float() - ref.float()).abs().max().item()
+        lim = MATMUL_TOL[bf] * ref.float().abs().max().item()
+        plan = rm.matmul_plan(bf, M, K, N, _build.aligned16(x, w))
+        label = f"relic_matmul bf16 M={M} K={K} N={N} {blocks}{' misaligned' if skew else ''}"
+        require(plan["path"] == "cuda_cores", f"{label}: path {plan['path']}, not the CUDA cores")
+        require(err <= lim and torch.isfinite(out).all(),
+                f"{label} disagrees with its plain version: {err} > {lim}")
+        ms = cuda_ms(lambda: rm.relic_matmul(x, w, **blocks), iters=10)
+        plain = cuda_ms(lambda: rm.plain_relic_matmul(x, w), iters=10)
+        lib = cuda_ms(lambda: torch.matmul(x, w), iters=10)
+        bms, by = matmul_bound(x, w, bf)
+        log(f"{label} path={plan['path']} tile={plan['tile']}: max_abs_err={err:.3e} (tol {lim:.2e}) "
+            f"ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(lib)}")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the kernel library's entry points
 
@@ -746,7 +838,10 @@ def check_entry_kernels():
                 plain = cuda_ms(lambda: rm.plain_relic_gemv(x, w))
                 lib = cuda_ms(lambda: torch.matmul(x, w))
                 bms, by = matmul_bound(x, w, dtype)
-                log(f"relic_gemv {dn} B={B} K={K} N={N} bk={bk} splits={rm.gemv_splits(K, N)}: "
+                plan = rm.gemv_plan(dtype, B, K, N)
+                plan = {f: plan[f] for f in ("path", "rows", "splits", "k_per_split", "stage_rows",
+                                             "stages", "grid")}
+                log(f"relic_gemv {dn} B={B} K={K} N={N} bk={bk} plan={plan}: "
                     f"max_abs_err={err:.3e} (tol {lim:.2e}) ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
                     f"bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(lib)}")
                 require(err <= lim and torch.isfinite(out).all(),
@@ -766,8 +861,10 @@ def check_entry_kernels():
             plain = cuda_ms(lambda: da.plain_decode_attention(q, k, v, lens), iters=5)
             lib = sdpa_decode_ms(q, k, v, lens)
             bms, by = decode_bound(q, k, lens, dtype)
+            plan = da.decode_plan(dtype, q.shape[0], q.shape[1], k.shape[2], k.shape[1], q.shape[2])
+            plan = {f: plan[f] for f in ("path", "rows", "splits", "stages", "grid")}
             log(f"decode_attention {dn} {label} lengths={lens.tolist()} "
-                f"splits={da.decode_splits(q.shape[0], k.shape[2], k.shape[1])}: max_abs_err={err:.3e} "
+                f"plan={plan}: max_abs_err={err:.3e} "
                 f"(per row <= {rel:.3g}*max|plain|+{absol:.0e}; worst err/tol {worst:.3e}) ms={fmt_ms(ms)} "
                 f"plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(lib)}")
             require(worst <= 1.0 and torch.isfinite(out).all(),
@@ -1146,6 +1243,77 @@ def parity_f32(arch, layouts, prompt_lens):
             f"(top-2 margin < {LOGIT_TIE_TOL:g})")
 
 
+def _upcast(tree):
+    """A parameter tree with every floating tensor in float32."""
+    if isinstance(tree, dict):
+        return {k: _upcast(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_upcast(v) for v in tree)
+    return tree.float() if isinstance(tree, torch.Tensor) and tree.is_floating_point() else tree
+
+
+def parity_bf16(arch, B=2, S=512):
+    """bf16 ``arch`` at full width (seeded random weights): a B x S prompt
+    prefilled, then one decode step on the greedy token of the plain
+    path, through the kernels and through the plain reference backend,
+    and through the plain backend in float32 on the same weights upcast.
+    Each row of the kernel path's prefill and decode logits must lie no
+    further from the float32 logits than ``E2E_BF16_RATIO`` times the bf16
+    plain path's (relative L2 norm); the two bf16 paths' own difference is
+    printed beside. The kernel prefill must take the wgmma flash kernel
+    (head size 64 or 80) once per attention layer and the decode step the
+    paged kernel (int8 for an int8 cache) once per attention layer; the
+    plain paths launch nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch)
+    model = Model(cfg)
+    params = model.init(seed=2)
+    sites = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.num_layers
+    path = fa.flash_plan(torch.bfloat16, B, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)["path"]
+    require(path == "wgmma", f"{arch}: the bf16 prefill's flash path is {path}, not wgmma")
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (B, S))).cuda()
+    out, tok = {}, None
+    runs = (("plain", model, params, "reference"), ("kernel", model, params, "kernel"),
+            ("float32", Model(dataclasses.replace(cfg, dtype="float32")), None, "reference"))
+    for name, m, p, backend in runs:
+        if p is None:
+            p = _upcast(params)
+        reset_launches()
+        logits, cache = m.prefill(p, prompt, 2 * S, backend=backend)
+        if tok is None:
+            tok = logits.float().argmax(-1, keepdim=True)
+        step, _ = m.decode_step(p, cache, tok, backend=backend)
+        torch.cuda.synchronize()
+        out[name] = (logits.float(), step.float(), read_launches())
+        del p, cache
+    n = out["kernel"][2]
+    decode_key = "paged_int8" if cfg.kv_quant else "paged"
+    require(not any(out["plain"][2].values()) and not any(out["float32"][2].values()),
+            f"{arch}: a plain path launched a kernel")
+    require(n["flash"] == sites and n[decode_key] == sites,
+            f"{arch}: bf16 prefill + decode launched {n}, not flash and {decode_key} {sites} times each")
+
+    def rel(a, b):
+        return ((a - b).norm(dim=-1) / b.norm(dim=-1)).tolist()
+
+    def fmt(v):
+        return "[" + ", ".join(f"{x:.3e}" for x in v) + "]"
+
+    for i, what in ((0, "prefill"), (1, "decode")):
+        got, plain, ref = out["kernel"][i], out["plain"][i], out["float32"][i]
+        require(torch.isfinite(got).all(), f"{arch}: bf16 {what} logits not finite")
+        d_k, d_p, d_kp = rel(got, ref), rel(plain, ref), rel(got, plain)
+        log(f"parity[{arch} bf16] {what} logits per row, ||. - float32||/||float32||: kernels "
+            f"(flash path {path}) {fmt(d_k)}, plain {fmt(d_p)} (kernels <= {E2E_BF16_RATIO:g} x plain; "
+            f"worst ratio {max(a / b for a, b in zip(d_k, d_p)):.3f}); kernels vs bf16 plain {fmt(d_kp)}")
+        require(all(a <= E2E_BF16_RATIO * b for a, b in zip(d_k, d_p)),
+                f"{arch}: the bf16 kernel path's {what} logits are further from float32 than "
+                f"{E2E_BF16_RATIO:g} x the plain path's: {d_k} against {d_p}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1168,6 +1336,7 @@ def main() -> int:
     rows = check_kernels()
     rows.update(check_int8())
     rows.update(check_ssd())
+    check_repaired()
     entry = drive_entry_points()
     rows.update(check_entry_kernels())
     launches, params = serve_full_width(card)
@@ -1188,6 +1357,8 @@ def main() -> int:
     # one-position chunks)
     parity_f32("mamba2-370m", ("slot",), tuple(range(64, 257, 16)))
     parity_f32("zamba2-2.7b", ("slot",), tuple(range(64, 257, 16)))
+    parity_bf16("smollm-135m")
+    parity_bf16("zamba2-2.7b")
 
     table = []
     for key, name, src, tpu in (("paged", "paged_decode_attention", PAGED_SRC, PAGED_TPU),

@@ -2,15 +2,15 @@
 
 Every ``.cu`` under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` (one
 process per source, all started together) and linked into one shared
-library with a plain C interface, loaded with ``ctypes``. The bf16 matmul
-and flash kernels' TMA descriptors come from the driver's
-``cuTensorMapEncodeTiled``, looked up at run time through
+library with a plain C interface, loaded with ``ctypes``. The TMA
+descriptors (the bf16 matmul and flash kernels', the GEMV's) come from
+the driver's ``cuTensorMapEncodeTiled``, looked up at run time through
 ``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``), so the link needs no
-``-lcuda``. The library
-lands in ``build/kernels/<hash>/`` at the repository root, keyed by a
-hash of the sources and flags, so a checkout builds once at first use
-and an edited source rebuilds. Nothing here runs at import time: the
-CPU-only test host has neither ``nvcc`` nor a card.
+``-lcuda``. The library lands in ``build/kernels/<hash>/`` at the
+repository root, keyed by a hash of the sources and flags, so a checkout
+builds once at first use and an edited source rebuilds. Nothing here
+runs at import time: the CPU-only test host has neither ``nvcc`` nor a
+card.
 """
 from __future__ import annotations
 
@@ -31,12 +31,18 @@ NVCC_FLAGS = (
 )
 
 # the H100's streaming multiprocessors; the kernels that split one
-# output's work across blocks (the GEMV's K, the dense decode's keys) aim
-# for two blocks on each
+# output's work across a cluster of blocks (the GEMV's K, the dense
+# decode's keys) aim for up to two blocks on each
 SMS = 132
 TARGET_BLOCKS = 2 * SMS
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+def aligned16(*tensors) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary, as TMA
+    and 16-byte copies need (a view at an odd element offset does not)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _nvcc() -> str:
@@ -99,9 +105,9 @@ def library() -> ctypes.CDLL:
         "paged_decode_attention": [i, i] + [p] * 11 + [i] * 8 + [f, p],
         "flash_attention": [i, p, p, p, p] + [i] * 8 + [f, i, p],
         "ssd_scan": [i] + [p] * 7 + [i] * 6 + [p],
-        "relic_matmul": [i, p, p, p, i, i, i, i, p],
-        "relic_gemv": [i, p, p, p, p, i, i, i, i, p],
-        "decode_attention": [i] + [p] * 8 + [i] * 6 + [f, p],
+        "relic_matmul": [i, p, p, p] + [i] * 5 + [p],
+        "relic_gemv": [i, p, p, p] + [i] * 7 + [p],
+        "decode_attention": [i] + [p] * 5 + [i] * 9 + [f, p],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)

@@ -13,161 +13,361 @@
 // What bounds it on the H100: memory. Each cached key and value is read
 // once and used for the g query heads of its group (3 for smollm-135m, 1
 // for zamba2-2.7b), far below the ~295 operations per byte at which the
-// tensor cores would become the limit.
+// tensor cores would become the limit. So the design keeps bytes in
+// flight at every moment and spends few instructions per key.
 //
 // Design: the Pallas grid (B, KV, S/bk) with the cache axis sequential
-// becomes one thread block per (row, kv head, split): a row's live key
-// tiles (64 keys each; tiles at or past cache_len are never read) are
-// dealt out to `splits` thread blocks, so that the card has work for all
-// 132 SMs at smollm's 24 (row, kv head) pairs (flash-decoding). Each block
-// stages its tiles in shared memory as float32, 16 bytes a load where the
-// head dim allows it, and folds them into its g query rows with an online
-// softmax (attention_tile.cuh). With one split the block writes the
-// normalised output; with more, each writes its unnormalised (m, l, acc)
-// in float32 to a workspace and a second kernel combines them in split
-// order, scaling each by exp(m_split - m) (by 0 for a split that saw no
-// key, whose m is the -1e30 sentinel), as the kv-sequence split's
-// distributed softmax does.
+// becomes one thread block of 128 threads per (row, kv head, group of up
+// to R of its g query heads, split of the keys); the splits of a (row,
+// head, group) form one thread-block cluster (at most 8 blocks), and the
+// row's live key tiles (64 keys each, below cache_len) are dealt out to
+// them in equal contiguous runs, so no block of a cluster waits long for
+// the others at the combine (kernels/decode_attention.py::decode_plan
+// picks the splits for the card's occupancy). Tiles at or past cache_len
+// are never read. K and V tiles stay in the cache's type and arrive by
+// 16-byte cp.async copies into a 2-4-stage ring, the rows padded by 16
+// bytes so that reads of different keys' rows do not share banks; the
+// next tiles load while this one is computed. Per tile:
+// - scores: two threads per key, each taking half of the head dimension
+//   with 16-byte shared-memory reads against q (float32, in shared
+//   memory), joined with one shuffle: all 128 threads score;
+// - the tile's max over the block (warp shuffles, then 4 warps through
+//   shared memory), the running max m and the rescale exp(m_old - m_new);
+//   the weights p = exp(s - m) into shared memory, in float32;
+// - P.V: thread t owns one 16-byte column chunk of V and every
+//   (128 / chunks)-th key of the tile, with float32 accumulators (and its
+//   part of the running sum l) in registers, rescaled at each tile.
+// Three block barriers a tile; none of them waits for the copies in
+// flight. At the end each block sums its threads' partials in key-group
+// order into (m, l, acc) in shared memory, and rank 0 of the cluster
+// combines the splits in split order over distributed shared memory,
+// scaling each by exp(m_split - m) (by 0 for a split that saw no key,
+// whose m is the -1e30 sentinel), as the kv-sequence split's distributed
+// softmax does, then divides and rounds once: one launch, no workspace,
+// and a result that does not depend on timing. Where the cache rows are
+// not 16-byte multiples or aligned, the same kernel stages the tiles with
+// element loads (kAsync false).
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "hopper.cuh"
 
-using namespace repro_attn;
+using repro_attn::from_f;
+using repro_attn::NEG;
+using repro_attn::to_f;
 
 namespace {
 
 constexpr int DBK = 64;  // keys per tile
+constexpr int DTHREADS = 128, DWARPS = DTHREADS / 32;
 
-// Stage keys j0 .. j0 + n - 1 of (row b, kv head) into sm.k / sm.v.
-// base: element offset of key j0's vector; stride: elements between keys.
+__host__ __device__ constexpr int round16(int bytes) { return (bytes + 15) / 16 * 16; }
+
+// Dynamic shared memory of a block, in bytes from its base.
+struct DecodeLayout {
+  int chunks;  // 16-byte column chunks of a head's row
+  int hdp;     // the row in values, padded to whole chunks
+  int groups;  // key groups of P.V: DTHREADS / chunks
+  int pitch;   // bytes between rows of a tile (16 bytes of padding)
+  int stage;   // one tile of K then one of V
+  int qs, ps, wred, part, total;
+};
+
+__host__ __device__ inline DecodeLayout decode_layout(int hd, int elem, int rows, int stages) {
+  DecodeLayout L{};
+  L.chunks = (hd * elem + 15) / 16;
+  L.hdp = L.chunks * (16 / elem);
+  L.groups = DTHREADS / L.chunks;
+  L.pitch = L.chunks * 16 + 16;
+  L.stage = 2 * DBK * L.pitch;
+  // the ring, which the end-of-block reduction reuses: [groups][rows][hdp]
+  // accumulators then [groups][rows] sums
+  const int ring = stages * L.stage;
+  const int red = round16(4 * L.groups * rows * (L.hdp + 1));
+  L.qs = ring > red ? ring : red;
+  L.ps = L.qs + round16(4 * rows * L.hdp);   // q [rows][hdp], float32
+  L.wred = L.ps + round16(4 * rows * DBK);   // weights [rows][DBK]
+  L.part = L.wred + round16(4 * DWARPS * rows);  // warp maxima [warps][rows]
+  L.total = L.part + round16(4 * rows * (L.hdp + 2));  // m [rows], l [rows], acc [rows][hdp]
+  return L;
+}
+
 template <typename T>
-__device__ inline void stage_keys(Smem sm, const T* __restrict__ k, const T* __restrict__ v,
-                                  size_t base, size_t stride, int n, int hd, bool vec) {
-  const int hp = hd + 1;
-  if (vec) {
-    constexpr int E = 16 / sizeof(T);  // values per 16-byte load
-    const int cpv = hd / E;
-    for (int idx = threadIdx.x; idx < n * cpv; idx += blockDim.x) {
-      const int s = idx / cpv, c0 = (idx - s * cpv) * E;
-      const size_t gi = base + s * stride + c0;
-      const int4 kr = *reinterpret_cast<const int4*>(k + gi);
-      const int4 vr = *reinterpret_cast<const int4*>(v + gi);
-      const T* kb = reinterpret_cast<const T*>(&kr);
-      const T* vb = reinterpret_cast<const T*>(&vr);
+__device__ __forceinline__ void unpack16(const uint4& u, float (&v)[16 / sizeof(T)]) {
+  const uint32_t word[4] = {u.x, u.y, u.z, u.w};
+  if constexpr (sizeof(T) == 4) {
 #pragma unroll
-      for (int i = 0; i < E; ++i) {
-        sm.k[s * hp + c0 + i] = to_f(kb[i]);
-        sm.v[s * hd + c0 + i] = to_f(vb[i]);
+    for (int i = 0; i < 4; ++i) v[i] = __uint_as_float(word[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(word[i] << 16);
+      v[2 * i + 1] = __uint_as_float(word[i] & 0xFFFF0000u);
+    }
+  }
+}
+
+// wait until at most `pending` of this thread's copy groups are in flight
+__device__ __forceinline__ void cp_async_wait_for(int pending) {
+  if (pending >= 2)
+    hopper::cp_async_wait<2>();
+  else if (pending == 1)
+    hopper::cp_async_wait<1>();
+  else
+    hopper::cp_async_wait<0>();
+}
+
+template <typename T, int R, bool kAsync>
+__global__ void __launch_bounds__(DTHREADS)
+    decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const int* __restrict__ cache_len, T* __restrict__ out, int Smax, int H,
+                  int KV, int hd, int stages, float scale) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) uint8_t dsm[];
+  const DecodeLayout L = decode_layout(hd, sizeof(T), R, stages);
+  float* qs = reinterpret_cast<float*>(dsm + L.qs);
+  float* ps = reinterpret_cast<float*>(dsm + L.ps);
+  float* wred = reinterpret_cast<float*>(dsm + L.wred);
+  float* part = reinterpret_cast<float*>(dsm + L.part);  // m [R], l [R], acc [R][hdp]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = H / KV, groups = (g + R - 1) / R;
+  const int b = blockIdx.x, kv = blockIdx.y / groups;
+  const int h0 = kv * g + (blockIdx.y % groups) * R;
+  const int rows = min(R, kv * g + g - h0);
+  const int len = min(max(cache_len[b], 0), Smax);
+  // the row's live tiles, dealt to the cluster's splits in contiguous runs
+  const int splits = (int)gridDim.z;  // the cluster spans the grid's z
+  const int live = (len + DBK - 1) / DBK, per = (live + splits - 1) / splits;
+  const int j_begin = (int)blockIdx.z * per * DBK;
+  const int j_end = min(len, j_begin + per * DBK);
+  const int ntiles = j_end > j_begin ? (j_end - j_begin + DBK - 1) / DBK : 0;
+  const size_t key_stride = (size_t)KV * hd;  // elements between keys
+  const T* kh = k + (size_t)b * Smax * key_stride + (size_t)kv * hd;
+  const T* vh = v + (size_t)b * Smax * key_stride + (size_t)kv * hd;
+
+  for (int i = tid; i < R * L.hdp; i += DTHREADS) {
+    const int r = i / L.hdp, c = i - r * L.hdp;
+    qs[i] = (r < rows && c < hd) ? to_f(q[((size_t)b * H + h0 + r) * hd + c]) : 0.f;
+  }
+
+  // tile t of this block's run into stage t % stages: rows 0 .. n - 1
+  auto load_tile = [&](int t) {
+    uint8_t* st = dsm + (t % stages) * L.stage;
+    const int j0 = j_begin + t * DBK, n = min(DBK, j_end - j0);
+    if constexpr (kAsync) {
+      for (int i = tid; i < 2 * n * L.chunks; i += DTHREADS) {
+        const int half = i / (n * L.chunks), rem = i - half * n * L.chunks;
+        const int j = rem / L.chunks, c = rem - j * L.chunks;
+        const T* src = (half ? vh : kh) + (size_t)(j0 + j) * key_stride + c * VEC;
+        hopper::cp_async16(st + half * DBK * L.pitch + j * L.pitch + c * 16, src);
+      }
+    } else {
+      for (int i = tid; i < 2 * n * L.hdp; i += DTHREADS) {
+        const int half = i / (n * L.hdp), rem = i - half * n * L.hdp;
+        const int j = rem / L.hdp, c = rem - j * L.hdp;
+        const T* src = (half ? vh : kh) + (size_t)(j0 + j) * key_stride;
+        reinterpret_cast<T*>(st + half * DBK * L.pitch + j * L.pitch)[c] =
+            c < hd ? src[c] : from_f<T>(0.f);
       }
     }
-  } else {
-    for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
-      const int s = idx / hd, c = idx - s * hd;
-      const size_t gi = base + s * stride + c;
-      sm.k[s * hp + c] = to_f(k[gi]);
-      sm.v[s * hd + c] = to_f(v[gi]);
-    }
+  };
+
+  float m_run[R], l_run[R], acc[R][VEC];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m_run[r] = NEG;
+    l_run[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[r][i] = 0.f;
   }
-}
+  const int key = tid >> 1, half = tid & 1;  // scoring: two threads a key
+  const int c_mid = (L.chunks + 1) / 2;
+  const int c_lo = half ? c_mid : 0, c_hi = half ? L.chunks : c_mid;
+  const int cc = tid % L.chunks, kg = tid / L.chunks;  // P.V: column chunk, key group
+  const bool pv = kg < L.groups;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const int* __restrict__ cache_len, T* __restrict__ out,
-                  float* __restrict__ ws_m, float* __restrict__ ws_l,
-                  float* __restrict__ ws_acc, int Smax, int H, int KV, int hd,
-                  int tiles_per_split, int vec, float scale) {
-  const int b = blockIdx.x, kv = blockIdx.y, split = blockIdx.z;
-  const int g = H / KV;
-  extern __shared__ __align__(16) char smem_raw[];
-  Smem sm = carve(smem_raw, g, DBK, hd);
-  const int len = min(max(cache_len[b], 0), Smax);
-  const size_t h0 = (size_t)b * H + kv * g;  // the group's g heads are adjacent
+  for (int t = 0; t < stages - 1; ++t) {
+    if (t < ntiles) load_tile(t);
+    hopper::cp_async_commit();
+  }
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait_for(stages - 2);  // this thread's copies of tile t have landed
+    __syncthreads();  // everyone's have, and tile t - 1's stage and the weights are free
+    if (t + stages - 1 < ntiles) load_tile(t + stages - 1);
+    hopper::cp_async_commit();
+    const uint8_t* st = dsm + (t % stages) * L.stage;
+    const int n = min(DBK, j_end - (j_begin + t * DBK));
 
-  for (int idx = threadIdx.x; idx < g * hd; idx += blockDim.x) sm.q[idx] = to_f(q[h0 * hd + idx]);
-  for (int r = threadIdx.x; r < g; r += blockDim.x) sm.lim[r] = len;
-  init_rows(sm, g, hd);
-  __syncthreads();
-
-  const int j_begin = split * tiles_per_split * DBK;
-  const int j_end = min(len, j_begin + tiles_per_split * DBK);
-  const size_t stride = (size_t)KV * hd;
-  for (int j0 = j_begin; j0 < j_end; j0 += DBK) {
-    const int n = min(DBK, j_end - j0);
-    stage_keys(sm, k, v, ((size_t)b * Smax + j0) * stride + (size_t)kv * hd, stride, n, hd,
-               vec);
+    float s[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = 0.f;
+    for (int c = c_lo; c < c_hi; ++c) {
+      float kf[VEC];
+      unpack16<T>(*reinterpret_cast<const uint4*>(st + key * L.pitch + c * 16), kf);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4* qv = reinterpret_cast<const float4*>(qs + r * L.hdp + c * VEC);
+#pragma unroll
+        for (int i = 0; i < VEC / 4; ++i) {
+          const float4 qq = qv[i];
+          s[r] = fmaf(qq.x, kf[4 * i], s[r]);
+          s[r] = fmaf(qq.y, kf[4 * i + 1], s[r]);
+          s[r] = fmaf(qq.z, kf[4 * i + 2], s[r]);
+          s[r] = fmaf(qq.w, kf[4 * i + 3], s[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      s[r] += __shfl_xor_sync(0xffffffffu, s[r], 1);
+      s[r] = key < n ? s[r] * scale : NEG;  // a select: a stale row's value never enters
+      float mx = s[r];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      if (lane == 0) wred[warp * R + r] = mx;
+    }
     __syncthreads();
-    tile_step(sm, g, DBK, hd, j0, n, scale);
+    float corr[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float mx = wred[r];
+#pragma unroll
+      for (int w = 1; w < DWARPS; ++w) mx = fmaxf(mx, wred[w * R + r]);
+      const float m_new = fmaxf(m_run[r], mx);
+      corr[r] = expf(m_run[r] - m_new);
+      if (half == 0) ps[r * DBK + key] = key < n ? expf(s[r] - m_new) : 0.f;
+      m_run[r] = m_new;
+    }
+    __syncthreads();
+    if (pv) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        l_run[r] *= corr[r];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[r][i] *= corr[r];
+      }
+      const uint8_t* vt = st + DBK * L.pitch + cc * 16;
+      for (int j = kg; j < n; j += L.groups) {
+        float vf[VEC];
+        unpack16<T>(*reinterpret_cast<const uint4*>(vt + j * L.pitch), vf);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float p = ps[r * DBK + j];
+          l_run[r] += p;
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[r][i] = fmaf(p, vf[i], acc[r][i]);
+        }
+      }
+    }
+  }
+  hopper::cp_async_wait<0>();  // no copy may land in the ring once it is reused
+
+  // the block's partials, summed over the key groups in group order
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(dsm);  // [groups][R][hdp], then [groups][R]
+  float* lred = red + L.groups * R * L.hdp;
+  if (pv) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) red[(kg * R + r) * L.hdp + cc * VEC + i] = acc[r][i];
+      if (cc == 0) lred[kg * R + r] = l_run[r];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < R * L.hdp; e += DTHREADS) {
+    float sum = red[e];
+    for (int gi = 1; gi < L.groups; ++gi) sum += red[gi * R * L.hdp + e];
+    part[2 * R + e] = sum;
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float sum = lred[r];
+      for (int gi = 1; gi < L.groups; ++gi) sum += lred[gi * R + r];
+      part[r] = m_run[r];
+      part[R + r] = sum;
+    }
   }
 
-  if (gridDim.z == 1) {
-    for (int idx = threadIdx.x; idx < g * hd; idx += blockDim.x)
-      out[h0 * hd + idx] = from_f<T>(sm.acc[idx] / fmaxf(sm.l[idx / hd], 1e-30f));
-    return;
+  // rank 0 combines the splits in split order; the second cluster barrier
+  // keeps every block's shared memory alive until rank 0 has read it
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    for (int e = tid; e < rows * hd; e += DTHREADS) {
+      const int r = e / hd, c = e - r * hd;
+      float m = NEG;
+      for (int sp = 0; sp < splits; ++sp) m = fmaxf(m, cluster.map_shared_rank(part, sp)[r]);
+      float l = 0.f, a = 0.f;
+      for (int sp = 0; sp < splits; ++sp) {
+        const float* pp = cluster.map_shared_rank(part, sp);
+        const float ms = pp[r];
+        const float wgt = ms <= NEG ? 0.f : expf(ms - m);
+        l = fmaf(pp[R + r], wgt, l);
+        a = fmaf(pp[2 * R + r * L.hdp + c], wgt, a);
+      }
+      out[((size_t)b * H + h0 + r) * hd + c] = from_f<T>(a / fmaxf(l, 1e-30f));
+    }
   }
-  const size_t w0 = (size_t)split * gridDim.x * H + h0;
-  for (int idx = threadIdx.x; idx < g * hd; idx += blockDim.x) ws_acc[w0 * hd + idx] = sm.acc[idx];
-  for (int r = threadIdx.x; r < g; r += blockDim.x) {
-    ws_m[w0 + r] = sm.m[r];
-    ws_l[w0 + r] = sm.l[r];
-  }
+  cluster.sync();
 }
 
-// One thread block per (row, head): combine the splits' partials.
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ ws_m,
-                                      const float* __restrict__ ws_l,
-                                      const float* __restrict__ ws_acc, T* __restrict__ out,
-                                      int BH, int hd, int splits) {
-  const size_t bh = blockIdx.x;
-  float m = NEG;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, ws_m[s * BH + bh]);
-  for (int c = threadIdx.x; c < hd; c += blockDim.x) {
-    float l = 0.f, acc = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const float ms = ws_m[s * BH + bh];
-      const float w = ms <= NEG ? 0.f : expf(ms - m);
-      l = fmaf(ws_l[s * BH + bh], w, l);
-      acc = fmaf(ws_acc[(s * BH + bh) * hd + c], w, acc);
-    }
-    out[bh * hd + c] = from_f<T>(acc / fmaxf(l, 1e-30f));
-  }
+template <typename T, int R, bool kAsync>
+int decode_launch(const void* q, const void* k, const void* v, const int* cache_len, void* out,
+                  int B, int Smax, int H, int KV, int hd, int splits, int stages, float scale,
+                  void* stream) {
+  const DecodeLayout L = decode_layout(hd, sizeof(T), R, stages);
+  if (L.groups < 1) return (int)cudaErrorInvalidValue;
+  const int groups = (H / KV + R - 1) / R;
+  return hopper::launch_cluster(decode_kernel<T, R, kAsync>, dim3(B, KV * groups, splits),
+                                dim3(1, 1, splits), DTHREADS, (size_t)L.total, stream,
+                                static_cast<const T*>(q), static_cast<const T*>(k),
+                                static_cast<const T*>(v), cache_len, static_cast<T*>(out), Smax,
+                                H, KV, hd, stages, scale);
 }
 
 template <typename T>
 int decode_typed(const void* q, const void* k, const void* v, const int* cache_len, void* out,
-                 float* ws_m, float* ws_l, float* ws_acc, int B, int Smax, int H, int KV,
-                 int hd, int splits, float scale, void* stream) {
-  const int tiles = (Smax + DBK - 1) / DBK;
-  const int tiles_per_split = (tiles + splits - 1) / splits;
-  const int vec = (hd * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  const int g = H / KV;
-  int err = launch(decode_kernel<T>, dim3(B, KV, splits), smem_bytes(g, DBK, hd), stream,
-                   static_cast<const T*>(q), static_cast<const T*>(k),
-                   static_cast<const T*>(v), cache_len, static_cast<T*>(out), ws_m, ws_l,
-                   ws_acc, Smax, H, KV, hd, tiles_per_split, vec, scale);
-  if (err || splits == 1) return err;
-  return launch(decode_combine_kernel<T>, dim3(B * H), 0, stream,
-                static_cast<const float*>(ws_m), static_cast<const float*>(ws_l),
-                static_cast<const float*>(ws_acc), static_cast<T*>(out), B * H, hd, splits);
+                 int B, int Smax, int H, int KV, int hd, int rows, int splits, int stages,
+                 int async, float scale, void* stream) {
+  if (splits < 1 || splits > 8 || stages < 2 || stages > 4 || KV < 1 || H % KV)
+    return (int)cudaErrorInvalidValue;
+  if (async && ((hd * sizeof(T)) % 16 || reinterpret_cast<uintptr_t>(k) % 16 ||
+                reinterpret_cast<uintptr_t>(v) % 16))
+    return (int)cudaErrorInvalidValue;
+#define REPRO_DECODE(R)                                                                    \
+  (async ? decode_launch<T, R, true>(q, k, v, cache_len, out, B, Smax, H, KV, hd, splits,  \
+                                     stages, scale, stream)                                \
+         : decode_launch<T, R, false>(q, k, v, cache_len, out, B, Smax, H, KV, hd, splits, \
+                                      stages, scale, stream))
+  switch (rows) {
+    case 1: return REPRO_DECODE(1);
+    case 4: return REPRO_DECODE(4);
+    case 8: return REPRO_DECODE(8);
+  }
+#undef REPRO_DECODE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, caches and out). splits > 1 needs
-// float32 workspaces ws_m, ws_l [splits,B,H] and ws_acc [splits,B,H,hd]
-// (null when splits == 1). Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16 (q, caches and out). rows: query heads
+// a block takes (1, 4 or 8; g = H / KV above it runs in groups); splits:
+// blocks (one cluster, 1-8) that share a (row, kv head, group)'s key
+// tiles; stages: the K/V ring's depth (2-4); async: 1 = 16-byte cp.async
+// copies (hd * sizeof(T) a multiple of 16, caches 16-byte aligned), 0 =
+// element loads. The wrapper's plan (kernels/decode_attention.py::
+// decode_plan) decides them. Returns a cudaError_t (0 = launched).
 extern "C" int decode_attention(int dtype, const void* q, const void* k_cache,
-                                const void* v_cache, const int* cache_len, void* out,
-                                float* ws_m, float* ws_l, float* ws_acc, int B, int Smax,
-                                int H, int KV, int hd, int splits, float scale,
-                                void* stream) {
-  if (splits < 1 || (splits > 1 && (!ws_m || !ws_l || !ws_acc)))
-    return (int)cudaErrorInvalidValue;
+                                const void* v_cache, const int* cache_len, void* out, int B,
+                                int Smax, int H, int KV, int hd, int rows, int splits,
+                                int stages, int async, float scale, void* stream) {
 #define REPRO_DECODE_ARGS \
-  q, k_cache, v_cache, cache_len, out, ws_m, ws_l, ws_acc, B, Smax, H, KV, hd, splits, scale, \
-      stream
+  q, k_cache, v_cache, cache_len, out, B, Smax, H, KV, hd, rows, splits, stages, async, scale, stream
   if (dtype == 0) return decode_typed<float>(REPRO_DECODE_ARGS);
   if (dtype == 1) return decode_typed<__nv_bfloat16>(REPRO_DECODE_ARGS);
 #undef REPRO_DECODE_ARGS

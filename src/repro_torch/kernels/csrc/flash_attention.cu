@@ -43,10 +43,12 @@
 // all resident at once on the 132 SMs; the time is the longest block's 16
 // key tiles.
 //
-// Design, float32 and other bf16 head sizes that are multiples of 16
-// (flash_kernel; the wrapper refuses the rest): the CUDA cores. wgmma's float32 inputs are TF32, which keeps about three decimal
-// digits; the float32 contract (chip_smoke.py's TOL of 2e-5, float32 token
-// parity in serving) needs full float32 products. One thread block per (BQ
+// Design, float32, every other bf16 head size and bf16 q/k/v that are not
+// 16-byte aligned (flash_kernel): the CUDA cores, element loads that take
+// any head size and alignment. wgmma's float32 inputs are TF32, which
+// keeps about three decimal digits; the float32 contract (chip_smoke.py's
+// TOL of 2e-5, float32 token parity in serving) needs full float32
+// products. One thread block per (BQ
 // query positions, batch row, kv head): the g query heads of the kv group
 // ride together as BQ * g rows, so one K/V tile in shared memory serves
 // all of them. The Pallas grid's sequential kv axis becomes a loop over
@@ -372,7 +374,8 @@ static int flash_wgmma(const void* q, const void* k, const void* v, void* out, i
 // dtype: 0 = float32, 1 = bfloat16. causal: 1 = causal from q_offset,
 // 0 = every query attends every key (q_offset unused). wgmma: 1 = the
 // bf16 tensor-core kernel (hd 64 or 80, q/k/v 16-byte aligned; the
-// wrapper's plan decides), 0 = the CUDA-core kernel (float32 always).
+// wrapper's plan decides), 0 = the CUDA-core kernel (float32 always, and
+// every other bf16 input).
 // Returns a cudaError_t (0 = launched), or hopper::TMA_REFUSED + the
 // driver's CUresult for a refused TMA descriptor.
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,

@@ -1,11 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the bf16 matmul and flash
-// attention kernels, as inline PTX: TMA tile loads into shared memory that
-// complete on an mbarrier, the mbarrier itself, wgmma shared-memory
+// Hopper (sm_90a) building blocks shared by the port's kernels, as inline
+// PTX: TMA tile loads into shared memory that complete on an mbarrier, the
+// mbarrier itself, 16-byte cp.async copies, wgmma shared-memory
 // descriptors for swizzled tiles, and bf16 wgmma.mma_async with float32
-// accumulators at the widths the two kernels use. Also the host half: a
-// TMA descriptor encoded with cuTensorMapEncodeTiled, which is a driver
-// API; it is looked up through cudaGetDriverEntryPoint, so the library
-// links no -lcuda.
+// accumulators at the widths the matmul and flash kernels use. Also the
+// host half: a TMA descriptor encoded with cuTensorMapEncodeTiled, which
+// is a driver API; it is looked up through cudaGetDriverEntryPoint, so the
+// library links no -lcuda; and a launch in thread-block clusters.
 //
 // Layout conventions (PTX ISA, "Matrix Descriptor Format" and the
 // canonical wgmma layouts; every tile base here is 1024-byte aligned):
@@ -110,6 +110,26 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: each thread copies 16 bytes (both addresses 16-byte aligned)
+// into shared memory without holding a register; a thread's copies are
+// committed in groups and waited for by group.
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -268,20 +288,51 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dimensions (innermost first: sizes in elements,
-// strides of dimensions 1.. in bytes) cut into boxes of `box` elements,
-// landing in shared memory with `swizzle`. Returns 0, or TMA_REFUSED + the
-// driver's CUresult.
+// A tensor of `rank` dimensions (innermost first: sizes in elements,
+// strides of dimensions 1.. in bytes) of `type` (bf16 unless said) cut into
+// boxes of `box` elements, landing in shared memory with `swizzle`. Returns
+// 0, or TMA_REFUSED + the driver's CUresult.
 inline int encode_tma(CUtensorMap* map, const void* base, uint32_t rank, const uint64_t* dims,
-                      const uint64_t* strides, const uint32_t* box,
-                      CUtensorMapSwizzle swizzle) {
+                      const uint64_t* strides, const uint32_t* box, CUtensorMapSwizzle swizzle,
+                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const auto fn = encode_tiled_fn();
   if (fn == nullptr) return TMA_NO_ENTRY_POINT;
   const uint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base),
                         dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TMA_REFUSED + (int)r;
+}
+
+// ---------------------------------------------------------------------------
+// host: a launch in thread-block clusters of `cluster` blocks (at most 8,
+// the portable size), `threads` a block, `smem` bytes of dynamic shared
+// memory (raising the kernel's limit above the 48 KB default when needed),
+// on `stream`. Returns the launch's cudaError_t: a refused launch never
+// runs, and a later synchronise would not report it.
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), dim3 grid, dim3 cluster, int threads, size_t smem,
+                   void* stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster.x;
+  attr[0].val.clusterDim.y = cluster.y;
+  attr[0].val.clusterDim.z = cluster.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace hopper

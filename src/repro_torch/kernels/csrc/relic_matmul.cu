@@ -33,8 +33,9 @@
 // warpgroup to the consumers. The epilogue rounds the float32
 // accumulators to bf16 and stores them, masked at ragged M and N; TMA
 // fills loads past an edge with zeros, so a ragged K adds nothing. TMA
-// needs 16-byte row strides, so K and N must be multiples of 8 (the
-// wrapper raises otherwise). Blocks walk M fastest, so the blocks in
+// needs 16-byte row strides, so K and N must be multiples of 8 and x
+// and w 16-byte aligned (the wrapper's plan sends other bf16 operands to
+// the CUDA-core kernel). Blocks walk M fastest, so the blocks in
 // flight share w's column tiles in L2 (zamba2's w is 52 MB, more than L2
 // holds). Tile width (kernels/relic_matmul.py::matmul_plan): BN = 128
 // when the 128 x 128 tiles fill the 132 SMs (zamba2's 640), else BN = 64
@@ -54,16 +55,42 @@
 // slice. 256 threads each own an 8x8 block of outputs (two 4x4 quads per
 // dimension, so a warp's shared-memory reads are conflict-free).
 //
-// Design, GEMV: one thread block per 128-column panel of w (32 lanes x 4
-// adjacent columns, one 8- or 16-byte load a lane) and per slice of K.
-// Its 8 warps take interleaved rows of w, so a block streams 8 whole panel
-// rows at a time; x is staged in shared memory 256 columns at a time (at
-// zamba2's K = 10240, x of 8 rows is 320 KB in float32, more than an SM
-// holds) and read as a broadcast. The 8 warps' partial sums meet in shared
-// memory. When N gives too few panels to fill 132 SMs, K is split across
-// blocks as well: each split writes float32 partials to a workspace and a
-// second kernel sums them in a fixed order and rounds once. B is looped in
-// groups of 8 rows, re-reading w for each group.
+// Design, bf16 matmul off TMA's strides (K or N not a multiple of 8, or
+// x or w not 16-byte aligned): the CUDA-core matmul_kernel below, the
+// same template as float32's, loading element by element; the bf16
+// values are widened to float32 and the sum rounded once.
+//
+// Design, GEMV (gemv_kernel; float32 and bf16 alike). It streams w, so
+// what it needs is enough bytes in flight to cover the memory latency
+// (~3.35 TB/s x ~1 us / 132 SMs ~ 25 KB per SM, more under load), in long
+// contiguous pieces, and consumers that keep up. One thread block per
+// (P-column panel of w, split of K, group of up to 8 rows of x), P = 256
+// bf16 or 128 float32 columns, so a panel row is 512 bytes. w arrives by
+// TMA, one [32 rows x P] box (16 KB) a stage, into a ring of 3-6 stages
+// sized to ~110 KB of shared memory with x's buffers, so two blocks share
+// an SM (kernels/relic_matmul.py::gemv_plan); one producer thread fills
+// it and 8 consumer warps drain it through full / empty mbarriers, so the
+// loads in flight never drain for a barrier. A consumer warp reads a whole
+// panel row with one 16-byte shared-memory load a lane (conflict-free)
+// and multiplies it into kRows x (16 / sizeof(T)) float32 accumulators,
+// against x's values as float32 in shared memory: x arrives by TMA too,
+// 512 rows of K at a time into two buffers, and the consumers turn each
+// chunk into float32 [k][row] behind their own named barrier while the
+// producer keeps loading. The ring is addressed as an offset from the
+// shared array, so every access compiles to a shared-memory load (through
+// a generic pointer the compiler lost the address space, and the loads
+// were slower). Splits: 1 to 8 blocks share a panel's K as one
+// thread-block cluster, chosen for the most blocks per resident wave;
+// each block sums its 8 warps' partials in warp order, then rank 0 sums
+// the blocks' partials in split order over distributed shared memory and
+// rounds once, so one launch needs no workspace and the result does not
+// depend on timing. No tensor cores: at 8 rows a weight is used 8 times,
+// ~4 operations a byte; at B = 8 the 64 float32 FMAs a lane does per
+// panel row make the consumers, not the memory, the limit (PERF.md). Where
+// TMA cannot take w or x (N or K not a multiple of 16 / sizeof(T), an
+// operand not 16-byte aligned) the consumers load both from global memory
+// themselves, element by element, with the same reduction.
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include "attention_tile.cuh"
@@ -308,150 +335,319 @@ int matmul_wgmma(const void* x, const void* w, void* out, int M, int N, int K, i
 // ---------------------------------------------------------------------------
 // GEMV
 
-constexpr int GV_THREADS = 256, GV_WARPS = GV_THREADS / 32;
-constexpr int GV_ROWS = 8;                 // rows of x per pass over w
-constexpr int GV_COLS = 4;                 // adjacent columns a lane owns
-constexpr int GV_PANEL = 32 * GV_COLS;     // 128 columns a thread block
-constexpr int GV_KC = 256;                 // columns of x staged at a time
+constexpr int GV_CONSUMERS = 8;                      // consumer warps
+constexpr int GV_THREADS = 32 * (GV_CONSUMERS + 1);  // + the producer warp
+constexpr int GV_ROW_BYTES = 512;                    // a panel row: 32 lanes x 16 bytes
+constexpr int GV_KT = 32;                            // rows of w a stage, 4 a consumer warp
+constexpr int GV_STAGE_BYTES = GV_KT * GV_ROW_BYTES;  // 16 KB, one TMA box
+constexpr int GV_MAX_STAGES = 24;
+constexpr int GV_XCHUNK = 512;                       // rows of x (of K) staged at a time
+constexpr int GV_XBOX = 256;                         // K extent of one TMA box of x (the most)
 
+// Shared memory: the ring of `stages` stages of GV_KT rows of w, x as float32
+// [GV_XCHUNK][rows], two buffers of x as it arrives (boxes [rows][GV_XBOX]), then
+// the barriers; + 1 KB to align the ring. The kernel reuses the ring for
+// its reduction, which needs GV_CONSUMERS * rows * P floats (64 KB at 8
+// rows).
 template <typename T>
-__device__ __forceinline__ void load4(const T* p, float (&v)[GV_COLS]);
-template <>
-__device__ __forceinline__ void load4<float>(const float* p, float (&v)[GV_COLS]) {
-  const float4 f = *reinterpret_cast<const float4*>(p);
-  v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
-}
-template <>
-__device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* p,
-                                                     float (&v)[GV_COLS]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-  for (int j = 0; j < GV_COLS; ++j) v[j] = __bfloat162float(h[j]);
+__host__ __device__ constexpr size_t gv_smem_bytes(int rows, int stages) {
+  return 1024 + (size_t)stages * GV_STAGE_BYTES + (size_t)GV_XCHUNK * rows * sizeof(float) +
+         2 * (size_t)GV_XCHUNK * rows * sizeof(T) + (2 * stages + 4) * sizeof(uint64_t);
 }
 
-// vec: N is a multiple of 4 and w is aligned for 4-value loads.
+// 16 bytes of w as floats: 4 float32 values, or 8 bf16 (a bf16 is the top
+// half of the float32 with the same bits)
 template <typename T>
-__global__ void __launch_bounds__(GV_THREADS)
-    gemv_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
-                float* __restrict__ ws, int B, int K, int N, int k_per_split, int vec) {
-  __shared__ float xs[GV_ROWS][GV_KC];
-  __shared__ float red[GV_WARPS][GV_ROWS][GV_PANEL];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n0 = blockIdx.x * GV_PANEL + lane * GV_COLS;
-  const int split = blockIdx.y;
-  const int kb = split * k_per_split, ke = min(K, kb + k_per_split);
-  const bool full = vec && n0 + GV_COLS <= N;
-
-  for (int r0 = 0; r0 < B; r0 += GV_ROWS) {
-    const int rows = min(GV_ROWS, B - r0);
-    float acc[GV_ROWS][GV_COLS];
+__device__ __forceinline__ void unpack16(const uint4& u, float (&v)[16 / sizeof(T)]) {
+  const uint32_t word[4] = {u.x, u.y, u.z, u.w};
+  if constexpr (sizeof(T) == 4) {
 #pragma unroll
-    for (int r = 0; r < GV_ROWS; ++r)
+    for (int i = 0; i < 4; ++i) v[i] = __uint_as_float(word[i]);
+  } else {
 #pragma unroll
-      for (int j = 0; j < GV_COLS; ++j) acc[r][j] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(word[i] << 16);
+      v[2 * i + 1] = __uint_as_float(word[i] & 0xFFFF0000u);
+    }
+  }
+}
 
-    for (int c0 = kb; c0 < ke; c0 += GV_KC) {
-      const int clen = min(GV_KC, ke - c0);
-      __syncthreads();  // the previous chunk's readers are done with xs
-      for (int i = threadIdx.x; i < GV_ROWS * GV_KC; i += GV_THREADS) {
-        const int r = i / GV_KC, kk = i - r * GV_KC;
-        xs[r][kk] = (r < rows && kk < clen) ? to_f(x[(size_t)(r0 + r) * K + c0 + kk]) : 0.f;
+// the consumer warps' own barrier (the producer warp never waits on it)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * GV_CONSUMERS) : "memory");
+}
+
+// One thread block per (P-column panel of w, split of K, group of kRows
+// rows of x); the splits of a panel form one cluster. kTma: w and x
+// arrive by TMA; otherwise (N, K or an operand's alignment refuses TMA's
+// 16-byte strides) the consumers load both from global memory themselves.
+template <typename T, int kRows, bool kTma>
+__global__ void __launch_bounds__(GV_THREADS, 2)
+    gemv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap xmap,
+                const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, int B,
+                int K, int N, int k_per_split, int stages) {
+  using namespace hopper;
+  constexpr int VEC = 16 / sizeof(T), P = 32 * VEC;
+  constexpr int XBOX_BYTES = GV_XBOX * kRows * sizeof(T);
+  constexpr int XBYTES = GV_XCHUNK * kRows * sizeof(T);  // one chunk of x: two TMA boxes
+  constexpr int CHUNK_STAGES = GV_XCHUNK / GV_KT;
+  extern __shared__ __align__(1024) uint8_t gv_smem[];
+  // the ring on a 1024-byte boundary, by an offset from the shared array
+  // (not through an integer), so the compiler keeps every access to it a
+  // shared-memory one (LDS) and not a generic one
+  uint8_t* ring = gv_smem + ((1024 - (hopper::smem_u32(gv_smem) & 1023)) & 1023);
+  float* xs = reinterpret_cast<float*>(ring + stages * GV_STAGE_BYTES);  // [k][kRows]
+  uint8_t* xraw = reinterpret_cast<uint8_t*>(xs + GV_XCHUNK * kRows);  // 2 x [box][kRows][GV_XBOX]
+  uint64_t* full = reinterpret_cast<uint64_t*>(xraw + 2 * XBYTES);
+  uint64_t* empty = full + stages;
+  uint64_t* xfull = empty + stages;  // [2]
+  uint64_t* xempty = xfull + 2;      // [2]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = blockIdx.x * P, r0 = blockIdx.z * kRows;
+  const int rows = min(kRows, B - r0);
+  const int kb = blockIdx.y * k_per_split, ke = min(K, kb + k_per_split);
+  const int nst = ke > kb ? (ke - kb + GV_KT - 1) / GV_KT : 0;
+  const int nchunks = (nst + CHUNK_STAGES - 1) / CHUNK_STAGES;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);              // the producer's arrive, plus the TMA bytes
+      mbar_init(&empty[s], GV_CONSUMERS);  // one arrive from each consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&xfull[i], 1);
+      mbar_init(&xempty[i], GV_CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == GV_CONSUMERS) {  // producer: one thread keeps the ring full
+    if (kTma && lane == 0) {
+      auto load_x = [&](int c) {  // chunk c of this split's x into buffer c % 2
+        mbar_arrive_expect_tx(&xfull[c % 2], XBYTES);
+        for (int h = 0; h < GV_XCHUNK / GV_XBOX; ++h)
+          tma_load_2d(xraw + (c % 2) * XBYTES + h * XBOX_BYTES, &xmap, &xfull[c % 2],
+                      kb + c * GV_XCHUNK + h * GV_XBOX, r0);
+      };
+      for (int c = 0; c < 2 && c < nchunks; ++c) load_x(c);
+      for (int t = 0; t < nst; ++t) {
+        // halfway through chunk c - 1, chunk c - 2's buffer has long been
+        // turned into float32 (the consumers run at most a ring, at most
+        // 1.5 chunks, behind)
+        const int c = t / CHUNK_STAGES + 1;
+        if (t % CHUNK_STAGES == CHUNK_STAGES / 2 && c >= 2 && c < nchunks) {
+          mbar_wait(&xempty[c % 2], ((c - 2) / 2) & 1);
+          load_x(c);
+        }
+        const int s = t % stages;
+        mbar_wait(&empty[s], ((t / stages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], GV_STAGE_BYTES);
+        tma_load_2d(ring + s * GV_STAGE_BYTES, &wmap, &full[s], n0, kb + t * GV_KT);
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = warp; kk < clen; kk += GV_WARPS) {
-        const T* wr = w + (size_t)(c0 + kk) * N;
-        float wv[GV_COLS];
-        if (full) {
-          load4(wr + n0, wv);
+    }
+  } else {  // consumers: warp c takes rows c, c + 8, ... of every stage
+    float acc[kRows][VEC];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[r][j] = 0.f;
+
+    for (int t = 0; t < nst; ++t) {
+      const int k0 = kb + t * GV_KT, xrow = (t % CHUNK_STAGES) * GV_KT;
+      if (xrow == 0) {  // x's rows k0 .. k0 + GV_XCHUNK - 1 of this split, as float32
+        const int c = t / CHUNK_STAGES;
+        consumers_sync();  // the previous chunk's readers are done
+        if constexpr (kTma) {
+          mbar_wait(&xfull[c % 2], (c / 2) & 1);
+          const T* raw = reinterpret_cast<const T*>(xraw + (c % 2) * XBYTES);
+          for (int i = threadIdx.x; i < GV_XCHUNK * kRows; i += 32 * GV_CONSUMERS) {
+            const int r = i % kRows, k = i / kRows;
+            xs[i] = to_f(raw[(k / GV_XBOX) * kRows * GV_XBOX + r * GV_XBOX + k % GV_XBOX]);
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&xempty[c % 2]);  // the buffer may be refilled
+        } else {
+          for (int i = threadIdx.x; i < GV_XCHUNK * kRows; i += 32 * GV_CONSUMERS) {
+            const int r = i % kRows, k = k0 + i / kRows;
+            xs[i] = (r < rows && k < ke) ? to_f(x[(size_t)(r0 + r) * K + k]) : 0.f;
+          }
+        }
+        consumers_sync();
+      }
+      const int s = t % stages;
+      if constexpr (kTma) mbar_wait(&full[s], (t / stages) & 1);
+#pragma unroll
+      for (int i = 0; i < GV_KT / GV_CONSUMERS; ++i) {
+        const int kk = warp + GV_CONSUMERS * i;
+        float wv[VEC];
+        if constexpr (kTma) {
+          unpack16<T>(*reinterpret_cast<const uint4*>(ring + s * GV_STAGE_BYTES +
+                                                      kk * GV_ROW_BYTES + lane * 16),
+                      wv);
+        } else {
+          const int k = k0 + kk, n = n0 + lane * VEC;
+          const T* wr = w + (size_t)k * N + n;
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) wv[j] = (k < ke && n + j < N) ? to_f(wr[j]) : 0.f;
+        }
+        float xv[kRows];
+        const float* xr = xs + (xrow + kk) * kRows;  // 16-byte aligned when kRows >= 4
+        if constexpr (kRows % 4 == 0) {
+#pragma unroll
+          for (int r = 0; r < kRows; r += 4) {
+            const float4 v4 = *reinterpret_cast<const float4*>(xr + r);
+            xv[r] = v4.x, xv[r + 1] = v4.y, xv[r + 2] = v4.z, xv[r + 3] = v4.w;
+          }
         } else {
 #pragma unroll
-          for (int j = 0; j < GV_COLS; ++j) wv[j] = n0 + j < N ? to_f(wr[n0 + j]) : 0.f;
+          for (int r = 0; r < kRows; ++r) xv[r] = xr[r];
         }
 #pragma unroll
-        for (int r = 0; r < GV_ROWS; ++r) {
-          const float xv = xs[r][kk];
+        for (int r = 0; r < kRows; ++r)
 #pragma unroll
-          for (int j = 0; j < GV_COLS; ++j) acc[r][j] = fmaf(xv, wv[j], acc[r][j]);
-        }
+          for (int j = 0; j < VEC; ++j) acc[r][j] = fmaf(xv[r], wv[j], acc[r][j]);
+      }
+      if constexpr (kTma) {  // this warp's reads of stage s are done
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
       }
     }
 
+    // the block's partial sums: the 8 warps' in warp order, into warp 0's
+    // slot of the (now idle) ring
+    consumers_sync();
+    float* red = reinterpret_cast<float*>(ring);  // [warp][kRows][P]
 #pragma unroll
-    for (int r = 0; r < GV_ROWS; ++r)
+    for (int r = 0; r < kRows; ++r)
 #pragma unroll
-      for (int j = 0; j < GV_COLS; ++j) red[warp][r][lane * GV_COLS + j] = acc[r][j];
-    __syncthreads();
-    for (int i = threadIdx.x; i < GV_ROWS * GV_PANEL; i += GV_THREADS) {
-      const int r = i / GV_PANEL, c = i - r * GV_PANEL;
-      const int n = blockIdx.x * GV_PANEL + c;
-      if (r >= rows || n >= N) continue;
-      float s = 0.f;
+      for (int j = 0; j < VEC; ++j) red[(warp * kRows + r) * P + lane * VEC + j] = acc[r][j];
+    consumers_sync();
+    for (int e = threadIdx.x; e < kRows * P; e += 32 * GV_CONSUMERS) {
+      float sum = red[e];
 #pragma unroll
-      for (int v = 0; v < GV_WARPS; ++v) s += red[v][r][c];
-      const size_t o = (size_t)(r0 + r) * N + n;
-      if (gridDim.y == 1)
-        out[o] = from_f<T>(s);
-      else
-        ws[(size_t)split * B * N + o] = s;
+      for (int v = 1; v < GV_CONSUMERS; ++v) sum += red[v * kRows * P + e];
+      red[e] = sum;
     }
-    __syncthreads();  // red is rewritten by the next row group
   }
+
+  // rank 0 of the cluster sums the splits' partials in split order, over
+  // distributed shared memory, and rounds once; the second cluster barrier
+  // keeps every block's shared memory alive until rank 0 has read it
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (cluster.block_rank() == 0 && warp < GV_CONSUMERS) {
+    float* red = reinterpret_cast<float*>(ring);
+    const int splits = (int)gridDim.y;  // the cluster spans the grid's y
+    for (int e = threadIdx.x; e < kRows * P; e += 32 * GV_CONSUMERS) {
+      const int r = e / P, c = n0 + e % P;
+      if (r >= rows || c >= N) continue;
+      float part[8];  // all the splits' loads in flight at once, then summed in order
+#pragma unroll
+      for (int q = 0; q < 8; ++q) part[q] = q < splits ? cluster.map_shared_rank(red, q)[e] : 0.f;
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (q < splits) sum += part[q];
+      out[(size_t)(r0 + r) * N + c] = from_f<T>(sum);
+    }
+  }
+  cluster.sync();
 }
 
-// out = sum over splits of ws[split], in split order, rounded once.
-template <typename T>
-__global__ void gemv_combine_kernel(const float* __restrict__ ws, T* __restrict__ out,
-                                    int splits, size_t n_out) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_out;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int sp = 0; sp < splits; ++sp) s += ws[sp * n_out + i];
-    out[i] = from_f<T>(s);
-  }
+template <typename T, int kRows, bool kTma>
+int gemv_launch(const CUtensorMap& wmap, const CUtensorMap& xmap, const void* x, const void* w,
+                void* out, int B, int K, int N, int splits, int k_per_split, int stages,
+                void* stream) {
+  constexpr int P = 32 * (16 / sizeof(T));
+  const dim3 grid((N + P - 1) / P, splits, (B + kRows - 1) / kRows);
+  return hopper::launch_cluster(gemv_kernel<T, kRows, kTma>, grid, dim3(1, splits, 1),
+                                GV_THREADS, gv_smem_bytes<T>(kRows, stages), stream, wmap, xmap,
+                                static_cast<const T*>(x), static_cast<const T*>(w),
+                                static_cast<T*>(out), B, K, N, k_per_split, stages);
 }
 
 template <typename T>
-int gemv_typed(const void* x, const void* w, void* out, void* ws, int B, int K, int N,
-               int splits, void* stream) {
-  const int k_per_split = (K + splits - 1) / splits;
-  const int vec = N % GV_COLS == 0 &&
-                  reinterpret_cast<uintptr_t>(w) % (GV_COLS * sizeof(T)) == 0;
-  const dim3 grid((N + GV_PANEL - 1) / GV_PANEL, splits);
-  int err = launch<GV_THREADS>(gemv_kernel<T>, grid, 0, stream, static_cast<const T*>(x),
-                               static_cast<const T*>(w), static_cast<T*>(out),
-                               static_cast<float*>(ws), B, K, N, k_per_split, vec);
-  if (err || splits == 1) return err;
-  const size_t n_out = (size_t)B * N;
-  const int blocks = (int)((n_out + 255) / 256 < 4096 ? (n_out + 255) / 256 : 4096);
-  return launch<256>(gemv_combine_kernel<T>, dim3(blocks), 0, stream,
-                     static_cast<const float*>(ws), static_cast<T*>(out), splits, n_out);
+int gemv_typed(const void* x, const void* w, void* out, int B, int K, int N, int rows,
+               int splits, int stages, int tma, void* stream) {
+  constexpr int VEC = 16 / sizeof(T), P = 32 * VEC;
+  // the reduction reuses the ring (GV_CONSUMERS * rows * P floats); the
+  // producer may run 1.5 chunks of x ahead of the consumers, no more
+  if (splits < 1 || splits > 8 || B < 1 || K < 1 || N < 1 || stages > GV_MAX_STAGES ||
+      stages > 3 * GV_XCHUNK / GV_KT / 2 ||
+      (size_t)stages * GV_STAGE_BYTES < (size_t)GV_CONSUMERS * rows * P * sizeof(float))
+    return (int)cudaErrorInvalidValue;
+  const int k_per_split = ((K + splits - 1) / splits + GV_KT - 1) / GV_KT * GV_KT;
+  CUtensorMap wmap{}, xmap{};
+  if (tma) {
+    if (N % VEC || K % VEC || reinterpret_cast<uintptr_t>(w) % 16 ||
+        reinterpret_cast<uintptr_t>(x) % 16)
+      return (int)cudaErrorInvalidValue;
+    const CUtensorMapDataType type =
+        sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const uint64_t wdims[2] = {(uint64_t)N, (uint64_t)K}, wstride[1] = {(uint64_t)N * sizeof(T)};
+    const uint32_t wbox[2] = {(uint32_t)P, GV_KT};
+    int err = hopper::encode_tma(&wmap, w, 2, wdims, wstride, wbox, CU_TENSOR_MAP_SWIZZLE_NONE,
+                                 type);
+    if (err) return err;
+    const uint64_t xdims[2] = {(uint64_t)K, (uint64_t)B}, xstride[1] = {(uint64_t)K * sizeof(T)};
+    const uint32_t xbox[2] = {GV_XBOX, (uint32_t)rows};
+    err = hopper::encode_tma(&xmap, x, 2, xdims, xstride, xbox, CU_TENSOR_MAP_SWIZZLE_NONE, type);
+    if (err) return err;
+  }
+#define REPRO_GEMV(R)                                                                         \
+  (tma ? gemv_launch<T, R, true>(wmap, xmap, x, w, out, B, K, N, splits, k_per_split, stages, \
+                                 stream)                                                      \
+       : gemv_launch<T, R, false>(wmap, xmap, x, w, out, B, K, N, splits, k_per_split,        \
+                                  stages, stream))
+  switch (rows) {
+    case 1: return REPRO_GEMV(1);
+    case 2: return REPRO_GEMV(2);
+    case 4: return REPRO_GEMV(4);
+    case 8: return REPRO_GEMV(8);
+  }
+#undef REPRO_GEMV
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (x, w and out), on the CUDA cores; 1 = bfloat16, on
-// wgmma with BN-wide tiles (bn = 64 or 128; K and N multiples of 8, x and
-// w 16-byte aligned). Returns a cudaError_t (0 = launched), or
-// hopper::TMA_REFUSED + the driver's CUresult for a refused TMA descriptor.
+// dtype: 0 = float32 (x, w and out), 1 = bfloat16. wgmma: 1 = the bf16
+// tensor-core kernel with BN-wide tiles (bn = 64 or 128; K and N multiples
+// of 8, x and w 16-byte aligned; the wrapper's plan decides), 0 = the
+// CUDA-core kernel (float32 always; bf16 where TMA cannot take the
+// operands). Returns a cudaError_t (0 = launched), or hopper::TMA_REFUSED
+// + the driver's CUresult for a refused TMA descriptor.
 extern "C" int relic_matmul(int dtype, const void* x, const void* w, void* out, int M,
-                            int N, int K, int bn, void* stream) {
+                            int N, int K, int bn, int wgmma, void* stream) {
+  if (wgmma) return dtype == 1 ? matmul_wgmma(x, w, out, M, N, K, bn, stream)
+                               : (int)cudaErrorInvalidValue;
+  const dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
   if (dtype == 0)
-    return launch<MM_THREADS>(matmul_kernel<float>,
-                              dim3((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM), 0, stream,
+    return launch<MM_THREADS>(matmul_kernel<float>, grid, 0, stream,
                               static_cast<const float*>(x), static_cast<const float*>(w),
                               static_cast<float*>(out), M, N, K);
-  if (dtype == 1) return matmul_wgmma(x, w, out, M, N, K, bn, stream);
+  if (dtype == 1)
+    return launch<MM_THREADS>(matmul_kernel<__nv_bfloat16>, grid, 0, stream,
+                              static_cast<const __nv_bfloat16*>(x),
+                              static_cast<const __nv_bfloat16*>(w),
+                              static_cast<__nv_bfloat16*>(out), M, N, K);
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype as above. splits > 1 splits K across thread blocks and needs a
-// float32 workspace ws of splits * B * N values (ignored when splits == 1).
-extern "C" int relic_gemv(int dtype, const void* x, const void* w, void* out, void* ws,
-                          int B, int K, int N, int splits, void* stream) {
-  if (splits < 1 || (splits > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return gemv_typed<float>(x, w, out, ws, B, K, N, splits, stream);
-  if (dtype == 1) return gemv_typed<__nv_bfloat16>(x, w, out, ws, B, K, N, splits, stream);
+// dtype as above. rows: the rows of x a block takes (1, 2, 4 or 8; B > 8
+// runs groups of 8 over the grid's z); splits: blocks (one cluster) that
+// share a panel's K, 1-8; stages: the ring's depth in 16 KB stages; tma:
+// 1 = w and x arrive by TMA (N and K multiples of 16 / sizeof(T), x and w
+// 16-byte aligned), 0 = the consumers load them themselves. The wrapper's
+// plan (kernels/relic_matmul.py::gemv_plan) decides them all. Returns as
+// relic_matmul.
+extern "C" int relic_gemv(int dtype, const void* x, const void* w, void* out, int B, int K,
+                          int N, int rows, int splits, int stages, int tma, void* stream) {
+  if (dtype == 0)
+    return gemv_typed<float>(x, w, out, B, K, N, rows, splits, stages, tma, stream);
+  if (dtype == 1)
+    return gemv_typed<__nv_bfloat16>(x, w, out, B, K, N, rows, splits, stages, tma, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,9 @@ multiple of ``min(bk, Smax)`` (the kernel's own 64-key tile does not depend
 on ``bk``), then dispatches on the tensors' device: CPU tensors take the
 plain PyTorch version (``plain_decode_attention``), CUDA tensors the
 kernel — or it raises. A row with ``cache_len`` 0 gives zeros in both.
-Its ``launches`` attribute counts kernel launches.
+Its ``launches`` attribute counts kernel launches. ``decode_plan`` says how
+the kernel launches: how many blocks (one cluster) share a row's keys, the
+K/V ring's depth, and whether the tiles arrive by 16-byte ``cp.async``.
 """
 from __future__ import annotations
 
@@ -23,16 +25,49 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref as plain_decode_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-DECODE_TILE = 64  # keys per tile in csrc/decode_attention.cu
+# csrc/decode_attention.cu: 64-key tiles, 128 threads a block, a cluster
+# of at most 8 splits that share a row's live tiles equally, a K/V ring of
+# 2-4 stages within ~112 KB of shared memory
+DECODE_TILE, DECODE_THREADS = 64, 128
+DECODE_MAX_SPLITS, DECODE_TILES_PER_SPLIT = 8, 8
+DECODE_RING_BYTES = 112 * 1024
 
 
-def decode_splits(B: int, KV: int, Smax: int) -> int:
-    """Thread blocks that share one (row, kv head)'s key tiles: enough for
-    ``_build.TARGET_BLOCKS`` blocks in all, at most one per tile."""
-    tiles = -(-Smax // DECODE_TILE)
-    want = min(tiles, max(1, -(-_build.TARGET_BLOCKS // max(1, B * KV))))
-    per = -(-tiles // want)
-    return -(-tiles // per)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def decode_plan(dtype, B: int, H: int, KV: int, Smax: int, hd: int, aligned: bool = True) -> dict:
+    """How ``csrc/decode_attention.cu`` runs decode of ``dtype`` over q
+    [B,H,hd] and a [B,Smax,KV,hd] cache: one block per (row, kv head,
+    group of ``rows`` of its g query heads, split), the grid (B, KV *
+    groups, splits), the splits one cluster; the kernel deals each row's
+    live tiles (64 keys, below its cache_len) to the splits in equal
+    contiguous runs. Splits double (up to 8, at most one per tile of
+    Smax) until the grid reaches ``_build.TARGET_BLOCKS`` and a full row
+    gives no split more than ``DECODE_TILES_PER_SPLIT`` tiles. The K/V
+    ring holds ``stages`` tiles (rows padded by 16 bytes); the tiles arrive
+    by 16-byte ``cp.async`` (path "cp.async") where a head's row is a
+    multiple of 16 bytes and the caches are ``aligned``, else by element
+    loads ("direct")."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"decode_attention: no kernel for {dtype}")
+    es = 4 if dtype == torch.float32 else 2
+    g = H // KV
+    rows = 1 if g == 1 else 4 if g <= 4 else 8
+    groups = _cdiv(g, rows)
+    tiles = _cdiv(Smax, DECODE_TILE)
+    pairs = max(1, B * KV * groups)
+    splits = 1
+    while splits < min(DECODE_MAX_SPLITS, tiles) and (
+            splits * pairs < _build.TARGET_BLOCKS or _cdiv(tiles, splits) > DECODE_TILES_PER_SPLIT):
+        splits *= 2
+    stage = 2 * DECODE_TILE * (_cdiv(hd * es, 16) * 16 + 16)
+    return {"path": "cp.async" if aligned and hd * es % 16 == 0 else "direct",
+            "rows": rows, "splits": splits, "tile": DECODE_TILE,
+            "stages": max(2, min(4, DECODE_RING_BYTES // stage)),
+            "grid": (B, KV * groups, splits), "cluster": (1, 1, splits),
+            "threads": DECODE_THREADS}
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, bk: int = 512):
@@ -78,16 +113,11 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, bk: int = 512):
     out = torch.empty_like(q)
     if B == 0 or H == 0:
         return out
-    splits = decode_splits(B, KV, Smax)
-    ws = [None, None, None]
-    if splits > 1:
-        ws = [torch.empty((splits, B, H), dtype=torch.float32, device=q.device),
-              torch.empty((splits, B, H), dtype=torch.float32, device=q.device),
-              torch.empty((splits, B, H, hd), dtype=torch.float32, device=q.device)]
+    plan = decode_plan(q.dtype, B, H, KV, Smax, hd, _build.aligned16(k_cache, v_cache))
     err = _build.library().decode_attention(
         _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        cache_len.data_ptr(), out.data_ptr(), *(None if t is None else t.data_ptr() for t in ws),
-        B, Smax, H, KV, hd, splits, 1.0 / math.sqrt(hd),
+        cache_len.data_ptr(), out.data_ptr(), B, Smax, H, KV, hd, plan["rows"], plan["splits"],
+        plan["stages"], int(plan["path"] == "cp.async"), 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "decode_attention")

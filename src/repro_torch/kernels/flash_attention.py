@@ -12,9 +12,8 @@ the plain PyTorch version (``plain_flash_attention``, the full-softmax
 oracle), CUDA tensors the kernel — or it raises. Its ``launches``
 attribute counts causal kernel launches, ``launches_noncausal`` the
 others. On the card ``flash_plan`` decides the path: bf16 at hd 64 or 80
-on the tensor cores (TMA-fed ``wgmma``), other bf16 head sizes that are
-multiples of 16 and float32 on the CUDA cores; any other bf16 head size
-raises.
+with 16-byte-aligned q, k and v on the tensor cores (TMA-fed ``wgmma``),
+every other bf16 input and float32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -29,23 +28,23 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA_HEAD_DIMS = (64, 80)  # csrc/flash_attention.cu's flash_kernel_wgmma
 
 
-def flash_plan(dtype, B: int, Sq: int, H: int, KV: int, hd: int) -> dict:
+def flash_plan(dtype, B: int, Sq: int, H: int, KV: int, hd: int, aligned: bool = True) -> dict:
     """How ``csrc/flash_attention.cu`` runs attention of ``dtype`` over q
     [B,Sq,H,hd] and kv heads KV on the card: its path, query rows and keys
     a tile, threads and grid of a launch, and for the ``wgmma`` path the
     K/V ring's stages and the TMA boxes (elements, innermost first, over
-    [B, S, heads, hd]) that bring Q, K and V in. A bf16 head size past the
-    64-column swizzle atom comes as a 64-column and a 16-column box."""
-    if dtype == torch.bfloat16 and hd % 16:
-        raise ValueError(
-            f"flash_attention: bf16 hd={hd} is not a multiple of 16 (a wgmma k-slice)"
-        )
-    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+    [B, S, heads, hd]) that bring Q, K and V in. bf16 at hd 64 or 80 takes
+    the ``wgmma`` path where q, k and v are ``aligned`` (16-byte
+    boundaries, as TMA needs); a head size past the 64-column swizzle atom
+    comes as a 64-column and a 16-column box. Every other bf16 input and
+    float32 takes the CUDA-core kernel; only a dtype no kernel takes
+    raises."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: no kernel for {dtype}")
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS and aligned:
         boxes = [(64, 1, 64, 1)] + ([(hd - 64, 1, 64, 1)] if hd > 64 else [])
         return {"path": "wgmma", "rows": 64, "keys": 64, "threads": 160,
                 "grid": (-(-Sq // 64) * H * B,), "stages": 2, "boxes": boxes}
-    if dtype not in _DTYPES:
-        raise TypeError(f"flash_attention: no kernel for {dtype}")
     return {"path": "cuda_cores", "rows": 16 * (H // KV), "keys": 32, "threads": 128,
             "grid": (-(-Sq // 16), B * KV)}
 
@@ -82,7 +81,7 @@ def flash_attention(q, k, v, q_offset: int = 0, causal: bool = True):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
-    plan = flash_plan(q.dtype, B, Sq, H, KV, hd)
+    plan = flash_plan(q.dtype, B, Sq, H, KV, hd, _build.aligned16(q, k, v))
     if B == 0 or Sq == 0:
         return torch.empty_like(q)
     out = _launch_flash(q, k, v, q_offset, causal, plan)
@@ -102,8 +101,6 @@ def _launch_flash(q, k, v, q_offset: int, causal: bool, plan: dict):
     Skv, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     wgmma = plan["path"] == "wgmma"
-    if wgmma and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: bf16 q, k, v must be 16-byte aligned for TMA")
     err = _build.library().flash_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Skv, H, KV, hd, int(q_offset), int(causal), 1.0 / math.sqrt(hd), int(wgmma),

@@ -235,9 +235,25 @@ def test_flash_plan_bf16_head_sizes(hd, path):
 
 @pytest.mark.parametrize("hd", [8, 40, 72, 100])
 def test_flash_plan_refuses_bf16_head_size_off_a_k_slice(hd):
-    with pytest.raises(ValueError, match="not a multiple of 16"):
-        fa.flash_plan(torch.bfloat16, 1, 128, 4, 2, hd)
-    assert fa.flash_plan(torch.float32, 1, 128, 4, 2, hd)["path"] == "cuda_cores"
+    """A bf16 head size off a wgmma k-slice (16) runs on the CUDA-core
+    kernel, with the same plan as float32, as the JAX function runs it."""
+    plan = fa.flash_plan(torch.bfloat16, 1, 128, 4, 2, hd)
+    assert plan == fa.flash_plan(torch.float32, 1, 128, 4, 2, hd)
+    assert plan == {"path": "cuda_cores", "rows": 32, "keys": 32, "threads": 128,
+                    "grid": (8, 2)}
+
+
+def test_flash_plan_routes_misaligned_bf16_to_cuda_cores():
+    """bf16 q 2 bytes past a 16-byte boundary cannot be a TMA source: the
+    wrapper's alignment check sends hd 64 to the CUDA-core kernel; only an
+    unsupported dtype raises."""
+    q = torch.zeros(1 * 128 * 4 * 64 + 1, dtype=torch.bfloat16)[1:].view(1, 128, 4, 64)
+    kv = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16)
+    assert q.is_contiguous() and not _build.aligned16(q, kv, kv) and _build.aligned16(kv)
+    assert fa.flash_plan(torch.bfloat16, 1, 128, 4, 2, 64, _build.aligned16(q, kv, kv))["path"] == "cuda_cores"
+    assert fa.flash_plan(torch.bfloat16, 1, 128, 4, 2, 64, _build.aligned16(kv))["path"] == "wgmma"
+    with pytest.raises(TypeError, match="no kernel for torch.float16"):
+        fa.flash_plan(torch.float16, 1, 128, 4, 2, 64)
 
 
 def _online_softmax_bf16_p(q, k, v, q_offset, causal, tile=64):

@@ -358,29 +358,47 @@ def test_cpu_entry_points_build_and_launch_nothing(monkeypatch):
 
 
 @pytest.mark.parametrize("B,K,N,splits", [
-    (8, 576, 1536, 9),      # 12 panels: K split 9 ways (64 rows each)
-    (1, 576, 49152, 1),     # 384 panels fill the card
-    (8, 2560, 10240, 4),    # 80 panels
-    (8, 10240, 2560, 14),   # 20 panels
+    (8, 576, 1536, 6),      # 6 panels of 256 bf16 columns: K split 6 ways (96 rows each)
+    (1, 576, 49152, 1),     # 192 panels fill the card
+    (8, 2560, 10240, 3),    # 40 panels: 120 blocks, one an SM (4 would load 28 SMs twice)
+    (8, 10240, 2560, 8),    # 10 panels
     (2, 32, 64, 1),         # K too short to split
 ])
 def test_gemv_split_plan(B, K, N, splits):
-    assert rm.gemv_splits(K, N) == splits
+    """The GEMV kernel's plan: K split 1-8 ways (one cluster), each split
+    keeping 64 rows, for the most blocks per resident wave (at most two
+    blocks an SM), the fewest splits on a tie; each split takes a whole
+    number of stages (32 rows) and together they cover K, none empty."""
+    plan = rm.gemv_plan(torch.bfloat16, B, K, N)
+    assert plan["splits"] == splits and plan["cluster"] == (1, splits, 1)
+    assert plan["path"] == "tma" and plan["panel"] == 256 and plan["stage_rows"] == 32
+    assert plan["grid"] == (-(-N // 256), splits, 1) and plan["rows"] == min(8, 1 << (B - 1).bit_length())
+    kps = plan["k_per_split"]
+    assert kps % plan["stage_rows"] == 0 and kps * splits >= K and kps * (splits - 1) < K
+    f32 = rm.gemv_plan(torch.float32, B, K, N)  # 128-column panels: 512-byte rows too
+    assert f32["panel"] == 128 and f32["grid"][0] == -(-N // 128)
 
 
 @pytest.mark.parametrize("B,KV,Smax,splits", [
-    (8, 3, 2048, 11),       # smollm's slot cache: 24 pairs, 32 tiles → 3 tiles a split
-    (8, 32, 2048, 2),       # zamba2: 256 pairs
-    (64, 8, 2048, 1),
+    (8, 3, 2048, 8),        # smollm's slot cache: 24 (row, head) pairs, 32 tiles → 4 a split
+    (8, 32, 2048, 4),       # zamba2: 256 pairs; 8 tiles a split at most
+    (64, 8, 2048, 4),
     (1, 1, 60, 1),          # one tile
 ])
 def test_decode_split_plan(B, KV, Smax, splits):
-    got = da.decode_splits(B, KV, Smax)
-    assert got == splits
+    """The decode kernel's plan: splits (one cluster, at most 8, at most
+    one per tile) double until the grid reaches two blocks an SM and a
+    full row gives no split more than 8 tiles; every split of a full row
+    has a tile."""
+    g = 3 if KV == 3 else 1  # smollm's groups of 3 heads, else one head a kv head
+    plan = da.decode_plan(torch.bfloat16, B, KV * g, KV, Smax, 64)
+    got = plan["splits"]
+    assert got == splits and plan["cluster"] == (1, 1, got)
+    assert plan["grid"] == (B, KV, got) and plan["rows"] == (4 if g == 3 else 1)
     tiles = -(-Smax // da.DECODE_TILE)
-    per = -(-tiles // got)
-    assert per * got >= tiles and per * (got - 1) < tiles  # every split has a tile
-
+    per = -(-tiles // got)  # the kernel deals a row's live tiles out equally
+    assert per * (got - 1) < tiles  # every split of a full row has a tile
+    assert per <= da.DECODE_TILES_PER_SPLIT or got == da.DECODE_MAX_SPLITS
 
 
 # the launch plan of relic_matmul on the card, at chip_smoke.py's phase-4
@@ -411,6 +429,190 @@ def test_matmul_plan_float32_stays_on_cuda_cores(M, K, N, grid):
 
 @pytest.mark.parametrize("K,N", [(572, 1536), (576, 1532), (20, 8), (8, 12)])
 def test_matmul_plan_refuses_bf16_strides_tma_cannot_take(K, N):
-    with pytest.raises(ValueError, match="multiples of 8"):
-        rm.matmul_plan(torch.bfloat16, 1024, K, N)
+    """TMA cannot take bf16 rows whose stride is not a multiple of 16
+    bytes: those products go to the CUDA-core kernel, as float32 does."""
+    assert rm.matmul_plan(torch.bfloat16, 1024, K, N) == rm.matmul_plan(torch.float32, 1024, K, N)
+    assert rm.matmul_plan(torch.bfloat16, 1024, K, N)["path"] == "cuda_cores"
     assert rm.matmul_plan(torch.float32, 1024, K, N)["path"] == "cuda_cores"  # float32 takes any
+
+
+def test_matmul_plan_takes_what_the_jax_function_takes():
+    """M = K = N = 100 meets the JAX block contract (each block cut to its
+    dimension) and runs on the CUDA cores in bf16."""
+    assert rm.matmul_plan(torch.bfloat16, 100, 100, 100) == {
+        "path": "cuda_cores", "tile": (128, 128, 16), "grid": (1, 1)}
+    x, w = torch.randn(100, 100), torch.randn(100, 100)
+    assert rm.relic_matmul(x.bfloat16(), w.bfloat16()).shape == (100, 100)  # the contract holds
+
+
+def test_matmul_plan_routes_misaligned_bf16_to_cuda_cores():
+    """A bf16 view 2 bytes past a 16-byte boundary cannot be a TMA source:
+    the wrapper's alignment check sends it to the CUDA cores."""
+    buf = torch.zeros(1024 * 576 + 1, dtype=torch.bfloat16)
+    x = buf[1:].view(1024, 576)
+    w = torch.zeros(576, 1536, dtype=torch.bfloat16)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    assert not _build.aligned16(x, w) and _build.aligned16(w)
+    assert rm.matmul_plan(torch.bfloat16, 1024, 576, 1536, _build.aligned16(x, w))["path"] == "cuda_cores"
+    assert rm.matmul_plan(torch.bfloat16, 1024, 576, 1536, _build.aligned16(w))["path"] == "wgmma"
+    assert rm.gemv_plan(torch.bfloat16, 8, 576, 1536, _build.aligned16(x[:8]))["path"] == "direct"
+
+
+@pytest.mark.parametrize("B,K,N,path", [
+    (8, 576, 1536, "tma"), (3, 100, 100, "direct"), (8, 96, 36, "direct"), (1, 64, 8, "tma"),
+])
+def test_gemv_plan_path_follows_tma_strides(B, K, N, path):
+    """bf16 w reaches the ring by TMA when its rows are 16-byte multiples
+    (N % 8 == 0), else the consumers load it; float32 needs N % 4 == 0."""
+    assert rm.gemv_plan(torch.bfloat16, B, K, N)["path"] == path
+    assert rm.gemv_plan(torch.float32, B, K, N)["path"] == ("tma" if N % 4 == 0 else "direct")
+
+
+# ---------------------------------------------------------------------------
+# the new kernels' reduction orders, replayed in plain PyTorch (test-local
+# copies of the arithmetic of csrc/relic_matmul.cu's gemv_kernel and
+# csrc/decode_attention.cu's decode_kernel) and held against the JAX
+# functions in interpret mode
+
+
+def _fma32(a, b, c):
+    """float32 fmaf: the product and sum taken exactly (in float64), then
+    rounded once to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _gemv_replay(x, w, plan):
+    """The GEMV kernel's sums: per split, consumer warp v (of 8) takes the
+    rows k of the split with (k - start) % 8 == v in increasing order, an
+    fmaf a row, into float32 accumulators; the block adds its warps in warp
+    order; rank 0 of the cluster adds the splits in split order from 0,
+    and the sum is rounded once to x's type."""
+    B, K = x.shape
+    xf, wf = x.float(), w.float()
+    kps = plan["k_per_split"]
+    total = torch.zeros(B, w.shape[1])
+    for s in range(plan["splits"]):
+        kb, ke = s * kps, min(K, (s + 1) * kps)
+        block = None
+        for v in range(8):
+            acc = torch.zeros(B, w.shape[1])
+            for k in range(kb + v, ke, 8):
+                acc = _fma32(xf[:, k, None], wf[None, k, :], acc)
+            block = acc if block is None else block + acc
+        total = total + block
+    return total.to(x.dtype)
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("k,n", [(512, 100), (768, 300), (64, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemv_reduction_order_matches_pallas(b, k, n, dtype):
+    """The replay at the kernel's own plan (K = 512 and 768 split 8 ways
+    into 64- and 96-row runs; K = 64 one split; N ragged against the
+    256- and 128-column panels) against ``ops.gemv`` in interpret mode, w
+    at a projection's scale (N(0, 1/K)) so outputs are of order 1.
+    Tolerances as the matmul tests': float32 atol 2e-5, rtol 1e-5 (float32
+    sums in another order); bf16 2e-2 (one rounding to bf16 each side)."""
+    rng = np.random.default_rng(b * k + n)
+    (tx, jx), (tw, jw) = (_both((rng.normal(size=s) * scale).astype(np.float32), dtype)
+                          for s, scale in (((b, k), 1.0), ((k, n), k**-0.5)))
+    plan = rm.gemv_plan(tx.dtype, b, k, n)
+    assert plan["splits"] == (8 if k >= 512 else 1)
+    got = _gemv_replay(tx, tw, plan)
+    want = _np(jops.gemv(jx, jw, bk=64, bn=n, mode="interpret"))
+    atol, rtol = (ATOL, 1e-5) if dtype == "float32" else (2e-2, 2e-2)
+    np.testing.assert_allclose(_np(got), want, atol=atol, rtol=rtol)
+    np.testing.assert_allclose(_np(got), _np(rm.relic_gemv(tx, tw, bk=64, bn=n)), atol=atol, rtol=rtol)
+
+
+def _decode_replay(q, k, v, cache_len, plan):
+    """The decode kernel's arithmetic: per (row, kv head, split), its run
+    of the row's live 64-key tiles (below cache_len, dealt out to the
+    splits in equal contiguous runs); per tile the float32 scores (each
+    key's dot product as two halves of the head's 16-byte chunks, added),
+    the running max m and rescale exp(m_old - m_new), weights p = exp(s -
+    m) in float32; P.V and the sum l kept per key group (key j of a tile in
+    group j % groups, groups = 128 // chunks) and rescaled at each tile;
+    the block adds its groups in group order; the splits combine in split
+    order, each scaled by exp(m_split - m), or by 0 where m_split is the
+    -1e30 sentinel, and acc / max(l, 1e-30) is rounded once."""
+    B, H, hd = q.shape
+    Smax, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    es = q.element_size()
+    chunks = -(-hd * es // 16)
+    vec = 16 // es
+    mid = -(-chunks // 2) * vec  # the first half's columns
+    groups = 128 // chunks
+    tile = plan["tile"]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.zeros(B, H, hd)
+    for b in range(B):
+        n_len = int(min(max(int(cache_len[b]), 0), Smax))
+        tps = -(-(-(-n_len // tile)) // plan["splits"])  # live tiles, dealt out equally
+        for kv in range(KV):
+            qh = qf[b, kv * g:(kv + 1) * g]  # [g, hd]
+            parts = []
+            for s in range(plan["splits"]):
+                j0, j1 = s * tps * tile, min(n_len, (s + 1) * tps * tile)
+                m = torch.full((g,), float(NEG))
+                acc = torch.zeros(groups, g, hd)
+                l = torch.zeros(groups, g)
+                for t0 in range(j0, j1, tile):
+                    keys = kf[b, t0:min(t0 + tile, j1), kv]
+                    vals = vf[b, t0:min(t0 + tile, j1), kv]
+                    sc = (qh[:, :mid] @ keys[:, :mid].T + qh[:, mid:] @ keys[:, mid:].T) / hd**0.5
+                    m_new = torch.maximum(m, sc.amax(1))
+                    corr = torch.exp(m - m_new)
+                    p = torch.exp(sc - m_new[:, None])  # [g, n]
+                    grp = torch.arange(len(keys)) % groups
+                    acc = acc * corr[None, :, None]
+                    l = l * corr[None]
+                    for gi in range(min(groups, len(keys))):
+                        sel = grp == gi
+                        acc[gi] += p[:, sel] @ vals[sel]
+                        l[gi] += p[:, sel].sum(1)
+                    m = m_new
+                a_blk, l_blk = acc[0].clone(), l[0].clone()
+                for gi in range(1, groups):
+                    a_blk, l_blk = a_blk + acc[gi], l_blk + l[gi]
+                parts.append((m, l_blk, a_blk))
+            m_all = torch.stack([pm for pm, _, _ in parts]).amax(0)
+            l_all, a_all = torch.zeros(g), torch.zeros(g, hd)
+            for pm, pl, pa in parts:
+                wgt = torch.where(pm <= NEG, 0.0, torch.exp(pm - m_all))
+                l_all = l_all + pl * wgt
+                a_all = a_all + pa * wgt[:, None]
+            out[b, kv * g:(kv + 1) * g] = a_all / torch.clamp(l_all, min=1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("b,h,kv,hd,smax", [
+    (4, 8, 2, 32, 512),      # g = 4: 8 splits of one tile
+    (4, 3, 1, 64, 1024),     # g = 3: 8 splits of two tiles
+    (4, 4, 4, 40, 512),      # g = 1, a head of 80 bytes in bf16 (5 chunks)
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_reduction_order_matches_pallas(b, h, kv, hd, smax, dtype):
+    """The replay at the kernel's own plan against ``ops.decode_attention``
+    in interpret mode, with cache_len 0, 1, Smax and one random length:
+    float32 within 2e-5 (a float32 softmax on both sides, summed in
+    another order), bf16 within 2e-2 (one rounding of the output to bf16
+    on each side, and the Pallas kernel rounds P to bf16 before P.V, 2^-9
+    relative); the cache_len 0 row is exactly zero."""
+    rng = np.random.default_rng(smax + h + hd)
+    clen = np.array([0, 1, smax, rng.integers(2, smax)], np.int32)[:b]
+    (tq, jq), (tk, jk), (tv, jv) = (
+        _both(rng.normal(size=sh).astype(np.float32), dtype)
+        for sh in ((b, h, hd), (b, smax, kv, hd), (b, smax, kv, hd))
+    )
+    tl, jl = _both(clen)
+    plan = da.decode_plan(tq.dtype, b, h, kv, smax, hd)
+    assert plan["splits"] == 8
+    got = _decode_replay(tq, tk, tv, tl, plan)
+    want = _np(jops.decode_attention(jq, jk, jv, jl, bk=64, mode="interpret"))
+    tol = ATOL if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_np(got), want, atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(got), _np(da.decode_attention(tq, tk, tv, tl, bk=64)),
+                               atol=tol, rtol=tol)
+    assert not got[0].any()  # the cache_len 0 row
