@@ -18,7 +18,9 @@ Phases, in order; any failure exits non-zero before the final line:
    plain version chunks by 125, a prime it chunks by 1) and S = 256 (B=4);
    the paged kernel's int8 mode (int8 pools, bf16 scales) at zamba2-2.7b's
    slot shape (H=KV=32, hd=80, 256-key identity-table blocks) and on a
-   paged pool at g = 1 and g = 3; the flash kernel at smollm's serving
+   paged pool at g = 1 and g = 3, at hd 72 and on pools one byte off a
+   16-byte boundary (the kernel's element loads, each launching it once);
+   each paged and SSD line prints its launch plan; the flash kernel at smollm's serving
    prefill (B=1, S=1024, H=9); the flash and SSD kernels at zamba2's
    prefill shapes (hd=80, g=1; H=80, hd=64, N=64); kernel, plain and
    library times (each two ways: the median of single synchronised calls,
@@ -41,8 +43,9 @@ Phases, in order; any failure exits non-zero before the final line:
    (K=2560, N=10240) prefill projections, relic_gemv at 1 and 8 rows over
    (K, N) = (576, 1536), (576, 49152), (2560, 10240), (10240, 2560),
    decode_attention over smollm's and zamba2's slot caches with cache_len
-   0, 1, 2047, 2048 and random (each GEMV and decode line prints its
-   launch plan), the paged kernel's partials mode (smollm's
+   0, 1, 2047, 2048 and random, and at head size 256 (32- or 64-key tiles)
+   held to TOL (each GEMV, decode and paged line prints its launch plan),
+   the paged kernel's partials mode (smollm's
    pool at T = 1 and 4, zamba2's int8 slot view; an unowned row exactly
    (-1e30, 0, 0); complementary ownerships combine to the unsplit
    kernel), the flash kernel's non-causal mode at B=2, S=512; with times,
@@ -255,8 +258,8 @@ def slot_case(dtype, seed=0, B=4, Smax=2048, H=9, KV=3, hd=64, lengths=None, int
     """The slot layout's decode input to the paged kernel, built as the
     model builds it: a dense cache [B, Smax, KV, hd] (and, for an int8
     cache, its scales [B, Smax, KV]) viewed as a pool of
-    ``_dense_block_size(Smax)`` = 256-key blocks (MB = 8, well above the
-    48 KB shared-memory default) with an identity table."""
+    ``_dense_block_size(Smax)`` = 256-key blocks (MB = 8) with an
+    identity table."""
     from repro_torch.models.attention import _dense_as_pool, _dense_block_size
 
     g = torch.Generator().manual_seed(seed)
@@ -290,6 +293,28 @@ def paged_bound(q, kp, tables, lengths, dtype):
     nbytes = 2 * q.numel() * it + keys * KV * vec * 2 + 4 * (tables.numel() + B)
     pairs = sum(int(l) * T + T * (T + 1) // 2 for l in lens)
     return bound(nbytes, 4 * hd * H * pairs, dtype)
+
+
+def paged_plan_of(q, kp, tables):
+    """The paged kernel's launch plan for these inputs, as its wrapper
+    takes it (the fields a log line shows)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    B, T, H, hd = q.shape
+    plan = pda.paged_plan(q.dtype, kp.dtype, B, T, H, kp.shape[2], hd, kp.shape[1],
+                          tables.shape[1], _build.aligned16(kp))
+    return {f: plan[f] for f in ("path", "rows", "splits", "tile", "stages", "grid")}
+
+
+def ssd_plan_of(x, b, chunk=128):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as ssd
+
+    B, S, H, hd = x.shape
+    plan = ssd.ssd_plan(x.dtype, B, S, H, hd, b.shape[-1], chunk, _build.aligned16(x, b))
+    return {f: plan[f] for f in ("path", "tensor_cores", "cluster", "chunks_per_block", "slice",
+                                 "grid")}
 
 
 def flash_case(dtype, Sq, Skv, seed=0, B=2, H=9, KV=3, hd=64):
@@ -377,7 +402,8 @@ def check_kernels():
             ms = cuda_ms(lambda: pda.paged_decode_attention(q, kp, vp, tables, lengths))
             plain = cuda_ms(lambda: pda.plain_paged_decode_attention(q, kp, vp, tables, lengths), iters=5)
             bms, by = paged_bound(q, kp, tables, lengths, dtype)
-            log(f"paged_decode_attention {dn} {label} lengths={lengths[:4].tolist()}: "
+            log(f"paged_decode_attention {dn} {label} lengths={lengths[:4].tolist()} "
+                f"plan={paged_plan_of(q, kp, tables)}: "
                 f"max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
                 f"bound_ms={bms:.5f} ({by}) library_ms=null")
             require(err <= TOL[dtype], f"paged kernel ({label}) disagrees with its plain version: {err}")
@@ -420,8 +446,10 @@ def check_int8():
     """The paged kernel's int8 mode (int8 pools, bf16 per-vector scales)
     against its plain version, q in float32 and bf16: at zamba2-2.7b's
     slot shape (8 rows, max_seq 2048 as 256-key identity-table blocks,
-    H = KV = 32, hd = 80: ~166 KB of shared memory) and on a paged pool
-    (B=8, BS=16, MB=128, random tables) at g = 1 and g = 3."""
+    H = KV = 32, hd = 80) and on a paged pool (B=8, BS=16, MB=128, random
+    tables) at g = 1 and g = 3, at hd 72 and on pools one byte off a
+    16-byte boundary (element loads); each call must launch the kernel
+    once."""
     from repro_torch.kernels import paged_decode_attention as pda
 
     g = torch.Generator().manual_seed(5)
@@ -436,11 +464,21 @@ def check_int8():
              lambda: paged_case(dtype, 1, H=32, KV=32, hd=80, int8=True)),
             ("g3", "paged layout B=8 T=1 H=9 KV=3 hd=64 BS=16 MB=128",
              lambda: paged_case(dtype, 1, int8=True)),
+            ("hd72", "paged layout B=8 T=1 H=9 KV=3 hd=72 BS=16 MB=128 (element loads)",
+             lambda: paged_case(dtype, 1, hd=72, int8=True)),
+            ("skew", "paged layout B=8 T=1 H=9 KV=3 hd=64 BS=16 MB=128, pools 1 byte off 16",
+             lambda: skewed_pools(paged_case(dtype, 1, int8=True))),
         ):
             args = case()
             q, kp, _, tables, lengths, _, _ = args
+            before = pda.paged_decode_attention.launches_int8
             out = pda.paged_decode_attention(*args)
             torch.cuda.synchronize()
+            require(pda.paged_decode_attention.launches_int8 == before + 1,
+                    f"int8 paged kernel ({label}) did not launch once")
+            plan = paged_plan_of(q, kp, tables)
+            if key in ("hd72", "skew"):
+                require(plan["path"] == "direct", f"int8 paged kernel ({label}): path {plan['path']}")
             ref = pda.plain_paged_decode_attention(*args)
             row_err = (out.float() - ref.float()).abs().flatten(1).amax(1)
             rel, absol = INT8_TOL[dtype]
@@ -449,7 +487,7 @@ def check_int8():
             ms = cuda_ms(lambda: pda.paged_decode_attention(*args))
             plain = cuda_ms(lambda: pda.plain_paged_decode_attention(*args), iters=5)
             bms, by = paged_bound(q, kp, tables, lengths, dtype)
-            log(f"paged_decode_attention[int8] {dn} {label} lengths={lengths.tolist()}: "
+            log(f"paged_decode_attention[int8] {dn} {label} lengths={lengths.tolist()} plan={plan}: "
                 f"max_abs_err={err:.3e} (per row <= {rel:.3g}*max|plain|+{absol:.0e}; "
                 f"worst err/tol {(row_err / row_tol).max().item():.3e}) ms={fmt_ms(ms)} "
                 f"plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) library_ms=null")
@@ -460,6 +498,13 @@ def check_int8():
             if key == "slot":
                 rows[("paged_int8", dtype)] = kernel_row(err, ms, plain, bms, by)
     return rows
+
+
+def skewed_pools(args):
+    """Paged-kernel inputs whose pools (int8: one byte) start off a
+    16-byte boundary: the kernel stages them by element loads."""
+    q, kp, vp, *rest = args
+    return (q, misaligned(kp), misaligned(vp), *rest)
 
 
 def ssd_case(dtype, B, S, seed=0, H=32, hd=64, N=128):
@@ -517,7 +562,8 @@ def check_ssd():
             # the plain version of a prime S runs 1021 one-position chunks
             plain = cuda_ms(lambda: ssd.plain_ssd_scan(x, a, b, c, dt, 128), iters=5) if S != 1021 else None
             bms, by = ssd_bound(x, b, dtype)
-            log(f"ssd_scan {dn} B={B} S={S} H={H} hd=64 N={N} chunk=128: {', '.join(errs)} "
+            log(f"ssd_scan {dn} B={B} S={S} H={H} hd=64 N={N} chunk=128 plan={ssd_plan_of(x, b)}: "
+                f"{', '.join(errs)} "
                 f"ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) library_ms=null")
             if (B, S, H) == (1, 1024, 32):
                 rows[("ssd", dtype)] = kernel_row(max_err["y"], ms, plain, bms, by)
@@ -862,7 +908,7 @@ def check_entry_kernels():
             lib = sdpa_decode_ms(q, k, v, lens)
             bms, by = decode_bound(q, k, lens, dtype)
             plan = da.decode_plan(dtype, q.shape[0], q.shape[1], k.shape[2], k.shape[1], q.shape[2])
-            plan = {f: plan[f] for f in ("path", "rows", "splits", "stages", "grid")}
+            plan = {f: plan[f] for f in ("path", "rows", "splits", "tile", "stages", "grid")}
             log(f"decode_attention {dn} {label} lengths={lens.tolist()} "
                 f"plan={plan}: max_abs_err={err:.3e} "
                 f"(per row <= {rel:.3g}*max|plain|+{absol:.0e}; worst err/tol {worst:.3e}) ms={fmt_ms(ms)} "
@@ -872,6 +918,24 @@ def check_entry_kernels():
             require(not out[0].any(), "decode_attention: the cache_len 0 row is not zeros")
             if "smollm" in label:
                 rows[("decode", dtype)] = kernel_row(err, ms, plain, bms, by, lib)
+        # a head wider than a ring of 64-key tiles fits: 32-key tiles in float32
+        q, k, v, lens = decode_case(dtype, hd=256)
+        before = da.decode_attention.launches
+        out = da.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        require(da.decode_attention.launches == before + 1, "decode_attention hd 256 did not launch once")
+        ref = da.plain_decode_attention(q, k, v, lens)
+        err = (out.float() - ref.float()).abs().max().item()
+        plan = da.decode_plan(dtype, 8, 9, 3, 2048, 256)
+        plan = {f: plan[f] for f in ("path", "rows", "splits", "tile", "stages", "grid")}
+        ms = cuda_ms(lambda: da.decode_attention(q, k, v, lens))
+        bms, by = decode_bound(q, k, lens, dtype)
+        log(f"decode_attention {dn} smollm slot cache at hd=256 B=8 Smax=2048 H=9 KV=3 "
+            f"lengths={lens.tolist()} plan={plan}: max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) "
+            f"ms={fmt_ms(ms)} plain_ms={fmt_ms(cuda_ms(lambda: da.plain_decode_attention(q, k, v, lens), iters=5))} "
+            f"bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(sdpa_decode_ms(q, k, v, lens))}")
+        require(err <= TOL[dtype] and torch.isfinite(out).all() and not out[0].any(),
+                f"decode_attention at hd 256 disagrees with its plain version ({dn}): {err}")
 
         g = torch.Generator().manual_seed(5)
         slot_lens = [0, 255, 1024, 2047] + torch.randint(1, 2047, (4,), generator=g).tolist()
@@ -903,7 +967,8 @@ def check_entry_kernels():
             plain = cuda_ms(lambda: pda.plain_paged_decode_attention(*args, owned=own, partials=True),
                             iters=5)
             bms, by = partials_bound(q, kp, tables, lengths, own, dtype)
-            log(f"paged_decode_attention[partials] {dn} {label}: |dm| {dm:.2e}, |dl|/max l {dl:.2e}, "
+            log(f"paged_decode_attention[partials] {dn} {label} plan={paged_plan_of(q, kp, tables)}: "
+                f"|dm| {dm:.2e}, |dl|/max l {dl:.2e}, "
                 f"|dacc|/max|acc| {dacc:.2e} (tol {PARTIALS_TOL:g}); unowned row (-1e30, 0, 0); "
                 f"complementary combine vs kernel max_abs_err={c_err:.3e} (worst err/tol {c_worst:.3f}) "
                 f"ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) library_ms=null")

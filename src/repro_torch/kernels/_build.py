@@ -102,12 +102,12 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     argtypes = {
-        "paged_decode_attention": [i, i] + [p] * 11 + [i] * 8 + [f, p],
+        "paged_decode_attention": [i, i] + [p] * 11 + [i] * 13 + [f, p],
         "flash_attention": [i, p, p, p, p] + [i] * 8 + [f, i, p],
-        "ssd_scan": [i] + [p] * 7 + [i] * 6 + [p],
+        "ssd_scan": [i] + [p] * 7 + [i] * 9 + [p],
         "relic_matmul": [i, p, p, p] + [i] * 5 + [p],
         "relic_gemv": [i, p, p, p] + [i] * 7 + [p],
-        "decode_attention": [i] + [p] * 5 + [i] * 9 + [f, p],
+        "decode_attention": [i] + [p] * 5 + [i] * 10 + [f, p],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)

@@ -1,15 +1,15 @@
-// Shared pieces of the two attention kernels: the shared-memory layout,
-// the online-softmax step over one key tile, and the launch helper (the
-// SSD scan kernel uses the type conversions and the launch helper too).
+// Shared pieces of the attention kernels: the type conversions, 16 bytes
+// of a K/V row unpacked to float32 (the paged and dense decode kernels),
+// and, for the flash kernel's CUDA-core path, the shared-memory layout,
+// the online-softmax step over one key tile and the launch helper (the
+// matmul kernels use the launch helper too).
 //
-// One thread block owns R query rows (the g query heads of one kv group,
-// times T verify queries or BQ prefill positions). Per key tile it
+// The flash tile step: one thread block owns R query rows (the g query
+// heads of one kv group times BQ prefill positions). Per key tile it
 // (1) scores every (row, key) pair into shared memory, (2) lets one warp
 // per row fold the tile into the row's running max m and sum l, turning
 // the scores into weights in place, and (3) updates the float32
-// accumulator acc = acc * exp(m_old - m_new) + P V. Every row reduces in
-// the same order whatever R is, which is what makes the paged kernel's
-// verify (T > 1) bitwise equal to its decode (T = 1). A key tile that is
+// accumulator acc = acc * exp(m_old - m_new) + P V. A key tile that is
 // masked for a row gives that row weight 0 and rescale exactly 1.
 #pragma once
 
@@ -38,6 +38,65 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// 16 bytes of a row in T (float32, bfloat16 or int8) as float32 values
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& u, float (&v)[16 / sizeof(T)]) {
+  const uint32_t word[4] = {u.x, u.y, u.z, u.w};
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = __uint_as_float(word[i]);
+  } else if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(word[i] << 16);
+      v[2 * i + 1] = __uint_as_float(word[i] & 0xFFFF0000u);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[4 * i + k] = (float)((int)(word[i] << (24 - 8 * k)) >> 24);
+  }
+}
+
+// Dynamic shared memory of a block of the dense and paged decode kernels
+// (128 threads), in bytes from its base, for a head of hd elements of
+// `elem` bytes (1: an int8 pool), `rows` query rows and a ring of `stages`
+// tiles of `tile` keys (kernels/decode_attention.py::decode_layout
+// mirrors it).
+struct RingLayout {
+  int chunks;  // 16-byte column chunks of a head's row
+  int hdp;     // the row in values, padded to whole chunks
+  int groups;  // key groups of P.V: THREADS / chunks
+  int pitch;   // bytes between rows of a tile (16 bytes of padding)
+  int scales;  // int8: offset in a stage of the k then v scales / 127, float [2][tile]
+  int stage;   // one tile of K then one of V (then the int8 scales)
+  int qs, ps, wred, part, total;
+};
+
+__host__ __device__ constexpr int round16(int bytes) { return (bytes + 15) / 16 * 16; }
+
+__host__ __device__ inline RingLayout ring_layout(int hd, int elem, int rows, int stages,
+                                                  int tile) {
+  RingLayout L{};
+  L.chunks = (hd * elem + 15) / 16;
+  L.hdp = L.chunks * (16 / elem);
+  L.groups = THREADS / L.chunks;
+  L.pitch = L.chunks * 16 + 16;
+  L.scales = 2 * tile * L.pitch;
+  L.stage = L.scales + (elem == 1 ? round16(2 * tile * 4) : 0);
+  // the ring, which the end-of-block reduction reuses: [groups][rows][hdp]
+  // accumulators then [groups][rows] sums
+  const int ring = stages * L.stage;
+  const int red = round16(4 * L.groups * rows * (L.hdp + 1));
+  L.qs = ring > red ? ring : red;
+  L.ps = L.qs + round16(4 * rows * L.hdp);            // q [rows][hdp], float32
+  L.wred = L.ps + round16(4 * rows * tile);           // weights [rows][tile]
+  L.part = L.wred + round16(4 * (THREADS / 32) * rows);  // warp maxima [warps][rows]
+  L.total = L.part + round16(4 * rows * (L.hdp + 2));  // m [rows], l [rows], acc [rows][hdp]
+  return L;
 }
 
 // Shared-memory workspace for R rows against key tiles of BK keys.

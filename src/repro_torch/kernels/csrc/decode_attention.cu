@@ -20,17 +20,20 @@
 // becomes one thread block of 128 threads per (row, kv head, group of up
 // to R of its g query heads, split of the keys); the splits of a (row,
 // head, group) form one thread-block cluster (at most 8 blocks), and the
-// row's live key tiles (64 keys each, below cache_len) are dealt out to
+// row's live key tiles (below cache_len) are dealt out to
 // them in equal contiguous runs, so no block of a cluster waits long for
 // the others at the combine (kernels/decode_attention.py::decode_plan
 // picks the splits for the card's occupancy). Tiles at or past cache_len
 // are never read. K and V tiles stay in the cache's type and arrive by
-// 16-byte cp.async copies into a 2-4-stage ring, the rows padded by 16
+// 16-byte cp.async copies into a 2-4-stage ring (a tile is 64 keys; a
+// head too wide for that ring in 227 KB takes 32- or 16-key tiles, and
+// past those one stage, which the plan picks), the rows padded by 16
 // bytes so that reads of different keys' rows do not share banks; the
 // next tiles load while this one is computed. Per tile:
-// - scores: two threads per key, each taking half of the head dimension
-//   with 16-byte shared-memory reads against q (float32, in shared
-//   memory), joined with one shuffle: all 128 threads score;
+// - scores: 128 / tile threads per key (two for 64-key tiles), each
+//   taking a run of the head's 16-byte chunks with shared-memory reads
+//   against q (float32, in shared memory), joined by shuffles: all 128
+//   threads score;
 // - the tile's max over the block (warp shuffles, then 4 warps through
 //   shared memory), the running max m and the rescale exp(m_old - m_new);
 //   the weights p = exp(s - m) into shared memory, in float32;
@@ -56,76 +59,22 @@
 using repro_attn::from_f;
 using repro_attn::NEG;
 using repro_attn::to_f;
+using repro_attn::unpack16;
 
 namespace {
 
-constexpr int DBK = 64;  // keys per tile
-constexpr int DTHREADS = 128, DWARPS = DTHREADS / 32;
-
-__host__ __device__ constexpr int round16(int bytes) { return (bytes + 15) / 16 * 16; }
-
-// Dynamic shared memory of a block, in bytes from its base.
-struct DecodeLayout {
-  int chunks;  // 16-byte column chunks of a head's row
-  int hdp;     // the row in values, padded to whole chunks
-  int groups;  // key groups of P.V: DTHREADS / chunks
-  int pitch;   // bytes between rows of a tile (16 bytes of padding)
-  int stage;   // one tile of K then one of V
-  int qs, ps, wred, part, total;
-};
-
-__host__ __device__ inline DecodeLayout decode_layout(int hd, int elem, int rows, int stages) {
-  DecodeLayout L{};
-  L.chunks = (hd * elem + 15) / 16;
-  L.hdp = L.chunks * (16 / elem);
-  L.groups = DTHREADS / L.chunks;
-  L.pitch = L.chunks * 16 + 16;
-  L.stage = 2 * DBK * L.pitch;
-  // the ring, which the end-of-block reduction reuses: [groups][rows][hdp]
-  // accumulators then [groups][rows] sums
-  const int ring = stages * L.stage;
-  const int red = round16(4 * L.groups * rows * (L.hdp + 1));
-  L.qs = ring > red ? ring : red;
-  L.ps = L.qs + round16(4 * rows * L.hdp);   // q [rows][hdp], float32
-  L.wred = L.ps + round16(4 * rows * DBK);   // weights [rows][DBK]
-  L.part = L.wred + round16(4 * DWARPS * rows);  // warp maxima [warps][rows]
-  L.total = L.part + round16(4 * rows * (L.hdp + 2));  // m [rows], l [rows], acc [rows][hdp]
-  return L;
-}
-
-template <typename T>
-__device__ __forceinline__ void unpack16(const uint4& u, float (&v)[16 / sizeof(T)]) {
-  const uint32_t word[4] = {u.x, u.y, u.z, u.w};
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = __uint_as_float(word[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[2 * i] = __uint_as_float(word[i] << 16);
-      v[2 * i + 1] = __uint_as_float(word[i] & 0xFFFF0000u);
-    }
-  }
-}
-
-// wait until at most `pending` of this thread's copy groups are in flight
-__device__ __forceinline__ void cp_async_wait_for(int pending) {
-  if (pending >= 2)
-    hopper::cp_async_wait<2>();
-  else if (pending == 1)
-    hopper::cp_async_wait<1>();
-  else
-    hopper::cp_async_wait<0>();
-}
+// keys per tile: 64, or 32 or 16 where a head is too wide for a ring of
+// 64-key tiles in 227 KB (kernels/decode_attention.py::decode_plan)
+constexpr int DTHREADS = repro_attn::THREADS, DWARPS = DTHREADS / 32;  // ring_layout's block
 
 template <typename T, int R, bool kAsync>
 __global__ void __launch_bounds__(DTHREADS)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const int* __restrict__ cache_len, T* __restrict__ out, int Smax, int H,
-                  int KV, int hd, int stages, float scale) {
+                  int KV, int hd, int stages, int bk, float scale) {
   constexpr int VEC = 16 / sizeof(T);
   extern __shared__ __align__(16) uint8_t dsm[];
-  const DecodeLayout L = decode_layout(hd, sizeof(T), R, stages);
+  const repro_attn::RingLayout L = repro_attn::ring_layout(hd, sizeof(T), R, stages, bk);
   float* qs = reinterpret_cast<float*>(dsm + L.qs);
   float* ps = reinterpret_cast<float*>(dsm + L.ps);
   float* wred = reinterpret_cast<float*>(dsm + L.wred);
@@ -139,10 +88,10 @@ __global__ void __launch_bounds__(DTHREADS)
   const int len = min(max(cache_len[b], 0), Smax);
   // the row's live tiles, dealt to the cluster's splits in contiguous runs
   const int splits = (int)gridDim.z;  // the cluster spans the grid's z
-  const int live = (len + DBK - 1) / DBK, per = (live + splits - 1) / splits;
-  const int j_begin = (int)blockIdx.z * per * DBK;
-  const int j_end = min(len, j_begin + per * DBK);
-  const int ntiles = j_end > j_begin ? (j_end - j_begin + DBK - 1) / DBK : 0;
+  const int live = (len + bk - 1) / bk, per = (live + splits - 1) / splits;
+  const int j_begin = (int)blockIdx.z * per * bk;
+  const int j_end = min(len, j_begin + per * bk);
+  const int ntiles = j_end > j_begin ? (j_end - j_begin + bk - 1) / bk : 0;
   const size_t key_stride = (size_t)KV * hd;  // elements between keys
   const T* kh = k + (size_t)b * Smax * key_stride + (size_t)kv * hd;
   const T* vh = v + (size_t)b * Smax * key_stride + (size_t)kv * hd;
@@ -155,20 +104,20 @@ __global__ void __launch_bounds__(DTHREADS)
   // tile t of this block's run into stage t % stages: rows 0 .. n - 1
   auto load_tile = [&](int t) {
     uint8_t* st = dsm + (t % stages) * L.stage;
-    const int j0 = j_begin + t * DBK, n = min(DBK, j_end - j0);
+    const int j0 = j_begin + t * bk, n = min(bk, j_end - j0);
     if constexpr (kAsync) {
       for (int i = tid; i < 2 * n * L.chunks; i += DTHREADS) {
         const int half = i / (n * L.chunks), rem = i - half * n * L.chunks;
         const int j = rem / L.chunks, c = rem - j * L.chunks;
         const T* src = (half ? vh : kh) + (size_t)(j0 + j) * key_stride + c * VEC;
-        hopper::cp_async16(st + half * DBK * L.pitch + j * L.pitch + c * 16, src);
+        hopper::cp_async16(st + half * bk * L.pitch + j * L.pitch + c * 16, src);
       }
     } else {
       for (int i = tid; i < 2 * n * L.hdp; i += DTHREADS) {
         const int half = i / (n * L.hdp), rem = i - half * n * L.hdp;
         const int j = rem / L.hdp, c = rem - j * L.hdp;
         const T* src = (half ? vh : kh) + (size_t)(j0 + j) * key_stride;
-        reinterpret_cast<T*>(st + half * DBK * L.pitch + j * L.pitch)[c] =
+        reinterpret_cast<T*>(st + half * bk * L.pitch + j * L.pitch)[c] =
             c < hd ? src[c] : from_f<T>(0.f);
       }
     }
@@ -182,9 +131,11 @@ __global__ void __launch_bounds__(DTHREADS)
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[r][i] = 0.f;
   }
-  const int key = tid >> 1, half = tid & 1;  // scoring: two threads a key
-  const int c_mid = (L.chunks + 1) / 2;
-  const int c_lo = half ? c_mid : 0, c_hi = half ? L.chunks : c_mid;
+  // scoring: tpk = DTHREADS / bk threads a key (2, 4 or 8), each taking a
+  // run of the head's chunks; their sums join by shuffles
+  const int tpk = DTHREADS / bk, key = tid / tpk, sub = tid % tpk;
+  const int c_per = (L.chunks + tpk - 1) / tpk;
+  const int c_lo = min(L.chunks, sub * c_per), c_hi = min(L.chunks, c_lo + c_per);
   const int cc = tid % L.chunks, kg = tid / L.chunks;  // P.V: column chunk, key group
   const bool pv = kg < L.groups;
 
@@ -193,12 +144,20 @@ __global__ void __launch_bounds__(DTHREADS)
     hopper::cp_async_commit();
   }
   for (int t = 0; t < ntiles; ++t) {
-    cp_async_wait_for(stages - 2);  // this thread's copies of tile t have landed
-    __syncthreads();  // everyone's have, and tile t - 1's stage and the weights are free
-    if (t + stages - 1 < ntiles) load_tile(t + stages - 1);
-    hopper::cp_async_commit();
+    if (stages == 1) {  // no ring: load the tile once the last one is done with
+      __syncthreads();
+      load_tile(t);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      hopper::cp_async_wait_for(stages - 2);  // this thread's copies of tile t have landed
+      __syncthreads();  // everyone's have, and tile t - 1's stage and the weights are free
+      if (t + stages - 1 < ntiles) load_tile(t + stages - 1);
+      hopper::cp_async_commit();
+    }
     const uint8_t* st = dsm + (t % stages) * L.stage;
-    const int n = min(DBK, j_end - (j_begin + t * DBK));
+    const int n = min(bk, j_end - (j_begin + t * bk));
 
     float s[R];
 #pragma unroll
@@ -221,7 +180,7 @@ __global__ void __launch_bounds__(DTHREADS)
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      s[r] += __shfl_xor_sync(0xffffffffu, s[r], 1);
+      for (int o = 1; o < tpk; o <<= 1) s[r] += __shfl_xor_sync(0xffffffffu, s[r], o);
       s[r] = key < n ? s[r] * scale : NEG;  // a select: a stale row's value never enters
       float mx = s[r];
 #pragma unroll
@@ -237,7 +196,7 @@ __global__ void __launch_bounds__(DTHREADS)
       for (int w = 1; w < DWARPS; ++w) mx = fmaxf(mx, wred[w * R + r]);
       const float m_new = fmaxf(m_run[r], mx);
       corr[r] = expf(m_run[r] - m_new);
-      if (half == 0) ps[r * DBK + key] = key < n ? expf(s[r] - m_new) : 0.f;
+      if (sub == 0) ps[r * bk + key] = key < n ? expf(s[r] - m_new) : 0.f;
       m_run[r] = m_new;
     }
     __syncthreads();
@@ -248,13 +207,13 @@ __global__ void __launch_bounds__(DTHREADS)
 #pragma unroll
         for (int i = 0; i < VEC; ++i) acc[r][i] *= corr[r];
       }
-      const uint8_t* vt = st + DBK * L.pitch + cc * 16;
+      const uint8_t* vt = st + bk * L.pitch + cc * 16;
       for (int j = kg; j < n; j += L.groups) {
         float vf[VEC];
         unpack16<T>(*reinterpret_cast<const uint4*>(vt + j * L.pitch), vf);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float p = ps[r * DBK + j];
+          const float p = ps[r * bk + j];
           l_run[r] += p;
 #pragma unroll
           for (int i = 0; i < VEC; ++i) acc[r][i] = fmaf(p, vf[i], acc[r][i]);
@@ -318,32 +277,33 @@ __global__ void __launch_bounds__(DTHREADS)
 
 template <typename T, int R, bool kAsync>
 int decode_launch(const void* q, const void* k, const void* v, const int* cache_len, void* out,
-                  int B, int Smax, int H, int KV, int hd, int splits, int stages, float scale,
-                  void* stream) {
-  const DecodeLayout L = decode_layout(hd, sizeof(T), R, stages);
+                  int B, int Smax, int H, int KV, int hd, int splits, int stages, int bk,
+                  float scale, void* stream) {
+  const repro_attn::RingLayout L = repro_attn::ring_layout(hd, sizeof(T), R, stages, bk);
   if (L.groups < 1) return (int)cudaErrorInvalidValue;
   const int groups = (H / KV + R - 1) / R;
   return hopper::launch_cluster(decode_kernel<T, R, kAsync>, dim3(B, KV * groups, splits),
                                 dim3(1, 1, splits), DTHREADS, (size_t)L.total, stream,
                                 static_cast<const T*>(q), static_cast<const T*>(k),
                                 static_cast<const T*>(v), cache_len, static_cast<T*>(out), Smax,
-                                H, KV, hd, stages, scale);
+                                H, KV, hd, stages, bk, scale);
 }
 
 template <typename T>
 int decode_typed(const void* q, const void* k, const void* v, const int* cache_len, void* out,
                  int B, int Smax, int H, int KV, int hd, int rows, int splits, int stages,
-                 int async, float scale, void* stream) {
-  if (splits < 1 || splits > 8 || stages < 2 || stages > 4 || KV < 1 || H % KV)
+                 int bk, int async, float scale, void* stream) {
+  if (splits < 1 || splits > 8 || stages < 1 || stages > 4 || KV < 1 || H % KV ||
+      (bk != 64 && bk != 32 && bk != 16))
     return (int)cudaErrorInvalidValue;
   if (async && ((hd * sizeof(T)) % 16 || reinterpret_cast<uintptr_t>(k) % 16 ||
                 reinterpret_cast<uintptr_t>(v) % 16))
     return (int)cudaErrorInvalidValue;
 #define REPRO_DECODE(R)                                                                    \
   (async ? decode_launch<T, R, true>(q, k, v, cache_len, out, B, Smax, H, KV, hd, splits,  \
-                                     stages, scale, stream)                                \
+                                     stages, bk, scale, stream)                            \
          : decode_launch<T, R, false>(q, k, v, cache_len, out, B, Smax, H, KV, hd, splits, \
-                                      stages, scale, stream))
+                                      stages, bk, scale, stream))
   switch (rows) {
     case 1: return REPRO_DECODE(1);
     case 4: return REPRO_DECODE(4);
@@ -358,16 +318,18 @@ int decode_typed(const void* q, const void* k, const void* v, const int* cache_l
 // dtype: 0 = float32, 1 = bfloat16 (q, caches and out). rows: query heads
 // a block takes (1, 4 or 8; g = H / KV above it runs in groups); splits:
 // blocks (one cluster, 1-8) that share a (row, kv head, group)'s key
-// tiles; stages: the K/V ring's depth (2-4); async: 1 = 16-byte cp.async
+// tiles; stages: the K/V ring's depth (1-4); bk: keys a tile (64, 32 or
+// 16); async: 1 = 16-byte cp.async
 // copies (hd * sizeof(T) a multiple of 16, caches 16-byte aligned), 0 =
 // element loads. The wrapper's plan (kernels/decode_attention.py::
 // decode_plan) decides them. Returns a cudaError_t (0 = launched).
 extern "C" int decode_attention(int dtype, const void* q, const void* k_cache,
                                 const void* v_cache, const int* cache_len, void* out, int B,
                                 int Smax, int H, int KV, int hd, int rows, int splits,
-                                int stages, int async, float scale, void* stream) {
-#define REPRO_DECODE_ARGS \
-  q, k_cache, v_cache, cache_len, out, B, Smax, H, KV, hd, rows, splits, stages, async, scale, stream
+                                int stages, int bk, int async, float scale, void* stream) {
+#define REPRO_DECODE_ARGS                                                                  \
+  q, k_cache, v_cache, cache_len, out, B, Smax, H, KV, hd, rows, splits, stages, bk, async, \
+      scale, stream
   if (dtype == 0) return decode_typed<float>(REPRO_DECODE_ARGS);
   if (dtype == 1) return decode_typed<__nv_bfloat16>(REPRO_DECODE_ARGS);
 #undef REPRO_DECODE_ARGS

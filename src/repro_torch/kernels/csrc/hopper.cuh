@@ -132,6 +132,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// the same with a run-time count, at most 2 (deeper rings wait for 2)
+__device__ __forceinline__ void cp_async_wait_for(int pending) {
+  if (pending >= 2)
+    cp_async_wait<2>();
+  else if (pending == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 

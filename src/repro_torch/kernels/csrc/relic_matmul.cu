@@ -99,6 +99,7 @@
 using repro_attn::from_f;
 using repro_attn::launch;
 using repro_attn::to_f;
+using repro_attn::unpack16;
 
 namespace {
 
@@ -353,23 +354,6 @@ template <typename T>
 __host__ __device__ constexpr size_t gv_smem_bytes(int rows, int stages) {
   return 1024 + (size_t)stages * GV_STAGE_BYTES + (size_t)GV_XCHUNK * rows * sizeof(float) +
          2 * (size_t)GV_XCHUNK * rows * sizeof(T) + (2 * stages + 4) * sizeof(uint64_t);
-}
-
-// 16 bytes of w as floats: 4 float32 values, or 8 bf16 (a bf16 is the top
-// half of the float32 with the same bits)
-template <typename T>
-__device__ __forceinline__ void unpack16(const uint4& u, float (&v)[16 / sizeof(T)]) {
-  const uint32_t word[4] = {u.x, u.y, u.z, u.w};
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = __uint_as_float(word[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[2 * i] = __uint_as_float(word[i] << 16);
-      v[2 * i + 1] = __uint_as_float(word[i] & 0xFFFF0000u);
-    }
-  }
 }
 
 // the consumer warps' own barrier (the producer warp never waits on it)

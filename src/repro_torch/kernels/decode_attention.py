@@ -7,13 +7,13 @@ and what the design does about it). The cache is read in place, in its
 ``[B,Smax,KV,hd]`` layout.
 
 ``decode_attention`` keeps the JAX function's contract that ``Smax`` is a
-multiple of ``min(bk, Smax)`` (the kernel's own 64-key tile does not depend
-on ``bk``), then dispatches on the tensors' device: CPU tensors take the
+multiple of ``min(bk, Smax)`` (the kernel's own tile of 64 keys, or 32 or
+16 for a very wide head, does not depend on ``bk``), then dispatches on the tensors' device: CPU tensors take the
 plain PyTorch version (``plain_decode_attention``), CUDA tensors the
 kernel — or it raises. A row with ``cache_len`` 0 gives zeros in both.
 Its ``launches`` attribute counts kernel launches. ``decode_plan`` says how
 the kernel launches: how many blocks (one cluster) share a row's keys, the
-K/V ring's depth, and whether the tiles arrive by 16-byte ``cp.async``.
+K/V ring's tile and depth, and whether the tiles arrive by 16-byte ``cp.async``.
 """
 from __future__ import annotations
 
@@ -25,16 +25,64 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref as plain_decode_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# csrc/decode_attention.cu: 64-key tiles, 128 threads a block, a cluster
-# of at most 8 splits that share a row's live tiles equally, a K/V ring of
-# 2-4 stages within ~112 KB of shared memory
-DECODE_TILE, DECODE_THREADS = 64, 128
+# csrc/decode_attention.cu: 128 threads a block, a cluster of at most 8
+# splits that share a row's live tiles equally, a K/V ring of 2-4 stages
+# of 64-key tiles within ~112 KB of shared memory; a head too wide for
+# that takes 32-key tiles, then 16-key ones, then one stage
+DECODE_TILES = (64, 32, 16)
+DECODE_THREADS = 128
 DECODE_MAX_SPLITS, DECODE_TILES_PER_SPLIT = 8, 8
 DECODE_RING_BYTES = 112 * 1024
+SMEM_OPT_IN = 232_448  # the H100's per-block shared memory with the opt-in (227 KB)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _round16(n: int) -> int:
+    return _cdiv(n, 16) * 16
+
+
+def _stage_bytes(hd: int, es: int, tile: int) -> int:
+    """One ring stage: a tile of K then one of V, rows padded by 16 bytes;
+    an int8 pool's (``es`` 1) scales / 127 in float32 beside them."""
+    return 2 * tile * (_round16(hd * es) + 16) + (_round16(8 * tile) if es == 1 else 0)
+
+
+def decode_layout(hd: int, es: int, rows: int, stages: int, tile: int) -> int:
+    """Bytes of dynamic shared memory a block takes, for the dense decode
+    kernel and the paged one (``ring_layout`` in ``csrc/attention_tile.cuh``;
+    ``es`` is the cache's element size, 1 for an int8 pool): the K/V ring, which the end-of-block reduction reuses, q, the
+    tile's weights, the warp maxima and the block's (m, l, acc)."""
+    chunks = _cdiv(hd * es, 16)
+    hdp, groups = chunks * (16 // es), DECODE_THREADS // chunks
+    red = _round16(4 * groups * rows * (hdp + 1))
+    return (max(stages * _stage_bytes(hd, es, tile), red) + _round16(4 * rows * hdp)
+            + _round16(4 * rows * tile) + _round16(4 * (DECODE_THREADS // 32) * rows)
+            + _round16(4 * rows * (hdp + 2)))
+
+
+def decode_ring(hd: int, es: int, rows: int, name: str = "decode_attention",
+                extra: int = 0) -> tuple[int, int]:
+    """(keys a tile, stages) of the K/V ring: 64-key tiles in 2-4 stages
+    within ``DECODE_RING_BYTES`` where the block (with ``extra`` bytes past
+    the layout) fits the opt-in, else
+    32-key tiles, then 16-key ones, then 16-key tiles in one stage; raises
+    where none fits (a row of more than 2048 bytes, which a block's 128
+    threads cannot cover in 16-byte chunks: hd > 512 in float32, 1024 in
+    bf16, 2048 for an int8 pool)."""
+    if _cdiv(hd * es, 16) <= DECODE_THREADS:
+        for tile in DECODE_TILES:
+            stages = max(2, min(4, DECODE_RING_BYTES // _stage_bytes(hd, es, tile)))
+            if decode_layout(hd, es, rows, stages, tile) + extra <= SMEM_OPT_IN:
+                return tile, stages
+        if decode_layout(hd, es, rows, 1, DECODE_TILES[-1]) + extra <= SMEM_OPT_IN:
+            return DECODE_TILES[-1], 1
+    raise ValueError(
+        f"{name}: no shared-memory layout fits hd={hd} ({es}-byte elements); the "
+        f"kernel takes hd up to {2048 // es}"
+    )
 
 
 def decode_plan(dtype, B: int, H: int, KV: int, Smax: int, hd: int, aligned: bool = True) -> dict:
@@ -42,30 +90,30 @@ def decode_plan(dtype, B: int, H: int, KV: int, Smax: int, hd: int, aligned: boo
     [B,H,hd] and a [B,Smax,KV,hd] cache: one block per (row, kv head,
     group of ``rows`` of its g query heads, split), the grid (B, KV *
     groups, splits), the splits one cluster; the kernel deals each row's
-    live tiles (64 keys, below its cache_len) to the splits in equal
+    live tiles (``tile`` keys, below its cache_len) to the splits in equal
     contiguous runs. Splits double (up to 8, at most one per tile of
     Smax) until the grid reaches ``_build.TARGET_BLOCKS`` and a full row
     gives no split more than ``DECODE_TILES_PER_SPLIT`` tiles. The K/V
-    ring holds ``stages`` tiles (rows padded by 16 bytes); the tiles arrive
-    by 16-byte ``cp.async`` (path "cp.async") where a head's row is a
-    multiple of 16 bytes and the caches are ``aligned``, else by element
-    loads ("direct")."""
+    ring holds ``stages`` tiles (rows padded by 16 bytes; ``decode_ring``
+    picks both within 227 KB); the tiles arrive by 16-byte ``cp.async``
+    (path "cp.async") where a head's row is a multiple of 16 bytes and the
+    caches are ``aligned``, else by element loads ("direct")."""
     if dtype not in _DTYPES:
         raise TypeError(f"decode_attention: no kernel for {dtype}")
     es = 4 if dtype == torch.float32 else 2
     g = H // KV
     rows = 1 if g == 1 else 4 if g <= 4 else 8
+    tile, stages = decode_ring(hd, es, rows)
     groups = _cdiv(g, rows)
-    tiles = _cdiv(Smax, DECODE_TILE)
+    tiles = _cdiv(Smax, tile)
     pairs = max(1, B * KV * groups)
     splits = 1
     while splits < min(DECODE_MAX_SPLITS, tiles) and (
             splits * pairs < _build.TARGET_BLOCKS or _cdiv(tiles, splits) > DECODE_TILES_PER_SPLIT):
         splits *= 2
-    stage = 2 * DECODE_TILE * (_cdiv(hd * es, 16) * 16 + 16)
     return {"path": "cp.async" if aligned and hd * es % 16 == 0 else "direct",
-            "rows": rows, "splits": splits, "tile": DECODE_TILE,
-            "stages": max(2, min(4, DECODE_RING_BYTES // stage)),
+            "rows": rows, "splits": splits, "tile": tile, "stages": stages,
+            "smem": decode_layout(hd, es, rows, stages, tile),
             "grid": (B, KV * groups, splits), "cluster": (1, 1, splits),
             "threads": DECODE_THREADS}
 
@@ -117,7 +165,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, bk: int = 512):
     err = _build.library().decode_attention(
         _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         cache_len.data_ptr(), out.data_ptr(), B, Smax, H, KV, hd, plan["rows"], plan["splits"],
-        plan["stages"], int(plan["path"] == "cp.async"), 1.0 / math.sqrt(hd),
+        plan["stages"], plan["tile"], int(plan["path"] == "cp.async"), 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "decode_attention")

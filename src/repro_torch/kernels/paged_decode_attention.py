@@ -17,6 +17,9 @@ tensors' device: CPU tensors take the plain PyTorch version
 the kernel — or it raises. Its ``launches`` attribute counts kernel
 launches over float pools, ``launches_int8`` those over int8 pools and
 ``launches_partials`` those in the partials mode (over either pool).
+``paged_plan`` says how the kernel launches: the tiles a row's table is
+cut into, how many blocks (one cluster) share them, the ring's depth, and
+whether the tiles arrive by 16-byte ``cp.async``.
 """
 from __future__ import annotations
 
@@ -25,10 +28,64 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import (DECODE_THREADS, _cdiv, decode_layout,
+                                                  decode_ring)
 from repro_torch.kernels.ref import paged_attention_ref, paged_partials_ref
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8 = 2  # the C entry point's code for int8 pools
+# csrc/paged_decode_attention.cu: the dense decode kernel's block (128
+# threads, the same shared-memory layout and ring of 64-, 32- or 16-key
+# tiles), a cluster of at most 8 splits dealt a row's tiles round-robin
+PAGED_MAX_SPLITS, PAGED_TILES_PER_SPLIT = 8, 8
+TABLE_IDS = 256  # table entries of a split's tiles the kernel keeps in shared memory
+
+
+def paged_plan(q_dtype, kv_dtype, B: int, T: int, H: int, KV: int, hd: int, BS: int, MB: int,
+               aligned: bool = True) -> dict:
+    """How ``csrc/paged_decode_attention.cu`` runs T queries of ``q_dtype``
+    over [NB,BS,KV,hd] pools of ``kv_dtype`` and [B,MB] tables: a row's
+    table is cut into ``n_tiles`` tiles of at most ``tile`` keys —
+    ``entries_per_tile`` table entries each where BS ≤ tile, or
+    ``slices_per_entry`` slices of one entry where BS > tile — and tile i
+    goes to split i mod ``splits``. One block per (row, kv head, group of
+    ``rows`` of its T·g query rows, split), the grid (B, KV · groups,
+    splits), the splits one cluster. The splits, the tile and the ring
+    depend on the pool's shape and the card, never on T or the lengths,
+    so that verify equals decode bitwise: splits double (up to 8, at most
+    one per tile) until B · KV · splits reaches ``_build.TARGET_BLOCKS``
+    and no split holds more than ``PAGED_TILES_PER_SPLIT`` tiles of a
+    full row; the ring (``stages`` tiles, rows padded by 16 bytes) is
+    sized for the widest block (8 rows, 4 over int8 pools). The tiles
+    arrive by 16-byte ``cp.async`` (path "cp.async") where a head's row
+    is a multiple of 16 bytes and the pools are ``aligned``, else by
+    element loads ("direct")."""
+    if q_dtype not in _Q_DTYPES:
+        raise TypeError(f"paged_decode_attention: no kernel for q of {q_dtype}")
+    int8 = kv_dtype == torch.int8
+    kv_es = 1 if int8 else (4 if kv_dtype == torch.float32 else 2)
+    max_rows = 4 if int8 else 8
+    tile, stages = decode_ring(hd, kv_es, max_rows, "paged_decode_attention", 4 * TABLE_IDS)
+    nrows = T * (H // KV)
+    rows = 1 if nrows == 1 else 4 if nrows <= 4 else max_rows
+    groups = _cdiv(nrows, rows)
+    if BS <= tile:
+        epr, spe = tile // BS, 1
+        n_tiles = _cdiv(MB, epr)
+    else:
+        epr, spe = 1, _cdiv(BS, tile)
+        n_tiles = MB * spe
+    pairs = max(1, B * KV)
+    splits = 1
+    while splits < min(PAGED_MAX_SPLITS, n_tiles) and (
+            splits * pairs < _build.TARGET_BLOCKS or _cdiv(n_tiles, splits) > PAGED_TILES_PER_SPLIT):
+        splits *= 2
+    return {"path": "cp.async" if aligned and hd * kv_es % 16 == 0 else "direct",
+            "rows": rows, "splits": splits, "tile": tile, "stages": stages,
+            "entries_per_tile": epr, "slices_per_entry": spe, "n_tiles": n_tiles,
+            "smem": decode_layout(hd, kv_es, rows, stages, tile) + 4 * TABLE_IDS,
+            "grid": (B, KV * groups, splits), "cluster": (1, 1, splits),
+            "threads": DECODE_THREADS}
 
 
 def plain_paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale=None,
@@ -109,18 +166,6 @@ def _check(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale, owned):
     return kv_code
 
 
-def _check_int8_staging(k_pool, v_pool):
-    """The CUDA kernel's own limit on int8 pools: it stages 16 values at a
-    time, so the head dim is a multiple of 16 and the pools are 16-byte
-    aligned. The plain version takes any int8 pool."""
-    hd = k_pool.shape[-1]
-    if hd % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError(
-            "paged_decode_attention: the kernel needs int8 pools with a head dim that is "
-            f"a multiple of 16 and 16-byte aligned storage, got hd={hd}"
-        )
-
-
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None,
                            *, owned=None, partials: bool = False):
     """q [B,T,H,hd] float32/bfloat16; pools [NB,BS,KV,hd] in q's type, or
@@ -149,15 +194,17 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale=Non
     if B == 0 or T == 0:
         return (m, l, out) if partials else out
     int8 = kv_code == _INT8
-    if int8:
-        _check_int8_staging(k_pool, v_pool)
+    plan = paged_plan(q.dtype, k_pool.dtype, B, T, H, KV, hd, BS, block_tables.shape[1],
+                      _build.aligned16(k_pool, v_pool))
     err = _build.library().paged_decode_attention(
         _Q_DTYPES[q.dtype], kv_code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
         block_tables.data_ptr(), lengths.data_ptr(),
         None if owned is None else owned.data_ptr(), out.data_ptr(),
         m.data_ptr() if partials else None, l.data_ptr() if partials else None,
-        B, T, H, KV, hd, BS, block_tables.shape[1], int(partials), 1.0 / math.sqrt(hd),
+        B, T, H, KV, hd, BS, block_tables.shape[1], int(partials), plan["rows"],
+        plan["splits"], plan["stages"], plan["tile"], int(plan["path"] == "cp.async"),
+        1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "paged_decode_attention")

@@ -9,7 +9,10 @@ the design does about it).
 ``ssd_scan`` dispatches on the tensors' device: CPU tensors take the plain
 PyTorch version (``plain_ssd_scan``, the JAX model path's chunked scan,
 which shrinks the chunk to a divisor of S), CUDA tensors the kernel — or
-it raises. Its ``launches`` attribute counts kernel launches.
+it raises. Its ``launches`` attribute counts kernel launches. ``ssd_plan``
+says how the kernel launches: the chunks, how many blocks (one cluster)
+share a (row, head)'s chunks, the column slice of hd a block takes, and
+whether the products run on the tensor cores.
 """
 from __future__ import annotations
 
@@ -18,10 +21,54 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# shared-memory limits of csrc/ssd_scan.cu: b, c and the chunk's att matrix
-# are staged in float32, (2 Q (N+1) + Q (Q+1)) words, and head-dim columns
-# go 16 to a thread block
+# csrc/ssd_scan.cu: chunks of at most 128 positions, a state of at most 128,
+# head-dim columns in slices of 64 (32 or 16 where hd is not a multiple of
+# 64, so hd must be a multiple of 16), 256 threads a block, a cluster of
+# at most 8 blocks sharing a (row, head, slice)'s chunks in contiguous runs
 MAX_CHUNK, MAX_STATE, HEAD_DIM_SLICE = 128, 128, 16
+SSD_THREADS, SSD_MAX_CLUSTER = 256, 8
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def ssd_layout(Q: int, N: int, ds: int, es: int) -> int:
+    """Bytes of dynamic shared memory a block takes (the kernel's
+    ``ssd_layout``): b, c [Q][N] and x [Q][ds] in the inputs' type (rows
+    padded by 16 bytes, Q and N rounded up to 16), the float32 state slice
+    [ds][N + 4], la, dt, w [Q] and the run's decay."""
+    qp, np_ = _round16(Q), _round16(N)
+    return 2 * qp * (np_ * es + 16) + qp * (ds * es + 16) + 4 * ds * (np_ + 4) + 12 * qp + 16
+
+
+def ssd_plan(dtype, B: int, S: int, H: int, hd: int, N: int, chunk: int = 128,
+             aligned: bool = True) -> dict:
+    """How ``csrc/ssd_scan.cu`` runs a scan of ``dtype``: chunks of
+    Q = min(chunk, S) positions (the last one ragged), the ``chunks`` of
+    each (row, head, column slice) dealt in contiguous runs of
+    ``chunks_per_block`` to the ``cluster`` blocks of one thread-block
+    cluster (the largest power of two ≤ 8 and ≤ the chunks), one block per
+    (run, row, head, slice of ``slice`` columns of hd): the grid
+    (cluster, B·H, hd / slice). bf16 runs its products on the tensor cores
+    (c·b in bf16, the rest in TF32), float32 on the CUDA cores. The chunk
+    rows arrive by 16-byte ``cp.async`` (path "cp.async") where a row of b
+    and c is a multiple of 16 bytes and x, b, c are ``aligned``, else by
+    element loads ("direct")."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"ssd_scan: no kernel for {dtype}")
+    es = 4 if dtype == torch.float32 else 2
+    Q = min(chunk, S)
+    chunks = -(-S // Q)
+    cluster = 1
+    while 2 * cluster <= min(SSD_MAX_CLUSTER, chunks):
+        cluster *= 2
+    ds = 64 if hd % 64 == 0 else 32 if hd % 32 == 0 else 16
+    return {"path": "cp.async" if aligned and N * es % 16 == 0 else "direct",
+            "tensor_cores": dtype == torch.bfloat16, "chunk": Q, "chunks": chunks,
+            "cluster": cluster, "chunks_per_block": -(-chunks // cluster), "slice": ds,
+            "grid": (cluster, B * H, hd // ds), "threads": SSD_THREADS,
+            "smem": ssd_layout(Q, N, ds, es)}
 
 
 def plain_ssd_scan(xh, a, b, c, dt, chunk: int = 128):
@@ -104,9 +151,11 @@ def ssd_scan(xh, a, b, c, dt, chunk: int = 128):
     if B == 0 or S == 0 or H == 0:
         return y, torch.zeros((B, H, hd, N), dtype=torch.float32, device=xh.device)
     state = torch.empty((B, H, hd, N), dtype=torch.float32, device=xh.device)
+    plan = ssd_plan(xh.dtype, B, S, H, hd, N, chunk, _build.aligned16(xh, b, c))
     err = _build.library().ssd_scan(
         _DTYPES[xh.dtype], xh.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        dt.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, hd, N, min(chunk, S),
+        dt.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, hd, N, plan["chunk"],
+        plan["slice"], plan["cluster"], int(plan["path"] == "cp.async"),
         torch.cuda.current_stream(xh.device).cuda_stream,
     )
     _build.check(err, "ssd_scan")

@@ -164,17 +164,23 @@ def test_int8_wrapper_refuses_bad_scale_combinations():
         pda.paged_decode_attention(q, kq, vq.float(), tbl, lens, ks, vs)
     with pytest.raises(TypeError, match="share q's type"):
         pda.paged_decode_attention(q, kf.bfloat16(), vq.bfloat16(), tbl, lens)
-    # the kernel's staging limits (hd a multiple of 16, 16-byte aligned
-    # pools) hold on the CUDA branch only: the plain version takes both
+    # int8 pools the kernel cannot copy 16 bytes at a time (a head dim off
+    # a multiple of 16, storage off a 16-byte boundary) take its element
+    # loads on the card, and the plain version here
     narrow = [t[..., :8].contiguous() for t in (q, kq, vq)]
-    with pytest.raises(ValueError, match="multiple of 16"):
-        pda._check_int8_staging(narrow[1], narrow[2])
+    B, T, H, hd = narrow[0].shape
+    NB, BS, KV, _ = kq.shape
+    plan = pda.paged_plan(q.dtype, torch.int8, B, T, H, KV, hd, BS, tbl.shape[1])
+    assert plan["path"] == "direct"
     close(pda.paged_decode_attention(*narrow, tbl, lens, ks, vs),
           tref.paged_attention_ref(*narrow, tbl, lens, ks, vs), KERNEL_ATOL)
     shifted = torch.empty(kq.numel() + 1, dtype=torch.int8)[1:].view(kq.shape)  # 1-byte offset
     shifted.copy_(kq)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        pda._check_int8_staging(shifted, vq)
+    aligned = pda._build.aligned16(shifted, vq)
+    assert not aligned
+    plan = pda.paged_plan(q.dtype, torch.int8, *q.shape[:3], KV, q.shape[3], BS, tbl.shape[1],
+                          aligned)
+    assert plan["path"] == "direct"
     assert torch.equal(pda.paged_decode_attention(q, shifted, vq, tbl, lens, ks, vs),
                        pda.paged_decode_attention(q, kq, vq, tbl, lens, ks, vs))
     with pytest.raises(ValueError, match="k_scale on meta"):

@@ -19,6 +19,8 @@ bf16 on each side, 2^-8 relative, from sums in different orders); the
 SSD scan atol 1e-4 / rtol 1e-3 as ``tests/test_kernels.py`` holds it
 (the chunked kernel against the sequential recurrence).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -395,7 +397,7 @@ def test_decode_split_plan(B, KV, Smax, splits):
     got = plan["splits"]
     assert got == splits and plan["cluster"] == (1, 1, got)
     assert plan["grid"] == (B, KV, got) and plan["rows"] == (4 if g == 3 else 1)
-    tiles = -(-Smax // da.DECODE_TILE)
+    tiles = -(-Smax // plan["tile"])
     per = -(-tiles // got)  # the kernel deals a row's live tiles out equally
     assert per * (got - 1) < tiles  # every split of a full row has a tile
     assert per <= da.DECODE_TILES_PER_SPLIT or got == da.DECODE_MAX_SPLITS
@@ -616,3 +618,395 @@ def test_decode_reduction_order_matches_pallas(b, h, kv, hd, smax, dtype):
     np.testing.assert_allclose(_np(got), _np(da.decode_attention(tq, tk, tv, tl, bk=64)),
                                atol=tol, rtol=tol)
     assert not got[0].any()  # the cache_len 0 row
+
+
+@pytest.mark.parametrize("hd", [64, 80, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KV", [(9, 3), (32, 32), (16, 2)])
+def test_decode_plan_layout_fits_the_card(hd, dtype, H, KV):
+    """The decode kernel's shared memory (the plan's mirror of its
+    ``ring_layout``) stays within the H100's 227 KB opt-in at every head
+    size up to 512; hd 64 and 80 keep their plan of 64-key tiles in 2-4
+    stages within ~112 KB, wider heads take 32- or 16-key tiles."""
+    es = 4 if dtype == torch.float32 else 2
+    plan = da.decode_plan(dtype, 8, H, KV, 2048, hd)
+    assert plan["smem"] <= da.SMEM_OPT_IN == 232_448
+    assert plan["smem"] == da.decode_layout(hd, es, plan["rows"], plan["stages"], plan["tile"])
+    if hd in (64, 80):
+        stage = 2 * 64 * (-(-hd * es // 16) * 16 + 16)
+        assert (plan["tile"], plan["stages"]) == (64, max(2, min(4, (112 * 1024) // stage)))
+    assert plan["tile"] in (64, 32, 16) and 1 <= plan["stages"] <= 4
+    # the tile shrinks only where 64 keys in two stages do not fit
+    if plan["tile"] < 64:
+        assert da.decode_layout(hd, es, plan["rows"], 2, 2 * plan["tile"]) > da.SMEM_OPT_IN
+
+
+def test_decode_plan_names_the_largest_head_it_takes():
+    assert da.decode_plan(torch.float32, 1, 1, 1, 64, 512)["tile"] == 16
+    assert da.decode_plan(torch.bfloat16, 1, 1, 1, 64, 1024)["tile"] == 16
+    with pytest.raises(ValueError, match="hd up to 512"):
+        da.decode_plan(torch.float32, 1, 1, 1, 64, 528)
+
+
+# ---------------------------------------------------------------------------
+# the paged kernel's reduction order, replayed in plain PyTorch (a test-local
+# copy of the arithmetic of csrc/paged_decode_attention.cu's paged_kernel)
+
+
+def _pairwise(parts):
+    """The shuffle tree of the kernel's xor butterfly: ((s0 + s1) + (s2 + s3)) ..."""
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
+def _paged_replay(q, kp, vp, tables, lengths, plan, k_scale=None, v_scale=None, owned=None,
+                  partials=False):
+    """The paged kernel's arithmetic, one query row at a time (so nothing a
+    row computes depends on T): the row's table cut into the plan's tiles,
+    tile i to split i mod splits; per tile, keys whose entry is unowned or
+    past the tile's loaded run (positions below lengths + T) or the row's
+    window score -1e30; each score is the sum of 128 / tile partial dot
+    products over runs of the head's 16-byte chunks, added as the xor
+    shuffles add them; the running max, rescale exp(m_old - m_new) and
+    weights exp(s - m_new) in float32; P.V and l per key group (key j in
+    group j % groups, groups = 128 // chunks), a masked key adding exactly
+    nothing; the block adds its groups in group order; the splits combine
+    in split order, each scaled by exp(m_split - m) or by 0 at the -1e30
+    sentinel; then acc / max(l, 1e-30), or (m, l, acc) in partials mode.
+    Int8 pools dequantize as float(int8) * (float(scale) / 127)."""
+    B, T, H, hd = q.shape
+    NB, BS, KV, _ = kp.shape
+    MB = tables.shape[1]
+    g = H // KV
+    int8 = kp.dtype == torch.int8
+    es = 1 if int8 else kp.element_size()
+    chunks = -(-hd * es // 16)
+    hdp, groups = chunks * (16 // es), 128 // chunks
+    tc, splits = plan["tile"], plan["splits"]
+    epr, spe = plan["entries_per_tile"], plan["slices_per_entry"]
+    tpk = 128 // tc
+    c_per = -(-chunks // tpk) * (16 // es)  # columns a scoring thread takes
+    kf, vf = kp.float(), vp.float()
+    if int8:
+        kf = kf * (k_scale.float() / 127)[..., None]
+        vf = vf * (v_scale.float() / 127)[..., None]
+
+    def start(i):
+        return i * epr * BS if spe == 1 else (i // spe) * BS + (i % spe) * tc
+
+    def keys(i):
+        return min(epr, MB - i * epr) * BS if spe == 1 else min(tc, BS - (i % spe) * tc)
+
+    def entry_slot(i, j):
+        return (i * epr + j // BS, j % BS) if spe == 1 else (i // spe, (i % spe) * tc + j)
+
+    reach, scale = MB * BS, torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    n_tiles = plan["n_tiles"]
+    out = torch.zeros(B, T, H, hd)
+    m_out, l_out = torch.zeros(B, T, H), torch.zeros(B, T, H)
+    for b in range(B):
+        lim_max = max(0, min(reach, int(lengths[b]) + T))
+        live = sum(1 for i in range(n_tiles) if start(i) < lim_max)
+        for kv in range(KV):
+            tiles = []  # (p0, n, keys [tc, hdp], vals [tc, hdp], owned [tc]) of each live tile
+            for i in range(live):
+                p0 = start(i)
+                n = min(keys(i), lim_max - p0)
+                kt, vt, ok = torch.zeros(tc, hdp), torch.zeros(tc, hdp), torch.zeros(tc, dtype=torch.bool)
+                for j in range(n):
+                    e, sl = entry_slot(i, j)
+                    if owned is None or int(owned[b, e]):
+                        kt[j, :hd] = kf[int(tables[b, e]), sl, kv]
+                        vt[j, :hd] = vf[int(tables[b, e]), sl, kv]
+                        ok[j] = True
+                tiles.append((p0, n, kt, vt, ok))
+            for r in range(T * g):
+                t, jh = divmod(r, g)
+                lim = max(0, min(reach, int(lengths[b]) + t + 1))
+                qv = torch.zeros(hdp)
+                qv[:hd] = q[b, t, kv * g + jh].float()
+                parts = []
+                for s in range(splits):
+                    m = torch.tensor(float(NEG))
+                    l, acc = torch.zeros(groups), torch.zeros(groups, hdp)
+                    for p0, n, kt, vt, ok in tiles[s::splits]:
+                        sub = [(kt[:, c:c + c_per] * qv[c:c + c_per]).sum(1) for c in range(0, tpk * c_per, c_per)]
+                        pos = p0 + torch.arange(tc)
+                        valid = ok & (torch.arange(tc) < n) & (pos < lim)
+                        sc = torch.where(valid, _pairwise(sub) * scale, torch.tensor(float(NEG)))
+                        m_new = torch.maximum(m, sc.max())
+                        corr = torch.exp(m - m_new)
+                        p = torch.where(valid, torch.exp(sc - m_new), torch.tensor(0.0))
+                        l, acc = l * corr, acc * corr
+                        for step in range(-(-tc // groups)):
+                            jj = torch.arange(groups) + step * groups
+                            live_j = jj < n
+                            jc = jj.clamp(max=tc - 1)
+                            l = torch.where(live_j, l + p[jc], l)
+                            acc = torch.where(live_j[:, None], acc + p[jc, None] * vt[jc], acc)
+                        m = m_new
+                    a_blk, l_blk = acc[0].clone(), l[0].clone()
+                    for gi in range(1, groups):
+                        a_blk, l_blk = a_blk + acc[gi], l_blk + l[gi]
+                    parts.append((m, l_blk, a_blk))
+                m_all = torch.stack([pm for pm, _, _ in parts]).max()
+                l_all, a_all = torch.tensor(0.0), torch.zeros(hdp)
+                for pm, pl, pa in parts:
+                    wgt = torch.tensor(0.0) if pm <= NEG else torch.exp(pm - m_all)
+                    l_all, a_all = l_all + pl * wgt, a_all + pa * wgt
+                h = kv * g + jh
+                m_out[b, t, h], l_out[b, t, h] = m_all, l_all
+                out[b, t, h] = a_all[:hd] if partials else a_all[:hd] / torch.clamp(l_all, min=1e-30)
+    if partials:
+        return m_out, l_out, out
+    return out.to(q.dtype)
+
+
+def _replay_pool(seed, t, layout, int8=False):
+    """Four rows of a pool whose tables reach 256 keys (4 tiles of 64, dealt
+    to 4 splits): BS = 8, MB = 32 (8 entries a tile), or the slot view's
+    BS = 128, MB = 2 (2 slices an entry); lengths 0, a tile boundary less
+    one, mid-tile, and the table's reach less T; a random ownership in
+    which row 1 owns nothing."""
+    B, KV, g, hd = 4, 2, 2, 16
+    BS, MB = (8, 32) if layout == "paged" else (128, 2)
+    NB = B * MB + 1
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, t, KV * g, hd)).astype(np.float32)
+    if int8:
+        kp, vp = (rng.integers(-127, 128, size=(NB, BS, KV, hd)).astype(np.int8) for _ in range(2))
+        scales = [rng.uniform(0.5, 2.0, size=(NB, BS, KV)).astype(np.float32) for _ in range(2)]
+    else:
+        kp, vp = (rng.normal(size=(NB, BS, KV, hd)).astype(np.float32) for _ in range(2))
+        scales = None
+    tbl = rng.permutation(NB - 1)[: B * MB].reshape(B, MB).astype(np.int32)
+    lens = np.array([0, 63, 150, MB * BS - t], np.int32)
+    for r in range(B):
+        tbl[r, -(-(lens[r] + t) // BS):] = NB - 1  # entries past the window: the null block
+    owned = rng.integers(0, 2, size=(B, MB)).astype(np.int32)
+    owned[1] = 0
+    return q, kp, vp, tbl, lens, owned, scales
+
+
+@pytest.mark.parametrize("mode", ["float", "int8", "partials"])
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("layout", ["paged", "slot"])
+def test_paged_reduction_order_matches_pallas(layout, t, mode):
+    """The replay at the kernel's own plan (4 splits of one 64-key tile
+    each: 8 entries of 8 keys, or 64-key slices of 128-key entries)
+    against ``ops.paged_attention`` (and, in partials mode,
+    ``paged_flash_partials``) in interpret mode, float32 q: within 2e-5
+    (a float32 softmax on both sides, summed in another order; the int8
+    pools dequantize identically); the row that owns nothing is exactly
+    (-1e30, 0, 0). The replay's verify (T = 4) equals its decode (T = 1,
+    lengths + t) bitwise, query by query."""
+    q, kp, vp, tbl, lens, owned, scales = _replay_pool(50 + t, t, layout, mode == "int8")
+    t_args, j_args = _to_both(q, kp, vp, tbl, lens, scales)
+    B, T, H, hd = q.shape
+    plan = pda.paged_plan(torch.float32, t_args[1].dtype, B, T, H, kp.shape[2], hd, kp.shape[1],
+                          tbl.shape[1])
+    assert plan["splits"] == 4 and plan["n_tiles"] == 4 and plan["tile"] == 64
+    kw = dict(k_scale=t_args[5], v_scale=t_args[6])
+    if mode == "partials":
+        t_own = torch.from_numpy(owned)
+        got = _paged_replay(*t_args[:5], plan, owned=t_own, partials=True, **kw)
+        want = [np.asarray(a) for a in jattn.paged_flash_partials(
+            *j_args[:5], jnp.asarray(owned), k_scale=j_args[5], v_scale=j_args[6],
+            backend="interpret")]
+        for name, g_, w_ in zip("mla", got, want):
+            np.testing.assert_allclose(g_.numpy(), w_, atol=ATOL, rtol=ATOL, err_msg=name)
+        m, l, acc = got
+        assert (m[1] == NEG).all() and not l[1].any() and not acc[1].any()
+    else:
+        t_own = None
+        got = _paged_replay(*t_args[:5], plan, **kw)
+        want = np.asarray(jops.paged_attention(*j_args, mode="interpret"))
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=ATOL)
+    if T > 1:
+        for ti in range(T):
+            dec = _paged_replay(t_args[0][:, ti:ti + 1].contiguous(), *t_args[1:4],
+                                t_args[4] + ti, plan, owned=t_own, partials=mode == "partials", **kw)
+            if mode == "partials":
+                for a_, b_ in zip(dec, got):
+                    assert torch.equal(a_[:, 0], b_[:, ti])
+            else:
+                assert torch.equal(dec[:, 0], got[:, ti])
+
+
+# the paged kernel's launch plan at the card's shapes: the splits, the tile
+# and the ring depend on the pool's shape, never on T
+@pytest.mark.parametrize("kv_dtype,B,H,KV,hd,BS,MB,splits,tile,epr,spe,path", [
+    (torch.bfloat16, 8, 9, 3, 64, 16, 128, 8, 64, 4, 1, "cp.async"),    # smollm's paged pool
+    (torch.bfloat16, 8, 9, 3, 64, 256, 8, 8, 64, 1, 4, "cp.async"),     # smollm's slot view
+    (torch.int8, 8, 32, 32, 80, 256, 8, 4, 64, 1, 4, "cp.async"),       # zamba2's int8 slot view
+    (torch.int8, 8, 9, 3, 72, 16, 128, 8, 64, 4, 1, "direct"),          # int8 hd 72: element loads
+])
+def test_paged_plan(kv_dtype, B, H, KV, hd, BS, MB, splits, tile, epr, spe, path):
+    plans = [pda.paged_plan(torch.bfloat16, kv_dtype, B, T, H, KV, hd, BS, MB) for T in (1, 4)]
+    for T, plan in zip((1, 4), plans):
+        assert (plan["splits"], plan["tile"], plan["entries_per_tile"], plan["slices_per_entry"],
+                plan["path"]) == (splits, tile, epr, spe, path)
+        assert plan["cluster"] == (1, 1, splits) and plan["grid"][2] == splits
+        rows = T * (H // KV)
+        assert plan["grid"][:2] == (B, KV * -(-rows // plan["rows"]))
+        assert plan["smem"] <= da.SMEM_OPT_IN
+        assert plan["n_tiles"] * min(tile, BS * epr) >= BS * MB  # the tiles cover the table
+    assert {k: plans[0][k] for k in ("splits", "tile", "stages")} == \
+        {k: plans[1][k] for k in ("splits", "tile", "stages")}
+    assert not pda.paged_plan(torch.bfloat16, kv_dtype, B, 1, H, KV, hd, BS, MB, False)["path"] == "cp.async"
+
+
+# ---------------------------------------------------------------------------
+# the SSD kernel's chunk-parallel order, replayed in plain PyTorch (a
+# test-local copy of the arithmetic of csrc/ssd_scan.cu's ssd_scan_kernel)
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: the kernel's rounding of a float32 tensor-core operand."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _ssd_replay(xh, a, b, c, dt, plan):
+    """The SSD kernel's order: per (row, head), the chunks dealt to the
+    plan's cluster of ranks in contiguous runs; each rank's local state,
+    the recurrence from zero over its run, S = exp(la_end) S + sum_j (b_j
+    w_j) (x) x_j, and its decay exp(sum of la_end); S_in of rank k the fold
+    of ranks 0 .. k-1 in rank order, S = D_r S + local_r, the fold past the
+    last rank the final state; then y of each chunk from the state
+    entering it: exp(la_i) (c_i . S), then att x added on top. With the
+    plan's tensor cores (bf16) the float32 operand of each TF32 product
+    (att, the state, b w) is rounded to TF32 and c.b is exact; float32
+    inputs keep float32 operands."""
+    B, S, H, hd = xh.shape
+    N = b.shape[-1]
+    Q, ranks, per = plan["chunk"], plan["cluster"], plan["chunks_per_block"]
+    nc = plan["chunks"]
+    rnd = _tf32 if plan["tensor_cores"] else (lambda t: t)
+    y = torch.zeros(B, S, H, hd)
+    state = torch.zeros(B, H, hd, N)
+    xf, bf, cf = xh.float(), b.float(), c.float()
+    for bi in range(B):
+        for h in range(H):
+            chunks = []
+            for k in range(nc):
+                c0 = k * Q
+                n = min(Q, S - c0)
+                la = torch.cumsum(torch.log(torch.clamp(a[bi, c0:c0 + n, h], min=1e-20)), 0)
+                dtk = dt[bi, c0:c0 + n, h]
+                w = dtk * torch.exp(torch.clamp(la[-1] - la, -60.0, 0.0))
+                chunks.append((c0, n, la, dtk, w))
+
+            def local(k):
+                c0, n, _, _, w = chunks[k]
+                return (rnd(bf[bi, c0:c0 + n] * w[:, None]).T @ xf[bi, c0:c0 + n, h]).T  # [hd, N]
+
+            runs = [range(min(nc, r * per), min(nc, (r + 1) * per)) for r in range(ranks)]
+            locs, decays = [], []
+            for run in runs:
+                s_loc, ld = torch.zeros(hd, N), torch.tensor(0.0)
+                for k in run:
+                    s_loc = (torch.exp(chunks[k][2][-1]) * s_loc if k != run[0] else 0.0) + local(k)
+                    ld = ld + chunks[k][2][-1]
+                locs.append(s_loc)
+                decays.append(torch.exp(ld))
+            s_fold = torch.zeros(hd, N)
+            for run, s_loc, dk in zip(runs, locs, decays):
+                s_run = s_fold
+                for k in run:
+                    c0, n, la, dtk, _ = chunks[k]
+                    ck, xk = cf[bi, c0:c0 + n], xf[bi, c0:c0 + n, h]
+                    seg = torch.exp(torch.clamp(la[:, None] - la[None, :], -60.0, 0.0))
+                    att = torch.tril((ck @ bf[bi, c0:c0 + n].T) * seg * dtk[None, :])
+                    yk = torch.exp(la)[:, None] * (ck @ rnd(s_run).T) + rnd(att) @ xk
+                    y[bi, c0:c0 + n, h] = yk
+                    if k != run[-1]:
+                        s_run = torch.exp(la[-1]) * s_run + local(k)
+                s_fold = dk * s_fold + s_loc
+            state[bi, h] = s_fold
+    return y.to(xh.dtype), state
+
+
+def _ssd_inputs(B, S, H, hd, N, seed):
+    """chip_smoke.py's ssd_case at a reduced width: dt = softplus(. - 2),
+    a = exp(-dt), x, b, c ~ N(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, hd, generator=g)
+    b = torch.randn(B, S, N, generator=g)
+    c = torch.randn(B, S, N, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g) - 2.0)
+    return x, torch.exp(-dt), b, c, dt
+
+
+# chip_smoke.py's SSD_TOL: max |kernel - plain| <= rel * max |plain| + abs
+SSD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 0.0)}
+
+
+@pytest.mark.parametrize("S,chunk,jax_chunk", [
+    (1000, 128, 125),   # 8 chunks, the last of 104: 8 ranks of one chunk
+    (97, 16, 97),       # a prime: 7 chunks, the last of 1, runs of 2 over 4 ranks
+    (256, 32, 32),      # 8 whole chunks
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_reduction_order_matches_pallas(S, chunk, jax_chunk, dtype):
+    """The replay at the kernel's own plan (ragged last chunks, runs of
+    one or two chunks a rank) against ``ops.ssd`` in interpret mode (at a
+    chunk that divides S, as the Pallas kernel needs), bf16 with the TF32
+    operand rounding emulated, y within chip_smoke.py's SSD_TOL; and the
+    final state against the plain version's."""
+    B, H, hd, N = 1, 2, 16, 32
+    x, a, b, c, dt = _ssd_inputs(B, S, H, hd, N, seed=S)
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    xt, bt, ct = x.to(tdt), b.to(tdt), c.to(tdt)
+    plan = ssd.ssd_plan(tdt, B, S, H, hd, N, chunk)
+    got_y, got_s = _ssd_replay(xt, a, bt, ct, dt, plan)
+    want = _np(jops.ssd(*(jnp.asarray(_np(v), jnp.float32 if v.dtype == torch.float32 else jnp.bfloat16)
+                          for v in (xt, a, bt, ct, dt)), chunk=jax_chunk, mode="interpret"))
+    rel, absol = SSD_TOL[dtype]
+    err = np.abs(_np(got_y) - want).max()
+    assert err <= rel * np.abs(want).max() + absol, (err, np.abs(want).max())
+    _, plain_s = ssd.plain_ssd_scan(xt, a, bt, ct, dt, chunk)
+    s_err = (got_s - plain_s).abs().max().item()
+    assert s_err <= rel * plain_s.abs().max().item() + absol, s_err
+
+
+def test_ssd_tf32_operands_stay_inside_the_chip_tolerance():
+    """TF32 operands (att, the state, b w rounded to 10 mantissa bits) keep
+    the bf16 kernel's y and final state within chip_smoke.py's bf16
+    SSD_TOL of the plain version, on the inputs chip_smoke.py makes, at
+    mamba2-370m's widths (hd 64, N 128) over two heads and 512 positions:
+    4 chunks over 4 ranks."""
+    B, S, H, hd, N = 1, 512, 2, 64, 128
+    x, a, b, c, dt = (t.to(torch.bfloat16) if i in (0, 2, 3) else t
+                      for i, t in enumerate(_ssd_inputs(B, S, H, hd, N, seed=0)))
+    plan = ssd.ssd_plan(torch.bfloat16, B, S, H, hd, N)
+    assert plan["tensor_cores"] and plan["cluster"] == 4
+    got_y, got_s = _ssd_replay(x, a, b, c, dt, plan)
+    want_y, want_s = ssd.plain_ssd_scan(x, a, b, c, dt)
+    rel, _ = SSD_TOL["bfloat16"]
+    for got, want in ((got_y, want_y), (got_s, want_s)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= rel * want.float().abs().max().item(), err
+    # the rounding is real: TF32 moves the state off the float32 replay's
+    f32_s = _ssd_replay(x, a, b, c, dt, dict(plan, tensor_cores=False))[1]
+    assert not torch.equal(got_s, f32_s)
+
+
+@pytest.mark.parametrize("H,N,blocks,smem_max", [
+    (32, 128, 256, 123_408),   # mamba2-370m's prefill: 8 chunks x 32 heads
+    (80, 64, 640, 74_256),     # zamba2-2.7b's
+])
+def test_ssd_plan_at_the_prefill_shapes(H, N, blocks, smem_max):
+    plan = ssd.ssd_plan(torch.bfloat16, 1, 1024, H, 64, N)
+    assert (plan["chunk"], plan["chunks"], plan["cluster"], plan["chunks_per_block"]) == (128, 8, 8, 1)
+    assert plan["slice"] == 64 and plan["tensor_cores"] and plan["path"] == "cp.async"
+    grid = plan["grid"]
+    assert grid == (8, H, 1) and grid[0] * grid[1] * grid[2] == blocks
+    assert plan["smem"] == smem_max <= da.SMEM_OPT_IN
+    f32 = ssd.ssd_plan(torch.float32, 1, 1024, H, 64, N)
+    assert not f32["tensor_cores"] and f32["smem"] <= da.SMEM_OPT_IN
+    # S past 8 chunks: runs of several chunks a rank, still one cluster of 8
+    long = ssd.ssd_plan(torch.bfloat16, 1, 2048, H, 64, N)
+    assert (long["cluster"], long["chunks_per_block"]) == (8, 2)
