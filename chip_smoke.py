@@ -33,7 +33,12 @@ Phases, in order; any failure exits non-zero before the final line:
    (causal with a q_offset, and non-causal) and on q/k/v 2 bytes off a
    16-byte boundary, relic_matmul at K or N off a multiple of 8 and on
    misaligned operands, each launching its kernel once and printing its
-   path;
+   path; 3b: the input ranges the kernels took no longer before — the
+   dense decode and paged kernels at hd 1024 (float32 and bf16; the paged
+   kernel's verify equal to its decode bitwise there), the paged kernel's
+   int8 mode at hd 2560, the SSD scan at N = 256, hd = 72 and chunk = 256
+   on S = 1024 — each launching its kernel once and held to its plain
+   version with its phase's tolerance, timed beside its bound;
 4. entry points — every entry point of ``repro_torch.kernels.ops`` called
    once with mode "auto" on bf16 CUDA tensors at full-width shapes, from
    launch counts of 0: each must launch its own kernel once and agree with
@@ -72,10 +77,25 @@ Phases, in order; any failure exits non-zero before the final line:
    zamba2-2.7b in bf16 at full width, whose prefill runs the wgmma flash
    kernel: the prefill's and the first decode step's logits through the
    kernels, each row no further from the float32 plain path's (same
-   weights, upcast) than ``E2E_BF16_RATIO`` times the bf16 plain path's.
+   weights, upcast) than ``E2E_BF16_RATIO`` times the bf16 plain path's;
+7. the adviser — ``advise_suite(hw=CPU_HW)`` over the ten benchmarks with
+   their data on the card: decisions equal to
+   ``tests/golden_aira_decisions.json`` and geomeans equal to
+   ``BENCH_aira.json``'s within 1e-6; each accepted plan's ``execute``
+   against the serial per-item loop on the first 64 items and against
+   ``vmap`` of the per-item function on all (exact for integers, 1e-5
+   relative for float sums), the loop and the plan timed (device
+   vectorisation, not SMT: the gains are the overlap model's for the
+   paper's i7-12700 core); then
+   smollm-135m at full width on the slot layout served through a decode
+   plan (``decode_region`` + ``Aira`` + ``set_decode_plan``), 8 rows and
+   7: float32 tokens equal to the no-plan path's (or ties), the paged
+   kernel launched exactly layers x chunks per stream x decode steps;
+   bf16 logits of one plan step within ``E2E_BF16_RATIO`` of the plain
+   path's distance from float32.
 
-The line before the last is the JSON kernel table; the last line is
-``{"ok": true, "device": {...}}``.
+The two lines before the last are the JSON kernel table and the card's
+name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import json
@@ -141,6 +161,8 @@ PARTIALS_TPU = "src/repro/kernels/paged_decode_attention.py:111"  # the partials
 NONCAUSAL_TPU = "src/repro/kernels/flash_attention.py:38"  # causal=False
 # the kernels and modes that only the entry points run (never serving)
 ENTRY_ONLY = ("relic_matmul", "relic_gemv", "decode", "partials", "flash_noncausal")
+# the input ranges phase 3b holds (no model of the repo reaches them)
+WIDE = ("decode_wide", "paged_wide", "paged_int8_wide", "ssd_wide")
 
 
 def require(ok, msg: str) -> None:
@@ -640,6 +662,159 @@ def check_repaired():
         bms, by = matmul_bound(x, w, bf)
         log(f"{label} path={plan['path']} tile={plan['tile']}: max_abs_err={err:.3e} (tol {lim:.2e}) "
             f"ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(lib)}")
+
+
+def check_wide():
+    """The input ranges the kernels refused before (phase 3b): the dense
+    decode kernel and the paged kernel at hd 1024 (float32: 256 16-byte
+    chunks a row, more than a block's 128 threads, P.V loops them; bf16:
+    128), the paged kernel's int8 mode at hd 2560 (160 chunks), and the SSD
+    scan at N = 256, hd = 72 (a padded last column slice) and chunk = 256
+    on S = 1024 (sub-chunks of at most 128, smaller where b and c of the
+    wide state need it). Each is driven once from launch counts of 0 and
+    must launch its own kernel once (the row's ``launches``, read from its
+    counter); then it is
+    held to its plain version with its phase's tolerance and timed beside
+    its bound. The paged kernel's verify (T = 4) equals its decode bitwise
+    at hd 1024."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import ssd_scan as ssd
+
+    launched = {}
+
+    def once(key, call):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        n = read_launches()
+        moved = {k: v for k, v in n.items() if v}
+        require(moved == {key: 1}, f"{key}: launched {moved}, not its kernel once")
+        launched[key] = n[key]
+        return out
+
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        # dense decode at hd 1024
+        dq, dk, dv, dl = decode_case(dtype, hd=1024)
+        out = once("decode", lambda: da.decode_attention(dq, dk, dv, dl))
+        ref = da.plain_decode_attention(dq, dk, dv, dl)
+        err = (out.float() - ref.float()).abs().max().item()
+        ms = cuda_ms(lambda: da.decode_attention(dq, dk, dv, dl))
+        plain = cuda_ms(lambda: da.plain_decode_attention(dq, dk, dv, dl), iters=5)
+        bms, by = decode_bound(dq, dk, dl, dtype)
+        lib = sdpa_decode_ms(dq, dk, dv, dl)
+        plan = da.decode_plan(dtype, 8, 9, 3, 2048, 1024)
+        log(f"decode_attention {dn} B=8 Smax=2048 H=9 KV=3 hd=1024 plan="
+            f"{ {f: plan[f] for f in ('path', 'rows', 'splits', 'tile', 'stages', 'grid')} }: "
+            f"max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
+            f"bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(lib)}")
+        require(err <= TOL[dtype] and torch.isfinite(out).all(),
+                f"decode kernel at hd 1024 ({dn}) disagrees with its plain version: {err}")
+        rows[("decode_wide", dtype)] = {"launches": launched["decode"],
+                                   **kernel_row(err, ms, plain, bms, by, lib)}
+        # the paged kernel over float pools at hd 1024, decode then verify
+        q, kp, vp, tables, lengths, _, _ = paged_case(dtype, 1, hd=1024)
+        out = once("paged", lambda: pda.paged_decode_attention(q, kp, vp, tables, lengths))
+        ref = pda.plain_paged_decode_attention(q, kp, vp, tables, lengths)
+        err = (out.float() - ref.float()).abs().max().item()
+        ms = cuda_ms(lambda: pda.paged_decode_attention(q, kp, vp, tables, lengths))
+        plain = cuda_ms(lambda: pda.plain_paged_decode_attention(q, kp, vp, tables, lengths), iters=5)
+        bms, by = paged_bound(q, kp, tables, lengths, dtype)
+        log(f"paged_decode_attention {dn} paged layout B=8 T=1 H=9 KV=3 hd=1024 BS=16 MB=128 "
+            f"plan={paged_plan_of(q, kp, tables)}: max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) "
+            f"ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) library_ms=null")
+        require(err <= TOL[dtype] and torch.isfinite(out).all(),
+                f"paged kernel at hd 1024 ({dn}) disagrees with its plain version: {err}")
+        rows[("paged_wide", dtype)] = {"launches": launched["paged"],
+                                   **kernel_row(err, ms, plain, bms, by)}
+        q, kp, vp, tables, lengths, _, _ = paged_case(dtype, 4, hd=1024)
+        out = pda.paged_decode_attention(q, kp, vp, tables, lengths)
+        ref = pda.plain_paged_decode_attention(q, kp, vp, tables, lengths)
+        err = (out.float() - ref.float()).abs().max().item()
+        require(err <= TOL[dtype], f"paged verify at hd 1024 ({dn}) disagrees: {err}")
+        for t in range(4):
+            dec = pda.paged_decode_attention(q[:, t : t + 1].contiguous(), kp, vp, tables, lengths + t)
+            require(torch.equal(dec[:, 0], out[:, t]), f"verify != decode at hd 1024, query {t} ({dn})")
+        log(f"paged_decode_attention {dn} hd=1024: verify (T=4, max_abs_err={err:.3e}) equals "
+            f"decode bitwise")
+        # the int8 mode at hd 2560
+        args = paged_case(dtype, 1, hd=2560, int8=True)
+        q, kp, _, tables, lengths, _, _ = args
+        out = once("paged_int8", lambda: pda.paged_decode_attention(*args))
+        ref = pda.plain_paged_decode_attention(*args)
+        row_err = (out.float() - ref.float()).abs().flatten(1).amax(1)
+        rel, absol = INT8_TOL[dtype]
+        row_tol = rel * ref.float().abs().flatten(1).amax(1) + absol
+        err = row_err.max().item()
+        ms = cuda_ms(lambda: pda.paged_decode_attention(*args))
+        plain = cuda_ms(lambda: pda.plain_paged_decode_attention(*args), iters=5)
+        bms, by = paged_bound(q, kp, tables, lengths, dtype)
+        log(f"paged_decode_attention[int8] {dn} paged layout B=8 T=1 H=9 KV=3 hd=2560 BS=16 MB=128 "
+            f"plan={paged_plan_of(q, kp, tables)}: max_abs_err={err:.3e} (per row <= "
+            f"{rel:.3g}*max|plain|+{absol:.0e}; worst err/tol {(row_err / row_tol).max().item():.3e}) "
+            f"ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) library_ms=null")
+        require(bool((row_err <= row_tol).all()) and torch.isfinite(out).all(),
+                f"int8 paged kernel at hd 2560 ({dn}) disagrees with its plain version")
+        rows[("paged_int8_wide", dtype)] = {"launches": launched["paged_int8"],
+                                   **kernel_row(err, ms, plain, bms, by)}
+        # the SSD scan at N = 256, hd = 72, chunk = 256
+        x, a, b, c, dt = ssd_case(dtype, 1, 1024, H=32, hd=72, N=256)
+        y, st = once("ssd", lambda: ssd.ssd_scan(x, a, b, c, dt, 256))
+        y_ref, st_ref = ssd.plain_ssd_scan(x, a, b, c, dt, 256)
+        rel, absol = SSD_TOL[dtype]
+        errs = {}
+        for name, got, want in (("y", y, y_ref), ("state", st, st_ref)):
+            errs[name] = (got.float() - want.float()).abs().max().item()
+            tol = rel * want.float().abs().max().item() + absol
+            require(torch.isfinite(got).all() and errs[name] <= tol,
+                    f"SSD kernel {name} at N=256 hd=72 chunk=256 ({dn}) disagrees: {errs[name]} > {tol}")
+        ms = cuda_ms(lambda: ssd.ssd_scan(x, a, b, c, dt, 256))
+        plain = cuda_ms(lambda: ssd.plain_ssd_scan(x, a, b, c, dt, 256), iters=5)
+        splan = ssd.ssd_plan(dtype, 1, 1024, 32, 72, 256, 256)
+        bms, by = ssd_bound(x, b, dtype, chunk=splan["chunk"])
+        log(f"ssd_scan {dn} B=1 S=1024 H=32 hd=72 N=256 chunk=256 plan="
+            f"{ {f: splan[f] for f in ('path', 'chunk', 'cluster', 'chunks_per_block', 'slice', 'grid')} }: "
+            f"y max_abs_err={errs['y']:.3e}, state max_abs_err={errs['state']:.3e} "
+            f"(<= {rel:g}*max|plain|+{absol:g}) ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
+            f"bound_ms={bms:.5f} ({by}) library_ms=null")
+        rows[("ssd_wide", dtype)] = {"launches": launched["ssd"],
+                                     **kernel_row(errs["y"], ms, plain, bms, by)}
+        del dk, dv, kp, vp, args, x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def op_host_us(card):
+    """Host time of one paged kernel call at the slot view's decode shape
+    (bf16 B=4 T=1 H=9 KV=3 hd=64 BS=256 MB=8, as smollm-135m's decode
+    calls it): through the wrapper, as the models' eager decode calls it
+    (``paged_decode_call``), and through the operator
+    ``repro_torch::paged_decode_attention``, as a decode plan's vmap does.
+    Each is the median over 7 runs of 200 back-to-back calls, timed on the
+    host with no synchronisation inside a run."""
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    args = slot_case(torch.bfloat16)[:5]
+    us = {}
+    for name, fn in (("wrapper", pda.paged_decode_attention), ("operator", pda.paged_attention_op)):
+        require(torch.equal(fn(*args), pda.paged_decode_attention(*args)),
+                f"paged kernel through the {name} differs")
+        runs = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn(*args)
+            runs.append((time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+        us[name] = sorted(runs)[3]
+    log(f"paged_decode_attention host us a call on {card} (bf16 slot view B=4 T=1 H=9 KV=3 "
+        f"hd=64 BS=256 MB=8; median of 7 runs of 200 unsynchronised calls): wrapper "
+        f"{us['wrapper']:.2f}, operator {us['operator']:.2f} (the dispatcher's "
+        f"{us['operator'] - us['wrapper']:+.2f}; eager decode takes the wrapper)")
 
 
 # ---------------------------------------------------------------------------
@@ -1379,6 +1554,204 @@ def parity_bf16(arch, B=2, S=512):
                 f"{E2E_BF16_RATIO:g} x the plain path's: {d_k} against {d_p}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the adviser on the card
+
+# a float sum combine adds the items in another order than the serial loop
+ADVISER_SUM_RTOL = 1e-5
+# items the serial per-item loop runs on the card: a loop launches every op
+# of every item on its own (~40 us a launch), ~1 min for GeoIP's 8192
+# lookups or BVH's 2048 descents
+ADVISER_SERIAL_ITEMS = 64
+
+
+def adviser_suite(card):
+    """The ten benchmarks advised (``advise_suite(hw=CPU_HW)``, data built
+    on the card): the decisions must equal ``tests/golden_aira_decisions.json``
+    and the two geomeans ``BENCH_aira.json``'s within 1e-6; then each
+    accepted plan's ``execute`` runs on the card over the first
+    ``ADVISER_SERIAL_ITEMS`` items and must give the serial per-item loop's
+    value on them, and over all the items the value of ``vmap`` of the
+    per-item function (exactly for integer results, within
+    ``ADVISER_SUM_RTOL`` for float sums); the serial loop over those items
+    and that run of the plan over all items are timed, once each. The times are device vectorisation,
+    not SMT: the gains are the overlap model's, priced for the paper's
+    i7-12700 core."""
+    from repro_torch.bench_suite import BENCHMARKS, fig34
+    from repro_torch.core import CPU_HW, advise_suite
+
+    with open(os.path.join(ROOT, "tests", "golden_aira_decisions.json")) as f:
+        golden = json.load(f)
+    with open(os.path.join(ROOT, "BENCH_aira.json")) as f:
+        bench = json.load(f)
+    t0 = time.perf_counter()
+    suite = advise_suite(hw=CPU_HW)
+    log(f"adviser: advise_suite over {len(suite)} benchmarks (data on "
+        f"{torch.cuda.get_device_name(0)}) in {time.perf_counter() - t0:.1f} s")
+    require(set(suite) == set(golden), f"adviser: benchmarks {sorted(suite)}")
+    rows = []
+    for name, entry in suite.items():
+        d, b, data = entry.decision, BENCHMARKS[name], entry.data
+        got = {"accepted": d.accepted, "granularity": d.schedule.granularity,
+               "predicted_gain": round(d.predicted_gain, 6), "strategy": d.schedule.strategy}
+        require(got == golden[name], f"adviser: {name} decided {got}, golden {golden[name]}")
+        require((entry.plan is not None) == d.accepted, f"adviser: {name} plan / decision mismatch")
+        rows.append(dict(name=name, accepted=d.accepted, predicted=d.predicted_gain,
+                         realized=fig34.realized_gain(b, data, d)))
+    fig34.flag_regressions(rows)
+    gm_pos, gm_all = fig34.geomeans(rows)
+    require(abs(gm_pos - bench["geomean_positive"]) <= 1e-6
+            and abs(gm_all - bench["geomean_all_discard_negative"]) <= 1e-6,
+            f"adviser: geomeans {gm_pos!r}, {gm_all!r} against BENCH_aira.json's")
+    log(f"adviser: decisions equal tests/golden_aira_decisions.json; geomean(positive) {gm_pos!r}, "
+        f"geomean(all) {gm_all!r} (BENCH_aira.json: {bench['geomean_positive']!r}, "
+        f"{bench['geomean_all_discard_negative']!r}; model gains priced for CPU_HW)")
+    for r in rows:
+        name = r["name"]
+        entry, b = suite[name], BENCHMARKS[name]
+        if entry.plan is None:
+            log(f"adviser[{name}]: rejected by the gate ({r['predicted'] * 100:+.1f}%), no plan")
+            continue
+        items = b.items(entry.data)
+        n = torch.utils._pytree.tree_leaves(items)[0].shape[0]
+        k = min(n, ADVISER_SERIAL_ITEMS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serial = b.serial_value(entry.data, combine=b.combine, limit=k)
+        torch.cuda.synchronize()
+        serial_ms = (time.perf_counter() - t0) * 1e3
+        head = entry.plan.execute(torch.utils._pytree.tree_map(lambda a: a[:k], items))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole = entry.plan.execute(items)
+        torch.cuda.synchronize()
+        par_ms = (time.perf_counter() - t0) * 1e3
+        mapped = torch.func.vmap(b.item_fn(entry.data))(items).sum(0, dtype=whole.dtype)
+        checks = []
+        for what, got, want in ((f"serial loop, first {k}", head, serial),
+                                (f"vmap, all {n}", whole, mapped)):
+            if got.dtype.is_floating_point:
+                err = (got - want).abs().item()
+                ok = err <= ADVISER_SUM_RTOL * max(want.abs().item(), 1e-30)
+                checks.append(f"|plan - {what}| {err:.3e}")
+            else:
+                ok = torch.equal(got, want)
+                checks.append(f"plan == {what} exactly")
+            require(ok and got.device.type == "cuda",
+                    f"adviser[{name}]: plan {got} against {what} {want}")
+        log(f"adviser[{name}] on {card}: {entry.plan.describe()}; {'; '.join(checks)} (float: <= "
+            f"{ADVISER_SUM_RTOL:g} x |value|); wall ms: serial loop over {k} items {serial_ms:.2f}, "
+            f"restructured over all {n} {par_ms:.2f} (device vectorisation, not SMT; model "
+            f"gain {r['predicted'] * 100:+.1f}% predicted, {r['realized'] * 100:+.1f}% realized"
+            f"{', regressed' if r['regressed'] else ''})")
+
+
+def _plan_schedule(plan, n):
+    """(granularity, chunks per stream) of ``plan`` over n items, as
+    relic_pfor deals them (the last chunk padded by repeating an item)."""
+    g = max(1, min(plan.key.granularity, n))
+    ns = plan.key.n_streams
+    target = -(-n // (g * ns)) * g * ns
+    return g, target // (g * ns)
+
+
+def serve_decode_plan(card):
+    """smollm-135m at full width on the slot layout, served through a
+    decode plan: ``decode_region(prompts, force=True)`` advised by
+    ``Aira(hw=CPU_HW)``, then ``set_decode_plan``; 8 rows, then 7 (the
+    last chunk padded). float32: the plan path's greedy tokens equal the
+    no-plan path's (or tie, as phase 6 counts ties), and the paged kernel
+    launches exactly layers x chunks per stream x decode steps on the plan
+    path (the kernel ran under vmap once a chunk, nothing on the plain
+    version); bf16: one decode step's logits through the plan no further
+    from the float32 plain path than ``E2E_BF16_RATIO`` x the bf16 plain
+    path's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import CPU_HW, Aira, Workload
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServingEngine
+
+    base = get_config("smollm-135m")
+    L, S, steps, max_seq = base.num_layers, 128, 8, 256
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        model = Model(cfg)
+        params = model.init(seed=3)
+        for B in (8, 7):
+            prompts = np.random.default_rng(B).integers(0, cfg.vocab_size, (B, S))
+            engine = ServingEngine(model, params, max_seq=max_seq)
+            region = engine.decode_region(prompts, force=True)
+            d = Aira(hw=CPU_HW).advise(Workload("serve", lambda: None, [region])).decisions[0]
+            require(d.accepted and d.plan is not None, f"decode plan ({dtype}, B={B}) not accepted")
+            g, per_stream = _plan_schedule(d.plan, B)
+            label = f"smollm-135m {dtype} slot B={B}: {d.plan.describe()} ({per_stream} chunk(s) a stream)"
+            if dtype == "float32":
+                plain = ServingEngine(model, params, max_seq=max_seq)
+                t0 = time.perf_counter()
+                want = plain.generate(prompts, steps).numpy()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                engine.set_decode_plan(d.plan)
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                got = engine.generate(prompts, steps).numpy()
+                plan_ms = (time.perf_counter() - t0) * 1e3
+                n = read_launches()
+                decodes = len(engine.stats.step_ms)
+                require(decodes == steps - 1, f"{label}: {decodes} decode steps, not {steps - 1}")
+                expect = L * per_stream * decodes
+                others = {k: v for k, v in n.items() if k not in ("paged", "flash") and v}
+                require(n["paged"] == expect and n["flash"] == L and not others,
+                        f"{label}: launches {n}, expected paged {expect} = {L} layers x "
+                        f"{per_stream} chunk(s) x {decodes} steps, flash {L} (the one batched "
+                        "prefill) and nothing else")
+                ties = 0
+                for i in range(B):
+                    if np.array_equal(got[i], want[i]):
+                        continue
+                    p = int(np.argmax(got[i] != want[i]))
+                    ctx = np.concatenate([prompts[i], want[i, :p]]).astype(np.int64)[None]
+                    logits, _ = model.prefill(params, ctx, ctx.shape[1], backend="reference")
+                    top2 = torch.topk(logits[0].float(), 2).values
+                    margin = float(top2[0] - top2[1])
+                    require(margin < LOGIT_TIE_TOL,
+                            f"{label}: plan and no-plan tokens differ at row {i}, step {p} "
+                            f"(margin {margin:.2e})")
+                    ties += 1
+                log(f"decode plan[{label}] on {card}: {B - ties} of {B} greedy streams identical to "
+                    f"the no-plan path, {ties} ties; paged launches {n['paged']} = {L} x {per_stream} x "
+                    f"{decodes}; wall ms for {steps} tokens: plan {plan_ms:.1f}, no plan {plain_ms:.1f}")
+                continue
+            tok = region.items[0]
+            reset_launches()
+            logits_plan, _ = d.plan.execute(region.items)
+            torch.cuda.synchronize()
+            n = read_launches()
+            require(n["paged"] == L * per_stream and not any(v for k, v in n.items() if k != "paged"),
+                    f"{label}: one plan step launched {n}, expected paged {L * per_stream}")
+            ptoks = torch.as_tensor(prompts, device=model.device)
+            out = {"plan": logits_plan.float()}
+            for name, m, p in (("plain", model, params),
+                               ("float32", Model(dataclasses.replace(cfg, dtype="float32")),
+                                _upcast(params))):
+                _, cache = m.prefill(p, ptoks, max_seq, backend="reference")
+                step, _ = m.decode_step(p, cache, tok[:, None], backend="reference")
+                out[name] = step.float()
+                del cache
+            got, plain, ref = out["plan"], out["plain"], out["float32"]
+            d_k = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).tolist()
+            d_p = ((plain - ref).norm(dim=-1) / ref.norm(dim=-1)).tolist()
+            require(torch.isfinite(got).all() and all(a <= E2E_BF16_RATIO * b for a, b in zip(d_k, d_p)),
+                    f"{label}: plan logits further from float32 than {E2E_BF16_RATIO:g} x the "
+                    f"bf16 plain path's: {d_k} against {d_p}")
+            log(f"decode plan[{label}] on {card}: one step's logits ||. - float32||/||float32|| worst "
+                f"{max(d_k):.3e} (plain bf16 worst {max(d_p):.3e}; worst ratio "
+                f"{max(a / b for a, b in zip(d_k, d_p)):.3f} <= {E2E_BF16_RATIO:g}); paged launches "
+                f"{n['paged']} = {L} x {per_stream}")
+        del params, model
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1398,12 +1771,21 @@ def main() -> int:
     _build.library()
     log(f"build and load: {time.perf_counter() - t0:.1f} s")
 
+    start = time.perf_counter()
+
+    def phase_done(name):
+        log(f"phase {name} done at {time.perf_counter() - start:.1f} s")
+
     rows = check_kernels()
     rows.update(check_int8())
     rows.update(check_ssd())
+    rows.update(check_wide())
     check_repaired()
+    op_host_us(card)
+    phase_done("3")
     entry = drive_entry_points()
     rows.update(check_entry_kernels())
+    phase_done("4")
     launches, params = serve_full_width(card)
     time_split(params, card)
     launches["ssd"], params = serve_mamba2(card)
@@ -1417,6 +1799,7 @@ def main() -> int:
     launches["paged_int8"] = n["paged_int8"]
     launches["flash"] += n["flash"]
     launches["ssd"] += n["ssd"]
+    phase_done("5")
     parity_f32("smollm-135m", ("paged", "slot"), tuple(range(64, 257)))
     # lengths the plain scan chunks by 16 or more (a prime would run
     # one-position chunks)
@@ -1424,25 +1807,44 @@ def main() -> int:
     parity_f32("zamba2-2.7b", ("slot",), tuple(range(64, 257, 16)))
     parity_bf16("smollm-135m")
     parity_bf16("zamba2-2.7b")
+    torch.cuda.empty_cache()
+    phase_done("6")
+    adviser_suite(card)
+    serve_decode_plan(card)
+    phase_done("7")
 
+    bf16, f32 = torch.bfloat16, torch.float32
     table = []
-    for key, name, src, tpu in (("paged", "paged_decode_attention", PAGED_SRC, PAGED_TPU),
-                                ("paged_int8", "paged_decode_attention[int8]", PAGED_SRC,
-                                 PAGED_INT8_TPU),
-                                ("flash", "flash_attention", FLASH_SRC, FLASH_TPU),
-                                ("ssd", "ssd_scan", SSD_SRC, SSD_TPU),
-                                ("relic_matmul", "relic_matmul", MATMUL_SRC, MATMUL_TPU),
-                                ("relic_gemv", "relic_gemv", MATMUL_SRC, GEMV_TPU),
-                                ("decode", "decode_attention", DECODE_SRC, DECODE_TPU),
-                                ("partials", "paged_decode_attention[partials]", PAGED_SRC,
-                                 PARTIALS_TPU),
-                                ("flash_noncausal", "flash_attention[non-causal]", FLASH_SRC,
-                                 NONCAUSAL_TPU)):
-        r = rows[(key, torch.bfloat16)]
+    for key, dtype, name, src, tpu in (
+            ("paged", bf16, "paged_decode_attention", PAGED_SRC, PAGED_TPU),
+            ("paged_int8", bf16, "paged_decode_attention[int8]", PAGED_SRC, PAGED_INT8_TPU),
+            ("flash", bf16, "flash_attention", FLASH_SRC, FLASH_TPU),
+            ("ssd", bf16, "ssd_scan", SSD_SRC, SSD_TPU),
+            ("relic_matmul", bf16, "relic_matmul", MATMUL_SRC, MATMUL_TPU),
+            ("relic_gemv", bf16, "relic_gemv", MATMUL_SRC, GEMV_TPU),
+            ("decode", bf16, "decode_attention", DECODE_SRC, DECODE_TPU),
+            ("partials", bf16, "paged_decode_attention[partials]", PAGED_SRC, PARTIALS_TPU),
+            ("flash_noncausal", bf16, "flash_attention[non-causal]", FLASH_SRC, NONCAUSAL_TPU),
+            # float32 at hd 1024 is 256 16-byte chunks a row: the wide path;
+            # bf16 at hd 1024 is 128, the register path
+            ("decode_wide", f32, "decode_attention[float32 hd=1024]", DECODE_SRC, DECODE_TPU),
+            ("decode_wide", bf16, "decode_attention[bf16 hd=1024]", DECODE_SRC, DECODE_TPU),
+            ("paged_wide", f32, "paged_decode_attention[float32 hd=1024]", PAGED_SRC, PAGED_TPU),
+            ("paged_wide", bf16, "paged_decode_attention[bf16 hd=1024]", PAGED_SRC, PAGED_TPU),
+            ("paged_int8_wide", bf16, "paged_decode_attention[int8 hd=2560]", PAGED_SRC,
+             PAGED_INT8_TPU),
+            ("ssd_wide", bf16, "ssd_scan[N=256 hd=72 chunk=256]", SSD_SRC, SSD_TPU)):
+        r = rows[(key, dtype)]
         # the entry points are the path of the kernels that serving never
-        # runs (every serving run requires their counts to stay 0)
-        count = {"launches": entry[key], "serving_launches": 0} if key in ENTRY_ONLY else {
-            "launches": launches[key]}
+        # runs (every serving run requires their counts to stay 0); the
+        # wide shapes' path is phase 3b's one driving call each, whose
+        # count is in the row
+        if key in ENTRY_ONLY:
+            count = {"launches": entry[key], "serving_launches": 0}
+        elif key in WIDE:
+            count = {}
+        else:
+            count = {"launches": launches[key]}
         table.append({"name": name, "route": "cuda", "source": src, "replaces": tpu, **count, **r})
     log(json.dumps({"kernels": table}))
     log(card)

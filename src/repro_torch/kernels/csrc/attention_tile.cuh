@@ -65,11 +65,12 @@ __device__ __forceinline__ void unpack16(const uint4& u, float (&v)[16 / sizeof(
 // (128 threads), in bytes from its base, for a head of hd elements of
 // `elem` bytes (1: an int8 pool), `rows` query rows and a ring of `stages`
 // tiles of `tile` keys (kernels/decode_attention.py::decode_layout
-// mirrors it).
+// mirrors it). A wide head (more 16-byte chunks than threads) keeps its
+// running acc in the block's (m, l, acc) slot, `part`, from the start.
 struct RingLayout {
   int chunks;  // 16-byte column chunks of a head's row
   int hdp;     // the row in values, padded to whole chunks
-  int groups;  // key groups of P.V: THREADS / chunks
+  int groups;  // key groups of P.V: THREADS / chunks, 1 for a wide head (chunks > THREADS)
   int pitch;   // bytes between rows of a tile (16 bytes of padding)
   int scales;  // int8: offset in a stage of the k then v scales / 127, float [2][tile]
   int stage;   // one tile of K then one of V (then the int8 scales)
@@ -83,7 +84,7 @@ __host__ __device__ inline RingLayout ring_layout(int hd, int elem, int rows, in
   RingLayout L{};
   L.chunks = (hd * elem + 15) / 16;
   L.hdp = L.chunks * (16 / elem);
-  L.groups = THREADS / L.chunks;
+  L.groups = L.chunks > THREADS ? 1 : THREADS / L.chunks;
   L.pitch = L.chunks * 16 + 16;
   L.scales = 2 * tile * L.pitch;
   L.stage = L.scales + (elem == 1 ? round16(2 * tile * 4) : 0);
@@ -97,6 +98,57 @@ __host__ __device__ inline RingLayout ring_layout(int hd, int elem, int rows, in
   L.part = L.wred + round16(4 * (THREADS / 32) * rows);  // warp maxima [warps][rows]
   L.total = L.part + round16(4 * rows * (L.hdp + 2));  // m [rows], l [rows], acc [rows][hdp]
   return L;
+}
+
+// P.V of one key tile for a wide head (more 16-byte chunks than the
+// block's threads, the ring_layout's one key group): thread t takes
+// column chunks t, t + THREADS, ..., each over every key of the tile in
+// order, its R rows' float32 accumulators held in the block's part slot
+// acc_s [R][hdp] (registers cannot hold a whole wide row) and rescaled by
+// corr first; thread 0 keeps the running sums l. The same operations in
+// the same order as the register path at one key group. vt: the tile's
+// V rows at `pitch` bytes; ps: the weights [R][bk]; vscale: an int8
+// pool's V scales / 127 of the tile (null for a float pool); a: the
+// register path's accumulators, unused by a wide head, as scratch (so the
+// kernel needs no registers beyond the register path's).
+template <typename T, int R>
+__device__ __forceinline__ void pv_wide(float* acc_s, float (&l_run)[R], const float (&corr)[R],
+                                        const uint8_t* vt, int pitch, const float* ps, int bk,
+                                        int n, int chunks, int hdp, const float* vscale,
+                                        float (&a)[R][16 / sizeof(T)]) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) l_run[r] *= corr[r];
+    for (int j = 0; j < n; ++j)
+#pragma unroll
+      for (int r = 0; r < R; ++r) l_run[r] += ps[r * bk + j];
+  }
+  for (int c = threadIdx.x; c < chunks; c += THREADS) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) a[r][i] = acc_s[r * hdp + c * VEC + i] * corr[r];
+    for (int j = 0; j < n; ++j) {
+      float vf[VEC];
+      unpack16<T>(*reinterpret_cast<const uint4*>(vt + j * pitch + c * 16), vf);
+      if (vscale != nullptr) {
+        const float vs = vscale[j];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) vf[i] *= vs;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float p = ps[r * bk + j];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) a[r][i] = fmaf(p, vf[i], a[r][i]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc_s[r * hdp + c * VEC + i] = a[r][i];
+  }
 }
 
 // Shared-memory workspace for R rows against key tiles of BK keys.

@@ -36,6 +36,13 @@
 // order, so the design's aim is parallelism: the recurrence along S is
 // the only serial part, and only the [N,hd] state has to cross it.
 //
+// Any N, hd and chunk. A chunk above 128 positions runs as sub-chunks of
+// at most 128 (the carried state makes them the same scan); where b and c
+// of a chunk of the full state width N do not fit in shared memory with
+// the state slice, the plan shrinks the kernel's chunk (to a multiple of
+// 16) until they do. Where 16 does not divide hd, the last column slice is
+// padded: its columns past hd load as zeros and are never stored.
+//
 // Design. One thread block of 256 threads per (batch row, head, column
 // slice of hd, run of chunks): the chunks of a (row, head, slice) are
 // dealt in contiguous runs to the blocks of one thread-block cluster (a
@@ -93,7 +100,8 @@ using repro_attn::to_f;
 namespace {
 
 constexpr int THREADS = 256, WARPS = THREADS / 32;
-constexpr int MAX_Q = 128, MAX_N = 128, MAX_DS = 64;
+constexpr int MAX_Q = 128, MAX_DS = 64;
+constexpr int SMEM_OPT_IN = 232448;  // the H100's per-block shared memory with the opt-in
 
 // Dynamic shared memory of a block (kernels/ssd_scan.py::ssd_layout
 // mirrors it): b, c [QP][NP] and x [QP][ds] in xh's type, rows padded by
@@ -242,7 +250,7 @@ __global__ void __launch_bounds__(THREADS)
           for (int i = tid; i < L.qp * xcols; i += THREADS) {
             const int r = i / xcols, q16 = i - r * xcols;
             uint8_t* to = sX + r * L.xpitch + q16 * 16;
-            if (r < n)
+            if (r < n && d0 + q16 * (16 / ES) < hd)  // a padded slice's columns past hd: zeros
               hopper::cp_async16(
                   to, x + (((size_t)bi * S + c0 + r) * H + h) * hd + d0 + q16 * (16 / ES));
             else
@@ -252,7 +260,8 @@ __global__ void __launch_bounds__(THREADS)
           for (int i = tid; i < L.qp * ds; i += THREADS) {
             const int r = i / ds, col = i - r * ds;
             reinterpret_cast<T*>(sX + r * L.xpitch)[col] =
-                r < n ? x[(((size_t)bi * S + c0 + r) * H + h) * hd + d0 + col] : from_f<T>(0.f);
+                r < n && d0 + col < hd ? x[(((size_t)bi * S + c0 + r) * H + h) * hd + d0 + col]
+                                       : from_f<T>(0.f);
           }
         }
       }
@@ -379,7 +388,7 @@ __global__ void __launch_bounds__(THREADS)
       float* o = state_out + ((size_t)bh * hd + d0 + d) * N + n;
 #pragma unroll
       for (int q4 = 0; q4 < 4; ++q4)
-        if (n + q4 < N) o[q4] = f[q4];
+        if (n + q4 < N && d0 + d < hd) o[q4] = f[q4];
     }
   }
   cluster.sync();  // every rank's S_in has landed
@@ -501,12 +510,22 @@ __global__ void __launch_bounds__(THREADS)
           }
     }
     __syncthreads();
-    const int ycols = ds * ES / 16;
-    for (int i = tid; i < n * ycols; i += THREADS) {
-      const int r = i / ycols, q16 = i - r * ycols;
-      *reinterpret_cast<uint4*>(y + (((size_t)bi * S + c0 + r) * H + h) * hd + d0 +
-                                q16 * (16 / ES)) =
-          *reinterpret_cast<const uint4*>(sB + r * L.xpitch + q16 * 16);
+    if constexpr (kAsync) {  // y's rows are 16-byte multiples: 16-byte stores
+      const int ycols = ds * ES / 16;
+      for (int i = tid; i < n * ycols; i += THREADS) {
+        const int r = i / ycols, q16 = i - r * ycols;
+        if (d0 + q16 * (16 / ES) < hd)
+          *reinterpret_cast<uint4*>(y + (((size_t)bi * S + c0 + r) * H + h) * hd + d0 +
+                                    q16 * (16 / ES)) =
+              *reinterpret_cast<const uint4*>(sB + r * L.xpitch + q16 * 16);
+      }
+    } else {
+      for (int i = tid; i < n * ds; i += THREADS) {
+        const int r = i / ds, col = i - r * ds;
+        if (d0 + col < hd)
+          y[(((size_t)bi * S + c0 + r) * H + h) * hd + d0 + col] =
+              reinterpret_cast<const T*>(sB + r * L.xpitch)[col];
+      }
     }
   }
   hopper::cp_async_wait<0>();
@@ -517,14 +536,16 @@ int ssd_typed(const void* x, const float* a, const void* b, const void* c, const
               void* y, float* state, int B, int S, int H, int hd, int N, int Q, int ds,
               int cluster, int async, void* stream) {
   const SsdLayout L = ssd_layout(Q, N, ds, sizeof(T));
-  const dim3 grid(cluster, B * H, hd / ds);
+  if (L.total > SMEM_OPT_IN) return (int)cudaErrorInvalidValue;
+  const dim3 grid(cluster, B * H, (hd + ds - 1) / ds);
 #define REPRO_SSD_ARGS                                                                      \
   grid, dim3(cluster, 1, 1), THREADS, (size_t)L.total, stream, static_cast<const T*>(x), a, \
       static_cast<const T*>(b), static_cast<const T*>(c), dt, static_cast<T*>(y), state, S,  \
       H, hd, N, Q, ds
   if (async) {
-    if ((N * sizeof(T)) % 16 || reinterpret_cast<uintptr_t>(x) % 16 ||
-        reinterpret_cast<uintptr_t>(b) % 16 || reinterpret_cast<uintptr_t>(c) % 16)
+    if ((N * sizeof(T)) % 16 || (hd * sizeof(T)) % 16 || reinterpret_cast<uintptr_t>(x) % 16 ||
+        reinterpret_cast<uintptr_t>(b) % 16 || reinterpret_cast<uintptr_t>(c) % 16 ||
+        reinterpret_cast<uintptr_t>(y) % 16)
       return (int)cudaErrorInvalidValue;
     return hopper::launch_cluster(ssd_scan_kernel<T, true>, REPRO_SSD_ARGS);
   }
@@ -536,18 +557,20 @@ int ssd_typed(const void* x, const float* a, const void* b, const void* c, const
 
 // dtype: 0 = float32, 1 = bfloat16 (x, b, c and y); a, dt and the state are
 // float32. Q is the chunk length (the last chunk may be shorter), at most
-// 128; N at most 128; ds the column slice of hd a block takes (64, 32 or
-// 16, dividing hd); cluster: blocks (1, 2, 4 or 8) that share a (row,
-// head, slice)'s chunks; async: 1 = 16-byte cp.async copies (N and ds
-// rows of 16-byte multiples, x, b, c 16-byte aligned), 0 = element loads.
+// 128; any N whose layout fits in 227 KB; ds the column slice of hd a
+// block takes (64, 32 or 16; the last slice is padded where ds does not
+// divide hd); cluster: blocks (1, 2, 4 or 8) that share a (row, head,
+// slice)'s chunks; async: 1 = 16-byte cp.async copies and stores (rows of
+// N and hd of 16-byte multiples, x, b, c, y 16-byte aligned), 0 = element
+// loads and stores.
 // The wrapper's plan (kernels/ssd_scan.py::ssd_plan) decides them.
 // Returns a cudaError_t (0 = launched).
 extern "C" int ssd_scan(int dtype, const void* x, const float* a, const void* b,
                         const void* c, const float* dt, void* y, float* state,
                         int B, int S, int H, int hd, int N, int Q, int ds, int cluster,
                         int async, void* stream) {
-  if (Q < 1 || Q > MAX_Q || N < 1 || N > MAX_N || (ds != 64 && ds != 32 && ds != 16) ||
-      hd % ds || cluster < 1 || cluster > 8 || (cluster & (cluster - 1)))
+  if (Q < 1 || Q > MAX_Q || N < 1 || hd < 1 || (ds != 64 && ds != 32 && ds != 16) ||
+      cluster < 1 || cluster > 8 || (cluster & (cluster - 1)))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return ssd_typed<float>(x, a, b, c, dt, y, state, B, S, H, hd, N, Q, ds, cluster, async,

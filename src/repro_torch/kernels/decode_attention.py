@@ -53,35 +53,51 @@ def _stage_bytes(hd: int, es: int, tile: int) -> int:
 def decode_layout(hd: int, es: int, rows: int, stages: int, tile: int) -> int:
     """Bytes of dynamic shared memory a block takes, for the dense decode
     kernel and the paged one (``ring_layout`` in ``csrc/attention_tile.cuh``;
-    ``es`` is the cache's element size, 1 for an int8 pool): the K/V ring, which the end-of-block reduction reuses, q, the
-    tile's weights, the warp maxima and the block's (m, l, acc)."""
+    ``es`` is the cache's element size, 1 for an int8 pool): the K/V ring,
+    which the end-of-block reduction reuses, q, the tile's weights, the warp
+    maxima and the block's (m, l, acc), where a head of more 16-byte chunks
+    than threads keeps its running acc (one key group)."""
     chunks = _cdiv(hd * es, 16)
-    hdp, groups = chunks * (16 // es), DECODE_THREADS // chunks
+    hdp, groups = chunks * (16 // es), max(1, DECODE_THREADS // chunks)
     red = _round16(4 * groups * rows * (hdp + 1))
     return (max(stages * _stage_bytes(hd, es, tile), red) + _round16(4 * rows * hdp)
             + _round16(4 * rows * tile) + _round16(4 * (DECODE_THREADS // 32) * rows)
             + _round16(4 * rows * (hdp + 2)))
 
 
+def _fits_one_stage(hd: int, es: int, rows: int, extra: int) -> bool:
+    return decode_layout(hd, es, rows, 1, DECODE_TILES[-1]) + extra <= SMEM_OPT_IN
+
+
+def max_head_dim(es: int, rows: int, extra: int = 0) -> int:
+    """The largest hd whose block (a ring of one 16-key tile, ``rows``
+    query rows, ``extra`` bytes past the layout) fits the opt-in."""
+    lo, hi = 1, 1
+    while _fits_one_stage(2 * hi, es, rows, extra):
+        hi *= 2
+    hi *= 2
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if _fits_one_stage(mid, es, rows, extra) else (lo, mid)
+    return lo
+
+
 def decode_ring(hd: int, es: int, rows: int, name: str = "decode_attention",
                 extra: int = 0) -> tuple[int, int]:
     """(keys a tile, stages) of the K/V ring: 64-key tiles in 2-4 stages
     within ``DECODE_RING_BYTES`` where the block (with ``extra`` bytes past
-    the layout) fits the opt-in, else
-    32-key tiles, then 16-key ones, then 16-key tiles in one stage; raises
-    where none fits (a row of more than 2048 bytes, which a block's 128
-    threads cannot cover in 16-byte chunks: hd > 512 in float32, 1024 in
-    bf16, 2048 for an int8 pool)."""
-    if _cdiv(hd * es, 16) <= DECODE_THREADS:
-        for tile in DECODE_TILES:
-            stages = max(2, min(4, DECODE_RING_BYTES // _stage_bytes(hd, es, tile)))
-            if decode_layout(hd, es, rows, stages, tile) + extra <= SMEM_OPT_IN:
-                return tile, stages
-        if decode_layout(hd, es, rows, 1, DECODE_TILES[-1]) + extra <= SMEM_OPT_IN:
-            return DECODE_TILES[-1], 1
+    the layout) fits the opt-in, else 32-key tiles, then 16-key ones, then
+    16-key tiles in one stage; raises only where none fits, naming the
+    largest hd that does (``max_head_dim``)."""
+    for tile in DECODE_TILES:
+        stages = max(2, min(4, DECODE_RING_BYTES // _stage_bytes(hd, es, tile)))
+        if decode_layout(hd, es, rows, stages, tile) + extra <= SMEM_OPT_IN:
+            return tile, stages
+    if _fits_one_stage(hd, es, rows, extra):
+        return DECODE_TILES[-1], 1
     raise ValueError(
-        f"{name}: no shared-memory layout fits hd={hd} ({es}-byte elements); the "
-        f"kernel takes hd up to {2048 // es}"
+        f"{name}: no shared-memory layout fits hd={hd} ({es}-byte elements, {rows} query "
+        f"rows a block); the kernel takes hd up to {max_head_dim(es, rows, extra)}"
     )
 
 

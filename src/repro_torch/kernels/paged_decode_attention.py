@@ -19,11 +19,18 @@ launches over float pools, ``launches_int8`` those over int8 pools and
 ``launches_partials`` those in the partials mode (over either pool).
 ``paged_plan`` says how the kernel launches: the tiles a row's table is
 cut into, how many blocks (one cluster) share them, the ring's depth, and
-whether the tiles arrive by 16-byte ``cp.async``.
+whether the tiles arrive by 16-byte ``cp.async``. ``paged_attention_op``
+is the same function (decode/verify, float or int8 pools) as the
+``torch.library`` operator ``repro_torch::paged_decode_attention``, with
+a vmap rule, so a decode plan's ``relic_pfor`` over requests launches the
+kernel once a chunk. The models call ``paged_decode_call``, which takes
+the operator only where a transform or a tracer would see the call and
+the wrapper directly otherwise.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -221,3 +228,75 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale=Non
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_int8 = 0
 paged_decode_attention.launches_partials = 0
+
+
+# ---------------------------------------------------------------------------
+# the kernel as an operator that torch.func.vmap and make_fx see through
+
+
+@torch.library.custom_op("repro_torch::paged_decode_attention", mutates_args=())
+def paged_attention_op(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                       block_tables: torch.Tensor, lengths: torch.Tensor,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``paged_decode_attention`` (decode/verify, float or int8 pools) as
+    the operator ``repro_torch::paged_decode_attention``: on CUDA tensors
+    it launches the kernel (and counts the launch), on CPU tensors it runs
+    the plain version, as the wrapper does. Under ``torch.func.vmap`` its
+    rule (``_paged_vmap``) folds the mapped axis into the rows, so a
+    vmapped decode launches the kernel once; under ``make_fx`` it is one
+    node. The ctypes launch itself reads ``data_ptr()``, which neither a
+    vmapped tensor nor a tracing one has."""
+    return paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)
+
+
+@paged_attention_op.register_fake
+def _paged_fake(q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None):
+    return torch.empty_like(q)
+
+
+def _to_front(x, d, g):
+    """``x`` with its mapped axis ``d`` first, broadcast to ``g`` where
+    ``d`` is None (an input the map does not vary)."""
+    return x.unsqueeze(0).expand((g,) + tuple(x.shape)) if d is None else x.movedim(d, 0)
+
+
+@paged_attention_op.register_vmap
+def _paged_vmap(info, in_dims, q, k_pool, v_pool, block_tables, lengths, k_scale=None,
+                v_scale=None):
+    """The map's g items as g·B rows of one call, as the Pallas kernel's
+    batching rule folds them: q and lengths to [g·B, …]; a mapped pool
+    (either, or a scale) folds all four to [g·NB, …] and item j's table
+    entries move by j·NB, mapped or not; pools the map does not vary stay
+    as they are, tables unmoved."""
+    g = info.batch_size
+    qd, kd, vd, td, ld, ksd, vsd = tuple(in_dims) + (None,) * (7 - len(in_dims))
+
+    def fold(x, d):
+        x = _to_front(x, d, g)
+        return x.reshape((g * x.shape[1],) + tuple(x.shape[2:])).contiguous()
+
+    pools = [k_pool, v_pool, k_scale, v_scale]
+    pool_dims = [kd, vd, ksd, vsd]
+    tables = _to_front(block_tables, td, g)
+    if any(d is not None for x, d in zip(pools, pool_dims) if x is not None):
+        NB = _to_front(k_pool, kd, g).shape[1]
+        pools = [None if x is None else fold(x, d) for x, d in zip(pools, pool_dims)]
+        shift = torch.arange(g, device=tables.device, dtype=tables.dtype) * NB
+        tables = tables + shift.view((g,) + (1,) * (tables.dim() - 1))
+    tables = tables.reshape((-1,) + tuple(tables.shape[2:])).contiguous()
+    out = torch.ops.repro_torch.paged_decode_attention(
+        fold(q, qd), pools[0], pools[1], tables, fold(lengths, ld), pools[2], pools[3])
+    return out.reshape((g, -1) + tuple(out.shape[1:])), 0
+
+
+def paged_decode_call(q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None):
+    """The paged kernel as the models call it: through the operator
+    (``paged_attention_op``) where a ``torch.func`` transform (a decode
+    plan's vmap) or a dispatch mode (``make_fx``) is active, since only the
+    operator's rules carry the call there, and straight to the wrapper
+    otherwise, which spares every eager decode the dispatcher's host time
+    (chip_smoke.py prints both per call)."""
+    if torch._C._are_functorch_transforms_active() or torch._C._len_torch_dispatch_stack():
+        return paged_attention_op(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)
+    return paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)

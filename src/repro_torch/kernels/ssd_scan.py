@@ -21,12 +21,15 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# csrc/ssd_scan.cu: chunks of at most 128 positions, a state of at most 128,
-# head-dim columns in slices of 64 (32 or 16 where hd is not a multiple of
-# 64, so hd must be a multiple of 16), 256 threads a block, a cluster of
-# at most 8 blocks sharing a (row, head, slice)'s chunks in contiguous runs
-MAX_CHUNK, MAX_STATE, HEAD_DIM_SLICE = 128, 128, 16
+# csrc/ssd_scan.cu: chunks of at most 128 positions (a longer chunk runs as
+# sub-chunks), head-dim columns in slices of 64 (32 or 16 where hd is not a
+# multiple of 64; the last slice padded where 16 does not divide hd), 256
+# threads a block, a cluster of at most 8 blocks sharing a (row, head,
+# slice)'s chunks in contiguous runs, the block's b, c and x of a chunk and
+# its state slice within the opt-in's 227 KB
+MAX_CHUNK, HEAD_DIM_SLICE = 128, 16
 SSD_THREADS, SSD_MAX_CLUSTER = 256, 8
+SMEM_OPT_IN = 232_448
 
 
 def _round16(n: int) -> int:
@@ -42,32 +45,59 @@ def ssd_layout(Q: int, N: int, ds: int, es: int) -> int:
     return 2 * qp * (np_ * es + 16) + qp * (ds * es + 16) + 4 * ds * (np_ + 4) + 12 * qp + 16
 
 
+def _kernel_chunk(chunk: int, S: int, N: int, ds0: int, es: int) -> tuple[int, int]:
+    """(the kernel's chunk Q, column slice): a chunk above ``MAX_CHUNK``
+    as equal sub-chunks of at most ``MAX_CHUNK``, at most S; where the
+    block's layout does not fit the opt-in, Q shrinks to the largest
+    multiple of 16 that fits, then the slice narrows. The carried state
+    makes every Q the same scan."""
+    q0 = min(-(-chunk // -(-chunk // MAX_CHUNK)), S)
+    for ds in (64, 32, 16):
+        if ds > ds0:
+            continue
+        Q = q0
+        while Q > 16 and ssd_layout(Q, N, ds, es) > SMEM_OPT_IN:
+            Q = (Q - 1) // 16 * 16
+        if ssd_layout(Q, N, ds, es) <= SMEM_OPT_IN:
+            return Q, ds
+    n_max = 16
+    while ssd_layout(16, n_max + 16, 16, es) <= SMEM_OPT_IN:
+        n_max += 16
+    raise ValueError(
+        f"ssd_scan: no shared-memory layout fits N={N} ({es}-byte elements); the kernel "
+        f"takes N up to {n_max}"
+    )
+
+
 def ssd_plan(dtype, B: int, S: int, H: int, hd: int, N: int, chunk: int = 128,
              aligned: bool = True) -> dict:
     """How ``csrc/ssd_scan.cu`` runs a scan of ``dtype``: chunks of
-    Q = min(chunk, S) positions (the last one ragged), the ``chunks`` of
+    ``chunk`` positions (``_kernel_chunk``: at most 128 and S, smaller
+    where a wide state N needs it; the last one ragged), the ``chunks`` of
     each (row, head, column slice) dealt in contiguous runs of
     ``chunks_per_block`` to the ``cluster`` blocks of one thread-block
     cluster (the largest power of two ≤ 8 and ≤ the chunks), one block per
-    (run, row, head, slice of ``slice`` columns of hd): the grid
-    (cluster, B·H, hd / slice). bf16 runs its products on the tensor cores
-    (c·b in bf16, the rest in TF32), float32 on the CUDA cores. The chunk
-    rows arrive by 16-byte ``cp.async`` (path "cp.async") where a row of b
-    and c is a multiple of 16 bytes and x, b, c are ``aligned``, else by
-    element loads ("direct")."""
+    (run, row, head, slice of ``slice`` columns of hd, the last padded
+    where it does not divide hd): the grid (cluster, B·H, ⌈hd / slice⌉).
+    bf16 runs its products on the tensor cores (c·b in bf16, the rest in
+    TF32), float32 on the CUDA cores. The chunk rows arrive and y leaves
+    by 16-byte copies (path "cp.async") where the rows of b, c and x are
+    multiples of 16 bytes and x, b, c are ``aligned``, else by element
+    loads and stores ("direct")."""
     if dtype not in _DTYPES:
         raise TypeError(f"ssd_scan: no kernel for {dtype}")
     es = 4 if dtype == torch.float32 else 2
-    Q = min(chunk, S)
+    ds0 = 64 if hd % 64 == 0 else 32 if hd % 32 == 0 else HEAD_DIM_SLICE
+    Q, ds = _kernel_chunk(chunk, S, N, ds0, es)
     chunks = -(-S // Q)
     cluster = 1
     while 2 * cluster <= min(SSD_MAX_CLUSTER, chunks):
         cluster *= 2
-    ds = 64 if hd % 64 == 0 else 32 if hd % 32 == 0 else 16
-    return {"path": "cp.async" if aligned and N * es % 16 == 0 else "direct",
+    fast = aligned and N * es % 16 == 0 and hd * es % 16 == 0
+    return {"path": "cp.async" if fast else "direct",
             "tensor_cores": dtype == torch.bfloat16, "chunk": Q, "chunks": chunks,
             "cluster": cluster, "chunks_per_block": -(-chunks // cluster), "slice": ds,
-            "grid": (cluster, B * H, hd // ds), "threads": SSD_THREADS,
+            "grid": (cluster, B * H, -(-hd // ds)), "threads": SSD_THREADS,
             "smem": ssd_layout(Q, N, ds, es)}
 
 
@@ -113,8 +143,9 @@ def plain_ssd_scan(xh, a, b, c, dt, chunk: int = 128):
 def ssd_scan(xh, a, b, c, dt, chunk: int = 128):
     """xh [B,S,H,hd]; a, dt [B,S,H] float32; b, c [B,S,N] in xh's dtype
     → (y [B,S,H,hd] in xh's dtype, final state [B,H,hd,N] float32).
-    The kernel runs chunks of ``chunk`` positions with a masked ragged
-    last chunk; the plain version shrinks the chunk to a divisor of S."""
+    The kernel runs chunks of at most ``chunk`` positions (``ssd_plan``)
+    with a masked ragged last chunk; the plain version shrinks the chunk to
+    a divisor of S. Any N, hd and chunk whose layout fits in 227 KB."""
     tensors = (("xh", xh), ("a", a), ("b", b), ("c", c), ("dt", dt))
     for name, t in tensors[1:]:
         if t.device != xh.device:
@@ -138,12 +169,8 @@ def ssd_scan(xh, a, b, c, dt, chunk: int = 128):
             f"ssd_scan: bad shapes xh{tuple(xh.shape)} a{tuple(a.shape)} "
             f"b{tuple(b.shape)} c{tuple(c.shape)} dt{tuple(dt.shape)}"
         )
-    if not (1 <= chunk <= MAX_CHUNK and 1 <= N <= MAX_STATE and hd % HEAD_DIM_SLICE == 0):
-        raise ValueError(
-            f"ssd_scan: the kernel takes chunk ≤ {MAX_CHUNK}, N ≤ {MAX_STATE} and a "
-            f"head dim that is a multiple of {HEAD_DIM_SLICE}; got chunk={chunk}, "
-            f"N={N}, hd={hd}"
-        )
+    if chunk < 1:
+        raise ValueError(f"ssd_scan: chunk must be positive, got {chunk}")
     for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"ssd_scan: {name} must be contiguous")
@@ -151,7 +178,7 @@ def ssd_scan(xh, a, b, c, dt, chunk: int = 128):
     if B == 0 or S == 0 or H == 0:
         return y, torch.zeros((B, H, hd, N), dtype=torch.float32, device=xh.device)
     state = torch.empty((B, H, hd, N), dtype=torch.float32, device=xh.device)
-    plan = ssd_plan(xh.dtype, B, S, H, hd, N, chunk, _build.aligned16(xh, b, c))
+    plan = ssd_plan(xh.dtype, B, S, H, hd, N, chunk, _build.aligned16(xh, b, c, y))
     err = _build.library().ssd_scan(
         _DTYPES[xh.dtype], xh.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         dt.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, hd, N, plan["chunk"],

@@ -6,10 +6,15 @@ flash kernel on the ``"kernel"`` backend. Decode runs through the
 block-paged decode kernel on both KV layouts: the paged pool directly,
 the slot cache viewed as a pool with an identity block table. The
 ``"reference"`` backend keeps the JAX package's jnp numerics (dense
-gather + masked softmax), the differential oracle. An int8 slot cache
-(``kv_quant``) stores each new key and value vector quantized
-(``quantize_kv``) beside its bfloat16 scale; the kernel dequantizes in
-place, the reference dequantizes the layer's cache to q's dtype first.
+gather + masked softmax), the differential oracle. Under a transform or
+a tracer the kernel is called as the operator
+``repro_torch::paged_decode_attention``, whose vmap rule lets a decode
+plan's per-request decode launch it once for all requests
+(``paged_decode_call``).
+An int8 slot cache (``kv_quant``) stores each new key and value vector
+quantized (``quantize_kv``) beside its bfloat16 scale; the kernel
+dequantizes in place, the reference dequantizes the layer's cache to q's
+dtype first.
 
 KV writes update the cache tensors in place (``index_put_``), where the
 reference returns new arrays (``.at[].set``): an eager port would
@@ -119,9 +124,10 @@ def block_write_positions(block_tables, cache_len, t, block_size):
 
 def _dense_as_pool(leaf, bs):
     """A dense per-row cache leaf [B, Smax, ...] viewed as a block pool
-    [B·(Smax/bs), bs, ...] — a view, no data movement."""
+    [B·(Smax/bs), bs, ...] — a view of a contiguous leaf, no data
+    movement (a reshape, so that a vmapped per-request leaf takes it too)."""
     B, Smax = leaf.shape[0], leaf.shape[1]
-    return leaf.view((B * (Smax // bs), bs) + tuple(leaf.shape[2:]))
+    return leaf.reshape((B * (Smax // bs), bs) + tuple(leaf.shape[2:]))
 
 
 def _dense_block_size(smax, bs=256):
@@ -147,7 +153,7 @@ def _kernel_cached_attention(q, k_cache, v_cache, cache_len, k_scale=None, v_sca
         B * (Smax // bs), dtype=torch.int32, device=q.device
     ).view(B, Smax // bs)
     scales = [None if s is None else _dense_as_pool(s, bs) for s in (k_scale, v_scale)]
-    return _paged.paged_decode_attention(
+    return _paged.paged_decode_call(
         q, _dense_as_pool(k_cache, bs), _dense_as_pool(v_cache, bs), tables,
         cache_len.to(torch.int32), *scales,
     )
@@ -205,7 +211,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, cache_len, *, backend=None)
     gathers each row's dense view first."""
     if kernel_ops.resolve_attention_backend(backend, q.device) == "kernel":
         kernel_ops.require_cuda(q, "paged_attention")
-        return _paged.paged_decode_attention(
+        return _paged.paged_decode_call(
             q, k_pool, v_pool, block_tables, cache_len.to(torch.int32)
         )
     kd = gather_block_rows(k_pool[None], block_tables)[0]  # [B, MB·BS, KV, hd]

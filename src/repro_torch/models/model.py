@@ -271,6 +271,13 @@ class Model:
         pool.pop("len")
         return pool
 
+    def cache_batch_axes(self, cache):
+        """Per-leaf batch-axis index of a decode cache, in its structure:
+        ``len`` is batch-leading, every other leaf has its batch on axis
+        1, after the layer axis (the JAX package's ``cache_batch_axes``).
+        The decode Region slices per-request views through it."""
+        return _map_leaves(lambda name, t: 0 if name == "len" else 1, cache)
+
     def read_cache_slot(self, pool, slot):
         """Batch slot ``slot`` of a pooled decode cache as a batch=1 cache
         (views into the pool). Every leaf but ``len`` has its batch on

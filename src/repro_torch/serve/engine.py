@@ -2,10 +2,13 @@
 
 Port of the JAX package's ``serve/engine.py``: ``serve()`` is the
 open-loop entry, ``generate()`` the fixed-batch wrapper, both driving a
-``Scheduler`` over a slotted or block-paged pool. The engine runs on the
-model's device, CUDA unless the caller asks for the CPU. Options of the
-reference that are not ported yet raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.
+``Scheduler`` over a slotted or block-paged pool; ``decode_region()`` and
+``set_decode_plan()`` make the decode step an Aira region whose accepted
+``RegionPlan`` the slot layout's decode then runs through (``relic_pfor``
+over the requests, the paged kernel folded across them by its vmap
+rule). The engine runs on the model's device, CUDA unless the caller
+asks for the CPU. Options of the reference that are not ported yet raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -13,16 +16,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.serve.request import Request, ServeStats  # noqa: F401 (re-export)
-from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.scheduler import Scheduler, sorted_cache
 
 _NOT_PORTED = {
     "spec": "speculative decoding (ROADMAP §1 item 6)",
     "chunk_size": "chunked prefill (ROADMAP §1 item 6)",
-    "decode_plan": "adviser decode plans (ROADMAP §1 item 7)",
     "controller": "the online adviser (ROADMAP §1 item 8)",
     "mesh": "sharded serving (ROADMAP §1 item 9)",
 }
@@ -54,7 +57,7 @@ class ServingEngine:
         chunk_size=None,
         mesh=None,
     ):
-        _refuse(decode_plan=decode_plan, spec=spec, chunk_size=chunk_size, mesh=mesh)
+        _refuse(spec=spec, chunk_size=chunk_size, mesh=mesh)
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(
@@ -73,6 +76,9 @@ class ServingEngine:
             attention_backend, self.device
         )
         self.stats = ServeStats()
+        self._decode_plan = None
+        if decode_plan is not None:
+            self.set_decode_plan(decode_plan)
 
     def scheduler(
         self,
@@ -102,6 +108,7 @@ class ServingEngine:
             num_blocks=self.num_blocks,
             prefix_cache=self.prefix_cache,
             attention_backend=attention_backend or self.attention_backend,
+            decode_plan=self._decode_plan,
         )
 
     def serve(
@@ -121,6 +128,17 @@ class ServingEngine:
         own arrival time, prompt and budget) to completion. Returns rid →
         generated tokens."""
         _refuse(mesh=mesh)
+        backend = kernel_ops.resolve_attention_backend(
+            attention_backend or self.attention_backend, self.device)
+        if self._decode_plan is not None and backend != self.attention_backend:
+            # the plan's per-request fn captured the engine backend when the
+            # region was advised; honouring another per-call backend here
+            # would silently run (and mislabel) the old one
+            raise ValueError(
+                f"attention_backend={backend!r} cannot override a decode plan advised "
+                f"under {self.attention_backend!r} — re-advise decode_region() on an "
+                "engine built with that backend"
+            )
         requests = list(requests)
         mb = max_batch or self.max_batch or max(1, min(8, len(requests)))
         return self.scheduler(
@@ -139,3 +157,107 @@ class ServingEngine:
         reqs = [Request(prompt=prompts[i], max_new_tokens=n_steps) for i in range(B)]
         out = self.scheduler(B, seed=seed).run(reqs)
         return torch.stack([torch.from_numpy(out[r.rid]) for r in reqs])
+
+    # ------------------------------------------------------------------
+    # the decode step as an advisable region (requests = work items)
+
+    def _decode_cache_spec(self, cache):
+        """(treespec, per-leaf batch-axis index) of the decode cache, its
+        keys sorted (``sorted_cache``)."""
+        cache = sorted_cache(cache)
+        leaves, spec = pytree.tree_flatten(cache)
+        axes = tuple(pytree.tree_leaves(self.model.cache_batch_axes(cache)))
+        if len(axes) != len(leaves):
+            raise ValueError("cache_batch_axes does not match the cache's leaves")
+        return spec, axes
+
+    def _per_request_decode(self, spec, axes):
+        """Per-item fn over (token, batchless cache leaves): one request's
+        decode step — what relic_pfor co-schedules across requests. It
+        decodes through the engine's attention backend, and returns the
+        new cache leaves, as the JAX package's does (the port's decode
+        writes its cache in place; under vmap that cache is the item's)."""
+        model, params, backend = self.model, self.params, self.attention_backend
+
+        def fn(item):
+            tok, leaves = item
+            cache = pytree.tree_unflatten(
+                [leaf.unsqueeze(ax) for leaf, ax in zip(leaves, axes)], spec)
+            logits, new_cache = model.decode_step(
+                params, cache, tok.reshape(1, 1), backend=backend)
+            new_leaves = [leaf.movedim(ax, 0)[0]
+                          for leaf, ax in zip(pytree.tree_leaves(new_cache), axes)]
+            return logits[0], new_leaves
+
+        return fn
+
+    def _decode_items(self, cache, tok, axes):
+        leaves = pytree.tree_leaves(sorted_cache(cache))
+        return (tok, [leaf.movedim(ax, 0) for leaf, ax in zip(leaves, axes)])
+
+    def _sample(self, logits, seed: int):
+        if self.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        probs = torch.softmax(logits.float() / self.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+    def decode_region(
+        self,
+        prompts,
+        *,
+        name: str = "serve-decode",
+        seed: int = 0,
+        task_flops: Optional[float] = None,
+        task_bytes: Optional[float] = None,
+        task_chain: int = 0,
+        force: bool = False,
+    ):
+        """Expose one decode step as an Aira ``Region``.
+
+        Items are the batch of concurrent requests, each a (token, its
+        cache leaves) pair after prefilling ``prompts`` [B, S]. The attached
+        dynamic trace records each request touching only its own cache
+        slice (disjoint by construction), so the dependence stages clear
+        and the overlap gate decides. ``seed`` seeds the sampled first
+        token when the engine samples (temperature > 0). Default napkin
+        cost: weight-streaming decode — 2·n_params FLOPs and n_params·4
+        bytes per request-token (batched decode is bandwidth-bound, which
+        is why the gate usually says no and latency-critical deployments
+        ``force``).
+        """
+        from repro_torch.core.adviser import Region
+        from repro_torch.core.deps import MemoryTrace
+
+        prompts = torch.as_tensor(np.asarray(prompts.cpu() if torch.is_tensor(prompts)
+                                             else prompts), device=self.device)
+        logits, cache = self.model.prefill(
+            self.params, prompts, self.max_seq, backend=self.attention_backend)
+        tok = self._sample(logits, seed)
+        spec, axes = self._decode_cache_spec(cache)
+        items = self._decode_items(cache, tok, axes)
+        n_params = sum(p.numel() for p in pytree.tree_leaves(self.params))
+        batch = int(tok.shape[0])
+        trace = MemoryTrace(
+            reads=[[i] for i in range(batch)], writes=[[i] for i in range(batch)]
+        )
+        return Region(
+            name=name,
+            fn=self._per_request_decode(spec, axes),
+            items=items,
+            task_flops=2.0 * n_params if task_flops is None else task_flops,
+            task_bytes=4.0 * n_params if task_bytes is None else task_bytes,
+            task_chain=task_chain,
+            vector=False,
+            trace=trace,
+            force=force,
+        )
+
+    def set_decode_plan(self, plan) -> None:
+        """Route the decode step through an accepted ``RegionPlan`` (as
+        produced by advising ``decode_region`` — stack combine). Applies
+        to schedulers created from here on (masked execution over the
+        active-slot view)."""
+        if plan is not None and plan.key.combine != "stack":
+            raise ValueError("decode plan must preserve per-request order (combine='stack')")
+        self._decode_plan = plan

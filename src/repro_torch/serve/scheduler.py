@@ -16,8 +16,11 @@ Port of the core of the JAX package's ``serve/scheduler.py``. Each
 
 ``step_ms`` times the whole step and is taken after a device
 synchronise, so it measures the work and not just its launch. Driving is
-open-loop: ``run()`` injects requests at their ``arrival_time``.
-Chunked prefill, speculation and preemption wait for ROADMAP §1 item 6.
+open-loop: ``run()`` injects requests at their ``arrival_time``. With a
+decode plan set (``set_decode_plan``; slot layout only) the decode runs
+through the plan's masked executor over the whole pool, the live rows as
+its mask. Chunked prefill, speculation and preemption wait for ROADMAP §1
+item 6.
 """
 from __future__ import annotations
 
@@ -26,11 +29,23 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.model import PAD_PREFILL_FAMILIES, prefill_bucket
 from repro_torch.serve.kv_cache import PagedKVCache, SlotKVCache
 from repro_torch.serve.request import DECODE, FINISHED, PREFILL, QUEUED, Request, ServeStats
+
+
+def sorted_cache(tree):
+    """A nested cache dict with its keys sorted at every level, as JAX's
+    tree flattening orders them: the decode plan's per-request function
+    and the pool it runs over then flatten to the same leaf order, however
+    each cache was built (a prefill and ``init_cache`` insert keys in
+    different orders)."""
+    if isinstance(tree, dict):
+        return {k: sorted_cache(tree[k]) for k in sorted(tree)}
+    return tree
 
 
 class Scheduler:
@@ -49,6 +64,7 @@ class Scheduler:
         num_blocks: Optional[int] = None,
         prefix_cache: bool = True,
         attention_backend: Optional[str] = None,
+        decode_plan=None,
     ):
         self.model = model
         self.params = params
@@ -61,6 +77,11 @@ class Scheduler:
             raise ValueError(f"kv_layout must be 'slot' or 'paged', got {kv_layout!r}")
         self.kv_layout = kv_layout
         if kv_layout == "paged":
+            if decode_plan is not None:
+                raise ValueError(
+                    "decode plans route through the slotted layout; "
+                    "use kv_layout='slot' to serve through a RegionPlan"
+                )
             self.kv = PagedKVCache(
                 model, max_batch, max_seq, block_size=block_size,
                 num_blocks=num_blocks, prefix_cache=prefix_cache,
@@ -79,6 +100,39 @@ class Scheduler:
         self._tok = np.zeros((max_batch,), np.int64)  # pending token per row
         self._gens: dict[int, torch.Generator] = {}  # row → sampler (temperature > 0)
         self._t0: Optional[float] = None
+        self._decode_plan = None
+        if decode_plan is not None:
+            self.set_decode_plan(decode_plan)
+
+    # ------------------------------------------------------------------
+    # plan routing (over the active-slot view)
+    def set_decode_plan(self, plan) -> None:
+        """Route the pool decode through an accepted ``RegionPlan`` (as
+        produced by advising ``decode_region`` — stack combine only,
+        since request order is externally visible). Speculation, which a
+        plan excludes in the JAX package, is not ported (the engine
+        refuses ``spec=``)."""
+        if plan is not None and self.kv_layout == "paged":
+            raise ValueError("decode plans are not supported on the paged layout")
+        if plan is not None and plan.key.combine != "stack":
+            raise ValueError(
+                "decode plan must preserve per-request order (combine='stack')"
+            )
+        self._decode_plan = plan
+
+    def _plan_decode(self, cache, tok, mask):
+        """One pool decode through the plan: the per-request items (token,
+        cache leaves with their batch axis first), the plan's masked
+        executor over them, the new leaves put back in the cache's layout
+        (dead rows zeroed, as the JAX package's masked plan leaves them)."""
+        cache = sorted_cache(cache)
+        leaves, spec = pytree.tree_flatten(cache)
+        axes = tuple(pytree.tree_leaves(self.model.cache_batch_axes(cache)))
+        items = (tok, [leaf.movedim(ax, 0) for leaf, ax in zip(leaves, axes)])
+        logits, new_leaves = self._decode_plan.execute_masked(items, mask)
+        new_cache = pytree.tree_unflatten(
+            [leaf.movedim(0, ax).contiguous() for leaf, ax in zip(new_leaves, axes)], spec)
+        return logits, new_cache
 
     # ------------------------------------------------------------------
     def _clock(self) -> float:
@@ -237,6 +291,11 @@ class Scheduler:
             logits, self.kv.pool = self.model.decode_step_paged(
                 self.params, pool, tables, lens, tok, backend=self.attention_backend
             )
+        elif self._decode_plan is not None:
+            mask = torch.zeros((self.kv.max_batch,), dtype=torch.bool)
+            mask[list(self._active)] = True
+            logits, self.kv.cache = self._plan_decode(
+                self.kv.cache, tok[:, 0], mask.to(self.device))
         else:
             logits, self.kv.cache = self.model.decode_step(
                 self.params, self.kv.cache, tok, backend=self.attention_backend

@@ -545,7 +545,7 @@ def _decode_replay(q, k, v, cache_len, plan):
     chunks = -(-hd * es // 16)
     vec = 16 // es
     mid = -(-chunks // 2) * vec  # the first half's columns
-    groups = 128 // chunks
+    groups = max(1, 128 // chunks)  # a wide head (chunks > 128): one key group
     tile = plan["tile"]
     qf, kf, vf = q.float(), k.float(), v.float()
     out = torch.zeros(B, H, hd)
@@ -642,10 +642,21 @@ def test_decode_plan_layout_fits_the_card(hd, dtype, H, KV):
 
 
 def test_decode_plan_names_the_largest_head_it_takes():
+    """Wide heads (more 16-byte chunks than the block's 128 threads) run:
+    the plan raises only where no layout fits the opt-in, naming the
+    largest hd that does, for the block's rows and element size."""
     assert da.decode_plan(torch.float32, 1, 1, 1, 64, 512)["tile"] == 16
     assert da.decode_plan(torch.bfloat16, 1, 1, 1, 64, 1024)["tile"] == 16
-    with pytest.raises(ValueError, match="hd up to 512"):
-        da.decode_plan(torch.float32, 1, 1, 1, 64, 528)
+    wide = da.decode_plan(torch.float32, 8, 9, 3, 2048, 1024)
+    assert wide["smem"] <= da.SMEM_OPT_IN and wide["tile"] == 16
+    top = da.max_head_dim(4, 1)
+    assert top > 1024 and da.decode_plan(torch.float32, 1, 1, 1, 64, top)["smem"] <= da.SMEM_OPT_IN
+    with pytest.raises(ValueError, match=f"hd up to {top}"):
+        da.decode_plan(torch.float32, 1, 1, 1, 64, top + 1)
+    for kv, es, hd in ((torch.float32, 4, 1024), (torch.bfloat16, 2, 1024), (torch.int8, 1, 2560)):
+        plan = pda.paged_plan(torch.bfloat16 if es == 2 else torch.float32, kv, 8, 1, 9, 3, hd,
+                              16, 128)
+        assert plan["smem"] <= da.SMEM_OPT_IN
 
 
 # ---------------------------------------------------------------------------
@@ -682,7 +693,7 @@ def _paged_replay(q, kp, vp, tables, lengths, plan, k_scale=None, v_scale=None, 
     int8 = kp.dtype == torch.int8
     es = 1 if int8 else kp.element_size()
     chunks = -(-hd * es // 16)
-    hdp, groups = chunks * (16 // es), 128 // chunks
+    hdp, groups = chunks * (16 // es), max(1, 128 // chunks)  # a wide head: one group
     tc, splits = plan["tile"], plan["splits"]
     epr, spe = plan["entries_per_tile"], plan["slices_per_entry"]
     tpk = 128 // tc
@@ -857,6 +868,63 @@ def test_paged_plan(kv_dtype, B, H, KV, hd, BS, MB, splits, tile, epr, spe, path
     assert not pda.paged_plan(torch.bfloat16, kv_dtype, B, 1, H, KV, hd, BS, MB, False)["path"] == "cp.async"
 
 
+@pytest.mark.parametrize("mode", ["float", "int8"])
+def test_wide_head_paged_replay_matches_pallas(mode):
+    """A head wider than the block's 128 16-byte chunks (float32 hd 544:
+    136 chunks; int8 hd 2064: 129) runs P.V over its chunks in a loop, one
+    key group (``pv_wide``): the replay at the kernel's plan against
+    ``ops.paged_attention`` in interpret mode within 2e-5 (float32 q), and
+    its verify (T = 2) equals its decode bitwise, query by query."""
+    B, T, KV, g, BS, MB = 2, 2, 1, 2, 8, 4
+    hd = 544 if mode == "float" else 2064
+    NB = B * MB + 1
+    rng = np.random.default_rng(hd)
+    q = rng.normal(size=(B, T, KV * g, hd)).astype(np.float32)
+    if mode == "int8":
+        kp, vp = (rng.integers(-127, 128, size=(NB, BS, KV, hd)).astype(np.int8) for _ in range(2))
+        scales = [rng.uniform(0.5, 2.0, size=(NB, BS, KV)).astype(np.float32) for _ in range(2)]
+    else:
+        kp, vp = (rng.normal(size=(NB, BS, KV, hd)).astype(np.float32) for _ in range(2))
+        scales = None
+    tbl = rng.permutation(NB - 1)[: B * MB].reshape(B, MB).astype(np.int32)
+    lens = np.array([5, MB * BS - T], np.int32)
+    t_args, j_args = _to_both(q, kp, vp, tbl, lens, scales)
+    plan = pda.paged_plan(torch.float32, t_args[1].dtype, B, T, KV * g, KV, hd, BS, MB)
+    assert -(-hd * (1 if mode == "int8" else 4) // 16) > 128 and plan["smem"] <= da.SMEM_OPT_IN
+    kw = dict(k_scale=t_args[5], v_scale=t_args[6])
+    got = _paged_replay(*t_args[:5], plan, **kw)
+    want = np.asarray(jops.paged_attention(*j_args, mode="interpret"))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(
+        pda.paged_decode_attention(*t_args).numpy(), want, atol=ATOL, rtol=ATOL)
+    for ti in range(T):
+        dec = _paged_replay(t_args[0][:, ti:ti + 1].contiguous(), *t_args[1:4], t_args[4] + ti,
+                            plan, **kw)
+        assert torch.equal(dec[:, 0], got[:, ti])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_head_decode_replay_matches_pallas(dtype):
+    """The dense decode kernel at a head wider than 128 chunks (hd 544 in
+    float32, 1040 in bf16): the replay at its plan against
+    ``ops.decode_attention`` in interpret mode, float32 within 2e-5, bf16
+    within 2e-2 (as ``test_decode_reduction_order_matches_pallas``)."""
+    b, h, kv, smax = 2, 2, 1, 128
+    hd = 544 if dtype == "float32" else 1040
+    rng = np.random.default_rng(hd)
+    (tq, jq), (tk, jk), (tv, jv) = (
+        _both(rng.normal(size=sh).astype(np.float32), dtype)
+        for sh in ((b, h, hd), (b, smax, kv, hd), (b, smax, kv, hd))
+    )
+    tl, jl = _both(np.array([smax, 37], np.int32))
+    plan = da.decode_plan(tq.dtype, b, h, kv, smax, hd)
+    assert -(-hd * tq.element_size() // 16) > 128 and plan["smem"] <= da.SMEM_OPT_IN
+    got = _decode_replay(tq, tk, tv, tl, plan)
+    want = _np(jops.decode_attention(jq, jk, jv, jl, bk=64, mode="interpret"))
+    tol = ATOL if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_np(got), want, atol=tol, rtol=tol)
+
+
 # ---------------------------------------------------------------------------
 # the SSD kernel's chunk-parallel order, replayed in plain PyTorch (a
 # test-local copy of the arithmetic of csrc/ssd_scan.cu's ssd_scan_kernel)
@@ -970,6 +1038,43 @@ def test_ssd_reduction_order_matches_pallas(S, chunk, jax_chunk, dtype):
     _, plain_s = ssd.plain_ssd_scan(xt, a, bt, ct, dt, chunk)
     s_err = (got_s - plain_s).abs().max().item()
     assert s_err <= rel * plain_s.abs().max().item() + absol, s_err
+
+
+@pytest.mark.parametrize("S,hd,N,chunk,jax_chunk", [
+    (512, 24, 32, 256, 256),    # a chunk above 128: sub-chunks of 128; hd off 16: a padded slice
+    (384, 16, 256, 128, 128),   # N = 256: float32 b, c of 128 rows do not fit, the chunk shrinks
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_wide_shapes_replay_matches_pallas(S, hd, N, chunk, jax_chunk, dtype):
+    """The shapes the kernel refused before (a chunk above 128, N above
+    128, hd off a multiple of 16): the replay at the kernel's plan (its
+    chunk, at most 128 and smaller where the state is wide, whose chunks
+    are the same scan) against ``ops.ssd`` in interpret mode at the
+    caller's chunk, y within chip_smoke.py's SSD_TOL; the final state
+    against the plain version's."""
+    B, H = 1, 2
+    x, a, b, c, dt = _ssd_inputs(B, S, H, hd, N, seed=S + N)
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    xt, bt, ct = x.to(tdt), b.to(tdt), c.to(tdt)
+    plan = ssd.ssd_plan(tdt, B, S, H, hd, N, chunk)
+    assert plan["chunk"] <= 128 and plan["grid"][2] * plan["slice"] >= hd
+    assert plan["smem"] <= da.SMEM_OPT_IN
+    if hd % 16:
+        assert plan["grid"][2] * plan["slice"] > hd  # the last slice is padded
+    got_y, got_s = _ssd_replay(xt, a, bt, ct, dt, plan)
+    want = _np(jops.ssd(*(jnp.asarray(_np(v), jnp.float32 if v.dtype == torch.float32 else jnp.bfloat16)
+                          for v in (xt, a, bt, ct, dt)), chunk=jax_chunk, mode="interpret"))
+    rel, absol = SSD_TOL[dtype]
+    err = np.abs(_np(got_y) - want).max()
+    assert err <= rel * np.abs(want).max() + absol, (err, np.abs(want).max())
+    plain_y, plain_s = ssd.ssd_scan(xt, a, bt, ct, dt, chunk)
+    s_err = (got_s - plain_s).abs().max().item()
+    assert s_err <= rel * plain_s.abs().max().item() + absol, s_err
+
+
+def test_ssd_plan_names_the_largest_state_it_takes():
+    with pytest.raises(ValueError, match="N up to"):
+        ssd.ssd_plan(torch.float32, 1, 1024, 1, 64, 4096)
 
 
 def test_ssd_tf32_operands_stay_inside_the_chip_tolerance():
