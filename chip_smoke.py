@@ -92,7 +92,26 @@ Phases, in order; any failure exits non-zero before the final line:
    7: float32 tokens equal to the no-plan path's (or ties), the paged
    kernel launched exactly layers x chunks per stream x decode steps;
    bf16 logits of one plan step within ``E2E_BF16_RATIO`` of the plain
-   path's distance from float32.
+   path's distance from float32;
+8. speculation, chunked prefill, preemption — full-width smollm-135m in
+   float32, ``max_seq`` 2048, 4 rows: K = 4 with the n-gram drafter and
+   with a one-layer full-width draft model on both layouts (tokens equal
+   to plain decoding's, ties aside; every verify exactly 30 paged
+   launches at T = 5, every draft decode one at T = 1 over the draft's
+   2053-long slot view, nothing else launched), the target drafting for
+   itself (acceptance 1.0, or every rejection at a tie); ``chunk_size``
+   256 over 128-1024-token prompts on both layouts after ``prime()``
+   (tokens equal to monolithic prefill's, ties aside; every chunk and
+   decode 30 paged launches, no flash launch, every chunk width a primed
+   one); ``make_slo_requests`` on a 4-row pool of 100 blocks driven on a
+   step clock (preemptions > 0, streams equal to an 8-row pool's that
+   preempts nothing, ties aside); then in bf16 one n-gram run and one
+   chunked run (finite logits, every request finished); the host/device
+   split of a spec round's verify and draft halves and of a 256-token
+   chunk; and the paged kernel against its plain version at the verify
+   shape (T = 5: paged pool, and slot view bitwise equal to five decodes),
+   the chunk shape (T = 256 over 256-key identity blocks, at 0, 768 and
+   1792) and the draft view (BS = 1, MB = 2053), each printing its plan.
 
 The two lines before the last are the JSON kernel table and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -163,6 +182,8 @@ NONCAUSAL_TPU = "src/repro/kernels/flash_attention.py:38"  # causal=False
 ENTRY_ONLY = ("relic_matmul", "relic_gemv", "decode", "partials", "flash_noncausal")
 # the input ranges phase 3b holds (no model of the repo reaches them)
 WIDE = ("decode_wide", "paged_wide", "paged_int8_wide", "ssd_wide")
+# phase 8's kernel rows → its launch counts at their shapes
+PHASE8 = {"paged_verify": "verify", "paged_chunk": "chunk", "paged_draft": "draft"}
 
 
 def require(ok, msg: str) -> None:
@@ -276,18 +297,18 @@ def paged_case(dtype, T, seed=0, B=8, H=9, KV=3, hd=64, BS=16, MB=128, int8=Fals
     return (q, kp, vp, tables.to(dev), lengths.to(dev)) + tuple(scales)
 
 
-def slot_case(dtype, seed=0, B=4, Smax=2048, H=9, KV=3, hd=64, lengths=None, int8=False):
-    """The slot layout's decode input to the paged kernel, built as the
-    model builds it: a dense cache [B, Smax, KV, hd] (and, for an int8
-    cache, its scales [B, Smax, KV]) viewed as a pool of
-    ``_dense_block_size(Smax)`` = 256-key blocks (MB = 8) with an
-    identity table."""
+def slot_case(dtype, seed=0, B=4, Smax=2048, H=9, KV=3, hd=64, lengths=None, int8=False, T=1):
+    """The slot layout's input to the paged kernel (T queries a row),
+    built as the model builds it: a dense cache [B, Smax, KV, hd] (and,
+    for an int8 cache, its scales [B, Smax, KV]) viewed as a pool of
+    ``_dense_block_size(Smax)``-key blocks (256 at Smax = 2048, MB = 8; 1
+    at the draft model's prime 2053) with an identity table."""
     from repro_torch.models.attention import _dense_as_pool, _dense_block_size
 
     g = torch.Generator().manual_seed(seed)
     bs = _dense_block_size(Smax)
     dev = torch.device("cuda")
-    q = torch.randn(B, 1, H, hd, generator=g).to(dev, dtype)
+    q = torch.randn(B, T, H, hd, generator=g).to(dev, dtype)
     kc = torch.randn(B, Smax, KV, hd, generator=g).to(dev, dtype)
     vc = torch.randn(B, Smax, KV, hd, generator=g).to(dev, dtype)
     scales = (None, None)
@@ -1172,26 +1193,50 @@ def check_entry_kernels():
 # phase 5/6: serving
 
 
-class Watch:
-    """Counts the model's step calls and keeps a device-side flag of any
-    non-finite logits (no host sync inside the serving loop)."""
+# the position of the token argument in each step function's call
+TOKEN_ARG = {"prefill": 1, "prefill_with_prefix": 1, "decode_step": 2, "decode_step_paged": 4,
+             "verify_step": 2, "verify_step_paged": 4, "prefill_chunk": 2}
+
+
+class StepLog:
+    """Records each outermost call of a model's step functions: (name,
+    token width T, paged launches inside it, flash launches inside it),
+    read from the wrappers' counts; keeps the last call's logits and a
+    device-side flag of non-finite ones (no host sync in the loop)."""
 
     def __init__(self, model):
-        self.calls = {}
+        self.calls = []
+        self.last = None
+        self._depth = 0
         self.bad = torch.zeros((), dtype=torch.bool, device=model.device)
-        for name in ("prefill", "prefill_with_prefix", "decode_step", "decode_step_paged"):
+        for name in TOKEN_ARG:
             setattr(model, name, self._wrap(name, getattr(model, name)))
 
     def _wrap(self, name, fn):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import paged_decode_attention as pda
+
         def wrapped(*a, **kw):
-            logits, cache = fn(*a, **kw)
-            self.calls[name] = self.calls.get(name, 0) + 1
-            self.bad |= ~torch.isfinite(logits).all()
-            return logits, cache
+            p0, f0 = pda.paged_decode_attention.launches, fa.flash_attention.launches
+            self._depth += 1  # prefill_chunk calls verify_step: log the outer call
+            try:
+                logits, out = fn(*a, **kw)
+            finally:
+                self._depth -= 1
+            if not self._depth:
+                self.calls.append((name, int(a[TOKEN_ARG[name]].shape[1]),
+                                   pda.paged_decode_attention.launches - p0,
+                                   fa.flash_attention.launches - f0))
+                self.last = logits
+                self.bad |= ~torch.isfinite(logits).all()
+            return logits, out
         return wrapped
 
+    def of(self, *names):
+        return [c for c in self.calls if c[0] in names]
+
     def n(self, *names):
-        return sum(self.calls.get(n, 0) for n in names)
+        return len(self.of(*names))
 
 
 def headline(label, stats, card):
@@ -1251,7 +1296,7 @@ def serve_full_width(card):
          lambda rng: make_requests(4, 20.0, vocab=cfg.vocab_size, max_new_tokens=32,
                                    prompt_lens=tuple(range(128, 513)), rng=rng)),
     )
-    watch = Watch(model)
+    watch = StepLog(model)
     # warm the path (allocator, library load) outside the measured runs
     engine.serve(make_requests(2, 1e3, vocab=cfg.vocab_size, max_new_tokens=4,
                                prompt_lens=(128,), rng=np.random.default_rng(9)))
@@ -1294,7 +1339,7 @@ def serve_mamba2(card):
     params = model.init(seed=0)
     L = cfg.num_layers
     engine = ServingEngine(model, params, max_seq=2048, kv_layout="slot", max_batch=8)
-    watch = Watch(model)
+    watch = StepLog(model)
     engine.serve(make_requests(2, 1e3, vocab=cfg.vocab_size, max_new_tokens=4,
                                prompt_lens=(128,), rng=np.random.default_rng(9)))
     watch.calls.clear()
@@ -1333,7 +1378,7 @@ def serve_zamba2(card):
     params = model.init(seed=0)
     L, G = cfg.num_layers, cfg.num_layers // cfg.attn_every
     engine = ServingEngine(model, params, max_seq=2048, kv_layout="slot", max_batch=8)
-    watch = Watch(model)
+    watch = StepLog(model)
     engine.serve(make_requests(2, 1e3, vocab=cfg.vocab_size, max_new_tokens=4,
                                prompt_lens=(128,), rng=np.random.default_rng(9)))
     watch.calls.clear()
@@ -1399,7 +1444,7 @@ def time_split(params, card):
     from repro_torch.serve.kv_cache import PagedKVCache
 
     cfg = get_config("smollm-135m")
-    model = Model(cfg)  # a fresh model object: no Watch wrappers
+    model = Model(cfg)  # a fresh model object: no StepLog wrappers
     kv = PagedKVCache(model, 8, 2048, block_size=16)
     rng = np.random.default_rng(0)
     for r in range(8):
@@ -1448,6 +1493,26 @@ def time_split_slots(arch, params, card, kernels):
                   kernels, card)
 
 
+def count_ties(model, params, prompts, want, got, label):
+    """How many pairs of greedy streams differ, each first difference
+    held to be a tie: the plain reference backend's top-2 logit margin on
+    ``want``'s context there must be under ``LOGIT_TIE_TOL``. ``model``
+    must not be wrapped by a ``StepLog`` (its prefill would be logged)."""
+    ties = 0
+    for prompt, a, b in zip(prompts, want, got):
+        a, b = np.asarray(a), np.asarray(b)
+        if np.array_equal(a, b):
+            continue
+        p = int(np.argmax(a != b)) if len(a) == len(b) else min(len(a), len(b))
+        ctx = np.concatenate([np.asarray(prompt), a[:p]]).astype(np.int64)[None]
+        logits, _ = model.prefill(params, ctx, ctx.shape[1], backend="reference")
+        top2 = torch.topk(logits[0].float(), 2).values
+        margin = float(top2[0] - top2[1])
+        require(margin < LOGIT_TIE_TOL, f"{label}: tokens differ at {p} (margin {margin:.2e})")
+        ties += 1
+    return ties
+
+
 def parity_f32(arch, layouts, prompt_lens):
     """A float32 ``arch`` served through the kernels and through the plain
     reference backend, on each layout: the same greedy tokens, or a tie."""
@@ -1465,21 +1530,12 @@ def parity_f32(arch, layouts, prompt_lens):
             reqs = make_requests(4, 50.0, vocab=cfg.vocab_size, max_new_tokens=16,
                                  prompt_lens=prompt_lens, rng=np.random.default_rng(3))
             out = engine.serve(reqs, attention_backend=backend)
-            streams[backend] = [(np.asarray(r.prompt), out[r.rid]) for r in reqs]
-        ties = 0
-        for (prompt, a), (_, b) in zip(streams["kernel"], streams["reference"]):
-            if np.array_equal(a, b):
-                continue
-            p = int(np.argmax(a != b)) if len(a) == len(b) else min(len(a), len(b))
-            ctx = np.concatenate([prompt, b[:p]]).astype(np.int64)[None]
-            logits, _ = model.prefill(params, ctx, ctx.shape[1], backend="reference")
-            top2 = torch.topk(logits[0].float(), 2).values
-            margin = float(top2[0] - top2[1])
-            require(margin < LOGIT_TIE_TOL,
-                    f"{arch} {layout}: kernel and reference tokens differ at {p} (margin {margin:.2e})")
-            ties += 1
+            streams[backend] = [out[r.rid] for r in reqs]
+        prompts = [np.asarray(r.prompt) for r in reqs]
+        ties = count_ties(model, params, prompts, streams["reference"], streams["kernel"],
+                          f"{arch} {layout}: kernel and reference")
         log(f"parity[{arch} {layout}] float32 kernel vs reference: "
-            f"{len(streams['kernel']) - ties} streams identical, {ties} ties "
+            f"{len(prompts) - ties} streams identical, {ties} ties "
             f"(top-2 margin < {LOGIT_TIE_TOL:g})")
 
 
@@ -1705,19 +1761,8 @@ def serve_decode_plan(card):
                         f"{label}: launches {n}, expected paged {expect} = {L} layers x "
                         f"{per_stream} chunk(s) x {decodes} steps, flash {L} (the one batched "
                         "prefill) and nothing else")
-                ties = 0
-                for i in range(B):
-                    if np.array_equal(got[i], want[i]):
-                        continue
-                    p = int(np.argmax(got[i] != want[i]))
-                    ctx = np.concatenate([prompts[i], want[i, :p]]).astype(np.int64)[None]
-                    logits, _ = model.prefill(params, ctx, ctx.shape[1], backend="reference")
-                    top2 = torch.topk(logits[0].float(), 2).values
-                    margin = float(top2[0] - top2[1])
-                    require(margin < LOGIT_TIE_TOL,
-                            f"{label}: plan and no-plan tokens differ at row {i}, step {p} "
-                            f"(margin {margin:.2e})")
-                    ties += 1
+                ties = count_ties(model, params, prompts, want, got,
+                                  f"{label}: plan and no-plan")
                 log(f"decode plan[{label}] on {card}: {B - ties} of {B} greedy streams identical to "
                     f"the no-plan path, {ties} ties; paged launches {n['paged']} = {L} x {per_stream} x "
                     f"{decodes}; wall ms for {steps} tokens: plan {plan_ms:.1f}, no plan {plain_ms:.1f}")
@@ -1750,6 +1795,334 @@ def serve_decode_plan(card):
                 f"{n['paged']} = {L} x {per_stream}")
         del params, model
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: speculation, chunked prefill, preemption
+
+SPEC_K = 4  # draft tokens a verify: T = K + 1 = 5
+CHUNK = 256  # chunked prefill's token budget a step: widths 1, 2, ..., 256
+class TieCheckedDraft:
+    """A draft stream that proposes through ``inner`` and, at each
+    rollback, holds every rejection to be a tie: the rejected draft
+    token's logit in the verify (``log.last``) within ``LOGIT_TIE_TOL`` of
+    the verify's top logit at that position."""
+
+    def __init__(self, inner, log):
+        self.inner, self.log = inner, log
+        self.rejections = 0
+
+    def bind(self, max_batch, max_seq):
+        self.inner.bind(max_batch, max_seq)
+
+    def on_admit(self, row, req):
+        self.inner.on_admit(row, req)
+
+    def propose(self, active, tok):
+        self.rows = list(active)
+        self.drafts = self.inner.propose(active, tok)
+        return self.drafts
+
+    def rollback(self, n_rejected):
+        logits = self.log.last.float()
+        for row in self.rows:
+            d = torch.as_tensor(self.drafts[row], device=logits.device).long()
+            g = torch.argmax(logits[row], dim=-1)
+            miss = (d != g[: len(d)]).nonzero()
+            if len(miss):
+                a = int(miss[0])
+                margin = float(logits[row, a].max() - logits[row, a, d[a]])
+                require(margin < LOGIT_TIE_TOL,
+                        f"self-draft: row {row} rejected its draft at {a} (margin {margin:.2e})")
+                self.rejections += 1
+        self.inner.rollback(n_rejected)
+
+
+def drive(sched, reqs, dt):
+    """Run ``reqs`` to completion on a step clock: step i admits what has
+    arrived by i * dt and every request time is read from that clock, so
+    when a request arrives against the others' progress does not depend on
+    the card's speed."""
+    clock = [0.0]
+    sched._clock = lambda: clock[0]
+    sched.stats.reset()
+    for r in reqs:
+        sched.submit(r)
+    i = 0
+    while sched._queue or sched._active or sched._chunking:
+        clock[0] = i * dt
+        sched.step(now=clock[0])
+        i += 1
+    return {r.rid: r.output() for r in reqs}
+
+
+def check_launches(n, expect, label):
+    """Every count of ``n`` equals ``expect``'s entry (0 where it has none)."""
+    want = {k: expect.get(k, 0) for k in n}
+    require(n == want, f"{label}: launches {n}, expected {want}")
+
+
+def phase8_serving(card, cfg, device="cuda"):
+    """Phase 8 (a)-(c) on ``cfg`` (full-width float32 smollm-135m on the
+    card), ``max_seq`` 2048, and (d) when ``cfg`` is bf16. Returns the
+    launches at the three phase-8 kernel shapes: verify (T = K+1), chunk
+    (T = 256) and the draft view (BS = 1)."""
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServingEngine, SpecConfig, make_requests, make_slo_requests
+
+    L, K = cfg.num_layers, SPEC_K
+    f32 = cfg.dtype == "float32"
+    target, ref = Model(cfg, device), Model(cfg, device)
+    params = target.init(seed=2)
+    draft = Model(dataclasses.replace(cfg, num_layers=1), device)
+    dparams = draft.init(seed=3)
+    tlog, dlog = StepLog(target), StepLog(draft)
+    shape_launches = {"verify": 0, "chunk": 0, "draft": 0}
+    name = f"smollm-135m {cfg.dtype}"
+
+    def work(seed, lens, n=4, tokens=24):
+        return make_requests(n, 50.0, vocab=cfg.vocab_size, max_new_tokens=tokens,
+                             prompt_lens=tuple(lens), rng=np.random.default_rng(seed))
+
+    def finished(out, reqs, label):
+        require(not bool(tlog.bad) and not bool(dlog.bad), f"{label}: non-finite logits")
+        require(all(r.finished and len(out[r.rid]) == r.max_new_tokens for r in reqs),
+                f"{label}: not every request finished its budget")
+
+    # (a) speculation, K = 4: n-gram and a one-layer draft, both layouts;
+    # (d) in bf16: one n-gram run on the paged layout
+    for layout in ("slot", "paged") if f32 else ("paged",):
+        engine = ServingEngine(target, params, max_seq=2048, kv_layout=layout, block_size=16,
+                               max_batch=4, device=device)
+        base_reqs = work(11, range(128, 513))
+        plain = engine.serve(base_reqs)
+        prompts = [np.asarray(r.prompt) for r in base_reqs]
+        for drafter in ("ngram", "model") if f32 else ("ngram",):
+            spec = (SpecConfig(k=K) if drafter == "ngram" else
+                    SpecConfig(k=K, drafter="model", draft_model=draft, draft_params=dparams))
+            label = f"spec[{name} {layout} {drafter} K={K}]"
+            reqs = work(11, range(128, 513))
+            tlog.calls.clear()
+            dlog.calls.clear()
+            reset_launches()
+            out = engine.serve(reqs, spec=spec)
+            n = read_launches()
+            verifies = tlog.of("verify_step", "verify_step_paged")
+            prefills = tlog.of("prefill", "prefill_with_prefix")
+            drafts = dlog.of("decode_step")
+            dprefills = dlog.of("prefill")
+            require(verifies and all(c[1] == K + 1 and c[2] == L and not c[3] for c in verifies),
+                    f"{label}: a verify was not {L} paged launches at T = {K + 1}")
+            require(all(c[1] == 1 and c[2] == 1 and not c[3] for c in drafts)
+                    and len(drafts) == (K + 1) * len(verifies if drafter == "model" else []),
+                    f"{label}: the draft model did not decode K + 1 = {K + 1} steps a round, "
+                    "one paged launch each")
+            require(len(tlog.calls) == len(verifies) + len(prefills), f"{label}: a plain decode ran")
+            check_launches(n, {"paged": L * len(verifies) + len(drafts),
+                               "flash": L * len(prefills) + len(dprefills)}, label)
+            finished(out, reqs, label)
+            s = engine.stats.serving_summary()
+            shape_launches["verify"] += L * len(verifies)
+            shape_launches["draft"] += len(drafts)
+            ties = (count_ties(ref, params, prompts, [plain[r.rid] for r in base_reqs],
+                               [out[r.rid] for r in reqs], label) if f32 else None)
+            log(f"{label} on {card}: {len(verifies)} verifies x {L} paged launches at T = {K + 1}, "
+                f"{len(drafts)} draft decodes x 1 (BS=1 view), {len(prefills)} + {len(dprefills)} "
+                f"prefills; acceptance {s['speculative']['acceptance_rate']:.3f}, "
+                f"p50 draft {s['speculative']['p50_draft_ms']:.2f} ms, "
+                f"p50 verify {s['speculative']['p50_verify_ms']:.2f} ms, "
+                f"p50 step {s['p50_step_ms']:.2f} ms; "
+                + (f"{len(reqs) - ties} streams equal to plain decoding, {ties} ties"
+                   if f32 else "logits finite, every request finished"))
+    if f32:
+        # the target drafting for itself: a model object of its own, the same weights
+        own = Model(cfg, device)
+        engine = ServingEngine(target, params, max_seq=2048, max_batch=4, device=device)
+        checked = TieCheckedDraft(
+            SpecConfig(k=K, drafter="model", draft_model=own, draft_params=params)
+            .make_drafter(engine.attention_backend), tlog)
+        reqs = work(12, range(128, 513), tokens=16)
+        out = engine.serve(reqs, spec=SpecConfig(k=K, drafter=checked))
+        finished(out, reqs, "self-draft")
+        rate = engine.stats.acceptance_rate
+        require(rate == 1.0 or checked.rejections > 0, "self-draft: acceptance below 1 unexplained")
+        log(f"spec[{name} slot self-draft K={K}] on {card}: acceptance {rate:.4f}, "
+            f"{checked.rejections} rejections, each at a tie (margin < {LOGIT_TIE_TOL:g})")
+
+    # (b) chunked prefill, chunk_size 256, 128-1024-token prompts; (d) in
+    # bf16: one run on the slot layout
+    for layout in ("slot", "paged") if f32 else ("slot",):
+        label = f"chunked[{name} {layout} chunk_size={CHUNK}]"
+        engine = ServingEngine(target, params, max_seq=2048, kv_layout=layout, block_size=16,
+                               max_batch=4, device=device)
+        mono_reqs = work(13, range(128, 1025), tokens=16)
+        mono = engine.serve(mono_reqs, chunk_size=0)
+        sched = engine.scheduler(4, chunk_size=CHUNK)
+        sched.prime()
+        reqs = work(13, range(128, 1025), tokens=16)
+        tlog.calls.clear()
+        reset_launches()
+        out = sched.run(reqs)
+        n = read_launches()
+        chunks = tlog.of("prefill_chunk")
+        decodes = tlog.of("decode_step", "decode_step_paged")
+        require(len(tlog.calls) == len(chunks) + len(decodes), f"{label}: a monolithic prefill ran")
+        require(all(c[2] == L and not c[3] for c in chunks + decodes),
+                f"{label}: a chunk or decode was not {L} paged launches (and no flash)")
+        require(set(sched.widths["chunk"]) <= sched.primed_widths
+                and sum(sched.widths["chunk"].values()) == len(chunks),
+                f"{label}: widths {dict(sched.widths['chunk'])} outside the primed "
+                f"{sorted(sched.primed_widths)}")
+        check_launches(n, {"paged": L * (len(chunks) + len(decodes))}, label)
+        finished(out, reqs, label)
+        shape_launches["chunk"] += L * sched.widths["chunk"][CHUNK]
+        ties = (count_ties(ref, params, [np.asarray(r.prompt) for r in mono_reqs],
+                           [mono[r.rid] for r in mono_reqs], [out[r.rid] for r in reqs], label)
+                if f32 else None)
+        log(f"{label} on {card}: {len(chunks)} chunks {dict(sorted(sched.widths['chunk'].items()))} "
+            f"in the primed widths {sorted(sched.primed_widths)}, {len(decodes)} decodes, "
+            f"paged launches {n['paged']} = {L} x {len(chunks) + len(decodes)}, flash 0; "
+            f"p50 step {engine.stats.percentile(50):.2f} ms, p99 {engine.stats.percentile(99):.2f} ms; "
+            + (f"{len(reqs) - ties} streams equal to monolithic prefill, {ties} ties"
+               if f32 else "logits finite, every request finished"))
+    if not f32:
+        return shape_launches, (target, params, draft, dparams)
+
+    # (c) preemption: make_slo_requests on a 4-row pool of 100 blocks
+    def slo():
+        return make_slo_requests(8, 100.0, vocab=cfg.vocab_size, max_new_tokens=16,
+                                 short_lens=(64, 128), long_len=1024,
+                                 rng=np.random.default_rng(14))
+
+    kw = dict(max_seq=2048, kv_layout="paged", block_size=16, device=device)
+    tight = ServingEngine(target, params, max_batch=4, num_blocks=100, **kw)
+    ample = ServingEngine(target, params, max_batch=8, **kw)
+    reqs = slo()
+    got = drive(tight.scheduler(4), reqs, 0.01)
+    ample_reqs = slo()
+    want = drive(ample.scheduler(8), ample_reqs, 0.01)
+    ts, as_ = tight.stats, ample.stats
+    require(ts.n_preemptions > 0 and as_.n_preemptions == 0,
+            f"preemption: {ts.n_preemptions} on the tight pool, {as_.n_preemptions} on the ample")
+    require(all(r.finished for r in reqs), "preemption: not every request finished")
+    ties = count_ties(ref, params, [np.asarray(r.prompt) for r in reqs],
+                      [want[r.rid] for r in ample_reqs], [got[r.rid] for r in reqs],
+                      "preemption: tight and ample pools")
+    log(f"preempt[{name} paged slo, 4 rows x 100 blocks of 16] on {card}: "
+        f"{ts.n_preemptions} preemptions, {ts.recomputed_tokens} recomputed tokens; "
+        f"{len(reqs) - ties} streams equal to the ample pool's (8 rows), {ties} ties")
+    return shape_launches, None
+
+
+def phase8_kernels(card):
+    """Phase 8 (e): the paged kernel against its plain version at the
+    shapes phase 8's serving gives it: a verify (T = 5) on the paged pool
+    and the slot view (bitwise equal to five decodes there), a chunk (T =
+    256, B = 1, 256-key identity blocks) and the draft model's 2053-long
+    slot view (BS = 1, MB = 2053). Returns the JSON rows (bf16) keyed by
+    shape."""
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for key, label, case in (
+                ("paged_verify", "verify, paged layout B=4 T=5 H=9 KV=3 hd=64 BS=16 MB=128",
+                 lambda: paged_case(dtype, SPEC_K + 1, B=4)),
+                ("slot_verify", "verify, slot view B=4 T=5 BS=256 MB=8",
+                 lambda: slot_case(dtype, T=SPEC_K + 1, lengths=[0, 255, 1500, 2043])),
+                ("paged_chunk", "chunk, slot view B=1 T=256 BS=256 MB=8 (lengths 768; 0; 1792)",
+                 lambda: slot_case(dtype, B=1, T=CHUNK, lengths=[768])),
+                ("paged_draft", "draft view B=4 T=1 Smax=2053 BS=1 MB=2053",
+                 lambda: slot_case(dtype, Smax=2048 + SPEC_K + 1, lengths=[0, 1, 1027, 2052]))):
+            q, kp, vp, tables, lengths, _, _ = case()
+            out = pda.paged_decode_attention(q, kp, vp, tables, lengths)
+            torch.cuda.synchronize()
+            ref = pda.plain_paged_decode_attention(q, kp, vp, tables, lengths)
+            err = (out.float() - ref.float()).abs().max().item()
+            if key == "paged_chunk":  # the chunk at the row's start and at its end too
+                for start in (0, 2048 - CHUNK):
+                    at = torch.full_like(lengths, start)
+                    e = (pda.paged_decode_attention(q, kp, vp, tables, at).float()
+                         - pda.plain_paged_decode_attention(q, kp, vp, tables, at).float())
+                    err = max(err, e.abs().max().item())
+            require(err <= TOL[dtype] and torch.isfinite(out).all(),
+                    f"paged kernel ({label}, {dn}) disagrees with its plain version: {err}")
+            extra = ""
+            if key == "slot_verify":
+                for t in range(SPEC_K + 1):
+                    dec = pda.paged_decode_attention(q[:, t : t + 1].contiguous(), kp, vp, tables,
+                                                     lengths + t)
+                    require(torch.equal(dec[:, 0], out[:, t]), f"verify != decode at {t} ({dn})")
+                extra = "; verify (T=5) equals decode bitwise"
+            ms = cuda_ms(lambda: pda.paged_decode_attention(q, kp, vp, tables, lengths))
+            plain = cuda_ms(lambda: pda.plain_paged_decode_attention(q, kp, vp, tables, lengths),
+                            iters=5)
+            bms, by = paged_bound(q, kp, tables, lengths, dtype)
+            log(f"paged_decode_attention {dn} {label} lengths={lengths.tolist()} "
+                f"plan={paged_plan_of(q, kp, tables)}: max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) "
+                f"ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) "
+                f"library_ms=null{extra}")
+            if key != "slot_verify":
+                rows[(key, dtype)] = kernel_row(err, ms, plain, bms, by)
+    return rows
+
+
+def phase8_split(card, models):
+    """Host wall against device time (``profile_split``) of one spec
+    round's two halves at full width in bf16 — the verify over 4 paged
+    rows holding 128-1024-token contexts (T = 5), the one-layer draft's K+1
+    decodes over its 2053-long slot cache — and of one 256-token chunk at
+    position 768."""
+    from repro_torch.serve.kv_cache import PagedKVCache
+
+    target, params, draft, dparams = models
+    cfg = target.cfg
+    kv = PagedKVCache(target, 4, 2048, block_size=16)
+    rng = np.random.default_rng(0)
+    for r in range(4):
+        toks = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, int(rng.integers(128, 1025))))
+        row, _ = kv.try_admit(r, toks, 64)
+        _, cache = target.prefill(params, torch.tensor([toks], device="cuda"), 2048)
+        kv.write_prefill(row, cache)
+        kv.ensure_tail_n(row, SPEC_K + 1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, SPEC_K + 1))).cuda()
+    pool, tables, lens = kv.kernel_inputs()
+    dcache = draft.init_cache(4, 2048 + SPEC_K + 1)
+    dcache["len"] = lens.clone()
+    chunk_cache = target.init_cache(1, 2048)
+    chunk_cache["len"].fill_(768)
+    chunk = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CHUNK))).cuda()
+
+    def drafts():
+        for _ in range(SPEC_K + 1):
+            draft.decode_step(dparams, dcache, tokens[:, :1])
+
+    profile_split("spec round: verify, 4 paged rows, T=5",
+                  lambda: target.verify_step_paged(params, pool, tables, lens, tokens),
+                  ("paged_decode_kernel",), card)
+    profile_split("spec round: draft, one-layer model, K+1=5 decodes, BS=1 view", drafts,
+                  ("paged_decode_kernel",), card)
+    profile_split("prefill chunk, 256 tokens at 768",
+                  lambda: target.prefill_chunk(params, chunk_cache, chunk, [CHUNK]),
+                  ("paged_decode_kernel",), card)
+
+
+def phase8(card):
+    """Phase 8: speculation, chunked prefill and preemption on full-width
+    smollm-135m (float32, then bf16), the paged kernel at their shapes,
+    and the host/device split of a spec round and a chunk."""
+    from repro_torch.configs import get_config
+
+    base = get_config("smollm-135m")
+    launches, _ = phase8_serving(card, dataclasses.replace(base, dtype="float32"))
+    torch.cuda.empty_cache()
+    more, models = phase8_serving(card, base)
+    launches = {k: launches[k] + more[k] for k in launches}
+    phase8_split(card, models)
+    del models
+    torch.cuda.empty_cache()
+    return launches, phase8_kernels(card)
 
 
 def main() -> int:
@@ -1812,6 +2185,9 @@ def main() -> int:
     adviser_suite(card)
     serve_decode_plan(card)
     phase_done("7")
+    phase8_launches, phase8_rows = phase8(card)
+    rows.update(phase8_rows)
+    phase_done("8")
 
     bf16, f32 = torch.bfloat16, torch.float32
     table = []
@@ -1833,7 +2209,12 @@ def main() -> int:
             ("paged_wide", bf16, "paged_decode_attention[bf16 hd=1024]", PAGED_SRC, PAGED_TPU),
             ("paged_int8_wide", bf16, "paged_decode_attention[int8 hd=2560]", PAGED_SRC,
              PAGED_INT8_TPU),
-            ("ssd_wide", bf16, "ssd_scan[N=256 hd=72 chunk=256]", SSD_SRC, SSD_TPU)):
+            ("ssd_wide", bf16, "ssd_scan[N=256 hd=72 chunk=256]", SSD_SRC, SSD_TPU),
+            # phase 8's shapes: launches from its serving runs at each shape
+            ("paged_verify", bf16, "paged_decode_attention[verify T=5]", PAGED_SRC, PAGED_TPU),
+            ("paged_chunk", bf16, "paged_decode_attention[chunk T=256]", PAGED_SRC, PAGED_TPU),
+            ("paged_draft", bf16, "paged_decode_attention[draft view BS=1 MB=2053]", PAGED_SRC,
+             PAGED_TPU)):
         r = rows[(key, dtype)]
         # the entry points are the path of the kernels that serving never
         # runs (every serving run requires their counts to stay 0); the
@@ -1843,6 +2224,8 @@ def main() -> int:
             count = {"launches": entry[key], "serving_launches": 0}
         elif key in WIDE:
             count = {}
+        elif key in PHASE8:
+            count = {"launches": phase8_launches[PHASE8[key]]}
         else:
             count = {"launches": launches[key]}
         table.append({"name": name, "route": "cuda", "source": src, "replaces": tpu, **count, **r})

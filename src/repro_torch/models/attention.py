@@ -2,9 +2,11 @@
 
 Port of the JAX package's ``models/attention.py``. Prefill runs
 ``gqa_attention`` — the chunked running-max reference, or the causal
-flash kernel on the ``"kernel"`` backend. Decode runs through the
-block-paged decode kernel on both KV layouts: the paged pool directly,
-the slot cache viewed as a pool with an identity block table. The
+flash kernel on the ``"kernel"`` backend. Decode, speculative verify
+(``verify_attention``: T = K+1 queries) and chunked prefill (T = the
+chunk's width over a batch-1 dense cache) run through the block-paged
+decode kernel on both KV layouts: the paged pool directly, the slot
+cache viewed as a pool with an identity block table. The
 ``"reference"`` backend keeps the JAX package's jnp numerics (dense
 gather + masked softmax), the differential oracle. Under a transform or
 a tracer the kernel is called as the operator
@@ -110,8 +112,23 @@ def scatter_block_token(pool_leaf, token_rows, block_ids, offsets):
     BS, ...] (one layer); ``block_ids``/``offsets`` [B] or [B, T] and
     ``token_rows`` of matching leading shape. Live rows write blocks they
     own exclusively (shared prefix blocks are never a write target); dead
-    rows' writes land in the null block."""
+    rows' writes land in the null block. Several dead rows at T > 1 write
+    the same null-block positions: on CUDA which of them lands is not
+    determined, which is harmless only because that block is scratch that
+    no live row's window ever reads."""
     pool_leaf[block_ids.long(), offsets.long()] = token_rows.to(pool_leaf.dtype)
+
+
+def scatter_block_tokens(pool_leaf, token_rows, block_ids, offsets):
+    """Write T token rows per decode row into their tail blocks, in place,
+    for every layer at once: ``pool_leaf`` [L, NB, BS, ...];
+    ``token_rows`` [L, B, T, ...] (a verify's KV rows);
+    ``block_ids``/``offsets`` [B, T] (the T positions may span a block
+    boundary: the scheduler claims every tail block a verify can reach
+    first, ``ensure_tail_n``). Dead rows' entries all point at the null
+    block, so their colliding writes land in scratch, as in
+    ``scatter_block_token``."""
+    pool_leaf[:, block_ids.long(), offsets.long()] = token_rows.to(pool_leaf.dtype)
 
 
 def block_write_positions(block_tables, cache_len, t, block_size):
@@ -185,6 +202,18 @@ def decode_attention(q, k_cache, v_cache, cache_len):
         "bkgts,bskd->btkgd", (p / torch.clamp(l, min=1e-30)).to(v_cache.dtype), v_cache
     )
     return out.reshape(B, T, H, hd)
+
+
+def verify_attention(q, k_cache, v_cache, cache_len, *, backend=None):
+    """Multi-token attention over a dense decode cache: q [B,T,H,hd] are T
+    tokens at positions ``cache_len + arange(T)`` whose KV rows are
+    already written; query t attends positions < cache_len + t + 1 (a
+    speculative verify at T = K+1, a prefill chunk at T = its width). The
+    kernel backend runs the paged kernel over the identity-table view,
+    whose plan does not depend on T, so each query equals the sequential
+    decode's bitwise; the reference is ``decode_attention``'s masked
+    softmax with the extra query axis."""
+    return _cached_attention(q, k_cache, v_cache, cache_len, backend=backend)
 
 
 def _cached_attention(
@@ -317,8 +346,9 @@ def attention_block(
         T = k.shape[1]
         rows = torch.arange(B, device=x.device)[:, None]
         # dead slots keep decoding and their lengths keep growing; clamp the
-        # write start of every leaf the way the reference's
-        # dynamic_update_slice does
+        # write start of every leaf to Smax - T the way the reference's
+        # dynamic_update_slice does (T = K+1 for a verify, the chunk's
+        # width for a prefill chunk)
         start = cache_len.long().clamp(max=k_all.shape[2] - T)
         pos = start[:, None] + torch.arange(T, device=x.device)[None, :]
         if ks_all is None:

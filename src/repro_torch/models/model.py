@@ -15,8 +15,12 @@ to page. The hybrid (Zamba2) runs G = L / ``attn_every`` groups of
 ``attn_every`` SSM layers, each group followed by the shared attention
 block and its SwiGLU MLP with a KV cache of its own (one per site).
 ``kv_quant`` stores the slot layout's KV cache in int8 with bfloat16
-per-vector scales. Speculative verify and chunked prefill wait for
-ROADMAP §1 item 6; the other families for item 10.
+per-vector scales. ``verify_step`` and ``verify_step_paged`` run a
+speculative verify (T = K+1 tokens a row, one forward);
+``prefill_chunk`` is a verify over a batch-1 dense cache that commits
+only a chunk's real tokens, and ``seed_cache_with_prefix`` starts such a
+cache from a prefix-cache hit. The other families wait for ROADMAP §1
+item 10.
 """
 from __future__ import annotations
 
@@ -36,11 +40,27 @@ from repro_torch.models.layers import embed_tokens, rms_norm, swiglu
 # ``ATTN_FAMILIES``): only they can page it.
 ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
 
+# Families whose suffix prefill over a cached prefix equals a cold
+# prefill, so the paged layout may alias prompt blocks (the JAX package's
+# ``PREFIX_FAMILIES``: MoE routing depends on tokens a call, VLM patch rows
+# are not token-addressable).
+PREFIX_FAMILIES = ("dense", "audio")
+
+# Families the speculative verify serves: the KV cache must rewind
+# (truncating ``len`` un-commits rejected drafts). SSM and hybrid state
+# cannot rewind; MoE routing depends on tokens a call.
+SPEC_FAMILIES = ("dense", "audio", "vlm")
+
 # Families whose prefill may be right-padded to a bucketed shape without
 # changing tokens: pad keys sit after every real query, so causal masking
 # hides them. SSM is out: recurrent state integrates every position, pads
 # included.
 PAD_PREFILL_FAMILIES = ("dense", "audio", "vlm")
+
+# Families the chunked prefill serves: PREFIX_FAMILIES, for the same
+# reasons (a later chunk attends over cached earlier chunks as a suffix
+# attends over a prefix hit; VLM patch rows do not chunk).
+CHUNKED_PREFILL_FAMILIES = ("dense", "audio")
 
 PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
@@ -400,11 +420,19 @@ class Model:
         row's token written at its own length and ``len`` + 1; for the SSM
         family and the hybrid, each layer's state advanced one step). The
         cache tensors are updated in place."""
+        logits = self._step_slot(params, cache, tokens, backend)
+        return logits[:, 0], {**cache, "len": cache["len"] + 1}
+
+    def _step_slot(self, params, cache, tokens, backend):
+        """The slot layout's layer loop: tokens [B,T] at positions
+        ``len + arange(T)`` → logits [B,T,V], the cache written in place
+        (T = 1 for the SSM family and the hybrid)."""
         backend = kernel_ops.resolve_attention_backend(backend, self.device)
         tokens = self._tokens(tokens)
         x = embed_tokens(params["embed"], tokens)
         cache_len = cache["len"]
-        positions = cache_len[:, None].long()
+        T = tokens.shape[1]
+        positions = cache_len[:, None].long() + torch.arange(T, device=self.device)[None, :]
         family = self.cfg.family
 
         def ssm_step(x, li, lp):
@@ -431,7 +459,93 @@ class Model:
             for li, lp in enumerate(self._layer_params(params)):
                 x = step(x, li, lp)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return (x @ self._head(params))[:, 0], {**cache, "len": cache_len + 1}
+        return x @ self._head(params)
+
+    # ------------------------------------------------------------------
+    # speculative verify and chunked prefill
+    def _require_spec(self):
+        if self.cfg.family not in SPEC_FAMILIES:
+            raise ValueError(
+                f"verify_step is only greedy-equivalent for {SPEC_FAMILIES}, "
+                f"got {self.cfg.family!r} (SSM state cannot rewind; MoE capacity "
+                "routing depends on tokens-per-call)"
+            )
+
+    def verify_step(self, params, cache, tokens, *, backend=None):
+        """Slot layout: tokens [B,T] (the pending token and T-1 drafts) →
+        (logits [B,T,V], cache with the T rows written and ``len`` + T).
+        Position t's logits predict the token after ``tokens[:, t]``; the
+        caller rewinds the rejected tail afterwards (``truncate_rows``):
+        stale rows past ``len`` are masked off and overwritten later. The
+        cache tensors are updated in place; dense and int8 caches."""
+        self._require_spec()
+        logits = self._step_slot(params, cache, tokens, backend)
+        return logits, {**cache, "len": cache["len"] + tokens.shape[1]}
+
+    def paged_view(self, pool, block_tables):
+        """Dense [L, B, MB·BS, ...] per-row caches gathered from the block
+        pool through ``block_tables`` [B, MB] (copies)."""
+        return {name: attn.gather_block_rows(leaf, block_tables) for name, leaf in pool.items()}
+
+    def verify_step_paged(self, params, pool, block_tables, cache_len, tokens, *, backend=None):
+        """Speculative verify over the block pool: tokens [B,T] →
+        (logits [B,T,V], pool with the T rows written). The kernel backend
+        runs ``decode_step_paged``'s layer loop with T queries (the T
+        positions may cross a block boundary: the scheduler claims every
+        tail block first). The reference backend is the JAX package's
+        differential route: gather each row's dense view, run
+        ``verify_step`` on it, scatter the T new rows back through the
+        tables (``scatter_block_tokens``; dead rows' writes land in the
+        null block)."""
+        self._require_spec()
+        backend = kernel_ops.resolve_attention_backend(backend, self.device)
+        if backend != "reference":
+            return self._step_paged_kernel(params, pool, block_tables, cache_len, tokens, backend)
+        bs = pool["k"].shape[2]
+        T = tokens.shape[1]
+        dense = self.paged_view(pool, block_tables)
+        logits, new_dense = self.verify_step(
+            params, dict(dense, len=cache_len), tokens, backend="reference"
+        )
+        bid, off = attn.block_write_positions(block_tables, cache_len, T, bs)
+        pos = cache_len.long()[:, None] + torch.arange(T, device=self.device)[None, :]
+        rows = torch.arange(pos.shape[0], device=self.device)[:, None]
+        for name, leaf in pool.items():
+            attn.scatter_block_tokens(leaf, new_dense[name][:, rows, pos], bid, off)
+        return logits, pool
+
+    def prefill_chunk(self, params, cache, tokens, n_valid, *, backend=None):
+        """One chunk of an incremental prefill: ``tokens`` [B,W] (right-
+        padded to the chunk's pow2 width W) against a partly filled dense
+        cache, committing ``n_valid`` [B] rows. It is ``verify_step`` with
+        the length advanced by ``n_valid`` instead of W, so pad rows never
+        commit (they land past the new ``len``, overwritten by the next
+        chunk). Returns (logits [B,W,V], cache); ``logits[b,
+        n_valid[b]-1]`` predicts the token after the chunk's last real
+        token."""
+        if self.cfg.family not in CHUNKED_PREFILL_FAMILIES:
+            raise ValueError(
+                f"chunked prefill is only token-identical for "
+                f"{CHUNKED_PREFILL_FAMILIES}, got {self.cfg.family!r}"
+            )
+        logits, new_cache = self.verify_step(params, cache, tokens, backend=backend)
+        n = torch.as_tensor(np.asarray(n_valid), dtype=torch.int32).to(self.device)
+        new_cache["len"] = cache["len"] + n
+        return logits, new_cache
+
+    def seed_cache_with_prefix(self, prefix_k, prefix_v, max_seq):
+        """A dense batch-1 cache holding a prefix-cache hit's KV rows
+        ``prefix_k``/``prefix_v`` [L,1,h,KV,hd] (quantized for
+        ``kv_quant``), with ``len = h``: where ``prefill_chunk`` goes on."""
+        if self.cfg.family not in PREFIX_FAMILIES:
+            raise ValueError(
+                f"prefix seeding is only token-identical for {PREFIX_FAMILIES}, "
+                f"got {self.cfg.family!r}"
+            )
+        h = prefix_k.shape[2]
+        lengths = torch.full((prefix_k.shape[1],), h, dtype=torch.int32)
+        kvs = [(prefix_k[li], prefix_v[li]) for li in range(prefix_k.shape[0])]
+        return self._fill_cache(prefix_k.shape[1], max_seq, kvs, lengths)
 
     def decode_step_paged(self, params, pool, block_tables, cache_len, tokens, *, backend=None):
         """Paged layout: one decode token per row over the block pool

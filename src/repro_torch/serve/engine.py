@@ -6,9 +6,13 @@ open-loop entry, ``generate()`` the fixed-batch wrapper, both driving a
 ``set_decode_plan()`` make the decode step an Aira region whose accepted
 ``RegionPlan`` the slot layout's decode then runs through (``relic_pfor``
 over the requests, the paged kernel folded across them by its vmap
-rule). The engine runs on the model's device, CUDA unless the caller
-asks for the CPU. Options of the reference that are not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+rule). ``spec=SpecConfig(...)`` speculates K draft tokens a verify and
+``chunk_size`` chunks prefill (``0`` forces monolithic for one call),
+both as engine defaults or per call; requests carry priorities, and a
+higher-priority arrival preempts. The engine runs on the model's device,
+CUDA unless the caller asks for the CPU. Options of the reference that
+are not ported yet raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
 """
 from __future__ import annotations
 
@@ -24,8 +28,6 @@ from repro_torch.serve.request import Request, ServeStats  # noqa: F401 (re-expo
 from repro_torch.serve.scheduler import Scheduler, sorted_cache
 
 _NOT_PORTED = {
-    "spec": "speculative decoding (ROADMAP §1 item 6)",
-    "chunk_size": "chunked prefill (ROADMAP §1 item 6)",
     "controller": "the online adviser (ROADMAP §1 item 8)",
     "mesh": "sharded serving (ROADMAP §1 item 9)",
 }
@@ -57,7 +59,7 @@ class ServingEngine:
         chunk_size=None,
         mesh=None,
     ):
-        _refuse(spec=spec, chunk_size=chunk_size, mesh=mesh)
+        _refuse(mesh=mesh)
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(
@@ -72,6 +74,8 @@ class ServingEngine:
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.prefix_cache = prefix_cache
+        self.spec = spec  # default SpecConfig for serve()/scheduler()
+        self.chunk_size = chunk_size  # default chunked-prefill token budget
         self.attention_backend = kernel_ops.resolve_attention_backend(
             attention_backend, self.device
         )
@@ -92,9 +96,15 @@ class ServingEngine:
         controller=None,
     ) -> Scheduler:
         """A fresh scheduler over ``max_batch`` rows sharing this
-        engine's stats; ``kv_layout`` and ``attention_backend`` override
-        the engine defaults for it."""
-        _refuse(spec=spec, chunk_size=chunk_size or None, controller=controller)
+        engine's stats; ``kv_layout``, ``attention_backend``, ``spec``
+        (``SpecConfig(k=0)`` disables) and ``chunk_size`` (``0``
+        disables) override the engine defaults for it. The scheduler
+        binds the resolved backend into every step it runs, verify and
+        chunk included (the eager port has no jitted step family to
+        cache)."""
+        _refuse(controller=controller)
+        spec = spec if spec is not None else self.spec
+        chunk = chunk_size if chunk_size is not None else self.chunk_size
         return Scheduler(
             self.model,
             self.params,
@@ -109,6 +119,8 @@ class ServingEngine:
             prefix_cache=self.prefix_cache,
             attention_backend=attention_backend or self.attention_backend,
             decode_plan=self._decode_plan,
+            spec=spec,
+            chunk_size=int(chunk) if chunk else None,
         )
 
     def serve(
@@ -125,7 +137,9 @@ class ServingEngine:
         controller=None,
     ) -> dict:
         """Continuous-batching entry: drive ``requests`` (each with its
-        own arrival time, prompt and budget) to completion. Returns rid →
+        own arrival time, prompt, budget and priority) to completion,
+        optionally speculating (``spec``) and chunking prefill
+        (``chunk_size``; ``0`` forces monolithic). Returns rid →
         generated tokens."""
         _refuse(mesh=mesh)
         backend = kernel_ops.resolve_attention_backend(

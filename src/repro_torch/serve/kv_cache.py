@@ -9,6 +9,10 @@ an SSM state), with a prefix trie that lets prompts sharing a prefix
 alias the same immutable blocks. Pool tensors live on the model's device
 and are updated in place; block tables and lengths are host numpy, with
 device copies refreshed only when they change (``kernel_inputs``).
+Speculation rewinds both pools by the rejected tail (``truncate_row``,
+``truncate_rows``); preemption evicts a row (``preempt_row``), the paged
+pool first parking its committed full blocks in the trie so that the
+resume recomputes only the partial tail block.
 """
 from __future__ import annotations
 
@@ -63,6 +67,33 @@ class SlotKVCache:
         if self._owner[slot] is None:
             raise RuntimeError(f"write into free slot {slot}")
         self.model.write_cache_slot(self.cache, slot_cache, slot)
+
+    # ------------------------------------------------------------------
+    # speculative rollback
+    def truncate_row(self, slot: int, n_rejected: int) -> None:
+        """Rewind ``n_rejected`` rejected speculative entries off slot
+        ``slot``: the committed length drops; the stale rows past it are
+        masked off by ``len`` and overwritten by later writes."""
+        if self._owner[slot] is None:
+            raise RuntimeError(f"truncate of free slot {slot}")
+        lens = self.cache["len"]
+        lens[slot] = torch.clamp(lens[slot] - int(n_rejected), min=0)
+
+    def truncate_rows(self, n_rejected) -> None:
+        """Every row's length drops by its ``n_rejected`` [max_batch]
+        entry in one update, at 0 at least (dead and just-retired rows
+        pass the whole verify width, so their lengths return to the value
+        before the verify and never drift)."""
+        lens = self.cache["len"]
+        vec = torch.as_tensor(np.asarray(n_rejected, np.int32), device=lens.device)
+        self.cache["len"] = torch.clamp(lens - vec, min=0)
+
+    # ------------------------------------------------------------------
+    # preemption: the slot layout has no trie, so eviction frees the slot
+    # and the resume is a cold re-prefill
+    def preempt_row(self, slot: int, tokens=None) -> None:
+        del tokens
+        self.free(slot)
 
     def check_invariants(self) -> None:
         """Free and live slots partition the pool; the free list is sorted
@@ -147,11 +178,14 @@ class PagedKVCache:
         """Block ids of the longest cached full-block prefix of ``tokens``."""
         return self.prefix.match(tokens) if self.prefix is not None else []
 
-    def try_admit(self, rid: int, tokens, budget: int):
+    def try_admit(self, rid: int, tokens, budget: int, register: bool = True):
         """Admit ``rid`` into a free row if its block budget fits: returns
         (row, hit_ids) or None. Shared prefix blocks alias (refcount++),
         fresh prompt blocks are allocated now, the decode tail is only
-        reserved (claimed lazily by ``ensure_tail``)."""
+        reserved (claimed lazily by ``ensure_tail``). ``register=False``
+        defers the trie registration to ``register_prompt`` (chunked
+        prefill: the prompt blocks hold no KV yet, and a concurrent
+        admission must not alias half-written blocks)."""
         if not self._row_free:
             return None
         S = len(tokens)
@@ -178,11 +212,24 @@ class PagedKVCache:
         self.cache_len[row] = S
         self._tables_version += 1
         self._len_version += 1
-        if self.prefix is not None:
+        if register and self.prefix is not None:
             # the prompt's full blocks are immutable: decode never writes
             # before position S
             self.prefix.insert(tokens, blocks[: S // self.block_size])
         return row, hit_ids
+
+    def register_prompt(self, row: int, tokens) -> None:
+        """Register a live row's now-written prompt blocks in the trie
+        (the deferred half of ``try_admit(register=False)``); ``tokens``
+        is the prompt whose KV the row's leading blocks hold."""
+        if self._row_owner[row] is None:
+            raise RuntimeError(f"register_prompt on free row {row}")
+        if self.prefix is None:
+            return
+        n_full = min(len(tokens) // self.block_size, len(self._row_blocks[row]))
+        if n_full:
+            self.prefix.insert(tuple(tokens)[: n_full * self.block_size],
+                               self._row_blocks[row][:n_full])
 
     # ------------------------------------------------------------------
     # cache I/O
@@ -228,7 +275,13 @@ class PagedKVCache:
     def ensure_tail(self, row: int) -> None:
         """Claim the block the row's next decode write lands in, from its
         admission reservation, if it has none yet."""
-        need = self.blocks_for(int(self.cache_len[row]) + 1)
+        self.ensure_tail_n(row, 1)
+
+    def ensure_tail_n(self, row: int, n: int) -> None:
+        """Claim tail blocks so that the row's next ``n`` write positions
+        (a verify writes the pending token and K drafts at once) all have
+        a block, from the admission reservation."""
+        need = self.blocks_for(int(self.cache_len[row]) + n)
         while len(self._row_blocks[row]) < need:
             bi = len(self._row_blocks[row])
             assert bi < self.blocks_per_row
@@ -241,8 +294,38 @@ class PagedKVCache:
             self._outstanding_total -= 1
 
     def advance(self, row: int) -> None:
-        self.cache_len[row] += 1
+        self.advance_n(row, 1)
+
+    def advance_n(self, row: int, n: int) -> None:
+        """Count ``n`` KV rows written by one step (a verify's pending
+        token and K drafts); ``truncate_row`` then rewinds the rejected
+        tail."""
+        self.cache_len[row] += n
         self._len_version += 1
+
+    def truncate_row(self, row: int, n_rejected: int) -> None:
+        """Rewind ``n_rejected`` rejected draft rows off the row's tail:
+        the length drops, and claimed tail blocks past it return to the
+        allocator with their reservation restored, so a later verify can
+        claim them again. A verify writes past the prompt only, so the
+        rewind never reaches a shared or registered block (asserted)."""
+        if self._row_owner[row] is None:
+            raise RuntimeError(f"truncate of free row {row}")
+        new_len = int(self.cache_len[row]) - int(n_rejected)
+        assert new_len >= 0, "truncate below zero"
+        self.cache_len[row] = new_len
+        self._len_version += 1
+        keep = self.blocks_for(new_len)
+        while len(self._row_blocks[row]) > keep:
+            b = self._row_blocks[row].pop()
+            assert self.allocator.refcount[b] == 1 and (
+                self.prefix is None or not self.prefix.registered(b)
+            ), "truncate reached a shared/registered block"
+            self.allocator.free(b)
+            self.block_tables[row, len(self._row_blocks[row])] = self.null_block
+            self._tables_version += 1
+            self._row_outstanding[row] += 1
+            self._outstanding_total += 1
 
     def free_row(self, row: int) -> None:
         """Retire a request: drop one referent per block (registered
@@ -265,6 +348,32 @@ class PagedKVCache:
         self._tables_version += 1
         self._len_version += 1
         bisect.insort(self._row_free, row)
+
+    def preempt_row(self, row: int, tokens=None) -> None:
+        """Evict a live row, keeping its work: ``tokens`` (prompt and
+        committed generated tokens) registers the row's full blocks in the
+        trie before the row frees, so they park instead of vanishing and
+        the resume prefix-matches its whole committed history. Blocks
+        whose chain the trie already holds keep their first registration
+        and return to the free list. Without ``tokens`` (or a trie) this
+        is a plain eviction."""
+        if self._row_owner[row] is None:
+            raise RuntimeError(f"preempt of free row {row}")
+        if self.prefix is not None and tokens is not None:
+            n_full = min(len(tokens) // self.block_size, len(self._row_blocks[row]))
+            if n_full:
+                self.prefix.insert(tuple(tokens)[: n_full * self.block_size],
+                                   self._row_blocks[row][:n_full])
+        self.free_row(row)
+
+    def drop_cached(self) -> int:
+        """Evict every parked (cached, unreferenced) block, restoring the
+        cold path. Returns how many were evicted."""
+        n = 0
+        while self.allocator.n_parked:
+            self.allocator.evict(self.allocator.parked_lru()[0])
+            n += 1
+        return n
 
     def check_invariants(self) -> None:
         """Rows and blocks stay consistent: the allocator partition holds,

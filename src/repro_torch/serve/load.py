@@ -1,8 +1,8 @@
 """Open-loop load generation for the serving core.
 
-Port of the JAX package's ``serve/load.py``: Poisson arrivals
-(exponential inter-arrival gaps) with randomized prompt lengths and
-token budgets. Drawn from a numpy ``Generator``, so the same seed gives
+Port of the JAX package's ``serve/load.py`` (its drifting workload waits
+for ROADMAP §1 item 8): Poisson arrivals (exponential inter-arrival
+gaps) with randomized prompt lengths, token budgets and priorities. Drawn from a numpy ``Generator``, so the same seed gives
 the same workload to both packages.
 """
 from __future__ import annotations
@@ -35,6 +35,41 @@ def make_requests(
                 prompt=prompt,
                 max_new_tokens=int(rng.integers(lo, max_new_tokens + 1)),
                 arrival_time=float(arrivals[i]),
+            )
+        )
+    return reqs
+
+
+def make_slo_requests(
+    n: int,
+    rate_rps: float,
+    *,
+    vocab: int,
+    max_new_tokens: int,
+    short_lens=(8, 16),
+    long_len: int = 96,
+    long_every: int = 4,
+    short_priority: int = 1,
+    long_priority: int = 0,
+    rng: np.random.Generator,
+):
+    """The SLO workload: Poisson arrivals where every ``long_every``-th
+    request is a long, low-priority prompt and the rest are short,
+    high-priority interactive requests. The long prompts are the
+    monolithic-prefill stalls and, under pool pressure, the preemption
+    victims."""
+    arrivals = np.cumsum(rng.exponential(1.0 / rate_rps, size=n))
+    reqs = []
+    for i in range(n):
+        long = long_every > 0 and i % long_every == long_every - 1
+        s0 = int(long_len) if long else int(rng.choice(short_lens))
+        prompt = rng.integers(0, vocab, size=(s0,)).astype(np.int32)
+        reqs.append(
+            Request(
+                prompt=prompt,
+                max_new_tokens=int(max_new_tokens),
+                arrival_time=float(arrivals[i]),
+                priority=int(long_priority if long else short_priority),
             )
         )
     return reqs

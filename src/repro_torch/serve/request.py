@@ -1,7 +1,9 @@
 """Request lifecycle for the continuous-batching serving core.
 
 Port of the JAX package's ``serve/request.py``. States move queued →
-prefill → decode → finished; the scheduler owns every transition.
+prefill → decode → finished, with a preempted detour (decode → preempted
+→ prefill) when a higher-priority arrival needs the row; the scheduler
+owns every transition.
 Latency accounting is per request — TTFT (arrival to first token,
 queueing included), queue wait (arrival to first admission), TPOT
 (decode time per later token) and end-to-end — aggregated across a run
@@ -22,6 +24,7 @@ from repro_torch.serve.telemetry import MetricsRegistry, quantile
 QUEUED = "queued"
 PREFILL = "prefill"
 DECODE = "decode"
+PREEMPTED = "preempted"
 FINISHED = "finished"
 
 _RID = itertools.count()
@@ -35,7 +38,7 @@ class Request:
     max_new_tokens: int
     arrival_time: float = 0.0  # seconds from run start (open-loop schedule)
     eos_id: Optional[int] = None  # early finish on this token
-    priority: int = 0  # non-zero priorities need preemption (ROADMAP §1 item 6)
+    priority: int = 0  # higher = more important (strict-priority admission)
     rid: int = field(default_factory=lambda: next(_RID))
 
     # lifecycle — owned by the scheduler
@@ -46,6 +49,9 @@ class Request:
     t_admit: Optional[float] = None  # prefill started (slot allocated)
     t_first: Optional[float] = None  # first token available
     t_finish: Optional[float] = None
+    # preempt/resume — owned by the scheduler
+    preemptions: int = 0  # times this request was evicted mid-decode
+    sample_state: Any = None  # its row sampler's state, saved across preemption
     t_first_admit: Optional[float] = None  # first admission (queue wait ends)
 
     @property
@@ -95,9 +101,11 @@ class Request:
 class ServeStats:
     """Per-run latency aggregates on a ``MetricsRegistry``: step
     wall-clock plus the per-request TTFT/TPOT/e2e series recorded as
-    requests retire. ``serving_summary()`` has the JAX package's schema
-    for a run without speculation or a controller (the sections those
-    add arrive with ROADMAP §1 items 6 and 8)."""
+    requests retire, the draft/verify split of each speculation round, and
+    the counters behind the prefix hit rate, preemption and the
+    acceptance rate. ``serving_summary()`` has the JAX package's schema
+    for a run without a controller (its section arrives with ROADMAP §1
+    item 8)."""
 
     _SERIES = {
         "step_ms": "serve.step_ms",
@@ -106,15 +114,23 @@ class ServeStats:
         "e2e_ms": "serve.e2e_ms",
         "queue_wait_ms": "serve.queue_wait_ms",
         "service_ttft_ms": "serve.service_ttft_ms",
+        # speculative-decode per-round latency split (draft vs verify)
+        "draft_ms": "serve.draft_ms",
+        "verify_ms": "serve.verify_ms",
     }
     _COUNTERS = {
         "prompt_tokens": "serve.prompt_tokens",
         "prefix_hit_tokens": "serve.prefix_hit_tokens",
         "n_prefix_hits": "serve.n_prefix_hits",
-        # stay 0 until preemption is ported; kept so the schema matches
+        # preemption accounting (priority scheduling under pool pressure)
         "n_preemptions": "serve.preemptions",
         "recomputed_tokens": "serve.recomputed_tokens",
         "rejected_submissions": "serve.rejected_submissions",
+        # speculative-decode proposed/accepted behind the acceptance rate
+        "spec_k": "serve.spec_k",
+        "spec_steps": "serve.spec_steps",
+        "spec_proposed": "serve.spec_proposed",
+        "spec_accepted": "serve.spec_accepted",
     }
 
     def __init__(self, registry: Optional[MetricsRegistry] = None):
@@ -144,6 +160,11 @@ class ServeStats:
     def prefix_hit_rate(self) -> float:
         """Fraction of prompt tokens served from the prefix cache."""
         return self.prefix_hit_tokens / self.prompt_tokens if self.prompt_tokens else 0.0
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens the verify accepted."""
+        return self.spec_accepted / self.spec_proposed if self.spec_proposed else 0.0
 
     def percentile(self, p, series: str = "step_ms") -> float:
         """Linear-interpolated percentile (``numpy.percentile``'s default)."""
@@ -176,6 +197,16 @@ class ServeStats:
             have = bool(self.ttft_ms) and bool(getattr(self, series))
             for p in (50, 99):
                 out[f"p{p}_{name}_ms"] = self.percentile(p, series) if have else None
+        if self.spec_steps:
+            out["speculative"] = {
+                "k": self.spec_k,
+                "acceptance_rate": self.acceptance_rate,
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "spec_steps": self.spec_steps,
+                "p50_draft_ms": self.percentile(50, "draft_ms"),
+                "p50_verify_ms": self.percentile(50, "verify_ms"),
+            }
         return out
 
 

@@ -1,17 +1,33 @@
 """Continuous-batching scheduler over a slotted or block-paged pool.
 
-Port of the core of the JAX package's ``serve/scheduler.py``. Each
-``step()``:
+Port of the JAX package's ``serve/scheduler.py`` (without its tracer
+annotations and online controller, ROADMAP §1 item 8). Each ``step()``:
 
-  1. admits arrived queued requests: slotted admission prefills a wave of
-     same-bucket prompts as one batched call (same-length prompts for the
-     SSM family, whose state would integrate pads) and writes each row
-     into its slot; paged admission charges blocks one request at a time and, on a
-     prefix-cache hit, prefills only the un-cached suffix. The first token
-     is sampled from the prefill logits (that instant is the TTFT);
-  2. runs ONE batched decode over the full fixed-size row pool — dead
-     rows flow through and their outputs are ignored;
-  3. samples the next token per live row and retires requests that hit
+  1. admits arrived queued requests in strict priority order (higher
+     ``priority`` first, then arrival, then rid): slotted admission
+     prefills a wave of same-bucket prompts as one batched call
+     (same-length prompts for the SSM family, whose state would integrate
+     pads) and writes each row into its slot; paged admission charges
+     blocks one request at a time and, on a prefix-cache hit, prefills
+     only the un-cached suffix. The first token is sampled from the
+     prefill logits (that instant is the TTFT). When the pool is dry and
+     the queue head outranks a live row, the lowest-priority row is
+     *preempted*: its tokens and sampler state stay on the request, the
+     paged layout parks its committed full blocks in the prefix trie, and
+     the resume re-prefills only what the trie does not hold;
+  2. with ``chunk_size`` set, admission only reserves, and at most
+     ``chunk_size`` prompt tokens of prefill run a step, one
+     ``prefill_chunk`` call per slice of an in-flight prompt (highest
+     priority first), each padded to its pow2 width: a long prompt never
+     stalls the decode stream for more than a chunk;
+  3. runs ONE batched decode over the full fixed-size row pool — dead
+     rows flow through and their outputs are ignored — or, with
+     ``spec=SpecConfig(k>0)``, one draft → verify round: the drafter
+     proposes K tokens a row, one ``verify_step`` forward over K+1 tokens
+     prices them, greedy-equivalence acceptance commits the matched
+     prefix plus the corrected token, and the pools (and a model
+     drafter's cache) rewind the rejected tail;
+  4. samples the next token per live row and retires requests that hit
      their budget or EOS, freeing their slot or blocks.
 
 ``step_ms`` times the whole step and is taken after a device
@@ -19,22 +35,43 @@ synchronise, so it measures the work and not just its launch. Driving is
 open-loop: ``run()`` injects requests at their ``arrival_time``. With a
 decode plan set (``set_decode_plan``; slot layout only) the decode runs
 through the plan's masked executor over the whole pool, the live rows as
-its mask. Chunked prefill, speculation and preemption wait for ROADMAP §1
-item 6.
+its mask.
+
+The reference's promise of one jit trace per step shape is, in the eager
+port, a closed family of step widths: ``widths`` counts the prompt widths
+of the monolithic prefills, the chunk widths and the verify widths this
+scheduler ran, and after ``prime()`` every chunk width lies in
+``primed_widths`` (the pow2 widths up to ``chunk_size``) and every verify
+width is K+1.
 """
 from __future__ import annotations
 
 import time
-from typing import Optional
+from collections import Counter
+from dataclasses import dataclass
+from typing import Any, Optional
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.model import PAD_PREFILL_FAMILIES, prefill_bucket
+from repro_torch.models.model import (
+    CHUNKED_PREFILL_FAMILIES,
+    PAD_PREFILL_FAMILIES,
+    SPEC_FAMILIES,
+    prefill_bucket,
+)
 from repro_torch.serve.kv_cache import PagedKVCache, SlotKVCache
-from repro_torch.serve.request import DECODE, FINISHED, PREFILL, QUEUED, Request, ServeStats
+from repro_torch.serve.request import (
+    DECODE,
+    FINISHED,
+    PREEMPTED,
+    PREFILL,
+    QUEUED,
+    Request,
+    ServeStats,
+)
 
 
 def sorted_cache(tree):
@@ -46,6 +83,20 @@ def sorted_cache(tree):
     if isinstance(tree, dict):
         return {k: sorted_cache(tree[k]) for k in sorted(tree)}
     return tree
+
+
+@dataclass
+class _ChunkState:
+    """An in-flight chunked prefill: the request's own batch-1 dense cache
+    (seeded from a prefix hit when there was one) and the cursor into its
+    effective prompt. Installed into the pool when ``pos`` reaches the
+    end."""
+
+    req: Request
+    cache: Any  # batch-1 dense cache; len counts the committed chunk rows
+    prompt: np.ndarray  # effective prompt (prompt + committed tokens on resume)
+    pos: int  # next prompt position to prefill (starts at the prefix hit)
+    skip_blocks: int  # leading prefix-hit blocks write_prefill must not touch
 
 
 class Scheduler:
@@ -65,6 +116,8 @@ class Scheduler:
         prefix_cache: bool = True,
         attention_backend: Optional[str] = None,
         decode_plan=None,
+        spec=None,
+        chunk_size: Optional[int] = None,
     ):
         self.model = model
         self.params = params
@@ -94,11 +147,49 @@ class Scheduler:
         # pow2 prompt-shape bucketing (pad + mask) only where pads cannot
         # change tokens; other families group prompts by exact length
         self._bucket = model.cfg.family in PAD_PREFILL_FAMILIES
-        self._queue: list[Request] = []  # sorted by (arrival_time, rid)
+        if chunk_size is not None:
+            chunk_size = int(chunk_size)
+            if chunk_size < 1 or chunk_size & (chunk_size - 1):
+                raise ValueError(
+                    f"chunk_size must be a power of two >= 1, got {chunk_size} "
+                    "(chunks pad to pow2 widths; a cap off a power of two would "
+                    "add a width of its own for every partial chunk)"
+                )
+            if model.cfg.family not in CHUNKED_PREFILL_FAMILIES:
+                raise ValueError(
+                    f"chunked prefill needs a {CHUNKED_PREFILL_FAMILIES} family "
+                    f"(length-addressed KV cache), got {model.cfg.family!r}"
+                )
+        self.chunk_size = chunk_size
+        # speculative decode: a draft stream and the fused verify step
+        self.spec = spec if (spec is not None and spec.k > 0) else None
+        self._drafter = None
+        if self.spec is not None:
+            if model.cfg.family not in SPEC_FAMILIES:
+                raise ValueError(
+                    f"speculative decode needs a {SPEC_FAMILIES} family "
+                    f"(rewindable KV cache), got {model.cfg.family!r}"
+                )
+            if self.temperature > 0.0:
+                raise ValueError(
+                    "speculative decode is greedy-equivalence only; serve with temperature=0"
+                )
+            if decode_plan is not None:
+                raise ValueError(
+                    "speculation and decode plans both rewrite the decode step — "
+                    "set one or the other"
+                )
+            self._drafter = self.spec.make_drafter(attention_backend=self.attention_backend)
+            self._drafter.bind(max_batch, max_seq)
+        self._queue: list[Request] = []  # sorted by _queue_key
         self._active: dict[int, Request] = {}  # row → request
+        self._chunking: dict[int, _ChunkState] = {}  # row → in-flight chunked prefill
         self._n_admitted = 0  # per-run admission ordinal (seeds sampling)
+        self._ordinals: dict[int, int] = {}  # rid → ordinal, admission → first sample
         self._tok = np.zeros((max_batch,), np.int64)  # pending token per row
-        self._gens: dict[int, torch.Generator] = {}  # row → sampler (temperature > 0)
+        self._gens: dict[int, Optional[torch.Generator]] = {}  # row → sampler
+        self.widths = {"prefill": Counter(), "chunk": Counter(), "verify": Counter()}
+        self.primed_widths: set = set()
         self._t0: Optional[float] = None
         self._decode_plan = None
         if decode_plan is not None:
@@ -109,11 +200,14 @@ class Scheduler:
     def set_decode_plan(self, plan) -> None:
         """Route the pool decode through an accepted ``RegionPlan`` (as
         produced by advising ``decode_region`` — stack combine only,
-        since request order is externally visible). Speculation, which a
-        plan excludes in the JAX package, is not ported (the engine
-        refuses ``spec=``)."""
+        since request order is externally visible)."""
         if plan is not None and self.kv_layout == "paged":
             raise ValueError("decode plans are not supported on the paged layout")
+        if plan is not None and self.spec is not None:
+            raise ValueError(
+                "speculation and decode plans both rewrite the decode step "
+                "— set one or the other"
+            )
         if plan is not None and plan.key.combine != "stack":
             raise ValueError(
                 "decode plan must preserve per-request order (combine='stack')"
@@ -144,18 +238,26 @@ class Scheduler:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @property
+    def _spec_margin(self) -> int:
+        """Row capacity a verify can overhang: the last verify before a
+        request retires may write K rejected rows past its final length."""
+        return self.spec.k if self.spec is not None else 0
+
+    @staticmethod
+    def _queue_key(req: Request):
+        """Strict priority (higher first), then arrival, then rid."""
+        return (-req.priority, req.arrival_time, req.rid)
+
     def submit(self, req: Request) -> None:
-        if req.priority != 0:
-            raise NotImplementedError(
-                "request priorities need preemption, which is not ported yet "
-                "(ROADMAP §1 item 6)"
-            )
-        need = int(np.asarray(req.prompt).shape[0]) + req.max_new_tokens
+        need = int(np.asarray(req.prompt).shape[0]) + req.max_new_tokens + self._spec_margin
         if need > self.max_seq:
             # past max_seq a cache write would land out of the row
             self.stats.rejected_submissions += 1
+            margin = (f" (incl. speculative margin K={self._spec_margin})"
+                      if self._spec_margin else "")
             raise ValueError(
-                f"request {req.rid}: prompt + max_new_tokens = {need} exceeds "
+                f"request {req.rid}: prompt + max_new_tokens = {need}{margin} exceeds "
                 f"the row capacity max_seq={self.max_seq}"
             )
         if self.kv_layout == "paged" and self.kv.blocks_for(need) > self.kv.num_blocks:
@@ -167,7 +269,7 @@ class Scheduler:
             )
         req.state = QUEUED
         self._queue.append(req)
-        self._queue.sort(key=lambda r: (r.arrival_time, r.rid))
+        self._queue.sort(key=self._queue_key)
 
     # ------------------------------------------------------------------
     # sampling
@@ -188,17 +290,31 @@ class Scheduler:
 
     # ------------------------------------------------------------------
     # lifecycle
-    def _note_admitted(self, req: Request, now: float) -> int:
+    def _note_admitted(self, req: Request, now: float) -> None:
+        """Queue wait ends at the first admission (a re-admission after
+        preemption does not reset it); the sampling ordinal is assigned
+        once — a resumed request continues its saved sampler instead."""
         if req.t_first_admit is None:
             req.t_first_admit = now
+        if not req.tokens:
+            self._ordinals[req.rid] = self._n_admitted
+            self._n_admitted += 1
         req.state, req.t_admit = PREFILL, now
-        self._n_admitted += 1
-        return self._n_admitted - 1
 
-    def _start_decode(self, req: Request, row: int, logits_row, ordinal: int) -> None:
+    @staticmethod
+    def _effective_prompt(req: Request) -> np.ndarray:
+        """The tokens a (re-)prefill commits: the prompt plus, on resume,
+        every generated token but the pending last one (it is fed to the
+        next decode, never written ahead)."""
+        prompt = np.asarray(req.prompt)
+        if len(req.tokens) <= 1:
+            return prompt
+        return np.concatenate([prompt, np.asarray(req.tokens[:-1], prompt.dtype)])
+
+    def _start_decode(self, req: Request, row: int, logits_row) -> None:
         """Sample the first token from the prefill logits (TTFT is this
         instant) and arm the decode row."""
-        gen = self._generator(ordinal)
+        gen = self._generator(self._ordinals.pop(req.rid))
         tok0 = self._sample_row(logits_row, gen)
         req.t_first = self._clock()
         req.tokens.append(tok0)
@@ -209,6 +325,29 @@ class Scheduler:
         if len(req.tokens) >= req.max_new_tokens or tok0 == req.eos_id:
             self._retire(req, self._clock())
 
+    def _resume_decode(self, req: Request, row: int) -> None:
+        """Re-arm a preempted request mid-stream: its pending token and
+        its sampler's saved state come back, so the continued stream is
+        the uninterrupted one token for token."""
+        req.state = DECODE
+        self._tok[row] = int(req.tokens[-1])
+        gen = None
+        if req.sample_state is not None:
+            gen = torch.Generator(device=self.device)
+            gen.set_state(req.sample_state)
+        self._gens[row] = gen
+        self._active[row] = req
+
+    def _arm(self, req: Request, row: int, logits_row) -> None:
+        """The admission tail shared by every path: first token or resume,
+        then the drafter catches up on the row's history."""
+        if req.tokens:
+            self._resume_decode(req, row)
+        else:
+            self._start_decode(req, row, logits_row)
+        if self._drafter is not None and not req.finished:
+            self._drafter.on_admit(row, req)
+
     def _padded(self, prompts, W: int):
         mat = np.zeros((len(prompts), W), np.int64)
         for i, p in enumerate(prompts):
@@ -217,58 +356,146 @@ class Scheduler:
         return torch.from_numpy(mat).to(self.device), lens
 
     def _admit(self, reqs: list, now: float) -> None:
-        """Slotted admission of a wave: prompts of one pow2 bucket (of one
-        length, without bucketing) prefill as ONE batched call, each row
-        then written into its own slot."""
-        ordinals = {r.rid: self._note_admitted(r, now) for r in reqs}
+        """Slotted admission of a wave: effective prompts of one pow2
+        bucket (of one length, without bucketing) prefill as ONE batched
+        call, each row then written into its own slot. Resumed requests
+        re-prefill prompt + committed tokens and continue their stream."""
+        for req in reqs:
+            self._note_admitted(req, now)
         groups: dict[int, list] = {}
         for req in reqs:
-            S = int(np.asarray(req.prompt).shape[0])
+            eff = self._effective_prompt(req)
+            S = len(eff)
             W = prefill_bucket(S) if self._bucket else S
-            groups.setdefault(S if W > self.max_seq else W, []).append(req)
+            groups.setdefault(S if W > self.max_seq else W, []).append((req, eff))
         for W, group in groups.items():
-            toks, lens = self._padded([np.asarray(r.prompt) for r in group], W)
+            toks, lens = self._padded([eff for _, eff in group], W)
+            self.widths["prefill"][W] += 1
             logits, cache = self.model.prefill(
                 self.params, toks, self.max_seq, prompt_len=lens if self._bucket else None,
                 backend=self.attention_backend,
             )
-            for i, req in enumerate(group):
+            for i, (req, eff) in enumerate(group):
                 slot = self.kv.alloc(req.rid)
                 req.slot = slot
                 self.kv.write(slot, self.model.read_cache_slot(cache, i))
-                self._start_decode(req, slot, logits[i], ordinals[req.rid])
+                if req.tokens:
+                    self.stats.recomputed_tokens += len(eff)
+                self._arm(req, slot, logits[i])
+
+    def _start_chunk_slot(self, req: Request, now: float) -> None:
+        """Slotted chunked admission: claim the slot now, prefill later in
+        ``chunk_size`` slices. The slot's pool row holds junk until the
+        install (the row is not active, so its decode outputs are ignored,
+        and ``kv.write`` replaces every leaf)."""
+        self._note_admitted(req, now)
+        slot = self.kv.alloc(req.rid)
+        req.slot = slot
+        eff = self._effective_prompt(req)
+        if req.tokens:
+            self.stats.recomputed_tokens += len(eff)
+        self._chunking[slot] = _ChunkState(
+            req=req, cache=self.model.init_cache(1, self.max_seq), prompt=eff,
+            pos=0, skip_blocks=0,
+        )
 
     def _try_admit_paged(self, req: Request, now: float) -> bool:
-        """Paged admission of one request: prefix-match the prompt, charge
-        the block budget, prefill only the un-cached suffix on a hit.
-        False when the row/block budget does not fit yet."""
-        prompt = np.asarray(req.prompt)
-        got = self.kv.try_admit(req.rid, tuple(int(t) for t in prompt), req.max_new_tokens)
+        """Paged admission of one request: prefix-match the effective
+        prompt, charge the block budget, prefill only the un-cached suffix
+        on a hit (a resumed request's committed blocks were parked at
+        preemption, so its resume is usually one partial block of
+        recompute). False when the row/block budget does not fit yet.
+        With chunking on, admission only reserves: the prompt runs through
+        ``_prefill_phase`` and the trie registration waits until its
+        blocks hold KV."""
+        resume = bool(req.tokens)
+        eff = self._effective_prompt(req)
+        # the budget carries the speculative margin (a verify's rejected
+        # tail occupies blocks past the final length for a moment); a
+        # resume charges only the remaining budget, +1 for the pending
+        # token, so len(eff) + budget is the fresh admission's worst case
+        budget = req.max_new_tokens + self._spec_margin
+        if resume:
+            budget -= len(req.tokens) - 1
+        got = self.kv.try_admit(req.rid, tuple(int(t) for t in eff), budget,
+                                register=self.chunk_size is None)
         if got is None:
             return False
         row, hit_ids = got
-        ordinal = self._note_admitted(req, now)
+        self._note_admitted(req, now)
         req.slot = row
         hit = len(hit_ids) * self.kv.block_size
-        req.prefix_hit = hit
+        if resume:
+            self.stats.recomputed_tokens += len(eff) - hit
+        else:
+            # the first admission's hit feeds the prompt-token hit rate
+            req.prefix_hit = hit
         be = self.attention_backend
+        if self.chunk_size is not None:
+            if hit:
+                pk, pv = self.kv.gather_prefix(hit_ids)
+                cache = self.model.seed_cache_with_prefix(pk, pv, self.max_seq)
+            else:
+                cache = self.model.init_cache(1, self.max_seq)
+            self._chunking[row] = _ChunkState(
+                req=req, cache=cache, prompt=eff, pos=hit, skip_blocks=len(hit_ids))
+            return True
         if hit:
-            suffix = prompt[hit:]
+            suffix = eff[hit:]
             W = prefill_bucket(len(suffix))
-            toks, lens = self._padded([suffix], len(suffix) if hit + W > self.max_seq else W)
+            W = len(suffix) if hit + W > self.max_seq else W
+            toks, lens = self._padded([suffix], W)
             pk, pv = self.kv.gather_prefix(hit_ids)
             logits, cache = self.model.prefill_with_prefix(
                 self.params, toks, pk, pv, self.max_seq, suffix_len=lens, backend=be
             )
         else:
-            W = prefill_bucket(len(prompt))
-            toks, lens = self._padded([prompt], len(prompt) if W > self.max_seq else W)
+            W = prefill_bucket(len(eff))
+            W = len(eff) if W > self.max_seq else W
+            toks, lens = self._padded([eff], W)
             logits, cache = self.model.prefill(
                 self.params, toks, self.max_seq, prompt_len=lens, backend=be
             )
+        self.widths["prefill"][W] += 1
         self.kv.write_prefill(row, cache, skip_blocks=len(hit_ids))
-        self._start_decode(req, row, logits[0], ordinal)
+        self._arm(req, row, logits[0])
         return True
+
+    # ------------------------------------------------------------------
+    # priority preemption
+    def _maybe_preempt(self, head: Request) -> bool:
+        """Evict the lowest-priority live row to make room for ``head`` —
+        only when ``head`` strictly outranks it (equal priorities never
+        preempt each other: two requests would trade one row forever).
+        Ties go to the most recently admitted victim (least work lost).
+        True when a row was freed."""
+        victims = [
+            (req.priority, -(req.t_admit or 0.0), -req.rid, row)
+            for row, req in self._active.items()
+            if req.priority < head.priority
+        ]
+        if not victims:
+            return False
+        self._preempt(min(victims)[3])
+        return True
+
+    def _preempt(self, row: int) -> None:
+        """Evict a live decode row, keeping its stream resumable: the
+        generated tokens and the sampler's state stay on the request; the
+        paged layout parks its committed full blocks in the trie."""
+        req = self._active.pop(row)
+        gen = self._gens.pop(row, None)
+        req.sample_state = None if gen is None else gen.get_state()
+        committed = None
+        if self.kv_layout == "paged":
+            committed = tuple(int(t) for t in self._effective_prompt(req))
+        self.kv.preempt_row(row, committed)
+        req.state = PREEMPTED
+        req.slot = None
+        req.preemptions += 1
+        self.stats.n_preemptions += 1
+        self._queue.append(req)
+        self._queue.sort(key=self._queue_key)
 
     def _retire(self, req: Request, now: float) -> None:
         req.state, req.t_finish = FINISHED, now
@@ -303,38 +530,183 @@ class Scheduler:
         self._sync()
         return logits
 
+    def _spec_step(self) -> None:
+        """One draft → verify round over the full pool. The drafter
+        proposes K tokens a row; ONE verify forward over [max_batch, K+1]
+        gives each position's target logits; greedy-equivalence acceptance
+        commits each row's matched draft prefix plus the corrected argmax
+        token, so the stream is the plain greedy one token for token. Then
+        the pools rewind the rejected tail (slot lengths in one update,
+        paged rows releasing their unneeded tail blocks) and a stateful
+        drafter rolls back by the same per-row vector."""
+        K = self.spec.k
+        t_start = time.perf_counter()
+        drafts = self._drafter.propose(self._active, self._tok)
+        t_draft = time.perf_counter()
+        self.stats.draft_ms.append((t_draft - t_start) * 1e3)
+        tokens_in = torch.from_numpy(
+            np.concatenate([self._tok[:, None], np.asarray(drafts, np.int64)], axis=1)
+        ).to(self.device)
+        be = self.attention_backend
+        self.widths["verify"][K + 1] += 1
+        if self.kv_layout == "paged":
+            for row in self._active:
+                self.kv.ensure_tail_n(row, K + 1)
+            pool, tables, lens = self.kv.kernel_inputs()
+            logits, self.kv.pool = self.model.verify_step_paged(
+                self.params, pool, tables, lens, tokens_in, backend=be)
+        else:
+            logits, self.kv.cache = self.model.verify_step(
+                self.params, self.kv.cache, tokens_in, backend=be)
+        greedy = torch.argmax(logits, dim=-1).cpu().numpy()  # [max_batch, K+1]
+        self.stats.verify_ms.append((time.perf_counter() - t_draft) * 1e3)
+        self.stats.spec_k = K
+        self.stats.spec_steps += 1
+
+        # acceptance: commit the matched prefix and the corrected token
+        rej = np.full((self.kv.max_batch,), K + 1, np.int32)
+        for row, req in list(self._active.items()):
+            d, g = drafts[row], greedy[row]
+            a = 0
+            while a < K and d[a] == g[a]:
+                a += 1
+            self.stats.spec_proposed += K
+            self.stats.spec_accepted += a
+            done = False
+            for t in [int(t) for t in d[:a]] + [int(g[a])]:
+                req.tokens.append(t)
+                if len(req.tokens) >= req.max_new_tokens or t == req.eos_id:
+                    done = True
+                    break
+            if done:
+                # budget or EOS mid-stream: the row retires, its junk tail
+                # (and, paged, all its blocks) goes with it
+                self._retire(req, self._clock())
+            else:
+                self._tok[row] = req.tokens[-1]
+                # valid new rows: the pending token and a accepted drafts
+                # (the corrected token is pending, not cached)
+                rej[row] = K - a
+                if self.kv_layout == "paged":
+                    self.kv.advance_n(row, K + 1)
+                    self.kv.truncate_row(row, K - a)
+        if self.kv_layout != "paged":
+            # dead and retired rows rewind the whole verify width, so their
+            # lengths return to the value before the verify
+            self.kv.truncate_rows(rej)
+        self._drafter.rollback(rej)
+
     def _admit_phase(self, now: float) -> bool:
-        """Admit arrived requests in arrival order while capacity lasts."""
+        """Admit arrived requests, highest priority first, preempting a
+        strictly lower-priority live row when the pool is dry. It ends:
+        each admission takes capacity, and each preemption strictly raises
+        the live set's priorities."""
         admitted = False
         while True:
             arrived = [r for r in self._queue if r.arrival_time <= now]
             if not arrived:
                 return admitted
+            head = arrived[0]
             if self.kv_layout == "paged":
-                if not self._try_admit_paged(arrived[0], now):
-                    return admitted
-                self._queue.remove(arrived[0])
+                if self._try_admit_paged(head, now):
+                    self._queue.remove(head)
+                    admitted = True
+                    continue
             else:
                 wave = arrived[: self.kv.n_free]
-                if not wave:
-                    return admitted
-                for r in wave:
-                    self._queue.remove(r)
-                self._admit(wave, now)
-            admitted = True
+                if wave:
+                    for r in wave:
+                        self._queue.remove(r)
+                    if self.chunk_size is not None:
+                        for r in wave:
+                            self._start_chunk_slot(r, now)
+                    else:
+                        self._admit(wave, now)
+                    admitted = True
+                    continue
+            if not self._maybe_preempt(head):
+                return admitted
+
+    def _prefill_phase(self) -> bool:
+        """Spend at most ``chunk_size`` prompt tokens of chunked prefill,
+        highest-priority request first: each slice is one
+        ``prefill_chunk`` call padded to its pow2 width (≤ chunk_size),
+        halved while it would overrun the row. A prompt that completes
+        installs into the pool and samples its first token this step."""
+        if not self._chunking:
+            return False
+        budget = self.chunk_size
+        while budget > 0 and self._chunking:
+            row, st = min(self._chunking.items(), key=lambda it: self._queue_key(it[1].req))
+            n = min(budget, len(st.prompt) - st.pos)
+            W = prefill_bucket(n, self.chunk_size)
+            while st.pos + W > self.max_seq:  # the pad rows would overrun the row
+                W //= 2
+            n = min(n, W)
+            toks = np.zeros((1, W), np.int64)
+            toks[0, :n] = st.prompt[st.pos : st.pos + n]
+            self.widths["chunk"][W] += 1
+            logits, st.cache = self.model.prefill_chunk(
+                self.params, st.cache, torch.from_numpy(toks).to(self.device), [n],
+                backend=self.attention_backend,
+            )
+            st.pos += n
+            budget -= n
+            if st.pos == len(st.prompt):
+                del self._chunking[row]
+                self._install_chunked(st, row, logits[0, n - 1])
+        return True
+
+    def _install_chunked(self, st: _ChunkState, row: int, logits_row) -> None:
+        """A fully chunked prompt lands in the pool: paged rows write their
+        fresh blocks (prefix-hit blocks are shared and stay) and register
+        the prompt in the trie now that its blocks hold KV; slotted rows
+        install the whole dense cache."""
+        if self.kv_layout == "paged":
+            self.kv.write_prefill(row, st.cache, skip_blocks=st.skip_blocks)
+            self.kv.register_prompt(row, tuple(int(t) for t in st.prompt))
+        else:
+            self.kv.write(row, st.cache)
+        self._arm(st.req, row, logits_row)
+
+    def prime(self) -> None:
+        """Run one chunk at each pow2 width W ≤ ``chunk_size`` on a
+        throwaway cache, warming the kernel plans and the build. The
+        family is closed: every slice ``_prefill_phase`` can emit pads to
+        one of these widths (``primed_widths``). No-op without chunking."""
+        if self.chunk_size is None:
+            return
+        W = 1
+        while W <= self.chunk_size:
+            cache = self.model.init_cache(1, self.max_seq)
+            toks = torch.zeros((1, W), dtype=torch.long, device=self.device)
+            self.model.prefill_chunk(self.params, cache, toks, [W],
+                                     backend=self.attention_backend)
+            self.primed_widths.add(W)
+            W *= 2
+        self._sync()
 
     def step(self, now: Optional[float] = None) -> bool:
-        """Admit arrived requests, then run one batched decode over the
-        live set. Returns False when there was nothing to do."""
+        """Admit arrived requests, spend the chunked-prefill budget, then
+        run one batched decode (or one speculation round) over the live
+        set. Returns False when there was nothing to do. ``step_ms``
+        covers the whole step, so prefill stalls show in the tail they
+        cause."""
         if now is None:
             now = self._clock()
         t0 = time.perf_counter()
         admitted = self._admit_phase(now)
+        chunked = self._prefill_phase()
         if not self._active:
-            if admitted:
+            if admitted or chunked:
                 self._sync()
                 self.stats.step_ms.append((time.perf_counter() - t0) * 1e3)
-            return admitted
+                return True
+            return False
+        if self.spec is not None:
+            self._spec_step()
+            self.stats.step_ms.append((time.perf_counter() - t0) * 1e3)
+            return True
         logits = self._decode_pool()
         self.stats.step_ms.append((time.perf_counter() - t0) * 1e3)
         if self.kv_layout == "paged":
@@ -362,8 +734,10 @@ class Scheduler:
         requests = list(requests or [])
         for r in requests:
             self.submit(r)
-        while self._queue or self._active:
-            if not self._active:
+        while self._queue or self._active or self._chunking:
+            if not self._active and not self._chunking:
+                # the earliest arrival, not the queue head: the queue is in
+                # priority order
                 wait = min(r.arrival_time for r in self._queue) - self._clock()
                 if wait > 0:
                     time.sleep(wait)

@@ -6,7 +6,7 @@ agree; a decode plan advised over ``decode_region()`` serves reduced
 smollm-135m and zamba2-2.7b (int8 KV cache) token-identically to the JAX
 engine's plan path and to the port's no-plan path, an odd batch
 included; the paged kernel's operator gives the plain version's result
-under ``vmap``; out-of-slice options must refuse loudly; and no entry
+under ``vmap``; the options of later slices must refuse loudly; and no entry
 point may fall back to the CPU on its own."""
 import dataclasses
 
@@ -95,16 +95,21 @@ def test_sampling_is_seeded(pair):
 
 
 def test_out_of_slice_options_refuse(pair):
+    """The online controller (ROADMAP §1 item 8) and sharded serving (item
+    9) still refuse, naming their items; speculation, chunked prefill and
+    priorities serve (tests/test_torch_speculative.py and the chunked and
+    preemption files hold them to the JAX engine)."""
     cfg, _, _, tm, tp = pair
-    for opt in ("spec", "chunk_size", "mesh"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(tm, tp, device="cpu", **{opt: 4}, **KW)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ServingEngine(tm, tp, device="cpu", mesh=4, **KW)
     eng = ServingEngine(tm, tp, device="cpu", **KW)
-    for opt in ("spec", "chunk_size", "controller", "mesh"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for opt, item in (("controller", "item 8"), ("mesh", "item 9")):
+        with pytest.raises(NotImplementedError, match=item):
             eng.serve([], **{opt: 4})
-    with pytest.raises(NotImplementedError, match="preemption"):
-        eng.serve([Request(prompt=np.arange(4), max_new_tokens=2, priority=1)])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        eng.scheduler(2, controller=object())
+    out = eng.serve([Request(prompt=np.arange(4), max_new_tokens=2, priority=1)], chunk_size=4)
+    assert [len(t) for t in out.values()] == [2]
     base = tget("smollm-135m").reduced()
     with pytest.raises(NotImplementedError, match="family"):
         TModel(dataclasses.replace(base, family="moe"), device="cpu")
