@@ -112,10 +112,32 @@ Phases, in order; any failure exits non-zero before the final line:
    shape (T = 5: paged pool, and slot view bitwise equal to five decodes),
    the chunk shape (T = 256 over 256-key identity blocks, at 0, 768 and
    1792) and the draft view (BS = 1, MB = 2053), each printing its plan.
+9. the online adviser and the flight recorder — the paged kernel at the
+   widths a live K gives it, held to its plain version: verify at T = 3
+   and T = 9 on the smollm paged pool (each query bitwise equal to a
+   decode) and a K = 8 model drafter's 2057-long slot view (187-key
+   blocks, 11 a row); full-width smollm-135m in float32 on the paged
+   layout, 8 rows, ``max_seq`` 2048: the plain K = 0 stream, then a seeded
+   scripted controller over ks (0, 2, 4, 8) (n-gram), the scripted 0↔4
+   flips with a one-layer model drafter built for K = 8 (the catch-up),
+   static K = 4, ``PinnedController(4)`` (bitwise the static run) and an
+   ``OnlineAdviser`` seeded from ``engine.prime()``, every stream equal to
+   the plain one but for ties and every run's launches exact (30 paged a
+   decode or verify step at T = 1, 3, 5 or 9, one a draft decode; 30
+   flash a prefill, one a draft prefill); in bf16, ``engine.prime()``
+   over K ∈ {0, 2, 4, 8} and both backends (the plain one labelled),
+   ``make_drift_requests`` under telemetry at each static K and under an
+   ``OnlineAdviser`` (TPOT p50 by phase, decisions, switches, probes, the
+   first decisions; the decisions' keys those of ``drift_decisions.json``),
+   its trace exported to ``build/phase9_drift_trace.json`` and validated,
+   step p50 with telemetry off and on, and one ``torch.profiler`` step of
+   each kind whose ``serve.decode`` / ``serve.verify`` device range holds
+   the step's 30 paged kernel launches.
 
 The two lines before the last are the JSON kernel table and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
+import collections
 import dataclasses
 import json
 import os
@@ -184,6 +206,7 @@ ENTRY_ONLY = ("relic_matmul", "relic_gemv", "decode", "partials", "flash_noncaus
 WIDE = ("decode_wide", "paged_wide", "paged_int8_wide", "ssd_wide")
 # phase 8's kernel rows → its launch counts at their shapes
 PHASE8 = {"paged_verify": "verify", "paged_chunk": "chunk", "paged_draft": "draft"}
+PHASE9 = {"paged_verify3": "verify3", "paged_verify9": "verify9", "paged_draft2057": "draft"}
 
 
 def require(ok, msg: str) -> None:
@@ -2125,6 +2148,352 @@ def phase8(card):
     return launches, phase8_kernels(card)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the online adviser and the flight recorder
+
+CTL_KS = (0, 2, 4, 8)  # the controller's depths: verify widths 3, 5 and 9
+DRAFT_K = 8  # the model drafter's depth: a 2048 + 9 = 2057-long cache (187-key blocks)
+
+
+class Scripted:
+    """A duck-typed controller replaying a fixed list of depths, one a
+    decision (none of them priced)."""
+
+    def __init__(self, script, ks, interval=2):
+        from repro_torch.serve import Decision
+
+        self.make, self.script, self.ks, self.backends = Decision, list(script), tuple(ks), None
+        self.decision_interval, self.window, self.initial_k = int(interval), 8, 0
+        self.decisions, self.n_switches, self.dwell_remaining = [], 0, 0
+
+    def decide(self, summary, *, k_live, backend_live, step):
+        k = self.script[len(self.decisions) % len(self.script)]
+        d = self.make(step=step, k=k, backend=backend_live, switched=k != k_live,
+                      reason="scripted")
+        self.n_switches += int(d.switched)
+        self.decisions.append(d)
+        return d
+
+
+def phase9_kernels(card):
+    """The paged kernel against its plain version at the widths a live K
+    gives it: verify at T = 3 and T = 9 on the smollm paged pool (each
+    query bitwise equal to a decode at its own length) and the K = 8 model
+    drafter's 2057-long slot view (187-key blocks, 11 a row). Returns the
+    JSON rows (bf16) keyed by shape."""
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for key, label, T, case in (
+                ("paged_verify3", "verify, paged layout B=8 T=3 H=9 KV=3 hd=64 BS=16 MB=128", 3,
+                 lambda: paged_case(dtype, 3)),
+                ("paged_verify9", "verify, paged layout B=8 T=9 H=9 KV=3 hd=64 BS=16 MB=128", 9,
+                 lambda: paged_case(dtype, 9)),
+                ("paged_draft2057", "draft view B=8 T=1 Smax=2057 BS=187 MB=11", 1,
+                 lambda: slot_case(dtype, B=8, Smax=2048 + DRAFT_K + 1,
+                                   lengths=[0, 1, 186, 187, 1027, 2000, 2055, 2056]))):
+            q, kp, vp, tables, lengths, _, _ = case()
+            out = pda.paged_decode_attention(q, kp, vp, tables, lengths)
+            torch.cuda.synchronize()
+            ref = pda.plain_paged_decode_attention(q, kp, vp, tables, lengths)
+            err = (out.float() - ref.float()).abs().max().item()
+            require(err <= TOL[dtype] and torch.isfinite(out).all(),
+                    f"paged kernel ({label}, {dn}) disagrees with its plain version: {err}")
+            for t in range(T if T > 1 else 0):
+                dec = pda.paged_decode_attention(q[:, t : t + 1].contiguous(), kp, vp, tables,
+                                                 lengths + t)
+                require(torch.equal(dec[:, 0], out[:, t]), f"verify T={T} != decode at {t} ({dn})")
+            ms = cuda_ms(lambda: pda.paged_decode_attention(q, kp, vp, tables, lengths))
+            plain = cuda_ms(lambda: pda.plain_paged_decode_attention(q, kp, vp, tables, lengths),
+                            iters=5)
+            bms, by = paged_bound(q, kp, tables, lengths, dtype)
+            log(f"paged_decode_attention {dn} {label} lengths={lengths.tolist()} "
+                f"plan={paged_plan_of(q, kp, tables)}: max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) "
+                f"ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) "
+                f"library_ms=null" + (f"; verify (T={T}) equals {T} decodes bitwise" if T > 1 else ""))
+            if dtype == torch.bfloat16:
+                rows[(key, dtype)] = kernel_row(err, ms, plain, bms, by)
+    return rows
+
+
+def log_prime(label, primed, card):
+    for backend, cells in primed["cells"].items():
+        tag = " (the plain PyTorch version)" if backend == "reference" else " (the CUDA kernels)"
+        log(f"prime[{label}, backend {backend}{tag}, {primed['max_batch']} rows, "
+            f"{primed['layout']}] on {card}: "
+            + ", ".join(f"K={k} {ms:.2f} ms" for k, ms in sorted(cells.items())))
+
+
+class ControlledRuns:
+    """Serves workloads through ``engine.scheduler(...).run`` with a
+    ``StepLog`` on the target (and on the model drafter) and holds each
+    run's launches exact: the paged kernel 30 times a decode or verify
+    step (verify widths 3, 5, 9 only, each width's count the scheduler's)
+    plus once a draft decode, flash 30 times a target prefill plus once a
+    draft prefill, nothing else. Sums the launches at the phase's kernel
+    shapes."""
+
+    def __init__(self, target, draft=None):
+        self.L = target.cfg.num_layers
+        self.tlog, self.dlog = StepLog(target), StepLog(draft) if draft is not None else None
+        self.launches = {"verify3": 0, "verify9": 0, "draft": 0}
+        self.widths = collections.Counter()
+
+    def run(self, label, engine, reqs, **kw):
+        tlog, dlog, L = self.tlog, self.dlog, self.L
+        tlog.calls.clear()
+        if dlog is not None:
+            dlog.calls.clear()
+        sched = engine.scheduler(8, **kw)
+        reset_launches()
+        out = sched.run(reqs)
+        n = read_launches()
+        verifies = tlog.of("verify_step_paged")
+        decodes = tlog.of("decode_step_paged")
+        prefills = tlog.of("prefill", "prefill_with_prefix")
+        drafts = dlog.of("decode_step") if dlog is not None else []
+        dprefills = dlog.of("prefill") if dlog is not None else []
+        widths = sched.widths["verify"]
+        require(len(tlog.calls) == len(verifies) + len(decodes) + len(prefills),
+                f"{label}: a step outside prefill/decode/verify ran")
+        require(all(c[2] == L and not c[3] for c in verifies + decodes)
+                and all(c[1] == 1 for c in decodes),
+                f"{label}: a decode or verify step was not {L} paged launches")
+        require(set(widths) <= {3, 5, 9}
+                and collections.Counter(c[1] for c in verifies) == widths,
+                f"{label}: verify widths {dict(widths)} outside 3, 5, 9 or not the steps run")
+        require(all(c[1] == 1 and c[2] == 1 and not c[3] for c in drafts),
+                f"{label}: a draft decode was not one paged launch")
+        check_launches(n, {"paged": L * (len(verifies) + len(decodes)) + len(drafts),
+                           "flash": L * len(prefills) + len(dprefills)}, label)
+        require(not bool(tlog.bad) and (dlog is None or not bool(dlog.bad)),
+                f"{label}: non-finite logits")
+        require(all(r.finished and len(out[r.rid]) == r.max_new_tokens for r in reqs),
+                f"{label}: not every request finished its budget")
+        self.launches["verify3"] += L * widths[3]
+        self.launches["verify9"] += L * widths[9]
+        self.launches["draft"] += len(drafts)
+        self.widths.update(widths)
+        return out, sched, {"decodes": len(decodes), "verifies": len(verifies),
+                            "widths": dict(sorted(widths.items())), "drafts": len(drafts),
+                            "paged": n["paged"], "flash": n["flash"]}
+
+
+def phase9_tokens(card, cfg, device="cuda"):
+    """``cfg``: float32 full-width smollm-135m on the card; paged layout, 8 rows, ``max_seq``
+    2048: the plain K = 0 stream, then a seeded scripted controller over
+    ks (0, 2, 4, 8) (n-gram), the scripted 0↔4 flip with a one-layer model
+    drafter built for K = 8 (its 2057-long slot cache; the catch-up
+    re-prefills each live row at 0→4), static K = 4, PinnedController(4)
+    (bitwise the static run) and OnlineAdviser(ks=(0, 2, 4, 8)) seeded
+    from this engine's own prime; every stream equal to the plain one but
+    for ties (``count_ties``), launches exact."""
+    from repro_torch.models.model import Model
+    from repro_torch.serve import (OnlineAdviser, PinnedController, ServingEngine, SpecConfig,
+                                   make_requests)
+
+    target, ref = Model(cfg, device), Model(cfg, device)
+    params = target.init(seed=4)
+    draft = Model(dataclasses.replace(cfg, num_layers=1), device)
+    dparams = draft.init(seed=5)
+    runs = ControlledRuns(target, draft)
+    engine = ServingEngine(target, params, max_seq=2048, kv_layout="paged", block_size=16,
+                           max_batch=8, device=device)
+    name = f"smollm-135m {cfg.dtype} paged 8 rows"
+
+    def work():
+        return make_requests(8, 50.0, vocab=cfg.vocab_size, max_new_tokens=24,
+                             prompt_lens=tuple(range(128, 513)), rng=np.random.default_rng(21))
+
+    base_reqs = work()
+    plain, _, info = runs.run(f"plain[{name}]", engine, base_reqs, spec=SpecConfig(k=0))
+    prompts = [np.asarray(r.prompt) for r in base_reqs]
+    want = [plain[r.rid] for r in base_reqs]
+    log(f"plain[{name} K=0] on {card}: {info}; p50 step {engine.stats.percentile(50):.2f} ms")
+    primed = engine.prime(8, ks=CTL_KS)
+    log_prime(name, primed, card)
+    online = OnlineAdviser(ks=CTL_KS, backends=("kernel",), decision_interval=4, window=8)
+    online.seed_costs(primed)
+    script = [int(k) for k in np.random.default_rng(9).permutation(list(CTL_KS) * 2)]
+    model_spec = SpecConfig(k=DRAFT_K, drafter="model", draft_model=draft, draft_params=dparams)
+    static = None
+    for label, spec, ctl in (
+            (f"scripted n-gram {script}", SpecConfig(k=8), Scripted(script, CTL_KS)),
+            ("scripted model drafter 0<->4 (cache 2057)", model_spec, Scripted([0, 4], (0, 4))),
+            ("static K=4", SpecConfig(k=4), None),
+            ("PinnedController(4)", SpecConfig(k=4), PinnedController(4)),
+            ("OnlineAdviser(ks=(0, 2, 4, 8)) seeded from prime", None, online)):
+        label = f"controlled[{name} {label}]"
+        reqs = work()
+        out, sched, info = runs.run(label, engine, reqs, spec=spec, controller=ctl)
+        got = [out[r.rid] for r in reqs]
+        if ctl is None:
+            static = got
+        elif isinstance(ctl, PinnedController):
+            require(all(np.array_equal(a, b) for a, b in zip(got, static)),
+                    f"{label}: streams differ from the static K = 4 run")
+        if ctl is not None:
+            require(ctl.decisions and all(d.k in ctl.ks for d in ctl.decisions),
+                    f"{label}: no decision, or a depth outside the controller's")
+        if spec is not None and spec.drafter == "model":
+            require(sched._drafter._max_seq == 2048 + DRAFT_K + 1 and info["drafts"] > 0,
+                    f"{label}: the drafter's cache is not 2057 long or never drafted")
+        ties = count_ties(ref, params, prompts, want, got, label)
+        s = engine.stats.serving_summary()
+        spec_s = s.get("speculative", {})
+        log(f"{label} on {card}: {info}; decisions "
+            f"{[(d.step, d.k) for d in ctl.decisions] if ctl is not None else None}; "
+            f"acceptance {spec_s.get('acceptance_rate', 0.0):.3f}, p50 step "
+            f"{s['p50_step_ms']:.2f} ms; {len(reqs) - ties} streams equal to plain decoding, "
+            f"{ties} ties")
+    require(set(runs.widths) == {3, 5, 9}, f"verify widths served {dict(runs.widths)}, not 3, 5, 9")
+    return runs.launches
+
+
+def phase_tpot(reqs, spans):
+    """p50 TPOT (ms) of each drift phase's requests."""
+    return {name: round(float(np.median([r.tpot_ms for r in reqs[a:b] if r.tpot_ms is not None]
+                                         or [float("nan")])), 3)
+            for name, a, b in spans}
+
+
+def phase9_drift(card, cfg, device="cuda"):
+    """``cfg``: bf16 full-width smollm-135m on the card; paged, 8 rows: the
+    K × backend prime (both backends timed; serving keeps the kernel), the
+    drifting workload under telemetry at each static K and under an
+    OnlineAdviser seeded from the prime (decisions checked against
+    ``drift_decisions.json``'s schema, no winner asserted), the controller
+    run's trace exported under ``build/`` and validated, and step p50 with
+    telemetry off and on. Returns the launches at phase 9's shapes and the
+    engine."""
+    from repro_torch.models.model import Model
+    from repro_torch.serve import (OnlineAdviser, ServingEngine, SpecConfig, Telemetry,
+                                   make_drift_requests, validate_chrome_trace)
+
+    model = Model(cfg, device)
+    params = model.init(seed=6)
+    runs = ControlledRuns(model)
+    engine = ServingEngine(model, params, max_seq=2048, kv_layout="paged", block_size=16,
+                           max_batch=8, device=device)
+    name = f"smollm-135m {cfg.dtype} paged 8 rows"
+    primed = engine.prime(8, ks=CTL_KS, backends=("kernel", "reference"))
+    log_prime(name, primed, card)
+
+    def drift():
+        return make_drift_requests(vocab=cfg.vocab_size, rng=np.random.default_rng(7))
+
+    engine.serve(drift()[0][:2], spec=SpecConfig(k=8))  # warm outside the measured runs
+    for k in CTL_KS:
+        reqs, spans = drift()
+        runs.run(f"drift[{name} K={k}]", engine, reqs, spec=SpecConfig(k=k),
+                 telemetry=Telemetry(enabled=True))
+        s = engine.stats.serving_summary()
+        log(f"drift[{name} static K={k}] on {card}: TPOT p50 by phase {phase_tpot(reqs, spans)}; "
+            f"p50 step {s['p50_step_ms']:.2f} ms, acceptance "
+            f"{s.get('speculative', {}).get('acceptance_rate', 0.0):.3f}")
+    ctl = OnlineAdviser(ks=CTL_KS, backends=("kernel",))
+    ctl.seed_costs(primed)
+    reqs, spans = drift()
+    tel = Telemetry(enabled=True)
+    runs.run(f"drift[{name} OnlineAdviser]", engine, reqs, telemetry=tel, controller=ctl)
+    trail = ctl.audit_trail()
+    golden = json.load(open(os.path.join(ROOT, "drift_decisions.json")))["decisions"][0]
+    require(trail and all(d["k"] in CTL_KS for d in trail),
+            "drift: no decision, or a depth outside ks")
+    require(all(set(d) == set(golden) and set(d["inputs"]) == set(golden["inputs"]) for d in trail),
+            "drift: a decision's keys differ from drift_decisions.json's")
+    summ = ctl.summary()
+    log(f"drift[{name} OnlineAdviser] on {card}: TPOT p50 by phase {phase_tpot(reqs, spans)}; "
+        f"p50 step {engine.stats.percentile(50):.2f} ms; {summ['decisions']} decisions, "
+        f"{summ['switches']} switches, {summ['probes']} probes; first decisions "
+        + json.dumps([{k: d[k] for k in ("step", "k", "switched", "probe", "reason")}
+                      for d in trail[:6]], ensure_ascii=False))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "phase9_drift_trace.json")
+    counts = validate_chrome_trace(tel.tracer.export(path))
+    by_name = collections.defaultdict(list)
+    for e in tel.tracer.events:
+        if e[0] == "X":
+            by_name[e[1]].append(e[4])
+    log(f"trace[{name} OnlineAdviser] {os.path.relpath(path, ROOT)}: {counts}; spans "
+        + ", ".join(f"{n} x{len(d)} p50 {np.median(d) / 1e3:.3f} ms" for n, d in sorted(by_name.items())))
+    require(counts["async_spans"] == len(reqs) and "online-decision" in
+            {e[1] for e in tel.tracer.events}, "trace: a request span or the decisions are missing")
+
+    # telemetry off and on over the same workload: figures only
+    p50 = {}
+    for on in (False, True, True, False):
+        engine.serve(drift()[0], spec=SpecConfig(k=4), telemetry=Telemetry(enabled=on))
+        p50.setdefault("on" if on else "off", []).append(round(engine.stats.percentile(50), 3))
+    log(f"telemetry[{name} drift K=4] on {card}: p50 step ms off {p50['off']}, on {p50['on']} "
+        "(order off, on, on, off)")
+    return runs.launches, engine
+
+
+def phase9_profile(card, engine):
+    """One profiled decode step and one verify step (T = 9) with
+    ``profiler_annotations``: the ``serve.decode`` / ``serve.verify`` range
+    must hold the step's 30 paged kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import SpecConfig, Telemetry, make_requests
+
+    cfg, L = engine.model.cfg, engine.model.cfg.num_layers
+    name = f"smollm-135m {cfg.dtype} paged 8 rows"
+    for label, spec, rng_name in (("decode", SpecConfig(k=0), "serve.decode"),
+                                  ("verify T=9", SpecConfig(k=8), "serve.verify")):
+        sched = engine.scheduler(8, spec=spec,
+                                 telemetry=Telemetry(enabled=True, profiler_annotations=True))
+        for r in make_requests(8, 1e3, vocab=cfg.vocab_size, max_new_tokens=64, prompt_lens=(256,),
+                               rng=np.random.default_rng(3)):
+            sched.submit(r)
+        sched.step(now=1.0)
+        sched.step(now=1.0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sched.step(now=1.0)
+            torch.cuda.synchronize()
+        evs = prof.events()
+        cuda_dev, cpu_dev = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+        # the range twice: on the host, and as the device-side annotation
+        # spanning the kernels launched inside it
+        host = [e for e in evs if e.name == rng_name and e.device_type == cpu_dev]
+        dev = [e.time_range for e in evs if e.name == rng_name and e.device_type == cuda_dev]
+        paged = [e.time_range for e in evs if e.device_type == cuda_dev
+                 and "paged_decode_kernel" in e.name]
+        held = [t for t in paged if any(r.start <= t.start and t.end <= r.end for r in dev)]
+        launches = [e for e in evs if e.device_type == cpu_dev and "LaunchKernel" in e.name
+                    and any(h.time_range.start <= e.time_range.start
+                            and e.time_range.end <= h.time_range.end for h in host)]
+        require(len(host) == 1 and len(dev) == 1 and len(paged) == L and len(held) == L,
+                f"profile[{label}]: {len(host)} host and {len(dev)} device {rng_name} ranges, "
+                f"{len(paged)} paged kernels, {len(held)} inside the device range")
+        log(f"profile[{name} one {label} step] on {card}: {rng_name} {host[0].time_range.elapsed_us() / 1e3:.2f} "
+            f"ms on the host ({len(launches)} kernel launches inside), "
+            f"{dev[0].elapsed_us() / 1e3:.2f} ms on the device holding all {len(held)} paged kernel "
+            f"launches ({sum(t.elapsed_us() for t in held) / 1e3:.3f} ms of them)")
+
+
+def phase9(card):
+    """Phase 9: the paged kernel at the live widths, the controlled float32
+    streams, the bf16 prime, drift runs and the flight recorder."""
+    from repro_torch.configs import get_config
+
+    base = get_config("smollm-135m")
+    rows = phase9_kernels(card)
+    launches = phase9_tokens(card, dataclasses.replace(base, dtype="float32"))
+    torch.cuda.empty_cache()
+    more, engine = phase9_drift(card, base)
+    phase9_profile(card, engine)
+    del engine
+    torch.cuda.empty_cache()
+    launches = {k: launches[k] + more[k] for k in launches}
+    require(all(launches.values()), f"phase 9: a kernel shape was never launched: {launches}")
+    return launches, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2188,6 +2557,9 @@ def main() -> int:
     phase8_launches, phase8_rows = phase8(card)
     rows.update(phase8_rows)
     phase_done("8")
+    phase9_launches, phase9_rows = phase9(card)
+    rows.update(phase9_rows)
+    phase_done("9")
 
     bf16, f32 = torch.bfloat16, torch.float32
     table = []
@@ -2214,6 +2586,11 @@ def main() -> int:
             ("paged_verify", bf16, "paged_decode_attention[verify T=5]", PAGED_SRC, PAGED_TPU),
             ("paged_chunk", bf16, "paged_decode_attention[chunk T=256]", PAGED_SRC, PAGED_TPU),
             ("paged_draft", bf16, "paged_decode_attention[draft view BS=1 MB=2053]", PAGED_SRC,
+             PAGED_TPU),
+            # phase 9's live widths: launches from its controlled and drift runs
+            ("paged_verify3", bf16, "paged_decode_attention[verify T=3]", PAGED_SRC, PAGED_TPU),
+            ("paged_verify9", bf16, "paged_decode_attention[verify T=9]", PAGED_SRC, PAGED_TPU),
+            ("paged_draft2057", bf16, "paged_decode_attention[draft view BS=187 MB=11]", PAGED_SRC,
              PAGED_TPU)):
         r = rows[(key, dtype)]
         # the entry points are the path of the kernels that serving never
@@ -2226,6 +2603,8 @@ def main() -> int:
             count = {}
         elif key in PHASE8:
             count = {"launches": phase8_launches[PHASE8[key]]}
+        elif key in PHASE9:
+            count = {"launches": phase9_launches[PHASE9[key]]}
         else:
             count = {"launches": launches[key]}
         table.append({"name": name, "route": "cuda", "source": src, "replaces": tpu, **count, **r})

@@ -80,8 +80,9 @@ AIRA_SPEC = (
 # AIRA_SPEC — run a cheap helper stream, verify, commit only what
 # survives, and gate the whole mechanism on a predicted win — one level
 # up, at the decode step. Not part of AIRA_SPEC (the compute-region
-# pipeline is pinned by its golden decisions). The draft, verify and
-# rollback stages' code is ported; speculate's waits for ROADMAP §1 item 8.
+# pipeline is pinned by its golden decisions); the ``speculate`` stage
+# rides in DEFAULT_TOOLS but reports only for regions carrying a
+# speculation measurement.
 
 SERVING_SPEC = (
     Stage(

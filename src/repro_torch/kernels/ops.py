@@ -48,6 +48,24 @@ _KERNEL_MODE: Optional[str] = None  # the REPRO_KERNEL_MODE choice
 _ATTN_BACKEND: Optional[str] = None  # the set_attention_backend / env choice
 
 
+def _flight_note(event: str, counter: str, **args) -> None:
+    """Mirror a dispatch resolution onto the serving flight recorder as a
+    counter and an instant event on the backend lane. The telemetry module
+    is looked up in ``sys.modules``, never imported: arming the recorder
+    imports it, so an absent module means the recorder is off, and the
+    kernel layer never pulls ``repro_torch.serve`` in on its own."""
+    import sys
+
+    mod = sys.modules.get("repro_torch.serve.telemetry")
+    if mod is None:
+        return
+    tel = mod.get_telemetry()
+    if not tel.enabled:
+        return
+    tel.count(counter)
+    tel.tracer.instant(event, "backend", tid=mod.TID_BACKEND, args=args or None)
+
+
 def _on_cuda(device) -> bool:
     return device is not None and torch.device(device).type == "cuda"
 
@@ -71,6 +89,8 @@ def default_kernel_mode(device: Optional[torch.device] = None) -> str:
         raw = os.environ.get("REPRO_KERNEL_MODE", "auto")
         _KERNEL_MODE = _validate_mode(raw, "REPRO_KERNEL_MODE")
         log.info("kernel mode resolved once: %s", _KERNEL_MODE)
+        _flight_note("kernel-mode-resolved", "backend.resolutions",
+                     resolved=_KERNEL_MODE, source=raw)
     if _KERNEL_MODE == "auto":
         return "kernel" if _on_cuda(device) else "ref"
     return _KERNEL_MODE
@@ -114,6 +134,8 @@ def resolve_attention_backend(
             raw = os.environ.get("REPRO_ATTENTION_BACKEND", "auto")
             _ATTN_BACKEND = _validate_backend(raw, "REPRO_ATTENTION_BACKEND")
             log.info("attention backend resolved once: %s", _ATTN_BACKEND)
+            _flight_note("attention-backend-resolved", "backend.resolutions",
+                         resolved=_ATTN_BACKEND, source=raw)
         name = _ATTN_BACKEND
     if name == "auto":
         return "kernel" if _on_cuda(device) else "reference"

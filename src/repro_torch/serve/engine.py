@@ -9,13 +9,19 @@ over the requests, the paged kernel folded across them by its vmap
 rule). ``spec=SpecConfig(...)`` speculates K draft tokens a verify and
 ``chunk_size`` chunks prefill (``0`` forces monolithic for one call),
 both as engine defaults or per call; requests carry priorities, and a
-higher-priority arrival preempts. The engine runs on the model's device,
-CUDA unless the caller asks for the CPU. Options of the reference that
-are not ported yet raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+higher-priority arrival preempts. ``telemetry=Telemetry(enabled=True)``
+records the flight recorder's trace and ticks the windowed metrics;
+``controller=OnlineAdviser(...)`` (or ``PinnedController``) re-decides
+the speculation depth, the attention backend and admission live, priced
+on those windows, after ``prime()`` has measured the K × backend grid.
+The engine runs on the model's device, CUDA unless the caller asks for
+the CPU. Options of the reference that are not ported yet raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -26,9 +32,9 @@ from repro_torch import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.serve.request import Request, ServeStats  # noqa: F401 (re-export)
 from repro_torch.serve.scheduler import Scheduler, sorted_cache
+from repro_torch.serve.telemetry import get_telemetry
 
 _NOT_PORTED = {
-    "controller": "the online adviser (ROADMAP §1 item 8)",
     "mesh": "sharded serving (ROADMAP §1 item 9)",
 }
 
@@ -58,6 +64,7 @@ class ServingEngine:
         spec=None,
         chunk_size=None,
         mesh=None,
+        telemetry=None,
     ):
         _refuse(mesh=mesh)
         self.device = resolve_device(device)
@@ -76,6 +83,9 @@ class ServingEngine:
         self.prefix_cache = prefix_cache
         self.spec = spec  # default SpecConfig for serve()/scheduler()
         self.chunk_size = chunk_size  # default chunked-prefill token budget
+        # flight recorder and windowed metrics, shared by every scheduler
+        # this engine makes; the default is the module global, disabled
+        self.telemetry = telemetry if telemetry is not None else get_telemetry()
         self.attention_backend = kernel_ops.resolve_attention_backend(
             attention_backend, self.device
         )
@@ -93,18 +103,31 @@ class ServingEngine:
         attention_backend: Optional[str] = None,
         spec=None,
         chunk_size=None,
+        telemetry=None,
         controller=None,
     ) -> Scheduler:
         """A fresh scheduler over ``max_batch`` rows sharing this
         engine's stats; ``kv_layout``, ``attention_backend``, ``spec``
-        (``SpecConfig(k=0)`` disables) and ``chunk_size`` (``0``
-        disables) override the engine defaults for it. The scheduler
-        binds the resolved backend into every step it runs, verify and
-        chunk included (the eager port has no jitted step family to
-        cache)."""
-        _refuse(controller=controller)
+        (``SpecConfig(k=0)`` disables), ``chunk_size`` (``0`` disables)
+        and ``telemetry`` override the engine defaults for it. The
+        scheduler binds the resolved backend into every step it runs,
+        verify and chunk included (the eager port has no jitted step
+        family to cache). ``controller`` attaches an online adviser that
+        re-decides K, the backend and admission from the windowed
+        telemetry mid-run; when it carries positive depths and no
+        ``spec`` covers them, an n-gram ``SpecConfig(k=max(ks))`` (or the
+        given spec at that depth) sizes the margin and the drafter for
+        the deepest arm."""
         spec = spec if spec is not None else self.spec
         chunk = chunk_size if chunk_size is not None else self.chunk_size
+        if controller is not None:
+            ctl_ks = tuple(getattr(controller, "ks", (0,)))
+            kmax = max(ctl_ks) if ctl_ks else 0
+            if kmax > 0 and (spec is None or spec.k < kmax):
+                from repro_torch.serve.speculative import SpecConfig
+
+                spec = (SpecConfig(k=kmax, drafter="ngram") if spec is None
+                        else dataclasses.replace(spec, k=kmax))
         return Scheduler(
             self.model,
             self.params,
@@ -121,6 +144,8 @@ class ServingEngine:
             decode_plan=self._decode_plan,
             spec=spec,
             chunk_size=int(chunk) if chunk else None,
+            telemetry=telemetry if telemetry is not None else self.telemetry,
+            controller=controller,
         )
 
     def serve(
@@ -134,13 +159,16 @@ class ServingEngine:
         spec=None,
         chunk_size=None,
         mesh=None,
+        telemetry=None,
         controller=None,
     ) -> dict:
         """Continuous-batching entry: drive ``requests`` (each with its
         own arrival time, prompt, budget and priority) to completion,
-        optionally speculating (``spec``) and chunking prefill
-        (``chunk_size``; ``0`` forces monolithic). Returns rid →
-        generated tokens."""
+        optionally speculating (``spec``), chunking prefill
+        (``chunk_size``; ``0`` forces monolithic), recording a trace
+        (``telemetry``) and closed-loop controlled (``controller``; see
+        ``scheduler()``, and run ``prime()`` first so the first decision
+        prices measured cells). Returns rid → generated tokens."""
         _refuse(mesh=mesh)
         backend = kernel_ops.resolve_attention_backend(
             attention_backend or self.attention_backend, self.device)
@@ -157,8 +185,81 @@ class ServingEngine:
         mb = max_batch or self.max_batch or max(1, min(8, len(requests)))
         return self.scheduler(
             mb, seed=seed, kv_layout=kv_layout, attention_backend=attention_backend,
-            spec=spec, chunk_size=chunk_size, controller=controller,
+            spec=spec, chunk_size=chunk_size, telemetry=telemetry, controller=controller,
         ).run(requests)
+
+    def prime(
+        self,
+        max_batch: Optional[int] = None,
+        *,
+        ks=(0, 2, 4, 8),
+        backends=None,
+        kv_layout: Optional[str] = None,
+        reps: int = 2,
+    ) -> dict:
+        """Measure the K × backend grid an online controller switches
+        across: for each backend, the plain decode (K = 0) and the verify
+        at each positive K (``[max_batch, K+1]`` tokens), each cell the
+        mean of ``reps`` calls after one untimed warm call, over a
+        throwaway pool whose rows are all dead (writes land in the null
+        block or junk rows). Each call is followed by a device
+        synchronise, so a cell is the work and not its launch.
+        ``max_batch`` should match the pool size later serves use. Depths
+        clamp to ``(0,)`` for families without a rewindable cache.
+        Returns ``{"cells": {backend: {k: ms}}, "ks", "backends",
+        "max_batch", "layout"}`` — feed it to
+        ``OnlineAdviser.seed_costs`` so the first decision prices measured
+        numbers."""
+        from repro_torch.models.model import SPEC_FAMILIES
+        from repro_torch.serve.kv_cache import PagedKVCache
+
+        mb = int(max_batch or self.max_batch or 4)
+        layout = kv_layout or self.kv_layout
+        if self.model.cfg.family not in SPEC_FAMILIES:
+            ks = (0,)
+        ks = tuple(sorted({int(k) for k in ks}))
+        names = tuple(dict.fromkeys(
+            kernel_ops.resolve_attention_backend(b, self.device)
+            for b in (backends or (self.attention_backend,))))
+        tok = torch.zeros((mb, 1), dtype=torch.long, device=self.device)
+
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        def _time(fn) -> float:
+            fn()  # warm: the kernel build and load, the allocator (not timed)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(max(1, reps)):
+                fn()
+                sync()
+            return (time.perf_counter() - t0) / max(1, reps) * 1e3
+
+        cells: dict[str, dict[int, float]] = {}
+        for backend in names:
+            per_k: dict[int, float] = {}
+            if layout == "paged":
+                kv = PagedKVCache(self.model, mb, self.max_seq, block_size=self.block_size,
+                                  num_blocks=self.num_blocks, prefix_cache=False)
+                pool, tables, lens = kv.kernel_inputs()
+                for k in ks:
+                    blk = tok if k == 0 else torch.zeros((mb, k + 1), dtype=torch.long,
+                                                          device=self.device)
+                    step = self.model.decode_step_paged if k == 0 else self.model.verify_step_paged
+                    per_k[k] = _time(lambda step=step, blk=blk, b=backend: step(
+                        self.params, pool, tables, lens, blk, backend=b))
+            else:
+                cache = self.model.init_cache(mb, self.max_seq)
+                for k in ks:
+                    blk = tok if k == 0 else torch.zeros((mb, k + 1), dtype=torch.long,
+                                                          device=self.device)
+                    step = self.model.decode_step if k == 0 else self.model.verify_step
+                    per_k[k] = _time(lambda step=step, blk=blk, b=backend: step(
+                        self.params, cache, blk, backend=b))
+            cells[backend] = per_k
+        return {"cells": cells, "ks": ks, "backends": names, "max_batch": mb,
+                "layout": layout}
 
     def generate(self, prompts, n_steps: int, *, seed: int = 0) -> torch.Tensor:
         """prompts [B, S0] → generated tokens [B, n_steps] (int32, CPU):

@@ -46,6 +46,16 @@ class SlotKVCache:
     def n_free(self) -> int:
         return len(self._free)
 
+    @property
+    def n_live(self) -> int:
+        return self.max_batch - len(self._free)
+
+    @property
+    def occupancy(self) -> float:
+        """Pool-pressure gauge in [0, 1]: the fraction of slots live (the
+        slotted layout's only capacity axis)."""
+        return self.n_live / self.max_batch
+
     def alloc(self, rid: int) -> int:
         """Claim the lowest free slot for request ``rid``."""
         if not self._free:
@@ -125,6 +135,7 @@ class PagedKVCache:
         block_size: int = 8,
         num_blocks: Optional[int] = None,
         prefix_cache: bool = True,
+        metrics=None,
     ):
         self.model = model
         self.max_batch = int(max_batch)
@@ -145,10 +156,16 @@ class PagedKVCache:
         # the dense family's suffix prefill equals a cold prefill, so
         # prompts sharing a prefix may alias its blocks
         self.prefix = PrefixCache(self.block_size) if prefix_cache else None
+        # an optional telemetry MetricsRegistry: the allocator records its
+        # alloc/share/park/evict counts, this layer the trie's lookups and
+        # hit blocks; None (telemetry off) records nothing
+        self._m_lookups = metrics.counter("prefix.lookups") if metrics else None
+        self._m_hit_blocks = metrics.counter("prefix.hit_blocks") if metrics else None
         self.allocator = BlockAllocator(
             self.num_blocks,
             on_evict=self.prefix.drop_block if self.prefix is not None else None,
             is_leaf=self.prefix.is_leaf if self.prefix is not None else None,
+            metrics=metrics,
         )
         self.block_tables = np.full(
             (self.max_batch, self.blocks_per_row), self.null_block, np.int32
@@ -173,10 +190,39 @@ class PagedKVCache:
         return math.ceil(n_tokens / self.block_size)
 
     # ------------------------------------------------------------------
+    # occupancy (the row API mirrors SlotKVCache's)
+    @property
+    def n_free(self) -> int:
+        return len(self._row_free)
+
+    @property
+    def n_live(self) -> int:
+        return self.max_batch - len(self._row_free)
+
+    @property
+    def n_free_blocks(self) -> int:
+        """Blocks an arriving request could claim now: free and
+        LRU-evictable cached ones, less the live rows' reservations."""
+        return self.allocator.n_available - self._outstanding_total
+
+    @property
+    def occupancy(self) -> float:
+        """Pool-pressure gauge in [0, 1]: the fraction of physical blocks
+        holding data (live and parked; reservations are a promise, not
+        bytes)."""
+        return 1.0 - self.allocator.n_free / self.num_blocks
+
+    # ------------------------------------------------------------------
     # admission
     def lookup(self, tokens) -> list[int]:
         """Block ids of the longest cached full-block prefix of ``tokens``."""
-        return self.prefix.match(tokens) if self.prefix is not None else []
+        if self.prefix is None:
+            return []
+        hits = self.prefix.match(tokens)
+        if self._m_lookups is not None:
+            self._m_lookups.inc()
+            self._m_hit_blocks.inc(len(hits))
+        return hits
 
     def try_admit(self, rid: int, tokens, budget: int, register: bool = True):
         """Admit ``rid`` into a free row if its block budget fits: returns

@@ -1,9 +1,10 @@
 """Open-loop load generation for the serving core.
 
-Port of the JAX package's ``serve/load.py`` (its drifting workload waits
-for ROADMAP §1 item 8): Poisson arrivals (exponential inter-arrival
-gaps) with randomized prompt lengths, token budgets and priorities. Drawn from a numpy ``Generator``, so the same seed gives
-the same workload to both packages.
+Port of the JAX package's ``serve/load.py``: Poisson arrivals
+(exponential inter-arrival gaps) with randomized prompt lengths, token
+budgets and priorities, and the drifting-draftability workload an online
+controller is measured on. Drawn from a numpy ``Generator``, so the same
+seed gives the same workload to both packages.
 """
 from __future__ import annotations
 
@@ -73,6 +74,82 @@ def make_slo_requests(
             )
         )
     return reqs
+
+
+def make_drift_requests(
+    phase_n=(6, 8, 6),
+    rate_rps: float = 60.0,
+    *,
+    vocab: int,
+    rep_tokens: int = 24,
+    churn_tokens: int = 3,
+    rep_prompt_len: int = 8,
+    churn_prompt_lens=(8, 12, 16),
+    prefix_len: int = 16,
+    suffix_len: int = 6,
+    phase_gap_s: float = 0.1,
+    rng: np.random.Generator,
+    prefix=None,
+):
+    """The drifting-draftability workload: three phases
+    whose speculation profitability flips, so every static K loses
+    somewhere and only a controller tracks the per-phase best arm.
+
+    1. ``repetitive`` — short random prompts with long token budgets:
+       tiny greedy models settle into repeating cycles, so the n-gram
+       prompt-lookup drafter hits high acceptance and K>0 wins;
+    2. ``churn`` — random prompts with tiny budgets (mostly admission/
+       ramp-up, almost no self-history to mine): acceptance collapses
+       and every drafted token is pure overhead — K=0 wins;
+    3. ``shared-prefix`` — one common header plus random suffixes and
+       long budgets again: high acceptance returns (plus prefix-cache
+       hits on the paged layout).
+
+    Arrivals are one continuous Poisson schedule across the phases with
+    a ``phase_gap_s`` lull between them (the drain lets the next
+    phase's window reflect its own traffic). Returns ``(reqs, spans)``
+    where ``spans`` is ``[(name, start, end), ...]`` index ranges into
+    ``reqs`` — index-based so identically-drawn workloads for different
+    engines group the same way (rids are process-global)."""
+    n1, n2, n3 = (int(n) for n in phase_n)
+    if prefix is None:
+        prefix = rng.integers(0, vocab, size=(prefix_len,)).astype(np.int32)
+    assert len(prefix) == prefix_len
+    reqs, spans, t = [], [], 0.0
+
+    def _arrive():
+        nonlocal t
+        t += float(rng.exponential(1.0 / rate_rps))
+        return t
+
+    start = len(reqs)
+    for _ in range(n1):
+        prompt = rng.integers(0, vocab, size=(rep_prompt_len,)).astype(np.int32)
+        reqs.append(
+            Request(prompt=prompt, max_new_tokens=int(rep_tokens),
+                    arrival_time=_arrive())
+        )
+    spans.append(("repetitive", start, len(reqs)))
+    t += float(phase_gap_s)
+    start = len(reqs)
+    for _ in range(n2):
+        s0 = int(rng.choice(churn_prompt_lens))
+        prompt = rng.integers(0, vocab, size=(s0,)).astype(np.int32)
+        reqs.append(
+            Request(prompt=prompt, max_new_tokens=int(churn_tokens),
+                    arrival_time=_arrive())
+        )
+    spans.append(("churn", start, len(reqs)))
+    t += float(phase_gap_s)
+    start = len(reqs)
+    for _ in range(n3):
+        suffix = rng.integers(0, vocab, size=(suffix_len,)).astype(np.int32)
+        reqs.append(
+            Request(prompt=np.concatenate([prefix, suffix]),
+                    max_new_tokens=int(rep_tokens), arrival_time=_arrive())
+        )
+    spans.append(("shared-prefix", start, len(reqs)))
+    return reqs, spans
 
 
 def make_shared_prefix_requests(

@@ -103,9 +103,8 @@ class ServeStats:
     wall-clock plus the per-request TTFT/TPOT/e2e series recorded as
     requests retire, the draft/verify split of each speculation round, and
     the counters behind the prefix hit rate, preemption and the
-    acceptance rate. ``serving_summary()`` has the JAX package's schema
-    for a run without a controller (its section arrives with ROADMAP §1
-    item 8)."""
+    acceptance rate. ``serving_summary()`` has the JAX package's schema;
+    its ``controller`` section is there only when a controller served."""
 
     _SERIES = {
         "step_ms": "serve.step_ms",
@@ -141,10 +140,14 @@ class ServeStats:
             attr: self.registry.counter(metric)
             for attr, metric in self._COUNTERS.items()
         }
+        # the online controller's state, set by the scheduler at each
+        # decision; None when no controller ran
+        self.controller_info: Optional[dict] = None
 
     def reset(self) -> None:
         """Start a run from clean series — percentiles never mix runs."""
         self.registry.reset()
+        self.controller_info = None
 
     def record(self, req: Request) -> None:
         """Fold a finished request's latencies into the run series."""
@@ -207,6 +210,8 @@ class ServeStats:
                 "p50_draft_ms": self.percentile(50, "draft_ms"),
                 "p50_verify_ms": self.percentile(50, "verify_ms"),
             }
+        if self.controller_info:
+            out["controller"] = dict(self.controller_info)
         return out
 
 

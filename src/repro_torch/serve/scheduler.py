@@ -1,7 +1,6 @@
 """Continuous-batching scheduler over a slotted or block-paged pool.
 
-Port of the JAX package's ``serve/scheduler.py`` (without its tracer
-annotations and online controller, ROADMAP §1 item 8). Each ``step()``:
+Port of the JAX package's ``serve/scheduler.py``. Each ``step()``:
 
   1. admits arrived queued requests in strict priority order (higher
      ``priority`` first, then arrival, then rid): slotted admission
@@ -42,7 +41,17 @@ port, a closed family of step widths: ``widths`` counts the prompt widths
 of the monolithic prefills, the chunk widths and the verify widths this
 scheduler ran, and after ``prime()`` every chunk width lies in
 ``primed_widths`` (the pow2 widths up to ``chunk_size``) and every verify
-width is K+1.
+width is K+1 for a K the scheduler served with.
+
+With ``telemetry`` enabled, each working step records its span and phase
+spans, each request its lifecycle events, into the flight recorder
+(``serve/telemetry.py``), sets the queue and pool gauges and ticks the
+metrics registry. With a ``controller`` attached (``serve/controller.py``),
+every ``decision_interval`` working steps the scheduler reads
+``window_summary``, lets the controller price its arms and applies the
+decision: the live speculation depth K (within ``spec.k``, which sizes
+the admission margin and the drafter), the attention backend and an
+admission budget a step.
 """
 from __future__ import annotations
 
@@ -72,6 +81,7 @@ from repro_torch.serve.request import (
     Request,
     ServeStats,
 )
+from repro_torch.serve.telemetry import TID_ADVISER, Telemetry, get_telemetry
 
 
 def sorted_cache(tree):
@@ -118,6 +128,8 @@ class Scheduler:
         decode_plan=None,
         spec=None,
         chunk_size: Optional[int] = None,
+        telemetry=None,
+        controller=None,
     ):
         self.model = model
         self.params = params
@@ -125,7 +137,30 @@ class Scheduler:
         self.max_seq = int(max_seq)
         self.temperature = float(temperature)
         self.seed = int(seed)
+        # flight recorder: explicit, or the module-global default
+        # (disabled). `_ton` is the hard off switch every instrumentation
+        # site below checks. A controller senses through the windowed
+        # metric rings, so a controller-driven scheduler records into a
+        # private live Telemetry when the caller left the recorder off.
+        self.tel = telemetry if telemetry is not None else get_telemetry()
+        self.controller = controller
+        if controller is not None and not self.tel.enabled:
+            self.tel = Telemetry(enabled=True, capacity=8192)
+        self._ton = bool(self.tel.enabled)
         self.stats = stats if stats is not None else ServeStats()
+        if self._ton:
+            reg = self.stats.registry
+            self._g_queue = reg.gauge("sched.queue_depth")
+            self._g_active = reg.gauge("sched.active")
+            self._g_occ = reg.gauge("pool.occupancy")
+            self._g_free_blocks = reg.gauge("pool.free_blocks")
+            self._c_admitted = reg.counter("sched.admitted")
+            # the reference's retrace watch (jit cache growth mid-run) has
+            # no eager counterpart: the counter stays 0 until ROADMAP item
+            # 6a's CUDA-graph capture count feeds it
+            self._c_retraces = reg.counter("engine.retraces")
+            self._s_chunk_util = reg.series("sched.chunk_util")
+        self._step_seq = 0
         if kv_layout not in ("slot", "paged"):
             raise ValueError(f"kv_layout must be 'slot' or 'paged', got {kv_layout!r}")
         self.kv_layout = kv_layout
@@ -138,6 +173,7 @@ class Scheduler:
             self.kv = PagedKVCache(
                 model, max_batch, max_seq, block_size=block_size,
                 num_blocks=num_blocks, prefix_cache=prefix_cache,
+                metrics=self.stats.registry if self._ton else None,
             )
         else:
             self.kv = SlotKVCache(model, max_batch, max_seq)
@@ -190,10 +226,125 @@ class Scheduler:
         self._gens: dict[int, Optional[torch.Generator]] = {}  # row → sampler
         self.widths = {"prefill": Counter(), "chunk": Counter(), "verify": Counter()}
         self.primed_widths: set = set()
+        # the live speculation depth: SpecConfig.k is the *maximum* (it
+        # sizes the admission margin and the drafter); a controller
+        # re-decides the serving depth within [0, spec.k] mid-run
+        self._live_k = self.spec.k if self.spec is not None else 0
+        self._ctl_steps = 0
+        self._admit_budget: Optional[int] = None
+        if controller is not None:
+            self._wire_controller(controller)
         self._t0: Optional[float] = None
         self._decode_plan = None
         if decode_plan is not None:
             self.set_decode_plan(decode_plan)
+
+    # ------------------------------------------------------------------
+    # the online adviser: observe → decide → apply
+    def _wire_controller(self, controller) -> None:
+        """Check the controller's candidate arms against this scheduler's
+        capacity and apply its initial arm. The deepest candidate must fit
+        inside ``spec.k`` (the admission margin and the drafter's overhang
+        were sized for it); backend names resolve once, so the
+        controller's arms and the scheduler's state agree."""
+        ks = tuple(getattr(controller, "ks", (0,)))
+        kmax = max(ks) if ks else 0
+        if kmax > 0:
+            if self.spec is None:
+                raise ValueError(
+                    f"controller ks={ks} include positive depths but the "
+                    "scheduler has no speculation configured — build it with "
+                    "spec=SpecConfig(k=max(ks)) so the margin/drafter cover "
+                    "the deepest arm"
+                )
+            if kmax > self.spec.k:
+                raise ValueError(
+                    f"controller kmax={kmax} exceeds spec.k={self.spec.k} — "
+                    "the admission margin and drafter overhang are sized by "
+                    "spec.k, so the deepest candidate must fit inside it"
+                )
+        backends = getattr(controller, "backends", None)
+        if backends is None:
+            controller.backends = (self.attention_backend,)
+        else:
+            controller.backends = tuple(dict.fromkeys(
+                kernel_ops.resolve_attention_backend(b, self.device) for b in backends))
+        init_k = getattr(controller, "initial_k", None)
+        if init_k is not None and int(init_k) != self._live_k:
+            self._set_live_k(int(init_k))
+
+    def _set_backend(self, backend: str) -> None:
+        """Swap the decode/verify/chunk attention backend live. Every step
+        takes the backend as an argument and the pool state (KV, block
+        tables, lengths) does not depend on it, so nothing else moves. The
+        drafter keeps the backend it was built with, as the reference's
+        does."""
+        self.attention_backend = kernel_ops.resolve_attention_backend(backend, self.device)
+
+    def _set_live_k(self, k: int) -> None:
+        """Re-decide the speculation depth live: the next verify is K+1
+        wide. The stateful drafter's catch-up: rows that decoded plainly
+        while K was 0 advanced the target cache without the draft cache
+        seeing their tokens, so a 0→K transition re-syncs every active row
+        through ``on_admit`` (re-prefilling the committed history). Moves
+        between positive depths need no sync: rollback leaves the draft
+        cache on the committed stream."""
+        k = int(k)
+        if k == self._live_k:
+            return
+        if k < 0 or (k > 0 and (self.spec is None or k > self.spec.k)):
+            cap = self.spec.k if self.spec is not None else 0
+            raise ValueError(f"live k={k} outside [0, {cap}]")
+        was, self._live_k = self._live_k, k
+        if self._drafter is not None and k > 0:
+            if hasattr(self._drafter, "set_k"):
+                self._drafter.set_k(k)
+            if was == 0:
+                for row, req in self._active.items():
+                    self._drafter.on_admit(row, req)
+
+    def _controller_tick(self) -> None:
+        """One observe → decide → apply round every ``decision_interval``
+        working steps: read the windowed sensor vector, let the controller
+        price the arms, apply the verdict, and record the decision on the
+        adviser lane and in the controller gauges (live K and backend,
+        switches, dwell) — the paper's audit trail, live."""
+        c = self.controller
+        self._ctl_steps += 1
+        if self._ctl_steps % max(1, int(getattr(c, "decision_interval", 8))):
+            return
+        summary = self.stats.registry.window_summary(int(getattr(c, "window", 16)))
+        d = c.decide(summary, k_live=self._live_k, backend_live=self.attention_backend,
+                     step=self._ctl_steps)
+        self._apply_decision(d)
+        reg = self.stats.registry
+        reg.counter("controller.decisions").inc()
+        if d.switched:
+            reg.counter("controller.switches").inc()
+        reg.gauge("controller.k").set(float(self._live_k))
+        backends = getattr(c, "backends", None) or ()
+        reg.gauge("controller.backend_index").set(
+            float(backends.index(self.attention_backend))
+            if self.attention_backend in backends else -1.0)
+        reg.gauge("controller.dwell_remaining").set(float(getattr(c, "dwell_remaining", 0)))
+        self.stats.controller_info = {
+            "decisions": len(getattr(c, "decisions", ())) or self._ctl_steps,
+            "switches": int(getattr(c, "n_switches", 0)),
+            "k": self._live_k,
+            "backend": self.attention_backend,
+            "admit_budget": self._admit_budget,
+            "dwell_remaining": int(getattr(c, "dwell_remaining", 0)),
+        }
+        self.tel.tracer.instant("online-decision", "adviser", tid=TID_ADVISER, args=d.to_json())
+
+    def _apply_decision(self, d) -> None:
+        """Apply one ``Decision``: backend, then depth, then the admission
+        budget."""
+        if d.backend is not None:
+            self._set_backend(d.backend)
+        if d.k is not None:
+            self._set_live_k(d.k)
+        self._admit_budget = max(1, int(d.admit_budget)) if d.admit_budget is not None else None
 
     # ------------------------------------------------------------------
     # plan routing (over the active-slot view)
@@ -270,6 +421,12 @@ class Scheduler:
         req.state = QUEUED
         self._queue.append(req)
         self._queue.sort(key=self._queue_key)
+        if self._ton:
+            self.tel.tracer.async_begin(
+                "request", req.rid, "request",
+                args={"prompt_len": int(np.asarray(req.prompt).shape[0]),
+                      "max_new_tokens": req.max_new_tokens, "priority": req.priority},
+            )
 
     # ------------------------------------------------------------------
     # sampling
@@ -296,6 +453,9 @@ class Scheduler:
         once — a resumed request continues its saved sampler instead."""
         if req.t_first_admit is None:
             req.t_first_admit = now
+        if self._ton:
+            self._c_admitted.inc()
+            self.tel.tracer.async_instant("resume" if req.tokens else "admit", req.rid, "request")
         if not req.tokens:
             self._ordinals[req.rid] = self._n_admitted
             self._n_admitted += 1
@@ -317,6 +477,8 @@ class Scheduler:
         gen = self._generator(self._ordinals.pop(req.rid))
         tok0 = self._sample_row(logits_row, gen)
         req.t_first = self._clock()
+        if self._ton:
+            self.tel.tracer.async_instant("first_token", req.rid, "request")
         req.tokens.append(tok0)
         req.state = DECODE
         self._tok[row] = tok0
@@ -345,7 +507,7 @@ class Scheduler:
             self._resume_decode(req, row)
         else:
             self._start_decode(req, row, logits_row)
-        if self._drafter is not None and not req.finished:
+        if self._drafter is not None and self._live_k > 0 and not req.finished:
             self._drafter.on_admit(row, req)
 
     def _padded(self, prompts, W: int):
@@ -371,10 +533,11 @@ class Scheduler:
         for W, group in groups.items():
             toks, lens = self._padded([eff for _, eff in group], W)
             self.widths["prefill"][W] += 1
-            logits, cache = self.model.prefill(
-                self.params, toks, self.max_seq, prompt_len=lens if self._bucket else None,
-                backend=self.attention_backend,
-            )
+            with self.tel.annotate("serve.prefill"):
+                logits, cache = self.model.prefill(
+                    self.params, toks, self.max_seq, prompt_len=lens if self._bucket else None,
+                    backend=self.attention_backend,
+                )
             for i, (req, eff) in enumerate(group):
                 slot = self.kv.alloc(req.rid)
                 req.slot = slot
@@ -446,16 +609,18 @@ class Scheduler:
             W = len(suffix) if hit + W > self.max_seq else W
             toks, lens = self._padded([suffix], W)
             pk, pv = self.kv.gather_prefix(hit_ids)
-            logits, cache = self.model.prefill_with_prefix(
-                self.params, toks, pk, pv, self.max_seq, suffix_len=lens, backend=be
-            )
+            with self.tel.annotate("serve.prefill"):
+                logits, cache = self.model.prefill_with_prefix(
+                    self.params, toks, pk, pv, self.max_seq, suffix_len=lens, backend=be
+                )
         else:
             W = prefill_bucket(len(eff))
             W = len(eff) if W > self.max_seq else W
             toks, lens = self._padded([eff], W)
-            logits, cache = self.model.prefill(
-                self.params, toks, self.max_seq, prompt_len=lens, backend=be
-            )
+            with self.tel.annotate("serve.prefill"):
+                logits, cache = self.model.prefill(
+                    self.params, toks, self.max_seq, prompt_len=lens, backend=be
+                )
         self.widths["prefill"][W] += 1
         self.kv.write_prefill(row, cache, skip_blocks=len(hit_ids))
         self._arm(req, row, logits[0])
@@ -494,12 +659,21 @@ class Scheduler:
         req.slot = None
         req.preemptions += 1
         self.stats.n_preemptions += 1
+        if self._ton:
+            self.tel.tracer.async_instant("preempt", req.rid, "request",
+                                          args={"committed_tokens": len(req.tokens)})
         self._queue.append(req)
         self._queue.sort(key=self._queue_key)
 
     def _retire(self, req: Request, now: float) -> None:
         req.state, req.t_finish = FINISHED, now
         self.stats.record(req)
+        if self._ton:
+            self.tel.tracer.async_end(
+                "request", req.rid, "request",
+                args={"tokens": len(req.tokens), "preemptions": req.preemptions,
+                      "prefix_hit": req.prefix_hit},
+            )
         if self.kv_layout == "paged":
             self.kv.free_row(req.slot)
         else:
@@ -515,18 +689,21 @@ class Scheduler:
             for row in self._active:
                 self.kv.ensure_tail(row)
             pool, tables, lens = self.kv.kernel_inputs()
-            logits, self.kv.pool = self.model.decode_step_paged(
-                self.params, pool, tables, lens, tok, backend=self.attention_backend
-            )
+            with self.tel.annotate("serve.decode"):
+                logits, self.kv.pool = self.model.decode_step_paged(
+                    self.params, pool, tables, lens, tok, backend=self.attention_backend
+                )
         elif self._decode_plan is not None:
             mask = torch.zeros((self.kv.max_batch,), dtype=torch.bool)
             mask[list(self._active)] = True
-            logits, self.kv.cache = self._plan_decode(
-                self.kv.cache, tok[:, 0], mask.to(self.device))
+            with self.tel.annotate("serve.decode"):
+                logits, self.kv.cache = self._plan_decode(
+                    self.kv.cache, tok[:, 0], mask.to(self.device))
         else:
-            logits, self.kv.cache = self.model.decode_step(
-                self.params, self.kv.cache, tok, backend=self.attention_backend
-            )
+            with self.tel.annotate("serve.decode"):
+                logits, self.kv.cache = self.model.decode_step(
+                    self.params, self.kv.cache, tok, backend=self.attention_backend
+                )
         self._sync()
         return logits
 
@@ -538,10 +715,12 @@ class Scheduler:
         token, so the stream is the plain greedy one token for token. Then
         the pools rewind the rejected tail (slot lengths in one update,
         paged rows releasing their unneeded tail blocks) and a stateful
-        drafter rolls back by the same per-row vector."""
-        K = self.spec.k
+        drafter rolls back by the same per-row vector. K is the live depth
+        (``spec.k`` is its ceiling)."""
+        K = self._live_k
         t_start = time.perf_counter()
-        drafts = self._drafter.propose(self._active, self._tok)
+        with self.tel.annotate("serve.draft"):
+            drafts = self._drafter.propose(self._active, self._tok)
         t_draft = time.perf_counter()
         self.stats.draft_ms.append((t_draft - t_start) * 1e3)
         tokens_in = torch.from_numpy(
@@ -553,13 +732,21 @@ class Scheduler:
             for row in self._active:
                 self.kv.ensure_tail_n(row, K + 1)
             pool, tables, lens = self.kv.kernel_inputs()
-            logits, self.kv.pool = self.model.verify_step_paged(
-                self.params, pool, tables, lens, tokens_in, backend=be)
+            with self.tel.annotate("serve.verify"):
+                logits, self.kv.pool = self.model.verify_step_paged(
+                    self.params, pool, tables, lens, tokens_in, backend=be)
         else:
-            logits, self.kv.cache = self.model.verify_step(
-                self.params, self.kv.cache, tokens_in, backend=be)
+            with self.tel.annotate("serve.verify"):
+                logits, self.kv.cache = self.model.verify_step(
+                    self.params, self.kv.cache, tokens_in, backend=be)
         greedy = torch.argmax(logits, dim=-1).cpu().numpy()  # [max_batch, K+1]
-        self.stats.verify_ms.append((time.perf_counter() - t_draft) * 1e3)
+        now = time.perf_counter()
+        self.stats.verify_ms.append((now - t_draft) * 1e3)
+        if self._ton:
+            tr = self.tel.tracer
+            a, b = tr.to_us(t_start), tr.to_us(t_draft)
+            tr.complete("draft", "sched", a, b - a, args={"k": K})
+            tr.complete("verify", "sched", b, tr.to_us(now) - b, args={"k": K})
         self.stats.spec_k = K
         self.stats.spec_steps += 1
 
@@ -600,9 +787,15 @@ class Scheduler:
         """Admit arrived requests, highest priority first, preempting a
         strictly lower-priority live row when the pool is dry. It ends:
         each admission takes capacity, and each preemption strictly raises
-        the live set's priorities."""
+        the live set's priorities. A controller-set ``_admit_budget`` caps
+        the admissions a step (back-pressure under preemption churn);
+        ``None`` is unlimited."""
         admitted = False
+        n_admitted = 0
+        budget = self._admit_budget
         while True:
+            if budget is not None and n_admitted >= budget:
+                return admitted
             arrived = [r for r in self._queue if r.arrival_time <= now]
             if not arrived:
                 return admitted
@@ -611,9 +804,12 @@ class Scheduler:
                 if self._try_admit_paged(head, now):
                     self._queue.remove(head)
                     admitted = True
+                    n_admitted += 1
                     continue
             else:
                 wave = arrived[: self.kv.n_free]
+                if budget is not None:
+                    wave = wave[: budget - n_admitted]
                 if wave:
                     for r in wave:
                         self._queue.remove(r)
@@ -623,6 +819,7 @@ class Scheduler:
                     else:
                         self._admit(wave, now)
                     admitted = True
+                    n_admitted += len(wave)
                     continue
             if not self._maybe_preempt(head):
                 return admitted
@@ -646,15 +843,23 @@ class Scheduler:
             toks = np.zeros((1, W), np.int64)
             toks[0, :n] = st.prompt[st.pos : st.pos + n]
             self.widths["chunk"][W] += 1
-            logits, st.cache = self.model.prefill_chunk(
-                self.params, st.cache, torch.from_numpy(toks).to(self.device), [n],
-                backend=self.attention_backend,
-            )
+            with self.tel.annotate("serve.prefill_chunk"):
+                logits, st.cache = self.model.prefill_chunk(
+                    self.params, st.cache, torch.from_numpy(toks).to(self.device), [n],
+                    backend=self.attention_backend,
+                )
             st.pos += n
             budget -= n
+            if self._ton:
+                self.tel.tracer.async_instant("prefill-chunk", st.req.rid, "request",
+                                              args={"n": n, "pos": st.pos, "of": len(st.prompt)})
             if st.pos == len(st.prompt):
                 del self._chunking[row]
                 self._install_chunked(st, row, logits[0, n - 1])
+        if self._ton:
+            # the share of the step's token budget spent: sustained < 1
+            # with a queue means admission, not chunk work, is the limit
+            self._s_chunk_util.append((self.chunk_size - budget) / self.chunk_size)
         return True
 
     def _install_chunked(self, st: _ChunkState, row: int, logits_row) -> None:
@@ -686,28 +891,73 @@ class Scheduler:
             W *= 2
         self._sync()
 
+    def _finish_step(self, t0: float, phases) -> None:
+        """Telemetry's step boundary (reached only with the recorder on):
+        the step span and its non-empty phase spans, the queue and pool
+        gauges, and one registry tick so every counter lands in its window
+        ring. Host bookkeeping only, no device synchronise beyond the
+        step's own."""
+        end = time.perf_counter()
+        tr = self.tel.tracer
+        ts0 = tr.to_us(t0)
+        self._step_seq += 1
+        tr.complete("step", "sched", ts0, tr.to_us(end) - ts0,
+                    args={"seq": self._step_seq, "active": len(self._active),
+                          "queued": len(self._queue)})
+        for name, a, b, did in phases:
+            if did:
+                ta = tr.to_us(a)
+                tr.complete(name, "sched", ta, tr.to_us(b) - ta)
+        self._g_queue.set(len(self._queue))
+        self._g_active.set(len(self._active))
+        self._g_occ.set(self.kv.occupancy)
+        if self.kv_layout == "paged":
+            self._g_free_blocks.set(self.kv.n_free_blocks)
+        self.stats.registry.tick()
+
+    @staticmethod
+    def _early(t0, t_admit, t_chunk, admitted, chunked):
+        """The admit and chunk phases of a step, as ``_finish_step`` takes them."""
+        return (("admit", t0, t_admit, admitted), ("prefill_chunk", t_admit, t_chunk, chunked))
+
     def step(self, now: Optional[float] = None) -> bool:
         """Admit arrived requests, spend the chunked-prefill budget, then
         run one batched decode (or one speculation round) over the live
         set. Returns False when there was nothing to do. ``step_ms``
         covers the whole step, so prefill stalls show in the tail they
-        cause."""
+        cause. With a controller attached, every working step also
+        advances the observe → decide → apply loop (after the telemetry
+        tick, so the decision prices a window that holds this step)."""
+        did = self._step_inner(now)
+        if did and self.controller is not None:
+            self._controller_tick()
+        return did
+
+    def _step_inner(self, now: Optional[float] = None) -> bool:
         if now is None:
             now = self._clock()
         t0 = time.perf_counter()
+        ton = self._ton
         admitted = self._admit_phase(now)
+        t_admit = time.perf_counter() if ton else 0.0
         chunked = self._prefill_phase()
+        t_chunk = time.perf_counter() if ton else 0.0
         if not self._active:
             if admitted or chunked:
                 self._sync()
                 self.stats.step_ms.append((time.perf_counter() - t0) * 1e3)
+                if ton:
+                    self._finish_step(t0, self._early(t0, t_admit, t_chunk, admitted, chunked))
                 return True
             return False
-        if self.spec is not None:
+        if self.spec is not None and self._live_k > 0:
             self._spec_step()
             self.stats.step_ms.append((time.perf_counter() - t0) * 1e3)
+            if ton:  # the draft and verify spans were recorded in _spec_step
+                self._finish_step(t0, self._early(t0, t_admit, t_chunk, admitted, chunked))
             return True
         logits = self._decode_pool()
+        t_decode = time.perf_counter() if ton else 0.0
         self.stats.step_ms.append((time.perf_counter() - t0) * 1e3)
         if self.kv_layout == "paged":
             for row in self._active:
@@ -722,6 +972,10 @@ class Scheduler:
             self._tok[row] = tok
             if len(req.tokens) >= req.max_new_tokens or tok == req.eos_id:
                 self._retire(req, self._clock())
+        if ton:
+            self._finish_step(t0, self._early(t0, t_admit, t_chunk, admitted, chunked) + (
+                ("decode", t_chunk, t_decode, True),
+                ("sample", t_decode, time.perf_counter(), True)))
         return True
 
     def run(self, requests=None, *, reset_stats: bool = True) -> dict:

@@ -16,9 +16,10 @@ tail (``truncate_row``). Two drafters ship:
   on the card).
 
 Both are pool-shaped: ``propose`` returns ``[max_batch, K]`` over the
-whole row pool (dead rows carry junk the verify routes to scratch).
-The depth adviser (``advise_depth``) needs the serving tools of
-ROADMAP §1 item 8.
+whole row pool (dead rows carry junk the verify routes to scratch), and
+both re-depth live (``set_k``) when an online controller moves K. The
+depth adviser (``advise_depth``) probe-measures a workload and lets
+``core.tools.SpeculationAdvisorTool`` pick K.
 """
 from __future__ import annotations
 
@@ -104,6 +105,12 @@ class NGramDraftSource:
     def on_admit(self, row: int, req) -> None:
         pass  # the request's history is the state
 
+    def set_k(self, k: int) -> None:
+        """Re-depth the proposal window live (an online controller's K
+        re-decision): the lookup is stateless, so this only resizes the
+        proposals of later rounds."""
+        self.k = int(k)
+
     def propose(self, active: dict, tok: np.ndarray) -> np.ndarray:
         out = np.zeros((self._max_batch, self.k), np.int32)
         for row, req in active.items():
@@ -139,8 +146,8 @@ class ModelDraftSource:
     target's tokenizer space.
 
     Owns a slot decode cache aligned row for row with the scheduler's
-    pool, ``max_seq + K + 1`` long (the rows carry K+1 tokens of
-    speculative overhang). The prompt is prefilled on admission; each
+    pool, ``max_seq + K + 1`` long for the construction depth K (the rows
+    carry K+1 tokens of speculative overhang). The prompt is prefilled on admission; each
     round runs K greedy decode steps plus one catch-up step (processing
     the K-th draft, so a fully accepted round leaves no hole), and
     ``rollback`` truncates by the target pool's vector, after which the
@@ -157,11 +164,23 @@ class ModelDraftSource:
         self.model = model
         self.params = params
         self.k = int(k)
+        self._k_max = int(k)  # the construction depth sizes the cache overhang
         self.backend = attention_backend
         self.cache = None
 
+    def set_k(self, k: int) -> None:
+        """Re-depth the draft loop live (an online controller's K
+        re-decision). The cache overhang was sized for the construction
+        depth, so the live depth moves within it."""
+        if not 0 < int(k) <= self._k_max:
+            raise ValueError(
+                f"live k={k} outside (0, {self._k_max}] — the draft cache "
+                f"overhang was bound for k={self._k_max}"
+            )
+        self.k = int(k)
+
     def bind(self, max_batch: int, max_seq: int) -> None:
-        self._max_seq = int(max_seq) + self.k + 1  # speculative overhang
+        self._max_seq = int(max_seq) + self._k_max + 1  # speculative overhang
         self.cache = self.model.init_cache(int(max_batch), self._max_seq)
 
     def on_admit(self, row: int, req) -> None:
@@ -185,18 +204,22 @@ class ModelDraftSource:
         self.model.write_cache_slot(self.cache, cache1, row)
 
     def propose(self, active: dict, tok: np.ndarray) -> np.ndarray:
+        from repro_torch.serve.telemetry import get_telemetry
+
         dev = self.model.device
         cur = torch.from_numpy(np.asarray(tok, np.int64)).to(dev)
         cache = self.cache
         out = []
-        for _ in range(self.k):
-            logits, cache = self.model.decode_step(
-                self.params, cache, cur[:, None], backend=self.backend)
-            cur = torch.argmax(logits, dim=-1)
-            out.append(cur)
-        # catch-up: process the K-th draft so that a fully accepted round
-        # leaves the draft cache one for one with the target's
-        _, cache = self.model.decode_step(self.params, cache, cur[:, None], backend=self.backend)
+        with get_telemetry().annotate("serve.draft_model"):
+            for _ in range(self.k):
+                logits, cache = self.model.decode_step(
+                    self.params, cache, cur[:, None], backend=self.backend)
+                cur = torch.argmax(logits, dim=-1)
+                out.append(cur)
+            # catch-up: process the K-th draft so that a fully accepted round
+            # leaves the draft cache one for one with the target's
+            _, cache = self.model.decode_step(self.params, cache, cur[:, None],
+                                              backend=self.backend)
         self.cache = cache
         return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
 
@@ -204,3 +227,56 @@ class ModelDraftSource:
         lens = self.cache["len"]
         vec = torch.as_tensor(np.asarray(n_rejected, np.int32), device=lens.device)
         self.cache["len"] = torch.clamp(lens - vec, min=0)
+
+
+# ---------------------------------------------------------------------------
+# depth advice (the serving analogue of advise-then-execute)
+
+
+def advise_depth(
+    engine,
+    workload_fn,
+    *,
+    drafter: Any = "ngram",
+    ks=(0, 2, 4, 8),
+    max_batch: int = 4,
+    threshold: float = 0.02,
+    draft_model=None,
+    draft_params=None,
+    seed: int = 0,
+):
+    """Probe-measure this workload, then let ``SpeculationAdvisorTool``
+    pick the speculation depth.
+
+    Runs ``workload_fn()`` (a fresh request list per call — requests are
+    stateful) twice through ``engine``: once plain (the K=0 decode cost)
+    and once at ``max(ks)`` (draft cost, verify cost, acceptance rate),
+    reading ``engine.stats``. The tool prices the expected latency per
+    output token at every candidate K from those measurements —
+    interpolating the verify cost between the probed depths — and gates
+    on ``threshold`` predicted gain. Returns ``(SpecConfig,
+    SpecMeasurement, log_line)``; ``engine.serve(spec=...)`` honours the
+    decision.
+    """
+    from repro_torch.core.tools import SpecMeasurement, SpeculationAdvisorTool
+
+    kmax = max(ks)
+    if kmax <= 0:
+        raise ValueError("ks needs at least one positive candidate depth")
+    spec_kw = dict(drafter=drafter, draft_model=draft_model, draft_params=draft_params)
+    engine.serve(workload_fn(), max_batch=max_batch, seed=seed, spec=SpecConfig(k=0))
+    decode_ms = engine.stats.percentile(50)
+    engine.serve(
+        workload_fn(), max_batch=max_batch, seed=seed,
+        spec=SpecConfig(k=kmax, **spec_kw),
+    )
+    s = engine.stats
+    n_drafted = max(1, kmax * s.spec_steps)
+    meas = SpecMeasurement(
+        draft_ms_per_token=float(np.sum(s.draft_ms)) / n_drafted,
+        verify_ms={0: decode_ms, kmax: s.percentile(50, "verify_ms")},
+        acceptance_rate=s.acceptance_rate,
+    )
+    tool = SpeculationAdvisorTool(ks=tuple(ks))
+    k, _gain, log = tool.choose(meas, threshold=threshold)
+    return SpecConfig(k=k, **spec_kw), meas, log

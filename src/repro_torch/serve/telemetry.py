@@ -1,17 +1,82 @@
-"""Serving metrics: ``quantile`` and the windowed ``MetricsRegistry``.
+"""Serving flight recorder: structured tracing and windowed metrics.
 
-The metrics half of the JAX package's ``serve/telemetry.py``, copied so
-the port imports nothing of that package. ``ServeStats`` sits on the
-registry. The trace recorder (``Tracer``/``Telemetry``) waits for
-ROADMAP §1 item 8.
+Port of the JAX package's ``serve/telemetry.py``, copied so the port
+imports nothing of that package:
+
+``Tracer``
+    A bounded ring-buffer flight recorder of trace events with monotonic
+    (``time.perf_counter``) microsecond timestamps, appended as plain
+    tuples into a ``deque(maxlen=capacity)``: recording launches nothing
+    on the device and never synchronises, and the oldest events fall off
+    the back under sustained load. ``export()`` writes Chrome/Perfetto
+    trace-event JSON: per-step phase spans on the scheduler lane, each
+    request's lifecycle as async ``"b"``/``"n"``/``"e"`` events keyed by
+    its rid, the adviser's pipeline stages and decisions with their priced
+    inputs, and backend resolutions as instant events.
+
+``MetricsRegistry``
+    Counters, gauges and sample series shared with ``ServeStats``. The
+    scheduler calls ``tick()`` once per working step when telemetry is on;
+    each tick snapshots every counter and gauge into a bounded ring, so
+    ``window_summary(n)`` answers "over the last n steps" — the signal
+    vector ``serve.controller.OnlineAdviser`` prices.
+
+``Telemetry``
+    A tracer (and, optionally, ``torch.profiler.record_function`` ranges
+    around each device-launching phase) behind one ``enabled`` flag, the
+    hard off switch: disabled (the default), every instrumentation site
+    on the serving hot path is one attribute check — no events, no ticks,
+    no ranges. A module-global default (``get_telemetry``) serves call
+    sites with no engine handle (the backend registry, the adviser tools);
+    engines and schedulers take an explicit ``telemetry=``.
+
+Standard library only (``torch.profiler`` is imported inside
+``annotate``), so ``core/`` and ``kernels/`` can reach it without an
+import cycle through the serving package.
 """
 from __future__ import annotations
 
+import json
 import math
+import time
 from collections import deque
+from contextlib import nullcontext
 from typing import Any, Iterable
 
-__all__ = ["Counter", "Gauge", "Series", "MetricsRegistry", "quantile"]
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Series",
+    "MetricsRegistry",
+    "Tracer",
+    "Telemetry",
+    "get_telemetry",
+    "configure",
+    "quantile",
+    "validate_chrome_trace",
+    "TID_STEP",
+    "TID_REQUEST",
+    "TID_ADVISER",
+    "TID_BACKEND",
+    "global_registry",
+]
+
+# One synthetic process, one thread lane per subsystem — fixed ids so
+# Perfetto groups tracks deterministically across exports.
+TRACE_PID = 1
+TID_STEP = 0  # scheduler step + phase spans
+TID_REQUEST = 1  # request lifecycle (async spans keyed by rid)
+TID_ADVISER = 2  # ToolPipeline stages + advisor decisions
+TID_BACKEND = 3  # kernel backend resolutions / mesh fallbacks
+
+_THREAD_NAMES = {
+    TID_STEP: "scheduler.step",
+    TID_REQUEST: "requests",
+    TID_ADVISER: "adviser",
+    TID_BACKEND: "backend",
+}
+
+_NULL_CM = nullcontext()
 
 
 def quantile(vals, p: float) -> float:
@@ -256,3 +321,233 @@ class MetricsRegistry:
             g.reset()
         for s in self._series.values():
             s.clear()
+
+
+class Tracer:
+    """Bounded ring-buffer flight recorder of Chrome trace events.
+
+    Events are stored as tuples ``(ph, name, cat, ts_us, dur_us, tid,
+    id, args)`` in a ``deque(maxlen=capacity)`` — appending is O(1) and
+    the buffer can never exceed its bound (oldest events are dropped
+    first, like a flight recorder).  Timestamps are microseconds from
+    the tracer's own ``perf_counter`` epoch."""
+
+    def __init__(self, capacity: int = 65536):
+        self.capacity = int(capacity)
+        self._events: deque = deque(maxlen=self.capacity)
+        self._t0 = time.perf_counter()
+
+    # -- recording ---------------------------------------------------
+    def now_us(self) -> float:
+        return (time.perf_counter() - self._t0) * 1e6
+
+    def to_us(self, t: float) -> float:
+        """Convert a raw ``time.perf_counter()`` reading to trace µs."""
+        return (t - self._t0) * 1e6
+
+    def complete(self, name, cat, ts_us, dur_us, tid=TID_STEP, args=None) -> None:
+        self._events.append(("X", name, cat, ts_us, max(0.0, dur_us), tid, None, args))
+
+    def instant(self, name, cat, tid=TID_STEP, args=None, ts_us=None) -> None:
+        ts = self.now_us() if ts_us is None else ts_us
+        self._events.append(("i", name, cat, ts, None, tid, None, args))
+
+    def async_begin(self, name, id_, cat, args=None, ts_us=None) -> None:
+        ts = self.now_us() if ts_us is None else ts_us
+        self._events.append(("b", name, cat, ts, None, TID_REQUEST, id_, args))
+
+    def async_instant(self, name, id_, cat, args=None, ts_us=None) -> None:
+        ts = self.now_us() if ts_us is None else ts_us
+        self._events.append(("n", name, cat, ts, None, TID_REQUEST, id_, args))
+
+    def async_end(self, name, id_, cat, args=None, ts_us=None) -> None:
+        ts = self.now_us() if ts_us is None else ts_us
+        self._events.append(("e", name, cat, ts, None, TID_REQUEST, id_, args))
+
+    # -- reading -----------------------------------------------------
+    def __len__(self) -> int:
+        return len(self._events)
+
+    @property
+    def events(self) -> list[tuple]:
+        return list(self._events)
+
+    def clear(self) -> None:
+        self._events.clear()
+
+    def chrome_events(self) -> list[dict[str, Any]]:
+        """Render the ring to Chrome trace-event dicts, prefixed by
+        process/thread metadata so Perfetto labels the tracks."""
+        out: list[dict[str, Any]] = [
+            {
+                "name": "process_name",
+                "ph": "M",
+                "pid": TRACE_PID,
+                "tid": 0,
+                "args": {"name": "repro_torch.serve"},
+            }
+        ]
+        for tid, tname in _THREAD_NAMES.items():
+            out.append(
+                {
+                    "name": "thread_name",
+                    "ph": "M",
+                    "pid": TRACE_PID,
+                    "tid": tid,
+                    "args": {"name": tname},
+                }
+            )
+        for ph, name, cat, ts, dur, tid, id_, args in self._events:
+            ev: dict[str, Any] = {
+                "name": name,
+                "cat": cat,
+                "ph": ph,
+                "ts": round(ts, 3),
+                "pid": TRACE_PID,
+                "tid": tid,
+            }
+            if ph == "X":
+                ev["dur"] = round(dur, 3)
+            if ph == "i":
+                ev["s"] = "t"
+            if id_ is not None:
+                ev["id"] = id_
+            if args:
+                ev["args"] = args
+            out.append(ev)
+        return out
+
+    def to_chrome_trace(self) -> dict[str, Any]:
+        return {"traceEvents": self.chrome_events(), "displayTimeUnit": "ms"}
+
+    def export(self, path: str) -> dict[str, Any]:
+        """Write Perfetto-loadable JSON to ``path``; returns the dict."""
+        trace = self.to_chrome_trace()
+        with open(path, "w") as f:
+            json.dump(trace, f, default=str)
+        return trace
+
+
+class Telemetry:
+    """Tracer (and optional profiler ranges) behind one hard off switch.
+
+    ``enabled=False`` (the default, and the module global's state) leaves
+    the serving hot path as it is: every instrumentation site guards on
+    ``tel.enabled`` (or on a cached metric handle that exists only when
+    enabled). ``profiler_annotations=True`` also wraps each device-launching
+    phase in ``torch.profiler.record_function(name)``, so a
+    ``torch.profiler`` trace shows the phase around its kernels — off by
+    default even when tracing, since it adds a profiler range a launch."""
+
+    def __init__(
+        self,
+        enabled: bool = False,
+        capacity: int = 65536,
+        profiler_annotations: bool = False,
+    ):
+        self.enabled = bool(enabled)
+        self.profiler_annotations = bool(profiler_annotations)
+        self.tracer = Tracer(capacity)
+
+    def annotate(self, name: str):
+        """Context manager for a device-launching phase: a
+        ``torch.profiler.record_function`` range when enabled AND
+        ``profiler_annotations`` is set, else a shared no-op context."""
+        if not (self.enabled and self.profiler_annotations):
+            return _NULL_CM
+        from torch.profiler import record_function  # lazy: keep the module stdlib-only
+
+        return record_function(name)
+
+    def count(self, name: str, n: float = 1.0, registry: MetricsRegistry | None = None) -> None:
+        """For rare call sites with no engine (the backend registry): bump
+        a counter on ``registry`` (or the global one) iff enabled."""
+        if not self.enabled:
+            return
+        (registry or _GLOBAL_REGISTRY).counter(name).inc(n)
+
+
+# Module-global default: disabled. `configure()` arms it; tests build
+# their own `Telemetry()` and pass it to the engine.
+GLOBAL = Telemetry(enabled=False)
+_GLOBAL_REGISTRY = MetricsRegistry()
+
+
+def get_telemetry() -> Telemetry:
+    return GLOBAL
+
+
+def global_registry() -> MetricsRegistry:
+    """Registry behind the engine-less counters recorded through
+    ``Telemetry.count`` (backend resolutions, adviser decisions)."""
+    return _GLOBAL_REGISTRY
+
+
+def configure(
+    enabled: bool = True,
+    capacity: int = 65536,
+    profiler_annotations: bool = False,
+) -> Telemetry:
+    """(Re)arm the module-global telemetry: a fresh tracer, the same
+    object, so call sites that took ``get_telemetry()`` see it."""
+    GLOBAL.enabled = bool(enabled)
+    GLOBAL.profiler_annotations = bool(profiler_annotations)
+    GLOBAL.tracer = Tracer(capacity)
+    return GLOBAL
+
+
+_VALID_PH = {"X", "B", "E", "i", "I", "b", "n", "e", "M", "C", "s", "t", "f"}
+
+
+def validate_chrome_trace(trace: Any) -> dict[str, int]:
+    """Validate Chrome trace-event JSON structure; raises ``ValueError``
+    on the first violation, returns event counts on success.
+
+    Checks the schema chrome://tracing and Perfetto actually require:
+    a ``traceEvents`` list (or bare list) of dicts, each with a string
+    ``name``, known ``ph``, numeric ``ts`` (metadata exempt) and
+    ``pid``/``tid``; ``X`` events carry a non-negative ``dur``; async
+    ``b``/``n``/``e`` events carry an ``id`` and every ``e`` closes a
+    previously opened ``b`` of the same (cat, id)."""
+    events = trace.get("traceEvents") if isinstance(trace, dict) else trace
+    if not isinstance(events, list):
+        raise ValueError("trace must be a list or have a 'traceEvents' list")
+    counts = {"events": 0, "spans": 0, "async_spans": 0, "instants": 0}
+    open_async: dict[tuple, int] = {}
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            raise ValueError(f"event {i}: not a dict")
+        ph = ev.get("ph")
+        if ph not in _VALID_PH:
+            raise ValueError(f"event {i}: bad ph {ph!r}")
+        if not isinstance(ev.get("name"), str):
+            raise ValueError(f"event {i}: missing name")
+        if ph != "M":
+            if not isinstance(ev.get("ts"), (int, float)):
+                raise ValueError(f"event {i}: missing ts")
+            if ev["ts"] < 0:
+                raise ValueError(f"event {i}: negative ts")
+        if "pid" not in ev or "tid" not in ev:
+            raise ValueError(f"event {i}: missing pid/tid")
+        if ph == "X":
+            dur = ev.get("dur")
+            if not isinstance(dur, (int, float)) or dur < 0:
+                raise ValueError(f"event {i}: X without non-negative dur")
+            counts["spans"] += 1
+        if ph in ("i", "I"):
+            counts["instants"] += 1
+        if ph in ("b", "n", "e"):
+            if "id" not in ev:
+                raise ValueError(f"event {i}: async {ph!r} without id")
+            key = (ev.get("cat"), ev["id"])
+            if ph == "b":
+                open_async[key] = open_async.get(key, 0) + 1
+                counts["async_spans"] += 1
+            elif ph == "e":
+                if open_async.get(key, 0) < 1:
+                    # the ring may have evicted the matching "b"; only a
+                    # strict violation when the buffer never wrapped
+                    raise ValueError(f"event {i}: async end without begin {key}")
+                open_async[key] -= 1
+        counts["events"] += 1
+    return counts

@@ -183,7 +183,7 @@ def test_spec_stages_and_tools():
     assert [s.name for s in AIRA_SPEC] == [
         "profile", "annotate", "static_deps", "dynamic_deps", "simulate", "restructure"]
     assert [t.name for t in DEFAULT_TOOLS] == [
-        "profile", "static", "dynamic", "simulate", "restructure"]
+        "profile", "static", "dynamic", "simulate", "restructure", "speculate", "kernel"]
 
 
 # ---------------------------------------------------------------------------
@@ -288,8 +288,10 @@ def test_recording_then_replay_policy():
     rec = RecordingPolicy(SpecPolicy())
     d1 = Aira(hw=CPU_HW, policy=rec).advise(Workload("w", lambda: None, [region])).decisions[0]
     assert d1.accepted
+    # "speculate" and "kernel" ride in DEFAULT_TOOLS but skip (silently) for
+    # compute regions; they still pass through the policy seat, as in JAX
     assert [stage for (_, stage, _, _) in rec.record] == [
-        "profile", "static", "dynamic", "simulate", "restructure"]
+        "profile", "static", "dynamic", "simulate", "restructure", "speculate", "kernel"]
     d2 = Aira(hw=CPU_HW, policy=ReplayPolicy(list(rec.record))).advise(
         Workload("w", lambda: None, [region])).decisions[0]
     assert d2.accepted == d1.accepted and d2.schedule.granularity == d1.schedule.granularity

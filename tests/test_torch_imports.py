@@ -23,6 +23,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.kernels.relic_matmul, repro_torch.kernels.decode_attention\n"
         "import repro_torch.serve, repro_torch.configs, repro_torch.configs.zamba2_2p7b\n"
         "import repro_torch.serve.speculative, repro_torch.serve.scheduler\n"
+        "import repro_torch.serve.controller, repro_torch.serve.telemetry\n"
         "import repro_torch.serve.kv_cache, repro_torch.serve.load\n"
         "import repro_torch.core, repro_torch.core.deps, repro_torch.core.spec\n"
         "import repro_torch.bench_suite, repro_torch.bench_suite.fig34\n"

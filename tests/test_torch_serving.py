@@ -95,19 +95,21 @@ def test_sampling_is_seeded(pair):
 
 
 def test_out_of_slice_options_refuse(pair):
-    """The online controller (ROADMAP §1 item 8) and sharded serving (item
-    9) still refuse, naming their items; speculation, chunked prefill and
-    priorities serve (tests/test_torch_speculative.py and the chunked and
-    preemption files hold them to the JAX engine)."""
+    """Sharded serving (ROADMAP §1 item 9) still refuses, naming its item;
+    speculation, chunked prefill, priorities and the online controller
+    serve (tests/test_torch_speculative.py, tests/test_torch_controller.py
+    and the chunked and preemption files hold them to the JAX engine)."""
+    from repro_torch.serve import PinnedController
+    from repro_torch.serve.engine import _NOT_PORTED
+
     cfg, _, _, tm, tp = pair
+    assert set(_NOT_PORTED) == {"mesh"}
     with pytest.raises(NotImplementedError, match="item 9"):
         ServingEngine(tm, tp, device="cpu", mesh=4, **KW)
     eng = ServingEngine(tm, tp, device="cpu", **KW)
-    for opt, item in (("controller", "item 8"), ("mesh", "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            eng.serve([], **{opt: 4})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.scheduler(2, controller=object())
+    with pytest.raises(NotImplementedError, match="item 9"):
+        eng.serve([], mesh=4)
+    assert eng.scheduler(2, controller=PinnedController(0)).controller is not None
     out = eng.serve([Request(prompt=np.arange(4), max_new_tokens=2, priority=1)], chunk_size=4)
     assert [len(t) for t in out.values()] == [2]
     base = tget("smollm-135m").reduced()

@@ -464,15 +464,14 @@ def test_ngram_lookup_matches_jax():
 
 
 def test_serving_spec_stages_resolve():
-    """SERVING_SPEC's draft, verify and rollback stages name real symbols
-    of the port; speculate's tool (the depth adviser) waits for ROADMAP
-    §1 item 8."""
+    """Every SERVING_SPEC stage's tool path names a real symbol of the
+    port, speculate's (the depth adviser's tool) included."""
     import importlib
 
     from repro_torch.core.spec import SERVING_SPEC
 
     assert [s.name for s in SERVING_SPEC] == ["draft", "verify", "rollback", "speculate"]
-    for stage in SERVING_SPEC[:3]:
+    for stage in SERVING_SPEC:
         parts = stage.tool.split(".")
         obj, i = None, len(parts)
         while i > 0:
@@ -486,7 +485,7 @@ def test_serving_spec_stages_resolve():
             obj = getattr(obj, attr)
     from repro_torch.core import tools
 
-    assert not hasattr(tools, "SpeculationAdvisorTool")
+    assert obj is tools.SpeculationAdvisorTool
 
 
 def test_stats_spec_accounting_resets(pair):
