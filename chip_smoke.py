@@ -55,8 +55,12 @@ Phases, in order; any failure exits non-zero before the final line:
    (-1e30, 0, 0); complementary ownerships combine to the unsplit
    kernel), the flash kernel's non-causal mode at B=2, S=512; with times,
    each matmul's path, and the bf16 matmul at both tile widths;
-5. serving — smollm-135m at full width (bf16, seeded random weights) served
-   through ``ServingEngine.serve()``: an open-loop workload and a
+5. serving — every model step runs through the engine's compiled step
+   families (``Model.jit_step``: a CUDA graph captured per step shape and
+   replayed; the launch counts below read the same under replay, a replay
+   adding its graph's launches). smollm-135m at full width (bf16, seeded
+   random weights) served through ``ServingEngine.serve()``: an open-loop
+   workload and a
    shared-prefix workload on the paged layout, a small one on the slot
    layout; every decode step must launch the paged kernel once per layer
    and every prefill the flash kernel once per layer; then mamba2-370m at
@@ -65,11 +69,9 @@ Phases, in order; any failure exits non-zero before the final line:
    (int8 KV cache), every prefill launching the SSD kernel once per layer
    and the flash kernel once per attention site, every decode step the
    int8 paged kernel once per site and no float-pool paged kernel; all
-   logits must be finite and every request must finish with tokens;
-   then, for each model, the host wall time of one decode step at 8 rows
-   and one 1024-token prefill against the device time the profiler finds
-   in their kernels; no serving run may launch a kernel or mode of
-   phase 4's that serving does not use;
+   logits must be finite and every request must finish with tokens; no
+   serving run may launch a kernel or mode of phase 4's that serving does
+   not use;
 6. parity — float32 workloads of the three models served through the
    kernels and through the plain reference backend must give the same
    greedy tokens (a difference counts as a tie only where the reference's
@@ -103,7 +105,8 @@ Phases, in order; any failure exits non-zero before the final line:
    256 over 128-1024-token prompts on both layouts after ``prime()``
    (tokens equal to monolithic prefill's, ties aside; every chunk and
    decode 30 paged launches, no flash launch, every chunk width a primed
-   one); ``make_slo_requests`` on a 4-row pool of 100 blocks driven on a
+   one, no step graph captured after ``prime()``); ``make_slo_requests``
+   on a 4-row pool of 100 blocks driven on a
    step clock (preemptions > 0, streams equal to an 8-row pool's that
    preempts nothing, ties aside); then in bf16 one n-gram run and one
    chunked run (finite logits, every request finished); the host/device
@@ -124,20 +127,39 @@ Phases, in order; any failure exits non-zero before the final line:
    ``OnlineAdviser`` seeded from ``engine.prime()``, every stream equal to
    the plain one but for ties and every run's launches exact (30 paged a
    decode or verify step at T = 1, 3, 5 or 9, one a draft decode; 30
-   flash a prefill, one a draft prefill); in bf16, ``engine.prime()``
+   flash a prefill, one a draft prefill), and every run after the prime
+   capturing nothing (``engine.retraces`` 0); in bf16, ``engine.prime()``
    over K ∈ {0, 2, 4, 8} and both backends (the plain one labelled),
-   ``make_drift_requests`` under telemetry at each static K and under an
-   ``OnlineAdviser`` (TPOT p50 by phase, decisions, switches, probes, the
+   ``make_drift_requests`` once to capture its shapes, then under
+   telemetry at each static K and under an ``OnlineAdviser``, each with
+   ``engine.retraces`` 0 (TPOT p50 by phase, decisions, switches, probes, the
    first decisions; the decisions' keys those of ``drift_decisions.json``),
    its trace exported to ``build/phase9_drift_trace.json`` and validated,
    step p50 with telemetry off and on, and one ``torch.profiler`` step of
    each kind whose ``serve.decode`` / ``serve.verify`` device range holds
-   the step's 30 paged kernel launches.
+   the step's 30 paged kernel launches (one graph replay on the host).
+10. the compiled step families against eager — float32 at full width:
+   each step family's replay (smollm's monolithic, prefix and chunk
+   prefills, slot and paged decode and verify; mamba2's and zamba2's
+   prefill and decode) against its eager call on the same state, max
+   |Δlogit| held to the float32 kernel tolerance, then a step-clock serve
+   of each model eager (``step_graph.disabled()``) and graphed: the same
+   streams token for token; bf16 at full width: ``make_requests`` (16
+   open-loop requests, 128-1024-token prompts, 64 new tokens, 8 rows) on
+   smollm-135m paged with K = 4 speculation and ``chunk_size`` 256,
+   mamba2-370m and zamba2-2.7b on slots, served once to capture its
+   shapes, then eager and graphed: TTFT, TPOT and step p50/p99 side by
+   side, the captures and the graph pool's bytes (the primed smollm run
+   capturing nothing); the host time of one eager smollm decode step by
+   op (CPU-side ``torch.profiler``); each model's decode step at 8 rows
+   and 1024-token prefill, eager and graphed: wall, device busy and the
+   device's idle share. Each phase prints the time it ended at.
 
 The two lines before the last are the JSON kernel table and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -1222,44 +1244,49 @@ TOKEN_ARG = {"prefill": 1, "prefill_with_prefix": 1, "decode_step": 2, "decode_s
 
 
 class StepLog:
-    """Records each outermost call of a model's step functions: (name,
-    token width T, paged launches inside it, flash launches inside it),
-    read from the wrappers' counts; keeps the last call's logits and a
-    device-side flag of non-finite ones (no host sync in the loop)."""
+    """Records each call of a model's compiled steps (every callable its
+    ``jit_step`` makes from here on: create the log before the engine):
+    (name, token width T, paged launches inside it, flash launches inside
+    it), read from the wrappers' counts, which a replay advances by its
+    graph's launch vector; keeps the last call's logits and a device-side
+    flag of non-finite ones (no host sync in the loop)."""
 
     def __init__(self, model):
         self.calls = []
         self.last = None
-        self._depth = 0
         self.bad = torch.zeros((), dtype=torch.bool, device=model.device)
-        for name in TOKEN_ARG:
-            setattr(model, name, self._wrap(name, getattr(model, name)))
-
-    def _wrap(self, name, fn):
-        from repro_torch.kernels import flash_attention as fa
-        from repro_torch.kernels import paged_decode_attention as pda
-
-        def wrapped(*a, **kw):
-            p0, f0 = pda.paged_decode_attention.launches, fa.flash_attention.launches
-            self._depth += 1  # prefill_chunk calls verify_step: log the outer call
-            try:
-                logits, out = fn(*a, **kw)
-            finally:
-                self._depth -= 1
-            if not self._depth:
-                self.calls.append((name, int(a[TOKEN_ARG[name]].shape[1]),
-                                   pda.paged_decode_attention.launches - p0,
-                                   fa.flash_attention.launches - f0))
-                self.last = logits
-                self.bad |= ~torch.isfinite(logits).all()
-            return logits, out
-        return wrapped
+        jit = model.jit_step
+        model.jit_step = lambda name, backend=None: _Logged(self, name, jit(name, backend))
 
     def of(self, *names):
         return [c for c in self.calls if c[0] in names]
 
     def n(self, *names):
         return len(self.of(*names))
+
+
+class _Logged:
+    """A compiled step whose calls go to a ``StepLog``."""
+
+    def __init__(self, log, name, fn):
+        self.log, self.name, self.fn = log, name, fn
+
+    def _cache_size(self):
+        return self.fn._cache_size()
+
+    def __call__(self, *a, **kw):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import paged_decode_attention as pda
+
+        p0, f0 = pda.paged_decode_attention.launches, fa.flash_attention.launches
+        logits, out = self.fn(*a, **kw)
+        log = self.log
+        log.calls.append((self.name, int(a[TOKEN_ARG[self.name]].shape[1]),
+                          pda.paged_decode_attention.launches - p0,
+                          fa.flash_attention.launches - f0))
+        log.last = logits
+        log.bad |= ~torch.isfinite(logits).all()
+        return logits, out
 
 
 def headline(label, stats, card):
@@ -1296,6 +1323,18 @@ def read_launches():
     return {key: getattr(fn, attr) for key, (fn, attr) in _launch_counters().items()}
 
 
+def compiled(engine):
+    """Entries the engine's step families hold (``_cache_size``: keys
+    captured, plus recaptures on other state storage)."""
+    from repro_torch.models.step_graph import cache_size
+
+    return cache_size([f for fam in engine._steps.values() for f in fam.values()])
+
+
+def retraces(engine):
+    return engine.stats.registry.counter("engine.retraces").value
+
+
 def serve_full_width(card):
     """smollm-135m on both layouts; each run's launch counts are read from
     zero, and its decode steps and prefills must account for all of them."""
@@ -1307,6 +1346,7 @@ def serve_full_width(card):
     model = Model(cfg)
     params = model.init(seed=0)
     L = cfg.num_layers
+    watch = StepLog(model)
     engine = ServingEngine(model, params, max_seq=2048, kv_layout="paged", block_size=16, max_batch=8)
     runs = (
         ("paged open-loop", "paged", 8,
@@ -1319,8 +1359,8 @@ def serve_full_width(card):
          lambda rng: make_requests(4, 20.0, vocab=cfg.vocab_size, max_new_tokens=32,
                                    prompt_lens=tuple(range(128, 513)), rng=rng)),
     )
-    watch = StepLog(model)
-    # warm the path (allocator, library load) outside the measured runs
+    # warm the path (allocator, library load, the first captures) outside
+    # the measured runs
     engine.serve(make_requests(2, 1e3, vocab=cfg.vocab_size, max_new_tokens=4,
                                prompt_lens=(128,), rng=np.random.default_rng(9)))
     totals = {"paged": 0, "flash": 0}
@@ -1361,8 +1401,8 @@ def serve_mamba2(card):
     model = Model(cfg)
     params = model.init(seed=0)
     L = cfg.num_layers
-    engine = ServingEngine(model, params, max_seq=2048, kv_layout="slot", max_batch=8)
     watch = StepLog(model)
+    engine = ServingEngine(model, params, max_seq=2048, kv_layout="slot", max_batch=8)
     engine.serve(make_requests(2, 1e3, vocab=cfg.vocab_size, max_new_tokens=4,
                                prompt_lens=(128,), rng=np.random.default_rng(9)))
     watch.calls.clear()
@@ -1400,8 +1440,8 @@ def serve_zamba2(card):
     model = Model(cfg)
     params = model.init(seed=0)
     L, G = cfg.num_layers, cfg.num_layers // cfg.attn_every
-    engine = ServingEngine(model, params, max_seq=2048, kv_layout="slot", max_batch=8)
     watch = StepLog(model)
+    engine = ServingEngine(model, params, max_seq=2048, kv_layout="slot", max_batch=8)
     engine.serve(make_requests(2, 1e3, vocab=cfg.vocab_size, max_new_tokens=4,
                                prompt_lens=(128,), rng=np.random.default_rng(9)))
     watch.calls.clear()
@@ -1457,11 +1497,22 @@ def profile_split(label, fn, kernels, card):
     busy = f"{dev_all:.2f} ms ({dev_all / wall:.0%} of wall)" if gpu else "not measured"
     log(f"time[{label}] on {card}: wall {wall:.2f} ms, device busy {busy}, "
         f"{shares}, {launches:.0f} device operations")
+    return wall, dev_all
+
+
+def split_pair(label, eager, graphed, kernels, card):
+    """``profile_split`` of the same work run eagerly and as a replayed
+    CUDA graph, then the two side by side: wall ratio and the device's
+    idle share (1 - busy / wall) of each."""
+    ew, eb = profile_split(f"{label}, eager", eager, kernels, card)
+    gw, gb = profile_split(f"{label}, graphed", graphed, kernels, card)
+    log(f"time[{label}] on {card}: wall eager {ew:.2f} ms, graphed {gw:.2f} ms ({ew / gw:.2f}x); "
+        f"device busy {eb:.2f} -> {gb:.2f} ms; idle share {1 - eb / ew:.0%} -> {1 - gb / gw:.0%}")
 
 
 def time_split(params, card):
     """Where a full-width smollm-135m decode step (8 paged rows) and a
-    1024-token prefill spend their time."""
+    1024-token prefill spend their time, eager and graphed."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.serve.kv_cache import PagedKVCache
@@ -1478,24 +1529,28 @@ def time_split(params, card):
     tok = torch.zeros((8, 1), dtype=torch.long, device="cuda")
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1024))).cuda()
 
-    def decode():
+    def decode(step):
         for r in range(8):
             kv.ensure_tail(r)
         pool, tables, lens = kv.kernel_inputs()
-        model.decode_step_paged(params, pool, tables, lens, tok)
+        step(params, pool, tables, lens, tok)
         for r in range(8):
             kv.advance(r)
 
-    profile_split("decode step, 8 paged rows", decode, ("paged_decode_kernel",), card)
-    profile_split("prefill, 1024 tokens", lambda: model.prefill(params, prompt, 2048),
-                  ("flash_kernel",), card)
+    graphed, prefill = model.jit_step("decode_step_paged"), model.jit_step("prefill")
+    split_pair("decode step, 8 paged rows", lambda: decode(model.decode_step_paged),
+               lambda: decode(graphed), ("paged_decode_kernel",), card)
+    split_pair("prefill, 1024 tokens", lambda: model.prefill(params, prompt, 2048),
+               lambda: prefill(params, prompt, 2048), ("flash_kernel",), card)
+    return model, kv, decode
 
 
 def time_split_slots(arch, params, card, kernels):
-    """The same split for a full-width model on the slot layout: a decode
-    step over 8 slot rows holding the caches of 128-1024-token prompts,
-    and a 1024-token prefill. A mamba2 decode runs no kernel of the port
-    (the one-step recurrence is plain PyTorch), so its SSD share is 0."""
+    """The same split for a full-width model on the slot layout, eager and
+    graphed: a decode step over 8 slot rows holding the caches of
+    128-1024-token prompts, and a 1024-token prefill. A mamba2 decode runs
+    no kernel of the port (the one-step recurrence is plain PyTorch), so
+    its SSD share is 0."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
@@ -1510,10 +1565,11 @@ def time_split_slots(arch, params, card, kernels):
     tok = torch.zeros((8, 1), dtype=torch.long, device="cuda")
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1024))).cuda()
     name = arch.split("-")[0]
-    profile_split(f"{name} decode step, 8 slot rows",
-                  lambda: model.decode_step(params, cache, tok), kernels, card)
-    profile_split(f"{name} prefill, 1024 tokens", lambda: model.prefill(params, prompt, 2048),
-                  kernels, card)
+    decode, prefill = model.jit_step("decode_step"), model.jit_step("prefill")
+    split_pair(f"{name} decode step, 8 slot rows", lambda: model.decode_step(params, cache, tok),
+               lambda: decode(params, cache, tok), kernels, card)
+    split_pair(f"{name} prefill, 1024 tokens", lambda: model.prefill(params, prompt, 2048),
+               lambda: prefill(params, prompt, 2048), kernels, card)
 
 
 def count_ties(model, params, prompts, want, got, label):
@@ -1984,9 +2040,12 @@ def phase8_serving(card, cfg, device="cuda"):
         sched.prime()
         reqs = work(13, range(128, 1025), tokens=16)
         tlog.calls.clear()
+        c0 = compiled(engine)
         reset_launches()
         out = sched.run(reqs)
         n = read_launches()
+        require(compiled(engine) == c0,
+                f"{label}: the primed run captured {compiled(engine) - c0} new step graphs")
         chunks = tlog.of("prefill_chunk")
         decodes = tlog.of("decode_step", "decode_step_paged")
         require(len(tlog.calls) == len(chunks) + len(decodes), f"{label}: a monolithic prefill ran")
@@ -2003,7 +2062,8 @@ def phase8_serving(card, cfg, device="cuda"):
                            [mono[r.rid] for r in mono_reqs], [out[r.rid] for r in reqs], label)
                 if f32 else None)
         log(f"{label} on {card}: {len(chunks)} chunks {dict(sorted(sched.widths['chunk'].items()))} "
-            f"in the primed widths {sorted(sched.primed_widths)}, {len(decodes)} decodes, "
+            f"in the primed widths {sorted(sched.primed_widths)} (0 captures after prime), "
+            f"{len(decodes)} decodes, "
             f"paged launches {n['paged']} = {L} x {len(chunks) + len(decodes)}, flash 0; "
             f"p50 step {engine.stats.percentile(50):.2f} ms, p99 {engine.stats.percentile(99):.2f} ms; "
             + (f"{len(reqs) - ties} streams equal to monolithic prefill, {ties} ties"
@@ -2092,11 +2152,11 @@ def phase8_kernels(card):
 
 
 def phase8_split(card, models):
-    """Host wall against device time (``profile_split``) of one spec
-    round's two halves at full width in bf16 — the verify over 4 paged
-    rows holding 128-1024-token contexts (T = 5), the one-layer draft's K+1
-    decodes over its 2053-long slot cache — and of one 256-token chunk at
-    position 768."""
+    """Host wall against device time (``split_pair``: eager and graphed) of
+    one spec round's two halves at full width in bf16 — the verify over 4
+    paged rows holding 128-1024-token contexts (T = 5), the one-layer
+    draft's K+1 decodes over its 2053-long slot cache — and of one
+    256-token chunk at position 768."""
     from repro_torch.serve.kv_cache import PagedKVCache
 
     target, params, draft, dparams = models
@@ -2117,18 +2177,22 @@ def phase8_split(card, models):
     chunk_cache["len"].fill_(768)
     chunk = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CHUNK))).cuda()
 
-    def drafts():
+    def drafts(step):
         for _ in range(SPEC_K + 1):
-            draft.decode_step(dparams, dcache, tokens[:, :1])
+            step(dparams, dcache, tokens[:, :1])
 
-    profile_split("spec round: verify, 4 paged rows, T=5",
-                  lambda: target.verify_step_paged(params, pool, tables, lens, tokens),
-                  ("paged_decode_kernel",), card)
-    profile_split("spec round: draft, one-layer model, K+1=5 decodes, BS=1 view", drafts,
-                  ("paged_decode_kernel",), card)
-    profile_split("prefill chunk, 256 tokens at 768",
-                  lambda: target.prefill_chunk(params, chunk_cache, chunk, [CHUNK]),
-                  ("paged_decode_kernel",), card)
+    verify, chunk_step = target.jit_step("verify_step_paged"), target.jit_step("prefill_chunk")
+    draft_step = draft.jit_step("decode_step")
+    split_pair("spec round: verify, 4 paged rows, T=5",
+               lambda: target.verify_step_paged(params, pool, tables, lens, tokens),
+               lambda: verify(params, pool, tables, lens, tokens), ("paged_decode_kernel",), card)
+    split_pair("spec round: draft, one-layer model, K+1=5 decodes, BS=1 view",
+               lambda: drafts(draft.decode_step), lambda: drafts(draft_step),
+               ("paged_decode_kernel",), card)
+    split_pair("prefill chunk, 256 tokens at 768",
+               lambda: target.prefill_chunk(params, chunk_cache, chunk, [CHUNK]),
+               lambda: chunk_step(params, chunk_cache, chunk, [CHUNK]),
+               ("paged_decode_kernel",), card)
 
 
 def phase8(card):
@@ -2241,21 +2305,32 @@ class ControlledRuns:
         self.launches = {"verify3": 0, "verify9": 0, "draft": 0}
         self.widths = collections.Counter()
 
-    def run(self, label, engine, reqs, **kw):
+    def run(self, label, engine, reqs, primed=True, **kw):
+        """A ``primed`` run must compile nothing: the engine's families
+        keep their compile counts, and ``engine.retraces`` reads 0 where
+        telemetry is on."""
         tlog, dlog, L = self.tlog, self.dlog, self.L
         tlog.calls.clear()
         if dlog is not None:
             dlog.calls.clear()
         sched = engine.scheduler(8, **kw)
+        c0 = compiled(engine)
         reset_launches()
         out = sched.run(reqs)
         n = read_launches()
+        new = compiled(engine) - c0
+        traced, widths = sched._ton, sched.widths["verify"]
+        draft_seq = getattr(sched._drafter, "_max_seq", None)
+        del sched  # the engine's storage goes back for the next run
+        if primed:
+            require(new == 0 and (not traced or retraces(engine) == 0),
+                    f"{label}: a primed run captured {new} step graphs "
+                    f"(engine.retraces {retraces(engine) if traced else 'off'})")
         verifies = tlog.of("verify_step_paged")
         decodes = tlog.of("decode_step_paged")
         prefills = tlog.of("prefill", "prefill_with_prefix")
         drafts = dlog.of("decode_step") if dlog is not None else []
         dprefills = dlog.of("prefill") if dlog is not None else []
-        widths = sched.widths["verify"]
         require(len(tlog.calls) == len(verifies) + len(decodes) + len(prefills),
                 f"{label}: a step outside prefill/decode/verify ran")
         require(all(c[2] == L and not c[3] for c in verifies + decodes)
@@ -2276,9 +2351,10 @@ class ControlledRuns:
         self.launches["verify9"] += L * widths[9]
         self.launches["draft"] += len(drafts)
         self.widths.update(widths)
-        return out, sched, {"decodes": len(decodes), "verifies": len(verifies),
-                            "widths": dict(sorted(widths.items())), "drafts": len(drafts),
-                            "paged": n["paged"], "flash": n["flash"]}
+        return out, {"decodes": len(decodes), "verifies": len(verifies),
+                     "widths": dict(sorted(widths.items())), "drafts": len(drafts),
+                     "paged": n["paged"], "flash": n["flash"], "captures": new,
+                     "retraces": retraces(engine) if traced else None, "draft_seq": draft_seq}
 
 
 def phase9_tokens(card, cfg, device="cuda"):
@@ -2308,7 +2384,7 @@ def phase9_tokens(card, cfg, device="cuda"):
                              prompt_lens=tuple(range(128, 513)), rng=np.random.default_rng(21))
 
     base_reqs = work()
-    plain, _, info = runs.run(f"plain[{name}]", engine, base_reqs, spec=SpecConfig(k=0))
+    plain, info = runs.run(f"plain[{name}]", engine, base_reqs, primed=False, spec=SpecConfig(k=0))
     prompts = [np.asarray(r.prompt) for r in base_reqs]
     want = [plain[r.rid] for r in base_reqs]
     log(f"plain[{name} K=0] on {card}: {info}; p50 step {engine.stats.percentile(50):.2f} ms")
@@ -2327,7 +2403,7 @@ def phase9_tokens(card, cfg, device="cuda"):
             ("OnlineAdviser(ks=(0, 2, 4, 8)) seeded from prime", None, online)):
         label = f"controlled[{name} {label}]"
         reqs = work()
-        out, sched, info = runs.run(label, engine, reqs, spec=spec, controller=ctl)
+        out, info = runs.run(label, engine, reqs, spec=spec, controller=ctl)
         got = [out[r.rid] for r in reqs]
         if ctl is None:
             static = got
@@ -2338,7 +2414,7 @@ def phase9_tokens(card, cfg, device="cuda"):
             require(ctl.decisions and all(d.k in ctl.ks for d in ctl.decisions),
                     f"{label}: no decision, or a depth outside the controller's")
         if spec is not None and spec.drafter == "model":
-            require(sched._drafter._max_seq == 2048 + DRAFT_K + 1 and info["drafts"] > 0,
+            require(info["draft_seq"] == 2048 + DRAFT_K + 1 and info["drafts"] > 0,
                     f"{label}: the drafter's cache is not 2057 long or never drafted")
         ties = count_ties(ref, params, prompts, want, got, label)
         s = engine.stats.serving_summary()
@@ -2384,20 +2460,22 @@ def phase9_drift(card, cfg, device="cuda"):
     def drift():
         return make_drift_requests(vocab=cfg.vocab_size, rng=np.random.default_rng(7))
 
-    engine.serve(drift()[0][:2], spec=SpecConfig(k=8))  # warm outside the measured runs
+    # warm outside the measured runs: the workload's prefill shapes
+    engine.serve(drift()[0], spec=SpecConfig(k=8))
     for k in CTL_KS:
         reqs, spans = drift()
-        runs.run(f"drift[{name} K={k}]", engine, reqs, spec=SpecConfig(k=k),
-                 telemetry=Telemetry(enabled=True))
+        _, info = runs.run(f"drift[{name} K={k}]", engine, reqs, spec=SpecConfig(k=k),
+                           telemetry=Telemetry(enabled=True))
         s = engine.stats.serving_summary()
         log(f"drift[{name} static K={k}] on {card}: TPOT p50 by phase {phase_tpot(reqs, spans)}; "
             f"p50 step {s['p50_step_ms']:.2f} ms, acceptance "
-            f"{s.get('speculative', {}).get('acceptance_rate', 0.0):.3f}")
+            f"{s.get('speculative', {}).get('acceptance_rate', 0.0):.3f}; engine.retraces "
+            f"{info['retraces']:g}")
     ctl = OnlineAdviser(ks=CTL_KS, backends=("kernel",))
     ctl.seed_costs(primed)
     reqs, spans = drift()
     tel = Telemetry(enabled=True)
-    runs.run(f"drift[{name} OnlineAdviser]", engine, reqs, telemetry=tel, controller=ctl)
+    _, info = runs.run(f"drift[{name} OnlineAdviser]", engine, reqs, telemetry=tel, controller=ctl)
     trail = ctl.audit_trail()
     golden = json.load(open(os.path.join(ROOT, "drift_decisions.json")))["decisions"][0]
     require(trail and all(d["k"] in CTL_KS for d in trail),
@@ -2406,7 +2484,8 @@ def phase9_drift(card, cfg, device="cuda"):
             "drift: a decision's keys differ from drift_decisions.json's")
     summ = ctl.summary()
     log(f"drift[{name} OnlineAdviser] on {card}: TPOT p50 by phase {phase_tpot(reqs, spans)}; "
-        f"p50 step {engine.stats.percentile(50):.2f} ms; {summ['decisions']} decisions, "
+        f"p50 step {engine.stats.percentile(50):.2f} ms; engine.retraces {info['retraces']:g}; "
+        f"{summ['decisions']} decisions, "
         f"{summ['switches']} switches, {summ['probes']} probes; first decisions "
         + json.dumps([{k: d[k] for k in ("step", "k", "switched", "probe", "reason")}
                       for d in trail[:6]], ensure_ascii=False))
@@ -2464,14 +2543,16 @@ def phase9_profile(card, engine):
         paged = [e.time_range for e in evs if e.device_type == cuda_dev
                  and "paged_decode_kernel" in e.name]
         held = [t for t in paged if any(r.start <= t.start and t.end <= r.end for r in dev)]
-        launches = [e for e in evs if e.device_type == cpu_dev and "LaunchKernel" in e.name
+        launches = [e for e in evs if e.device_type == cpu_dev
+                    and ("LaunchKernel" in e.name or "GraphLaunch" in e.name)
                     and any(h.time_range.start <= e.time_range.start
                             and e.time_range.end <= h.time_range.end for h in host)]
         require(len(host) == 1 and len(dev) == 1 and len(paged) == L and len(held) == L,
                 f"profile[{label}]: {len(host)} host and {len(dev)} device {rng_name} ranges, "
                 f"{len(paged)} paged kernels, {len(held)} inside the device range")
         log(f"profile[{name} one {label} step] on {card}: {rng_name} {host[0].time_range.elapsed_us() / 1e3:.2f} "
-            f"ms on the host ({len(launches)} kernel launches inside), "
+            f"ms on the host ({len(launches)} launches inside: "
+            f"{sum('GraphLaunch' in e.name for e in launches)} graph replays), "
             f"{dev[0].elapsed_us() / 1e3:.2f} ms on the device holding all {len(held)} paged kernel "
             f"launches ({sum(t.elapsed_us() for t in held) / 1e3:.3f} ms of them)")
 
@@ -2492,6 +2573,235 @@ def phase9(card):
     launches = {k: launches[k] + more[k] for k in launches}
     require(all(launches.values()), f"phase 9: a kernel shape was never launched: {launches}")
     return launches, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the compiled step families against eager serving
+
+# model, layout, serving options: smollm-135m with K = 4 speculation and
+# 256-token chunks on the paged layout; the SSM and the hybrid on slots
+P10 = (("smollm-135m", "paged", {"spec": SPEC_K, "chunk_size": CHUNK}),
+       ("mamba2-370m", "slot", {}), ("zamba2-2.7b", "slot", {}))
+
+
+def _serve_kw(opts):
+    from repro_torch.serve import SpecConfig
+
+    kw = dict(opts)
+    if "spec" in kw:
+        kw["spec"] = SpecConfig(k=kw["spec"])
+    return kw
+
+
+def graph_pool_bytes(model):
+    """Bytes of the allocator segments in the model's graph memory pool."""
+    if model._graph_pool is None:
+        return 0
+    pool = tuple(model._graph_pool[0])
+    segs = torch.cuda.memory._snapshot()["segments"]
+    return sum(s["total_size"] for s in segs if tuple(s.get("segment_pool_id", ())) == pool)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def replay_delta(model, name, *args, **kwargs):
+    """(max |logits| difference between a compiled step's replay and its
+    eager call on the same inputs and state, the first call's ms (the eager
+    warm-up and the capture), an eager call's ms): the state (every tensor
+    of a cache, pool or ``into`` argument) is restored in place before each
+    call."""
+    fn = model.jit_step(name)
+    state = [t for a in list(args[1:]) + list(kwargs.values()) if isinstance(a, dict)
+             for t in _tensors(a)]
+    snap = [t.clone() for t in state]
+
+    def restore():
+        for t, c in zip(state, snap):
+            t.copy_(c)
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    fn(*args, **kwargs)  # the warm-up and the capture
+    restore()
+    first = (time.perf_counter() - t0) * 1e3
+    got = fn(*args, **kwargs)[0]  # a replay
+    restore()
+    t0 = time.perf_counter()
+    want = getattr(model, name)(*args, **kwargs)[0]
+    restore()
+    eager = (time.perf_counter() - t0) * 1e3
+    return (got.float() - want.float()).abs().max().item(), first, eager
+
+
+def phase10_parity(card):
+    """float32, full width: every step family's replay against its eager
+    call (max |Δlogit|, held to the float32 kernel tolerance), then a
+    step-clock serve of each model eagerly and graphed: the same streams
+    token for token."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import step_graph
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServingEngine, make_requests
+    from repro_torch.serve.kv_cache import PagedKVCache
+
+    for arch, layout, opts in P10:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+        model = Model(cfg)
+        params = model.init(seed=11)
+        rng = np.random.default_rng(0)
+        V = cfg.vocab_size
+        prompt = torch.from_numpy(rng.integers(0, V, (2, 256))).cuda()
+        tok = torch.from_numpy(rng.integers(0, V, (2, 1))).cuda()
+        _, cache = model.prefill(params, prompt, 512)
+        d = {"prefill": replay_delta(model, "prefill", params, prompt, 512,
+                                     into=model.init_cache(2, 512)),
+             "decode_step": replay_delta(model, "decode_step", params, cache, tok)}
+        if cfg.family == "dense":
+            toks = torch.from_numpy(rng.integers(0, V, (2, SPEC_K + 1))).cuda()
+            d["verify_step"] = replay_delta(model, "verify_step", params, cache, toks)
+            one = model.init_cache(1, 512)
+            one["len"].fill_(128)
+            d["prefill_chunk"] = replay_delta(model, "prefill_chunk", params, one, toks[:1], [3])
+            pk, pv = cache["k"][:, :1, :128].contiguous(), cache["v"][:, :1, :128].contiguous()
+            d["prefill_with_prefix"] = replay_delta(model, "prefill_with_prefix", params,
+                                                    toks[:1], pk, pv, 512, suffix_len=[4],
+                                                    into=model.init_cache(1, 512))
+            kv = PagedKVCache(model, 2, 512, block_size=16)
+            for r in range(2):
+                row, _ = kv.try_admit(r, tuple(int(t) for t in prompt[r].tolist()), 16)
+                kv.write_prefill(row, model.read_cache_slot(cache, r))
+                kv.ensure_tail_n(row, SPEC_K + 1)
+            pool, tables, lens = kv.kernel_inputs()
+            d["decode_step_paged"] = replay_delta(model, "decode_step_paged", params, pool, tables,
+                                                  lens, tok)
+            d["verify_step_paged"] = replay_delta(model, "verify_step_paged", params, pool, tables,
+                                                  lens, toks)
+        log(f"replay[{arch} float32] on {card}: max |replay - eager| logits (first call ms: "
+            "the warm-up and the capture; eager call ms) "
+            + ", ".join(f"{k} {v:.3e} ({a:.1f}; {b:.1f})" for k, (v, a, b) in d.items()))
+        require(all(v <= TOL[torch.float32] for v, _, _ in d.values()),
+                f"{arch}: a replayed step's logits differ from eager: {d}")
+        kw = _serve_kw(opts)
+        engine = ServingEngine(model, params, max_seq=2048, kv_layout=layout, block_size=16,
+                               max_batch=8)
+
+        def reqs():
+            return make_requests(6, 50.0, vocab=V, max_new_tokens=16,
+                                 prompt_lens=tuple(range(128, 513)), rng=np.random.default_rng(12))
+
+        drive(engine.scheduler(8, **kw), reqs(), 0.01)  # the captures
+        with step_graph.disabled():
+            eager_reqs = reqs()
+            eager = drive(engine.scheduler(8, **kw), eager_reqs, 0.01)
+        graphed_reqs = reqs()
+        graphed = drive(engine.scheduler(8, **kw), graphed_reqs, 0.01)
+        same = sum(np.array_equal(eager[a.rid], graphed[b.rid])
+                   for a, b in zip(eager_reqs, graphed_reqs))
+        require(same == len(eager_reqs), f"{arch}: graphed streams differ from eager ones")
+        log(f"parity[{arch} float32 {layout} {opts}] on {card}: {same} of {len(eager_reqs)} graphed "
+            "streams equal to eager ones token for token")
+        del engine, cache, params, model
+        torch.cuda.empty_cache()
+
+
+def host_split(card):
+    """The host time of one eager full-width smollm-135m decode step (bf16,
+    8 paged rows) by op, from the CPU-side ``torch.profiler``: each op's
+    own time, most first, and what lies outside every op (Python, the
+    kernels' ctypes calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    cfg = get_config("smollm-135m")
+    model, _, decode = time_split(Model(cfg).init(seed=0), card)
+    for _ in range(3):
+        decode(model.decode_step_paged)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        decode(model.decode_step_paged)
+        host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    avgs = [a for a in prof.key_averages() if a.self_cpu_time_total > 0]
+    ops = sum(a.self_cpu_time_total for a in avgs) / 1e3
+    top = sorted(avgs, key=lambda a: a.self_cpu_time_total, reverse=True)[:12]
+    log(f"host[smollm-135m bf16 one eager decode step, 8 paged rows] on {card}: {host:.2f} ms on "
+        f"the host, {ops:.2f} ms inside {sum(a.count for a in avgs)} profiled ops, "
+        f"{host - ops:.2f} ms outside them; by op: "
+        + ", ".join(f"{a.key} {a.self_cpu_time_total / 1e3:.2f} ms x{a.count}" for a in top))
+
+
+def phase10_serving(card):
+    """bf16, full width: each model of ``P10`` serves ``make_requests``
+    (16 open-loop requests, 128-1024-token prompts, 64 new tokens, 8 rows)
+    once to capture its shapes, then eagerly (``step_graph.disabled()``)
+    and graphed on the same requests: TTFT, TPOT and step p50/p99 side by
+    side, the captures, the graph pool's bytes; then each model's decode
+    step and 1024-token prefill, eager and graphed (wall, device busy,
+    idle share)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import step_graph
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServingEngine, make_requests
+
+    keys = ("p50_ttft_ms", "p99_ttft_ms", "p50_tpot_ms", "p99_tpot_ms", "p50_step_ms",
+            "p99_step_ms")
+    for arch, layout, opts in P10:
+        cfg = get_config(arch)
+        model = Model(cfg)
+        params = model.init(seed=10)
+        kw = _serve_kw(opts)
+        engine = ServingEngine(model, params, max_seq=2048, kv_layout=layout, block_size=16,
+                               max_batch=8)
+
+        def reqs():
+            return make_requests(16, 20.0, vocab=cfg.vocab_size, max_new_tokens=64,
+                                 prompt_lens=tuple(range(128, 1025)),
+                                 rng=np.random.default_rng(10))
+
+        t0 = time.perf_counter()
+        if "chunk_size" in kw:
+            engine.scheduler(8, **kw).prime()
+        engine.serve(reqs(), **kw)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        caps = compiled(engine)
+        pool = graph_pool_bytes(model)
+        rows = {}
+        for mode in ("eager", "graphed"):
+            c0 = compiled(engine)
+            with step_graph.disabled() if mode == "eager" else contextlib.nullcontext():
+                out = engine.serve(reqs(), **kw)
+            s = engine.stats.serving_summary()
+            require(s["n_requests"] == len(out) == 16, f"{arch} {mode}: not every request finished")
+            rows[mode] = {k: round(s[k], 3) for k in keys}
+            rows[mode]["captures"] = compiled(engine) - c0
+        label = f"{arch} bf16 {layout} {opts}, 8 rows"
+        log(f"serve[{label}] on {card}: eager {json.dumps(rows['eager'])}")
+        log(f"serve[{label}] on {card}: graphed {json.dumps(rows['graphed'])}")
+        log(f"serve[{label}] on {card}: eager/graphed p50 step "
+            f"{rows['eager']['p50_step_ms'] / rows['graphed']['p50_step_ms']:.2f}x, p50 TPOT "
+            f"{rows['eager']['p50_tpot_ms'] / rows['graphed']['p50_tpot_ms']:.2f}x, p50 TTFT "
+            f"{rows['eager']['p50_ttft_ms'] / rows['graphed']['p50_ttft_ms']:.2f}x; the capture "
+            f"run {warm:.1f} s made {caps} graphs; graph pool {pool / 2**20:.0f} MiB")
+        if "chunk_size" in kw:  # no prefill shape depends on arrival timing
+            require(rows["graphed"]["captures"] == 0,
+                    f"{arch}: the primed graphed run captured {rows['graphed']['captures']} graphs")
+        del engine, params, model
+        torch.cuda.empty_cache()
+    host_split(card)
+    for arch, kernels in (("mamba2-370m", ("ssd_scan_kernel",)),
+                          ("zamba2-2.7b", ("ssd_scan_kernel", "flash_kernel", "paged_decode_kernel"))):
+        time_split_slots(arch, Model(get_config(arch)).init(seed=0), card, kernels)
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2529,13 +2839,9 @@ def main() -> int:
     rows.update(check_entry_kernels())
     phase_done("4")
     launches, params = serve_full_width(card)
-    time_split(params, card)
     launches["ssd"], params = serve_mamba2(card)
-    time_split_slots("mamba2-370m", params, card, ("ssd_scan_kernel",))
     del params
     n, params = serve_zamba2(card)
-    time_split_slots("zamba2-2.7b", params, card,
-                     ("ssd_scan_kernel", "flash_kernel", "paged_decode_kernel"))
     del params
     torch.cuda.empty_cache()  # the bf16 model goes before the float32 ones
     launches["paged_int8"] = n["paged_int8"]
@@ -2560,6 +2866,9 @@ def main() -> int:
     phase9_launches, phase9_rows = phase9(card)
     rows.update(phase9_rows)
     phase_done("9")
+    phase10_parity(card)
+    phase10_serving(card)
+    phase_done("10")
 
     bf16, f32 = torch.bfloat16, torch.float32
     table = []

@@ -19,8 +19,10 @@ per-vector scales. ``verify_step`` and ``verify_step_paged`` run a
 speculative verify (T = K+1 tokens a row, one forward);
 ``prefill_chunk`` is a verify over a batch-1 dense cache that commits
 only a chunk's real tokens, and ``seed_cache_with_prefix`` starts such a
-cache from a prefix-cache hit. The other families wait for ROADMAP §1
-item 10.
+cache from a prefix-cache hit. ``jit_step`` compiles a step with its
+backend bound (``step_graph.StepGraph``: a CUDA graph a key on the card,
+where the reference has ``jax.jit``). The other families wait for ROADMAP
+§1 item 10.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import step_graph
 from repro_torch.models.layers import embed_tokens, rms_norm, swiglu
 
 # Families whose decode cache is addressed by position (the JAX package's
@@ -100,6 +103,7 @@ class Model:
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         self._views = None  # (params, per-layer views) of the last params seen
+        self._graph_pool = None  # (memory pool, side stream) of the captured steps
 
     # ------------------------------------------------------------------
     # parameters
@@ -184,6 +188,14 @@ class Model:
     def _tokens(self, tokens):
         return torch.as_tensor(tokens, device=self.device)
 
+    def _lengths(self, n):
+        """A length vector (a tensor, numpy array or list) as int32 on the
+        device: a tensor converts on the device, so a captured step takes
+        it from its static buffer."""
+        if isinstance(n, torch.Tensor):
+            return n.to(device=self.device, dtype=torch.int32)
+        return torch.as_tensor(np.asarray(n), dtype=torch.int32, device=self.device)
+
     # ------------------------------------------------------------------
     # layer stack
     def _dense_layer(self, x, lp, backend, **kw):
@@ -248,25 +260,28 @@ class Model:
         """The KV leaves of a decode cache."""
         return ("k", "v", "k_scale", "v_scale") if self.cfg.kv_quant else ("k", "v")
 
-    def init_cache(self, batch, max_seq):
+    def init_cache(self, batch, max_seq, dtype=None):
         """Decode cache with ``len`` [B] int32. Dense: k/v
         [L,B,max_seq,KV,hd]. SSM: ``ssm_state`` leaves stacked over layers,
         ``ssm`` [L,B,H,hd,N] float32 and ``conv_x``/``conv_B``/``conv_C``
         [L,B,K-1,C] in the model dtype. Hybrid: ``ssm_state`` over all L
         layers and k/v over the G attention sites. ``kv_quant``: k/v int8
-        and ``k_scale``/``v_scale`` [n,B,max_seq,KV] bfloat16."""
+        and ``k_scale``/``v_scale`` [n,B,max_seq,KV] bfloat16. ``dtype``
+        overrides the model dtype of the k/v and conv leaves, as the
+        reference's does (an int8 cache stays int8)."""
         cfg, L = self.cfg, self.cfg.num_layers
+        dt = dtype or self.dtype
         cache: dict[str, Any] = {
             "len": torch.zeros((batch,), dtype=torch.int32, device=self.device)
         }
         if cfg.family in ("ssm", "hybrid"):
-            st = ssm_mod.init_ssm_state(cfg, batch, self.dtype, self.device)
+            st = ssm_mod.init_ssm_state(cfg, batch, dt, self.device)
             cache["ssm_state"] = {k: v.new_zeros((L,) + tuple(v.shape)) for k, v in st.items()}
         if cfg.family == "ssm":
             return cache
         n = L // cfg.attn_every if cfg.family == "hybrid" else L
         shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        kv_dtype = torch.int8 if cfg.kv_quant else self.dtype
+        kv_dtype = torch.int8 if cfg.kv_quant else dt
         for name in self.kv_names:
             if name.endswith("_scale"):
                 cache[name] = torch.zeros(shape[:4], dtype=torch.bfloat16, device=self.device)
@@ -274,10 +289,11 @@ class Model:
                 cache[name] = torch.zeros(shape, dtype=kv_dtype, device=self.device)
         return cache
 
-    def init_paged_cache(self, num_blocks, block_size):
-        """Physical block pool: k/v [L, num_blocks, block_size, KV, hd].
-        Attention families only: SSM state has no sequence axis to page.
-        An int8 pool waits for ROADMAP §1 item 10."""
+    def init_paged_cache(self, num_blocks, block_size, dtype=None):
+        """Physical block pool: k/v [L, num_blocks, block_size, KV, hd], in
+        ``dtype`` (the model's by default). Attention families only: SSM
+        state has no sequence axis to page. An int8 pool waits for ROADMAP
+        §1 item 10."""
         if self.cfg.family not in ATTN_FAMILIES:
             raise ValueError(
                 f"paged KV cache needs an attention family, got {self.cfg.family!r}"
@@ -287,7 +303,7 @@ class Model:
                 "an int8 (kv_quant) paged pool is not ported yet: its pool writes and "
                 "gather_prefix dequant wait for ROADMAP §1 item 10; use the slot layout"
             )
-        pool = self.init_cache(num_blocks, block_size)
+        pool = self.init_cache(num_blocks, block_size, dtype=dtype)
         pool.pop("len")
         return pool
 
@@ -298,12 +314,13 @@ class Model:
         The decode Region slices per-request views through it."""
         return _map_leaves(lambda name, t: 0 if name == "len" else 1, cache)
 
-    def read_cache_slot(self, pool, slot):
+    def read_cache_slot(self, pool, slot, n: int = 1):
         """Batch slot ``slot`` of a pooled decode cache as a batch=1 cache
-        (views into the pool). Every leaf but ``len`` has its batch on
-        axis 1, after the layer axis."""
+        (views into the pool), or the ``n`` slots from it as a batch=n one.
+        Every leaf but ``len`` has its batch on axis 1, after the layer
+        axis."""
         return _map_leaves(
-            lambda name, t: t[slot : slot + 1] if name == "len" else t[:, slot : slot + 1],
+            lambda name, t: t[slot : slot + n] if name == "len" else t[:, slot : slot + n],
             pool,
         )
 
@@ -331,10 +348,18 @@ class Model:
         _map_leaves(put, pool, slot_cache)
         return pool
 
-    def _fill_cache(self, B, max_seq, kvs, lengths):
+    def _fill_cache(self, B, max_seq, kvs, lengths, into=None):
         """A decode cache holding the (k, v) rows of each layer (or site),
-        quantized for ``kv_quant``, with ``len`` = ``lengths``."""
-        cache = self.init_cache(B, max_seq)
+        quantized for ``kv_quant``, with ``len`` = ``lengths``: a new one,
+        or ``into`` (a cache of B rows and ``max_seq``, a caller's staging
+        storage) zeroed and filled in place."""
+        if into is None:
+            cache = self.init_cache(B, max_seq)
+        else:
+            cache = into
+            for name in self.kv_names:
+                if name in cache:
+                    cache[name].zero_()
         for li, (k, v) in enumerate(kvs):
             vals = {"k": k, "v": v}
             if self.cfg.kv_quant:
@@ -342,12 +367,12 @@ class Model:
                     attn.quantize_kv(k), attn.quantize_kv(v))
             for name, val in vals.items():
                 cache[name][li, :, : val.shape[1]] = val
-        cache["len"] = lengths.to(device=self.device, dtype=torch.int32)
+        cache["len"] = self._lengths(lengths)
         return cache
 
     # ------------------------------------------------------------------
     # prefill
-    def prefill(self, params, tokens, max_seq, prompt_len=None, *, backend=None):
+    def prefill(self, params, tokens, max_seq, prompt_len=None, *, backend=None, into=None):
         """Run the prompt: (next-token logits [B,V], filled cache).
         ``prompt_len`` [B] marks real lengths when ``tokens`` is
         right-padded to a ``prefill_bucket``: logits come from each row's
@@ -355,7 +380,9 @@ class Model:
         every real query, so causal masking hides them). The SSM family
         takes no ``prompt_len``: its state would integrate the pads; its
         cache holds each layer's final state, and so does the hybrid's,
-        beside its per-site KV."""
+        beside its per-site KV. ``into``: a cache of B rows and ``max_seq``
+        to write the new cache into (zeroed first) instead of a new one: a
+        compiled prefill then keeps no cache of its own."""
         cfg = self.cfg
         if prompt_len is not None and cfg.family not in PAD_PREFILL_FAMILIES:
             raise ValueError(
@@ -367,30 +394,38 @@ class Model:
         x, caches = self.forward(params, tokens, backend=backend)
         B, S = tokens.shape
         if prompt_len is None:
-            lengths = torch.full((B,), S, dtype=torch.int32)
+            lengths = torch.full((B,), S, dtype=torch.int32, device=self.device)
         else:
-            lengths = torch.as_tensor(np.asarray(prompt_len), dtype=torch.int32)
-        idx = lengths.to(self.device).long() - 1
+            lengths = self._lengths(prompt_len)
+        idx = lengths.long() - 1
         x_last = x[torch.arange(B, device=self.device), idx]
         logits = x_last @ self._head(params)
         if cfg.family == "dense":
-            return logits, self._fill_cache(B, max_seq, caches, lengths)
+            return logits, self._fill_cache(B, max_seq, caches, lengths, into)
         if cfg.family == "ssm":
-            cache = {"len": lengths.to(self.device)}
+            cache = {"len": lengths} if into is None else {**into, "len": lengths}
         else:
             kvs, caches = caches
-            cache = self._fill_cache(B, max_seq, kvs, lengths)
-        cache["ssm_state"] = {k: torch.stack([st[k] for st in caches]) for k in caches[0]}
+            cache = self._fill_cache(B, max_seq, kvs, lengths, into)
+        if into is None:
+            cache["ssm_state"] = {k: torch.stack([st[k] for st in caches]) for k in caches[0]}
+        else:
+            for li, st in enumerate(caches):
+                for k, v in st.items():
+                    into["ssm_state"][k][li].copy_(v)
+            cache["ssm_state"] = into["ssm_state"]
         return logits, cache
 
     def prefill_with_prefix(
-        self, params, tokens, prefix_k, prefix_v, max_seq, suffix_len=None, *, backend=None
+        self, params, tokens, prefix_k, prefix_v, max_seq, suffix_len=None, *, backend=None,
+        into=None,
     ):
         """Suffix prefill over a cached prompt prefix. ``tokens`` [B,Ssuf]
         follow the prefix; ``prefix_k``/``prefix_v`` [L,B,h,KV,hd] are its
         post-RoPE KV rows. The suffix attends over prefix + suffix at
         ``q_offset = h``. Returns (logits [B,V], dense cache with the full
-        prefix + suffix KV, len = h + Ssuf or h + ``suffix_len``)."""
+        prefix + suffix KV, len = h + Ssuf or h + ``suffix_len``), written
+        ``into`` a caller's cache as ``prefill`` does."""
         cfg = self.cfg
         backend = kernel_ops.resolve_attention_backend(backend, self.device)
         tokens = self._tokens(tokens)
@@ -407,11 +442,32 @@ class Model:
             kvs.append(kv)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         if suffix_len is None:
-            n = torch.full((B,), Ssuf, dtype=torch.int32)
+            n = torch.full((B,), Ssuf, dtype=torch.int32, device=self.device)
         else:
-            n = torch.as_tensor(np.asarray(suffix_len), dtype=torch.int32)
-        x_last = x[torch.arange(B, device=self.device), n.to(self.device).long() - 1]
-        return x_last @ self._head(params), self._fill_cache(B, max_seq, kvs, h + n)
+            n = self._lengths(suffix_len)
+        x_last = x[torch.arange(B, device=self.device), n.long() - 1]
+        return x_last @ self._head(params), self._fill_cache(B, max_seq, kvs, h + n, into)
+
+    # ------------------------------------------------------------------
+    # compiled steps
+    def jit_step(self, name: str, backend=None):
+        """One serving step (``decode_step``, ``verify_step``,
+        ``decode_step_paged``, ``verify_step_paged``, ``prefill``,
+        ``prefill_with_prefix`` or ``prefill_chunk``) compiled once per
+        input signature, with the attention backend resolved once and bound
+        (``step_graph.StepGraph``; the reference's ``jax.jit``). Each call
+        makes a new callable with entries of its own, as each ``jax.jit``
+        does: the engine keeps its families, so its schedulers share them."""
+        backend = kernel_ops.resolve_attention_backend(backend, self.device)
+        return step_graph.StepGraph(self, name, backend)
+
+    def graph_pool(self):
+        """(memory pool, side stream) that every captured step of this
+        model shares: the graphs' memory, and the stream a step's first
+        call and its capture run on."""
+        if self._graph_pool is None:
+            self._graph_pool = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(self.device))
+        return self._graph_pool
 
     # ------------------------------------------------------------------
     # decode
@@ -529,23 +585,24 @@ class Model:
                 f"{CHUNKED_PREFILL_FAMILIES}, got {self.cfg.family!r}"
             )
         logits, new_cache = self.verify_step(params, cache, tokens, backend=backend)
-        n = torch.as_tensor(np.asarray(n_valid), dtype=torch.int32).to(self.device)
-        new_cache["len"] = cache["len"] + n
+        new_cache["len"] = cache["len"] + self._lengths(n_valid)
         return logits, new_cache
 
-    def seed_cache_with_prefix(self, prefix_k, prefix_v, max_seq):
+    def seed_cache_with_prefix(self, prefix_k, prefix_v, max_seq, into=None):
         """A dense batch-1 cache holding a prefix-cache hit's KV rows
         ``prefix_k``/``prefix_v`` [L,1,h,KV,hd] (quantized for
-        ``kv_quant``), with ``len = h``: where ``prefill_chunk`` goes on."""
+        ``kv_quant``), with ``len = h``: where ``prefill_chunk`` goes on.
+        ``into``: a batch-1 cache of ``max_seq`` to fill in place (a
+        scheduler's staging cache) instead of a new one."""
         if self.cfg.family not in PREFIX_FAMILIES:
             raise ValueError(
                 f"prefix seeding is only token-identical for {PREFIX_FAMILIES}, "
                 f"got {self.cfg.family!r}"
             )
         h = prefix_k.shape[2]
-        lengths = torch.full((prefix_k.shape[1],), h, dtype=torch.int32)
+        lengths = torch.full((prefix_k.shape[1],), h, dtype=torch.int32, device=self.device)
         kvs = [(prefix_k[li], prefix_v[li]) for li in range(prefix_k.shape[0])]
-        return self._fill_cache(prefix_k.shape[1], max_seq, kvs, lengths)
+        return self._fill_cache(prefix_k.shape[1], max_seq, kvs, lengths, into=into)
 
     def decode_step_paged(self, params, pool, block_tables, cache_len, tokens, *, backend=None):
         """Paged layout: one decode token per row over the block pool

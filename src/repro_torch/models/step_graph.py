@@ -1,0 +1,299 @@
+"""Compiled step families: the port's counterpart of ``jax.jit``.
+
+The JAX package compiles each serving step once per input signature
+(``Model.jit_step`` is ``jax.jit`` of the step with its attention backend
+bound), and its scheduler counts every later compile as a retrace.
+``StepGraph`` stands where ``jax.jit`` stands. It keeps one entry per key:
+the step's name, its backend, the shapes and dtypes of the tensor
+arguments and the values of the others (``max_seq``). ``_cache_size()``
+counts what has been compiled, as a jitted function's does.
+
+On a CUDA device an entry holds a captured ``torch.cuda.CUDAGraph``:
+
+- the first call of a key runs eagerly and returns its results. It is the
+  warm-up: the kernel library's build and load, the kernels' shared-memory
+  attributes, cuBLAS's handle and workspace, the allocator. The graph is
+  captured after it, on a side stream; a capture runs nothing, so no
+  step's effect (a KV write, an SSM state advanced in place) happens twice;
+- later calls copy the small inputs (the top-level tensor arguments and a
+  cache's ``len``: tokens, lengths, block tables, ``prompt_len``,
+  ``n_valid``, a prefix hit's rows) into the entry's static buffers, and
+  replay;
+- every other tensor (the parameters, the KV cache or pool, the SSM state)
+  is state: captured by address and updated in place, never copied. A
+  capture records the addresses of the state it ran on; a call on other
+  storage captures again, and that capture counts in ``_cache_size()`` as
+  a retrace, so a leak of fresh storage shows in the counter;
+- outputs that are state come back as the caller's own tensors; logits and
+  ``len`` come back as clones, so a caller may keep them past the next
+  replay; the cache a prefill makes is the graph's own buffers, valid until
+  the entry's next replay (callers copy it into a pool at once).
+
+Every graph of one model shares one memory pool. A capture or a replay
+that fails raises: nothing falls back to eager.
+
+On the CPU an entry is the record of its key and the call runs eagerly, so
+``_cache_size()`` (and the scheduler's retrace count) means there what it
+means in JAX.
+
+The kernels count their launches in Python. A capture counts the launches
+of the call it records, keeps them as the graph's launch vector and takes
+them back off; each replay adds the vector, so launch counts read as they
+would eagerly.
+
+``disabled()`` is ``jax.disable_jit()``'s counterpart: inside it every step
+runs eagerly, on the card too, and no entry is made. Tests and
+``chip_smoke.py`` compare the two paths through it; it is no engine option.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_decode_attention as _pda
+from repro_torch.kernels import relic_matmul as _rm
+from repro_torch.kernels import ssd_scan as _ssd
+
+# the steps ``Model.jit_step`` compiles
+STEPS = ("decode_step", "verify_step", "decode_step_paged", "verify_step_paged", "prefill",
+         "prefill_with_prefix", "prefill_chunk")
+
+# (wrapper, attribute) of every kernel launch counter
+LAUNCH_COUNTERS = (
+    (_pda.paged_decode_attention, "launches"),
+    (_pda.paged_decode_attention, "launches_int8"),
+    (_pda.paged_decode_attention, "launches_partials"),
+    (_fa.flash_attention, "launches"),
+    (_fa.flash_attention, "launches_noncausal"),
+    (_ssd.ssd_scan, "launches"),
+    (_rm.relic_matmul, "launches"),
+    (_rm.relic_gemv, "launches"),
+    (_da.decode_attention, "launches"),
+)
+
+_disabled = 0
+
+
+@contextlib.contextmanager
+def disabled():
+    """Run every step eagerly inside the block, as ``jax.disable_jit()``
+    does, and make no entry."""
+    global _disabled
+    _disabled += 1
+    try:
+        yield
+    finally:
+        _disabled -= 1
+
+
+def _launches() -> list:
+    return [getattr(fn, attr) for fn, attr in LAUNCH_COUNTERS]
+
+
+def _set_launches(values) -> None:
+    for (fn, attr), v in zip(LAUNCH_COUNTERS, values):
+        setattr(fn, attr, v)
+
+
+def _flatten(tree, path=()):
+    """(path, leaf) pairs of nested dicts, lists and tuples, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _replace(tree, repl: dict, path=()):
+    """``tree`` with the leaves at the paths of ``repl`` replaced; a
+    container none of whose leaves changed is returned as it is."""
+    if path in repl:
+        return repl[path]
+    if isinstance(tree, dict):
+        out = {k: _replace(v, repl, path + (k,)) for k, v in tree.items()}
+        return tree if all(out[k] is tree[k] for k in tree) else out
+    if isinstance(tree, (list, tuple)):
+        out = [_replace(v, repl, path + (i,)) for i, v in enumerate(tree)]
+        return tree if all(a is b for a, b in zip(out, tree)) else type(tree)(out)
+    return tree
+
+
+class _Slot:
+    """A leaf's place in an output skeleton."""
+
+    __slots__ = ("i",)
+
+    def __init__(self, i):
+        self.i = i
+
+
+def _skeleton(tree, leaves: list, path=()):
+    """``tree`` with each leaf replaced by a ``_Slot``; the (path, leaf)
+    pairs go to ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: _skeleton(v, leaves, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_skeleton(v, leaves, path + (i,)) for i, v in enumerate(tree))
+    leaves.append((path, tree))
+    return _Slot(len(leaves) - 1)
+
+
+def _fill(skeleton, values):
+    if isinstance(skeleton, dict):
+        return {k: _fill(v, values) for k, v in skeleton.items()}
+    if isinstance(skeleton, (list, tuple)):
+        return type(skeleton)(_fill(v, values) for v in skeleton)
+    return values[skeleton.i]
+
+
+def _is_input(path) -> bool:
+    """Top-level tensor arguments and a cache's ``len`` are the small
+    inputs; every other tensor is state."""
+    return len(path) == 2 or path[-1] == "len"
+
+
+class _Capture:
+    """One captured graph: its static input buffers, its output plan and
+    its launch vector."""
+
+    def __init__(self, graph, inputs, static, skeleton, plan, launches):
+        self.graph, self.inputs, self.static = graph, inputs, static
+        self.skeleton, self.plan, self.launches = skeleton, plan, launches
+
+
+class StepGraph:
+    """A model step with its backend bound, compiled once per key (see the
+    module docstring). ``model`` owns the graph memory pool; the step is
+    looked up on it at each call."""
+
+    def __init__(self, model, name: str, backend: str):
+        if name not in STEPS:
+            raise ValueError(f"jit_step: unknown step {name!r}; steps are {STEPS}")
+        self.model, self.name, self.backend = model, name, backend
+        self.device = model.device
+        self._entries: dict = {}  # key → {state addresses: _Capture} (CPU: None)
+        self._size = 0
+
+    def __repr__(self) -> str:
+        return f"StepGraph({self.name!r}, backend={self.backend!r}, entries={self._size})"
+
+    def _cache_size(self) -> int:
+        """Keys compiled, plus every recapture on other state storage."""
+        return self._size
+
+    def _eager(self, args, kwargs):
+        return getattr(self.model, self.name)(*args, backend=self.backend, **kwargs)
+
+    def _host(self, x):
+        """A host-side argument as a device tensor (the n_valid list, a
+        numpy length vector); tensors move to the device."""
+        if isinstance(x, (np.ndarray, list, tuple)):
+            return torch.as_tensor(np.asarray(x)).to(self.device)
+        if isinstance(x, torch.Tensor) and x.device != self.device:
+            return x.to(self.device)
+        return x
+
+    def __call__(self, *args, **kwargs):
+        if _disabled:
+            return self._eager(args, kwargs)
+        args = tuple(self._host(a) for a in args)
+        kwargs = {k: self._host(v) for k, v in kwargs.items()}
+        leaves = list(_flatten(args, ("a",))) + list(_flatten(kwargs, ("k",)))
+        key = tuple((p, tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor) else (p, v)
+                    for p, v in leaves)
+        if self.device.type != "cuda":
+            if key not in self._entries:
+                self._entries[key] = None
+                self._size += 1
+            return self._eager(args, kwargs)
+        entry = self._entries.get(key)
+        state = tuple((v.data_ptr(), v.stride()) for p, v in leaves
+                      if isinstance(v, torch.Tensor) and not _is_input(p))
+        if entry is None:
+            out = self._warm(args, kwargs)
+            self._entries[key] = {state: self._capture(args, kwargs, leaves)}
+            self._size += 1
+            return out
+        cap = entry.get(state)
+        if cap is None:
+            cap = entry[state] = self._capture(args, kwargs, leaves)
+            self._size += 1
+        return self._replay(cap, leaves)
+
+    def _warm(self, args, kwargs):
+        """The first call of a key, eager, on the side stream the capture
+        will use (the documented warm-up for a capture); the current stream
+        waits for it."""
+        cur, side = torch.cuda.current_stream(self.device), self.model.graph_pool()[1]
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = self._eager(args, kwargs)
+        cur.wait_stream(side)
+        return out
+
+    def _capture(self, args, kwargs, leaves) -> _Capture:
+        inputs = [i for i, (p, v) in enumerate(leaves)
+                  if isinstance(v, torch.Tensor) and _is_input(p)]
+        static = [leaves[i][1].detach().clone() for i in inputs]
+        repl = {leaves[i][0]: buf for i, buf in zip(inputs, static)}
+        a_repl = {p[1:]: v for p, v in repl.items() if p[0] == "a"}
+        k_repl = {p[1:]: v for p, v in repl.items() if p[0] == "k"}
+        c_args, c_kwargs = _replace(args, a_repl), _replace(kwargs, k_repl)
+        before = _launches()
+        graph = torch.cuda.CUDAGraph()
+        pool, side = self.model.graph_pool()
+        cur = torch.cuda.current_stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.graph(graph, pool=pool, stream=side):
+            out = self._eager(c_args, c_kwargs)
+        cur.wait_stream(side)
+        launches = [a - b for a, b in zip(_launches(), before)]
+        _set_launches(before)
+        # each output leaf: the caller's state tensor it is, a clone of a
+        # graph output (logits, len), or the graph's own buffer (a new cache)
+        state_of = {id(v): i for i, (p, v) in enumerate(leaves)
+                    if isinstance(v, torch.Tensor) and not _is_input(p)}
+        buffers = {id(b) for b in static}
+        out_leaves: list = []
+        skeleton = _skeleton(out, out_leaves)
+        plan = []
+        for path, v in out_leaves:
+            if not isinstance(v, torch.Tensor):
+                plan.append(("const", v))
+            elif id(v) in state_of:
+                plan.append(("state", state_of[id(v)]))
+            elif id(v) in buffers or len(path) == 1 or path[-1] == "len":
+                plan.append(("clone", v))
+            else:
+                plan.append(("own", v))
+        return _Capture(graph, inputs, static, skeleton, plan, launches)
+
+    def _replay(self, cap: _Capture, leaves):
+        for i, buf in zip(cap.inputs, cap.static):
+            buf.copy_(leaves[i][1], non_blocking=True)
+        cap.graph.replay()
+        if any(cap.launches):
+            _set_launches([a + d for a, d in zip(_launches(), cap.launches)])
+        values = []
+        for kind, v in cap.plan:
+            if kind == "state":
+                values.append(leaves[v][1])
+            elif kind == "clone":
+                values.append(v.clone())
+            else:
+                values.append(v)
+        return _fill(cap.skeleton, values)
+
+
+def cache_size(fns) -> int:
+    """The compiled entries of a set of step families (each counted once)."""
+    seen = {id(f): f for f in fns if f is not None and hasattr(f, "_cache_size")}
+    return sum(f._cache_size() for f in seen.values())
+

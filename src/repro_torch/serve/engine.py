@@ -17,6 +17,16 @@ on those windows, after ``prime()`` has measured the K × backend grid.
 The engine runs on the model's device, CUDA unless the caller asks for
 the CPU. Options of the reference that are not ported yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
+
+As in the reference, the engine owns its compiled step families, built
+lazily per backend through ``Model.jit_step`` and shared by every
+scheduler it makes (``_step_fns``, ``_paged_fns``, ``_spec_fns``): on the
+card each step shape is a CUDA graph captured once and replayed, and
+``prime()`` times its grid through the same families, so after it the
+serving shapes are captured. The graphs bind the addresses of the state
+they run on, so the engine also owns that state (``StateStorage``): every
+``serve()`` and ``prime()`` reuses the same pools, slot caches, staging
+caches and draft caches.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.serve.kv_cache import PagedKVCache, SlotKVCache, StateStorage
 from repro_torch.serve.request import Request, ServeStats  # noqa: F401 (re-export)
 from repro_torch.serve.scheduler import Scheduler, sorted_cache
 from repro_torch.serve.telemetry import get_telemetry
@@ -90,9 +101,75 @@ class ServingEngine:
             attention_backend, self.device
         )
         self.stats = ServeStats()
+        # the compiled step families, per backend, shared by every
+        # scheduler this engine makes, and the state storage they bind
+        self._steps: dict[str, dict] = {}
+        self._drafts: dict = {}  # (draft model, backend) → its decode and prefill
+        self._storage = StateStorage()
+        self._prefill = self._step_fns(self.attention_backend)["prefill"]
         self._decode_plan = None
         if decode_plan is not None:
             self.set_decode_plan(decode_plan)
+
+    # ------------------------------------------------------------------
+    # the compiled step families
+    def _step_fns(self, backend: str) -> dict:
+        """The step family of ``backend``, built lazily (only attention
+        families page, only SPEC_FAMILIES verify) and kept per backend."""
+        fns = self._steps.setdefault(backend, {})
+        if "decode" not in fns:
+            fns["decode"] = self.model.jit_step("decode_step", backend)
+            fns["prefill"] = self.model.jit_step("prefill", backend)
+        return fns
+
+    def _paged_fns(self, backend: str):
+        """(paged decode, prefix prefill) of ``backend``."""
+        fns = self._step_fns(backend)
+        if "decode_paged" not in fns:
+            fns["decode_paged"] = self.model.jit_step("decode_step_paged", backend)
+            fns["prefill_prefix"] = self.model.jit_step("prefill_with_prefix", backend)
+        return fns["decode_paged"], fns["prefill_prefix"]
+
+    def _spec_fns(self, layout: str, backend: str):
+        """(slot verify, paged verify or None) of ``backend``."""
+        fns = self._step_fns(backend)
+        if "verify" not in fns:
+            fns["verify"] = self.model.jit_step("verify_step", backend)
+        if layout == "paged" and "verify_paged" not in fns:
+            fns["verify_paged"] = self.model.jit_step("verify_step_paged", backend)
+        return fns["verify"], fns.get("verify_paged")
+
+    def _chunk_fn(self, backend: str):
+        fns = self._step_fns(backend)
+        if "prefill_chunk" not in fns:
+            fns["prefill_chunk"] = self.model.jit_step("prefill_chunk", backend)
+        return fns["prefill_chunk"]
+
+    def _draft_fns(self, model, backend: str) -> dict:
+        """A model drafter's compiled decode and prefill, kept per (draft
+        model, backend) so that every serve replays the same draft steps."""
+        fns = self._drafts.get((model, backend))
+        if fns is None:
+            fns = self._drafts[(model, backend)] = {
+                "decode": model.jit_step("decode_step", backend),
+                "prefill": model.jit_step("prefill", backend)}
+        return fns
+
+    def _family(self, backend: str, layout: str, spec, chunk) -> dict:
+        """What a scheduler serving ``layout`` (with ``spec`` and
+        ``chunk``) runs on ``backend``: its resolver, so that a live backend
+        switch lands in this engine's families, which ``prime()`` warms."""
+        backend = kernel_ops.resolve_attention_backend(backend, self.device)
+        fns = self._step_fns(backend)
+        out = {"backend": backend, "prefill": fns["prefill"], "decode": fns["decode"],
+               "draft": lambda model: self._draft_fns(model, backend)}
+        if layout == "paged":
+            out["decode_paged"], out["prefill_prefix"] = self._paged_fns(backend)
+        if spec is not None and spec.k > 0:
+            out["verify"], out["verify_paged"] = self._spec_fns(layout, backend)
+        if chunk:
+            out["prefill_chunk"] = self._chunk_fn(backend)
+        return out
 
     def scheduler(
         self,
@@ -110,10 +187,10 @@ class ServingEngine:
         engine's stats; ``kv_layout``, ``attention_backend``, ``spec``
         (``SpecConfig(k=0)`` disables), ``chunk_size`` (``0`` disables)
         and ``telemetry`` override the engine defaults for it. The
-        scheduler binds the resolved backend into every step it runs,
-        verify and chunk included (the eager port has no jitted step
-        family to cache). ``controller`` attaches an online adviser that
-        re-decides K, the backend and admission from the windowed
+        scheduler runs this engine's compiled step families of its backend
+        and serves on this engine's state storage (its own, while another
+        live scheduler holds that). ``controller`` attaches an online
+        adviser that re-decides K, the backend and admission from the windowed
         telemetry mid-run; when it carries positive depths and no
         ``spec`` covers them, an n-gram ``SpecConfig(k=max(ks))`` (or the
         given spec at that depth) sizes the margin and the drafter for
@@ -128,6 +205,8 @@ class ServingEngine:
 
                 spec = (SpecConfig(k=kmax, drafter="ngram") if spec is None
                         else dataclasses.replace(spec, k=kmax))
+        layout = kv_layout or self.kv_layout
+        chunk = int(chunk) if chunk else None
         return Scheduler(
             self.model,
             self.params,
@@ -136,16 +215,18 @@ class ServingEngine:
             temperature=self.temperature,
             stats=self.stats,
             seed=seed,
-            kv_layout=kv_layout or self.kv_layout,
+            kv_layout=layout,
             block_size=self.block_size,
             num_blocks=self.num_blocks,
             prefix_cache=self.prefix_cache,
             attention_backend=attention_backend or self.attention_backend,
             decode_plan=self._decode_plan,
             spec=spec,
-            chunk_size=int(chunk) if chunk else None,
+            chunk_size=chunk,
             telemetry=telemetry if telemetry is not None else self.telemetry,
             controller=controller,
+            step_fns=lambda b: self._family(b, layout, spec, chunk),
+            storage=self._storage,
         )
 
     def serve(
@@ -197,13 +278,16 @@ class ServingEngine:
         kv_layout: Optional[str] = None,
         reps: int = 2,
     ) -> dict:
-        """Measure the K × backend grid an online controller switches
-        across: for each backend, the plain decode (K = 0) and the verify
-        at each positive K (``[max_batch, K+1]`` tokens), each cell the
-        mean of ``reps`` calls after one untimed warm call, over a
-        throwaway pool whose rows are all dead (writes land in the null
-        block or junk rows). Each call is followed by a device
-        synchronise, so a cell is the work and not its launch.
+        """Compile and measure the K × backend grid an online controller
+        switches across: for each backend, the plain decode (K = 0) and the
+        verify at each positive K (``[max_batch, K+1]`` tokens), through
+        this engine's step families, so after it every switch replays a
+        captured graph. Each cell is the mean of ``reps`` calls after one
+        untimed first call (the warm-up and the capture), over the engine's
+        own pool for ``max_batch`` rows with every row dead (writes land in
+        the null block or junk rows; the next scheduler on that pool takes
+        it zeroed). Each call is followed by a device synchronise, so a
+        cell is the work and not its launch.
         ``max_batch`` should match the pool size later serves use. Depths
         clamp to ``(0,)`` for families without a rewindable cache.
         Returns ``{"cells": {backend: {k: ms}}, "ks", "backends",
@@ -211,7 +295,6 @@ class ServingEngine:
         ``OnlineAdviser.seed_costs`` so the first decision prices measured
         numbers."""
         from repro_torch.models.model import SPEC_FAMILIES
-        from repro_torch.serve.kv_cache import PagedKVCache
 
         mb = int(max_batch or self.max_batch or 4)
         layout = kv_layout or self.kv_layout
@@ -228,7 +311,7 @@ class ServingEngine:
                 torch.cuda.synchronize(self.device)
 
         def _time(fn) -> float:
-            fn()  # warm: the kernel build and load, the allocator (not timed)
+            fn()  # the warm-up and the capture (not timed)
             sync()
             t0 = time.perf_counter()
             for _ in range(max(1, reps)):
@@ -237,26 +320,30 @@ class ServingEngine:
             return (time.perf_counter() - t0) / max(1, reps) * 1e3
 
         cells: dict[str, dict[int, float]] = {}
+        if layout == "paged":
+            kv = PagedKVCache(self.model, mb, self.max_seq, block_size=self.block_size,
+                              num_blocks=self.num_blocks, prefix_cache=False,
+                              storage=self._storage)
+            pool, tables, lens = kv.kernel_inputs()
+        else:
+            kv = SlotKVCache(self.model, mb, self.max_seq, storage=self._storage)
         for backend in names:
             per_k: dict[int, float] = {}
             if layout == "paged":
-                kv = PagedKVCache(self.model, mb, self.max_seq, block_size=self.block_size,
-                                  num_blocks=self.num_blocks, prefix_cache=False)
-                pool, tables, lens = kv.kernel_inputs()
-                for k in ks:
-                    blk = tok if k == 0 else torch.zeros((mb, k + 1), dtype=torch.long,
-                                                          device=self.device)
-                    step = self.model.decode_step_paged if k == 0 else self.model.verify_step_paged
-                    per_k[k] = _time(lambda step=step, blk=blk, b=backend: step(
-                        self.params, pool, tables, lens, blk, backend=b))
+                decode, _ = self._paged_fns(backend)
+                verify = self._spec_fns("paged", backend)[1] if max(ks) > 0 else None
             else:
-                cache = self.model.init_cache(mb, self.max_seq)
-                for k in ks:
-                    blk = tok if k == 0 else torch.zeros((mb, k + 1), dtype=torch.long,
-                                                          device=self.device)
-                    step = self.model.decode_step if k == 0 else self.model.verify_step
-                    per_k[k] = _time(lambda step=step, blk=blk, b=backend: step(
-                        self.params, cache, blk, backend=b))
+                decode = self._step_fns(backend)["decode"]
+                verify = self._spec_fns("slot", backend)[0] if max(ks) > 0 else None
+            for k in ks:
+                blk = tok if k == 0 else torch.zeros((mb, k + 1), dtype=torch.long,
+                                                      device=self.device)
+                step = decode if k == 0 else verify
+                if layout == "paged":
+                    per_k[k] = _time(lambda step=step, blk=blk: step(
+                        self.params, pool, tables, lens, blk))
+                else:
+                    per_k[k] = _time(lambda step=step, blk=blk: step(self.params, kv.cache, blk))
             cells[backend] = per_k
         return {"cells": cells, "ks": ks, "backends": names, "max_batch": mb,
                 "layout": layout}

@@ -13,11 +13,19 @@ Speculation rewinds both pools by the rejected tail (``truncate_row``,
 ``truncate_rows``); preemption evicts a row (``preempt_row``), the paged
 pool first parking its committed full blocks in the trie so that the
 resume recomputes only the partial tail block.
+
+The compiled steps (``models/step_graph.py``) capture state by address,
+so an engine keeps its state in a ``StateStorage`` and each pool it makes
+takes its tensors from there (``storage=``): a pool takes the storage of
+its shape when no other live pool holds it, zeroed as a new one would be,
+and allocates its own otherwise. The reference builds fresh caches for
+every scheduler; a jit trace binds no address.
 """
 from __future__ import annotations
 
 import bisect
 import math
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -26,19 +34,70 @@ import torch
 from repro_torch.serve.block import BlockAllocator, PrefixCache
 
 
+def _zeroed(tree):
+    """Zero every tensor of a nested cache dict in place; returns it."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            _zeroed(v)
+        else:
+            v.zero_()
+    return tree
+
+
+class StateStorage:
+    """Address-stable state for the compiled steps: the slot caches,
+    paged pools, draft caches and chunked prefill's staging caches that the
+    schedulers of one engine serve on, so that every serve (and
+    ``prime()``) reuses the same storage and the same captured graphs.
+
+    ``take(key, holder, make)`` gives ``holder`` the storage kept under
+    ``key`` when no other live holder has it (zeroed in place, as a fresh
+    allocation would be), else a fresh ``make()`` that it does not keep; a
+    holder is held by weak reference, so a finished scheduler's pools go
+    back with it. ``staging`` / ``give_back`` keep a free list of batch-1
+    dense caches a length."""
+
+    def __init__(self):
+        self._held: dict = {}  # key → (tensors, weakref to holder)
+        self._free: dict = {}  # (model, max_seq) → free batch-1 caches
+
+    def take(self, key, holder, make):
+        got = self._held.get(key)
+        if got is not None and got[1]() is not None:
+            return make()
+        tensors = make() if got is None else _zeroed(got[0])
+        self._held[key] = (tensors, weakref.ref(holder))
+        return tensors
+
+    def staging(self, model, max_seq: int):
+        """A zeroed batch-1 dense cache of ``max_seq`` (``len`` 0)."""
+        free = self._free.get((model, int(max_seq)))
+        return _zeroed(free.pop()) if free else model.init_cache(1, int(max_seq))
+
+    def give_back(self, model, max_seq: int, cache) -> None:
+        self._free.setdefault((model, int(max_seq)), []).append(cache)
+
+
 class SlotKVCache:
     """Fixed pool of cache slots: allocate on admit, free on finish. The
     pool is the model's decode cache (k/v rows, or the SSM family's
-    per-layer states); ``write`` replaces a slot's leaves whole and
-    refuses a slot cache whose leaves do not match the pool's."""
+    per-layer states) in ``dtype`` (the model's by default); ``write``
+    replaces a slot's leaves whole and refuses a slot cache whose leaves do
+    not match the pool's. ``storage``: a ``StateStorage`` to take the
+    pool's tensors from."""
 
-    def __init__(self, model, max_batch: int, max_seq: int):
+    def __init__(self, model, max_batch: int, max_seq: int, dtype=None, *, storage=None):
         self.model = model
         self.max_batch = int(max_batch)
         self.max_seq = int(max_seq)
         if self.max_batch < 1:
             raise ValueError("max_batch must be >= 1")
-        self.cache = model.init_cache(self.max_batch, self.max_seq)
+
+        def make():
+            return model.init_cache(self.max_batch, self.max_seq, dtype=dtype)
+
+        self.cache = (make() if storage is None else
+                      storage.take(("slot", self.max_batch, self.max_seq, dtype), self, make))
         self._free: list[int] = list(range(self.max_batch))  # ascending
         self._owner: list[Optional[int]] = [None] * self.max_batch  # slot → rid
 
@@ -55,6 +114,16 @@ class SlotKVCache:
         """Pool-pressure gauge in [0, 1]: the fraction of slots live (the
         slotted layout's only capacity axis)."""
         return self.n_live / self.max_batch
+
+    def owner(self, slot: int) -> Optional[int]:
+        return self._owner[slot]
+
+    def live_mask(self) -> np.ndarray:
+        """[max_batch] bool: which slots hold live requests."""
+        return np.array([o is not None for o in self._owner])
+
+    def live_slots(self) -> list[int]:
+        return [i for i, o in enumerate(self._owner) if o is not None]
 
     def alloc(self, rid: int) -> int:
         """Claim the lowest free slot for request ``rid``."""
@@ -77,6 +146,10 @@ class SlotKVCache:
         if self._owner[slot] is None:
             raise RuntimeError(f"write into free slot {slot}")
         self.model.write_cache_slot(self.cache, slot_cache, slot)
+
+    def read(self, slot: int):
+        """Slot ``slot`` as a batch=1 cache (views into the pool)."""
+        return self.model.read_cache_slot(self.cache, slot)
 
     # ------------------------------------------------------------------
     # speculative rollback
@@ -124,7 +197,8 @@ class PagedKVCache:
     block (id ``num_blocks``) that unowned table entries point at, so dead
     rows' writes land in scratch. Admission charges the worst-case block
     budget; physical blocks are claimed as a request reaches them, and
-    prefix-shared blocks are charged once."""
+    prefix-shared blocks are charged once. ``dtype`` overrides the pool's
+    type; ``storage``: a ``StateStorage`` to take the pool from."""
 
     def __init__(
         self,
@@ -136,6 +210,8 @@ class PagedKVCache:
         num_blocks: Optional[int] = None,
         prefix_cache: bool = True,
         metrics=None,
+        dtype=None,
+        storage=None,
     ):
         self.model = model
         self.max_batch = int(max_batch)
@@ -152,7 +228,12 @@ class PagedKVCache:
             num_blocks = self.max_batch * self.blocks_per_row
         self.num_blocks = int(num_blocks)
         self.null_block = self.num_blocks
-        self.pool = model.init_paged_cache(self.num_blocks + 1, self.block_size)
+
+        def make():
+            return model.init_paged_cache(self.num_blocks + 1, self.block_size, dtype=dtype)
+
+        key = ("paged", self.num_blocks + 1, self.block_size, dtype)
+        self.pool = make() if storage is None else storage.take(key, self, make)
         # the dense family's suffix prefill equals a cold prefill, so
         # prompts sharing a prefix may alias its blocks
         self.prefix = PrefixCache(self.block_size) if prefix_cache else None
@@ -211,6 +292,16 @@ class PagedKVCache:
         holding data (live and parked; reservations are a promise, not
         bytes)."""
         return 1.0 - self.allocator.n_free / self.num_blocks
+
+    def owner(self, row: int) -> Optional[int]:
+        return self._row_owner[row]
+
+    def live_mask(self) -> np.ndarray:
+        """[max_batch] bool: which rows hold live requests."""
+        return np.array([o is not None for o in self._row_owner])
+
+    def live_rows(self) -> list[int]:
+        return [i for i, o in enumerate(self._row_owner) if o is not None]
 
     # ------------------------------------------------------------------
     # admission

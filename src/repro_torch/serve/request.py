@@ -174,6 +174,17 @@ class ServeStats:
         vals = getattr(self, series)
         return quantile(vals, p) if vals else 0.0
 
+    def summary(self) -> str:
+        """One line: steps and their p50/p99, and with finished requests
+        their count and TTFT p50/p99 (the JAX package's format)."""
+        s = (f"steps={len(self.step_ms)} p50={self.percentile(50):.2f}ms "
+             f"p99={self.percentile(99):.2f}ms")
+        if self.ttft_ms:
+            s += (f" | requests={len(self.ttft_ms)}"
+                  f" ttft_p50={self.percentile(50, 'ttft_ms'):.2f}ms"
+                  f" ttft_p99={self.percentile(99, 'ttft_ms'):.2f}ms")
+        return s
+
     def serving_summary(self) -> dict:
         """Machine-readable serving latencies. A run where zero requests
         finished returns an explicit empty summary (``empty=True``, None

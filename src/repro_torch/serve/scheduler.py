@@ -36,12 +36,16 @@ decode plan set (``set_decode_plan``; slot layout only) the decode runs
 through the plan's masked executor over the whole pool, the live rows as
 its mask.
 
-The reference's promise of one jit trace per step shape is, in the eager
-port, a closed family of step widths: ``widths`` counts the prompt widths
-of the monolithic prefills, the chunk widths and the verify widths this
-scheduler ran, and after ``prime()`` every chunk width lies in
-``primed_widths`` (the pow2 widths up to ``chunk_size``) and every verify
-width is K+1 for a K the scheduler served with.
+Every model step runs through a compiled step family
+(``Model.jit_step``: a CUDA graph a step shape on the card), the engine's
+when the engine made this scheduler, else a scheduler-local one. The step
+shapes form a closed family: ``widths`` counts the prompt widths of the
+monolithic prefills, the chunk widths and the verify widths this scheduler
+ran; after ``prime()`` every chunk width lies in ``primed_widths`` (the
+pow2 widths up to ``chunk_size``) and every verify width is K+1 for a K the
+scheduler served with. With telemetry on, the retrace watch samples the
+families' compile counts at every step boundary and ticks
+``engine.retraces`` by their growth, as the reference's does.
 
 With ``telemetry`` enabled, each working step records its span and phase
 spans, each request its lifecycle events, into the flight recorder
@@ -71,7 +75,8 @@ from repro_torch.models.model import (
     SPEC_FAMILIES,
     prefill_bucket,
 )
-from repro_torch.serve.kv_cache import PagedKVCache, SlotKVCache
+from repro_torch.models.step_graph import cache_size
+from repro_torch.serve.kv_cache import PagedKVCache, SlotKVCache, StateStorage
 from repro_torch.serve.request import (
     DECODE,
     FINISHED,
@@ -97,10 +102,10 @@ def sorted_cache(tree):
 
 @dataclass
 class _ChunkState:
-    """An in-flight chunked prefill: the request's own batch-1 dense cache
-    (seeded from a prefix hit when there was one) and the cursor into its
-    effective prompt. Installed into the pool when ``pos`` reaches the
-    end."""
+    """An in-flight chunked prefill: a batch-1 dense staging cache from
+    the state storage's free list (seeded from a prefix hit when there was
+    one) and the cursor into the request's effective prompt. Installed into
+    the pool when ``pos`` reaches the end, and the staging cache goes back."""
 
     req: Request
     cache: Any  # batch-1 dense cache; len counts the committed chunk rows
@@ -130,6 +135,8 @@ class Scheduler:
         chunk_size: Optional[int] = None,
         telemetry=None,
         controller=None,
+        step_fns=None,
+        storage=None,
     ):
         self.model = model
         self.params = params
@@ -155,15 +162,15 @@ class Scheduler:
             self._g_occ = reg.gauge("pool.occupancy")
             self._g_free_blocks = reg.gauge("pool.free_blocks")
             self._c_admitted = reg.counter("sched.admitted")
-            # the reference's retrace watch (jit cache growth mid-run) has
-            # no eager counterpart: the counter stays 0 until ROADMAP item
-            # 6a's CUDA-graph capture count feeds it
             self._c_retraces = reg.counter("engine.retraces")
             self._s_chunk_util = reg.series("sched.chunk_util")
         self._step_seq = 0
         if kv_layout not in ("slot", "paged"):
             raise ValueError(f"kv_layout must be 'slot' or 'paged', got {kv_layout!r}")
         self.kv_layout = kv_layout
+        # the state the compiled steps bind: the engine's, or this
+        # scheduler's own when standalone
+        self._storage = storage if storage is not None else StateStorage()
         if kv_layout == "paged":
             if decode_plan is not None:
                 raise ValueError(
@@ -173,10 +180,10 @@ class Scheduler:
             self.kv = PagedKVCache(
                 model, max_batch, max_seq, block_size=block_size,
                 num_blocks=num_blocks, prefix_cache=prefix_cache,
-                metrics=self.stats.registry if self._ton else None,
+                metrics=self.stats.registry if self._ton else None, storage=self._storage,
             )
         else:
-            self.kv = SlotKVCache(model, max_batch, max_seq)
+            self.kv = SlotKVCache(model, max_batch, max_seq, storage=self._storage)
         self.attention_backend = kernel_ops.resolve_attention_backend(
             attention_backend, self.device
         )
@@ -215,8 +222,24 @@ class Scheduler:
                     "speculation and decode plans both rewrite the decode step — "
                     "set one or the other"
                 )
+        # the compiled steps: the engine's families (``step_fns``: backend →
+        # family) when the engine made this scheduler, else a local cache
+        self._fn_resolver = step_fns
+        self._local_fns: dict[str, dict] = {}
+        self._prefill_buf = None  # the monolithic prefills' staging cache
+        fns = self._resolve_fns(self.attention_backend)
+        self._install(fns)
+        if self.spec is not None:
+            from repro_torch.serve.speculative import ModelDraftSource
+
             self._drafter = self.spec.make_drafter(attention_backend=self.attention_backend)
-            self._drafter.bind(max_batch, max_seq)
+            if isinstance(self._drafter, ModelDraftSource):
+                # a model drafter serves on the family's draft steps and the
+                # storage's draft cache
+                self._drafter.bind(max_batch, max_seq, storage=self._storage,
+                                   steps=fns["draft"](self._drafter.model))
+            else:
+                self._drafter.bind(max_batch, max_seq)
         self._queue: list[Request] = []  # sorted by _queue_key
         self._active: dict[int, Request] = {}  # row → request
         self._chunking: dict[int, _ChunkState] = {}  # row → in-flight chunked prefill
@@ -238,6 +261,73 @@ class Scheduler:
         self._decode_plan = None
         if decode_plan is not None:
             self.set_decode_plan(decode_plan)
+        if self._ton:
+            # the retrace watch: the families' compile counts, sampled at
+            # step boundaries; the baseline is taken now, so what an engine
+            # compiled before (prime(), earlier serves) is no retrace
+            self._rebuild_trace_watch()
+
+    # ------------------------------------------------------------------
+    # the compiled step families
+    def _resolve_fns(self, backend: str) -> dict:
+        """The step family of ``backend``: the engine's shared one when the
+        engine made this scheduler, else a local cache (retrace-free
+        switching holds for the engine's families that ``prime()`` warmed)."""
+        if self._fn_resolver is not None:
+            return self._fn_resolver(backend)
+        backend = kernel_ops.resolve_attention_backend(backend, self.device)
+        fns = self._local_fns.get(backend)
+        if fns is None:
+            jit = self.model.jit_step
+            drafts: dict = {}
+            fns = {"backend": backend, "prefill": jit("prefill", backend),
+                   "decode": jit("decode_step", backend),
+                   "draft": lambda m: drafts.setdefault(m, {
+                       "decode": m.jit_step("decode_step", backend),
+                       "prefill": m.jit_step("prefill", backend)})}
+            if self.kv_layout == "paged":
+                fns["decode_paged"] = jit("decode_step_paged", backend)
+                fns["prefill_prefix"] = jit("prefill_with_prefix", backend)
+            if self.spec is not None:
+                fns["verify"] = jit("verify_step", backend)
+                if self.kv_layout == "paged":
+                    fns["verify_paged"] = jit("verify_step_paged", backend)
+            if self.chunk_size is not None:
+                fns["prefill_chunk"] = jit("prefill_chunk", backend)
+            self._local_fns[backend] = fns
+        return fns
+
+    def _install(self, fns: dict, prefill: bool = True) -> None:
+        """Take a family's steps; a live switch (``prefill=False``) keeps
+        the monolithic and prefix prefills, as the reference's does."""
+        self.attention_backend = fns["backend"]
+        if prefill:
+            self._prefill, self._prefill_prefix = fns["prefill"], fns.get("prefill_prefix")
+        self._decode, self._decode_paged = fns["decode"], fns.get("decode_paged")
+        self._verify, self._verify_paged = fns.get("verify"), fns.get("verify_paged")
+        self._prefill_chunk = fns.get("prefill_chunk")
+
+    def _staging_rows(self, n: int):
+        """The first ``n`` rows of the staging cache a monolithic prefill
+        writes its new cache into (the storage's, taken at first use: one
+        row a slot on the slot layout, one on the paged layout, whose
+        admission prefills a request at a time); admission copies the rows
+        into the pool at once."""
+        if self._prefill_buf is None:
+            rows = self.kv.max_batch if self.kv_layout == "slot" else 1
+            self._prefill_buf = self._storage.take(
+                ("prefill", rows, self.max_seq), self,
+                lambda: self.model.init_cache(rows, self.max_seq))
+        return self.model.read_cache_slot(self._prefill_buf, 0, n)
+
+    def _rebuild_trace_watch(self) -> None:
+        """(Re)collect the step families under retrace watch and take their
+        compile counts as the baseline: at construction and after a live
+        backend switch installs another family."""
+        self._traced_fns = [self._prefill, self._decode, self._decode_paged,
+                            self._prefill_prefix, self._prefill_chunk, self._verify,
+                            self._verify_paged]
+        self._cache_size_seen = cache_size(self._traced_fns)
 
     # ------------------------------------------------------------------
     # the online adviser: observe → decide → apply
@@ -274,12 +364,19 @@ class Scheduler:
             self._set_live_k(int(init_k))
 
     def _set_backend(self, backend: str) -> None:
-        """Swap the decode/verify/chunk attention backend live. Every step
-        takes the backend as an argument and the pool state (KV, block
-        tables, lengths) does not depend on it, so nothing else moves. The
-        drafter keeps the backend it was built with, as the reference's
-        does."""
-        self.attention_backend = kernel_ops.resolve_attention_backend(backend, self.device)
+        """Swap the attention backend live: install that backend's decode,
+        verify and chunk steps (the prefills keep the backend the scheduler
+        was built with, as the reference's do). The pool state (KV, block
+        tables, lengths) does not depend on it, so nothing else moves; the
+        trace watch re-baselines, so the switch itself is no retrace (a
+        family never warmed still counts its first compiles). The drafter
+        keeps the backend it was built with, as the reference's does."""
+        backend = kernel_ops.resolve_attention_backend(backend, self.device)
+        if backend == self.attention_backend:
+            return
+        self._install(self._resolve_fns(backend), prefill=False)
+        if self._ton:
+            self._rebuild_trace_watch()
 
     def _set_live_k(self, k: int) -> None:
         """Re-decide the speculation depth live: the next verify is K+1
@@ -534,10 +631,9 @@ class Scheduler:
             toks, lens = self._padded([eff for _, eff in group], W)
             self.widths["prefill"][W] += 1
             with self.tel.annotate("serve.prefill"):
-                logits, cache = self.model.prefill(
+                logits, cache = self._prefill(
                     self.params, toks, self.max_seq, prompt_len=lens if self._bucket else None,
-                    backend=self.attention_backend,
-                )
+                    into=self._staging_rows(len(group)))
             for i, (req, eff) in enumerate(group):
                 slot = self.kv.alloc(req.rid)
                 req.slot = slot
@@ -558,7 +654,7 @@ class Scheduler:
         if req.tokens:
             self.stats.recomputed_tokens += len(eff)
         self._chunking[slot] = _ChunkState(
-            req=req, cache=self.model.init_cache(1, self.max_seq), prompt=eff,
+            req=req, cache=self._storage.staging(self.model, self.max_seq), prompt=eff,
             pos=0, skip_blocks=0,
         )
 
@@ -593,13 +689,11 @@ class Scheduler:
         else:
             # the first admission's hit feeds the prompt-token hit rate
             req.prefix_hit = hit
-        be = self.attention_backend
         if self.chunk_size is not None:
+            cache = self._storage.staging(self.model, self.max_seq)
             if hit:
                 pk, pv = self.kv.gather_prefix(hit_ids)
-                cache = self.model.seed_cache_with_prefix(pk, pv, self.max_seq)
-            else:
-                cache = self.model.init_cache(1, self.max_seq)
+                cache = self.model.seed_cache_with_prefix(pk, pv, self.max_seq, into=cache)
             self._chunking[row] = _ChunkState(
                 req=req, cache=cache, prompt=eff, pos=hit, skip_blocks=len(hit_ids))
             return True
@@ -610,17 +704,16 @@ class Scheduler:
             toks, lens = self._padded([suffix], W)
             pk, pv = self.kv.gather_prefix(hit_ids)
             with self.tel.annotate("serve.prefill"):
-                logits, cache = self.model.prefill_with_prefix(
-                    self.params, toks, pk, pv, self.max_seq, suffix_len=lens, backend=be
-                )
+                logits, cache = self._prefill_prefix(
+                    self.params, toks, pk, pv, self.max_seq, suffix_len=lens,
+                    into=self._staging_rows(1))
         else:
             W = prefill_bucket(len(eff))
             W = len(eff) if W > self.max_seq else W
             toks, lens = self._padded([eff], W)
             with self.tel.annotate("serve.prefill"):
-                logits, cache = self.model.prefill(
-                    self.params, toks, self.max_seq, prompt_len=lens, backend=be
-                )
+                logits, cache = self._prefill(self.params, toks, self.max_seq, prompt_len=lens,
+                                              into=self._staging_rows(1))
         self.widths["prefill"][W] += 1
         self.kv.write_prefill(row, cache, skip_blocks=len(hit_ids))
         self._arm(req, row, logits[0])
@@ -690,9 +783,7 @@ class Scheduler:
                 self.kv.ensure_tail(row)
             pool, tables, lens = self.kv.kernel_inputs()
             with self.tel.annotate("serve.decode"):
-                logits, self.kv.pool = self.model.decode_step_paged(
-                    self.params, pool, tables, lens, tok, backend=self.attention_backend
-                )
+                logits, self.kv.pool = self._decode_paged(self.params, pool, tables, lens, tok)
         elif self._decode_plan is not None:
             mask = torch.zeros((self.kv.max_batch,), dtype=torch.bool)
             mask[list(self._active)] = True
@@ -701,9 +792,7 @@ class Scheduler:
                     self.kv.cache, tok[:, 0], mask.to(self.device))
         else:
             with self.tel.annotate("serve.decode"):
-                logits, self.kv.cache = self.model.decode_step(
-                    self.params, self.kv.cache, tok, backend=self.attention_backend
-                )
+                logits, self.kv.cache = self._decode(self.params, self.kv.cache, tok)
         self._sync()
         return logits
 
@@ -726,19 +815,17 @@ class Scheduler:
         tokens_in = torch.from_numpy(
             np.concatenate([self._tok[:, None], np.asarray(drafts, np.int64)], axis=1)
         ).to(self.device)
-        be = self.attention_backend
         self.widths["verify"][K + 1] += 1
         if self.kv_layout == "paged":
             for row in self._active:
                 self.kv.ensure_tail_n(row, K + 1)
             pool, tables, lens = self.kv.kernel_inputs()
             with self.tel.annotate("serve.verify"):
-                logits, self.kv.pool = self.model.verify_step_paged(
-                    self.params, pool, tables, lens, tokens_in, backend=be)
+                logits, self.kv.pool = self._verify_paged(
+                    self.params, pool, tables, lens, tokens_in)
         else:
             with self.tel.annotate("serve.verify"):
-                logits, self.kv.cache = self.model.verify_step(
-                    self.params, self.kv.cache, tokens_in, backend=be)
+                logits, self.kv.cache = self._verify(self.params, self.kv.cache, tokens_in)
         greedy = torch.argmax(logits, dim=-1).cpu().numpy()  # [max_batch, K+1]
         now = time.perf_counter()
         self.stats.verify_ms.append((now - t_draft) * 1e3)
@@ -844,10 +931,8 @@ class Scheduler:
             toks[0, :n] = st.prompt[st.pos : st.pos + n]
             self.widths["chunk"][W] += 1
             with self.tel.annotate("serve.prefill_chunk"):
-                logits, st.cache = self.model.prefill_chunk(
-                    self.params, st.cache, torch.from_numpy(toks).to(self.device), [n],
-                    backend=self.attention_backend,
-                )
+                logits, st.cache = self._prefill_chunk(
+                    self.params, st.cache, torch.from_numpy(toks).to(self.device), [n])
             st.pos += n
             budget -= n
             if self._ton:
@@ -872,30 +957,39 @@ class Scheduler:
             self.kv.register_prompt(row, tuple(int(t) for t in st.prompt))
         else:
             self.kv.write(row, st.cache)
+        self._storage.give_back(self.model, self.max_seq, st.cache)
         self._arm(st.req, row, logits_row)
 
     def prime(self) -> None:
-        """Run one chunk at each pow2 width W ≤ ``chunk_size`` on a
-        throwaway cache, warming the kernel plans and the build. The
-        family is closed: every slice ``_prefill_phase`` can emit pads to
-        one of these widths (``primed_widths``). No-op without chunking."""
+        """Compile the chunked-prefill family: one chunk at each pow2 width
+        W ≤ ``chunk_size`` on each of ``max_batch`` staging caches (as many
+        as can be in flight: one a row), so a primed scheduler captures no
+        chunk step mid-run. The family is closed: every slice
+        ``_prefill_phase`` can emit pads to one of these widths
+        (``primed_widths``). The staging caches go back to the free list;
+        on an engine's storage this warms every later scheduler of the
+        engine too. No-op without chunking."""
         if self.chunk_size is None:
             return
+        caches = [self._storage.staging(self.model, self.max_seq)
+                  for _ in range(self.kv.max_batch)]
         W = 1
         while W <= self.chunk_size:
-            cache = self.model.init_cache(1, self.max_seq)
             toks = torch.zeros((1, W), dtype=torch.long, device=self.device)
-            self.model.prefill_chunk(self.params, cache, toks, [W],
-                                     backend=self.attention_backend)
+            for cache in caches:
+                self._prefill_chunk(self.params, cache, toks, [W])
             self.primed_widths.add(W)
             W *= 2
+        for cache in caches:
+            self._storage.give_back(self.model, self.max_seq, cache)
         self._sync()
 
     def _finish_step(self, t0: float, phases) -> None:
         """Telemetry's step boundary (reached only with the recorder on):
         the step span and its non-empty phase spans, the queue and pool
-        gauges, and one registry tick so every counter lands in its window
-        ring. Host bookkeeping only, no device synchronise beyond the
+        gauges, the retrace watch (the step families' compile counts: growth
+        is a retrace), and one registry tick so every counter lands in its
+        window ring. Host bookkeeping only, no device synchronise beyond the
         step's own."""
         end = time.perf_counter()
         tr = self.tel.tracer
@@ -913,6 +1007,11 @@ class Scheduler:
         self._g_occ.set(self.kv.occupancy)
         if self.kv_layout == "paged":
             self._g_free_blocks.set(self.kv.n_free_blocks)
+        size = cache_size(self._traced_fns)
+        if size > self._cache_size_seen:
+            self._c_retraces.inc(size - self._cache_size_seen)
+            tr.instant("retrace", "sched", args={"new": size - self._cache_size_seen})
+        self._cache_size_seen = size
         self.stats.registry.tick()
 
     @staticmethod

@@ -151,7 +151,11 @@ class ModelDraftSource:
     round runs K greedy decode steps plus one catch-up step (processing
     the K-th draft, so a fully accepted round leaves no hole), and
     ``rollback`` truncates by the target pool's vector, after which the
-    draft cache holds exactly the committed stream."""
+    draft cache holds exactly the committed stream. Its decode and its
+    prefill are the draft model's compiled steps (``Model.jit_step``):
+    its own, or the ones ``bind(steps=)`` hands it (an engine's, kept per
+    draft model), and ``bind(storage=)`` takes the cache from an engine's
+    state storage, so every serve replays the same captured draft steps."""
 
     def __init__(self, model, params, k: int, attention_backend=None):
         from repro_torch.models.model import SPEC_FAMILIES
@@ -165,7 +169,8 @@ class ModelDraftSource:
         self.params = params
         self.k = int(k)
         self._k_max = int(k)  # the construction depth sizes the cache overhang
-        self.backend = attention_backend
+        self._decode = model.jit_step("decode_step", attention_backend)
+        self._prefill = model.jit_step("prefill", attention_backend)
         self.cache = None
 
     def set_k(self, k: int) -> None:
@@ -179,9 +184,20 @@ class ModelDraftSource:
             )
         self.k = int(k)
 
-    def bind(self, max_batch: int, max_seq: int) -> None:
+    def bind(self, max_batch: int, max_seq: int, storage=None, steps=None) -> None:
         self._max_seq = int(max_seq) + self._k_max + 1  # speculative overhang
-        self.cache = self.model.init_cache(int(max_batch), self._max_seq)
+        if steps is not None:
+            self._decode, self._prefill = steps["decode"], steps["prefill"]
+
+        def make(rows):
+            return lambda: self.model.init_cache(rows, self._max_seq)
+
+        def take(key, rows):
+            return make(rows)() if storage is None else storage.take(key, self, make(rows))
+
+        self.cache = take(("draft", self.model, int(max_batch), self._max_seq), int(max_batch))
+        # the catch-up prefill writes a row here before it goes into the cache
+        self._stage = take(("draft-prefill", self.model, self._max_seq), 1)
 
     def on_admit(self, row: int, req) -> None:
         """Catch up on the request's committed history: the prompt and,
@@ -197,9 +213,9 @@ class ModelDraftSource:
         W = prefill_bucket(S, self._max_seq)
         padded = np.zeros((1, W), np.int64)
         padded[0, :S] = hist
-        _, cache1 = self.model.prefill(
+        _, cache1 = self._prefill(
             self.params, torch.from_numpy(padded).to(self.model.device), self._max_seq,
-            prompt_len=torch.tensor([S], dtype=torch.int32), backend=self.backend,
+            prompt_len=torch.tensor([S], dtype=torch.int32), into=self._stage,
         )
         self.model.write_cache_slot(self.cache, cache1, row)
 
@@ -212,14 +228,12 @@ class ModelDraftSource:
         out = []
         with get_telemetry().annotate("serve.draft_model"):
             for _ in range(self.k):
-                logits, cache = self.model.decode_step(
-                    self.params, cache, cur[:, None], backend=self.backend)
+                logits, cache = self._decode(self.params, cache, cur[:, None])
                 cur = torch.argmax(logits, dim=-1)
                 out.append(cur)
             # catch-up: process the K-th draft so that a fully accepted round
             # leaves the draft cache one for one with the target's
-            _, cache = self.model.decode_step(self.params, cache, cur[:, None],
-                                              backend=self.backend)
+            _, cache = self._decode(self.params, cache, cur[:, None])
         self.cache = cache
         return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
 
