@@ -153,7 +153,38 @@ Phases, in order; any failure exits non-zero before the final line:
    capturing nothing); the host time of one eager smollm decode step by
    op (CPU-side ``torch.profiler``); each model's decode step at 8 rows
    and 1024-token prefill, eager and graphed: wall, device busy and the
-   device's idle share. Each phase prints the time it ended at.
+   device's idle share.
+11. the int8 paged pool and the three dense configs — the paged kernel's
+   int8 mode on stablelm-3b's pool (H = KV = 32, hd 80, BS 16) at T = 1,
+   T = 5 (each query bitwise a decode) and a 256-query chunk over a
+   256-key identity view, the float modes at phi3-medium-14b's (40 heads
+   over 10) and internlm2-20b's (48 over 8) hd-128 pools at T = 1 and 5
+   (bitwise), causal flash at each config's serving prefill (B = 1, S =
+   1024; bf16 at hd 128 on wgmma, beside the CUDA-core kernel and SDPA)
+   and non-causal flash at hd 128 (B = 2, S = 512, once through
+   ``kernels.ops`` first), float32 and bf16, each held to its plain
+   version and timed beside its bound; float32 at full width, full depth
+   for stablelm and depth 4 for the 14B and 20B models (whose float32
+   plain path would not fit the card at full depth), served through the
+   kernels and the plain backend on the paged layout with a shared-prefix
+   pair (stablelm's int8 hit dequantized): the same greedy tokens, ties
+   aside; bf16 prefill and first-decode logits within ``E2E_BF16_RATIO``
+   of the plain path's distance from float32, at the same depths; then
+   each config in bf16 at full depth and width on the paged layout (8
+   rows, ``max_seq`` 2048, 12 open-loop requests of 128-1024 tokens, at
+   most 32 new), plain and with K = 4 n-gram speculation (stablelm's with
+   ``chunk_size`` 256 over a shared 512-token prefix), served once to
+   capture and then primed: no capture (``engine.retraces`` 0), every
+   decode or verify step the paged kernel once a layer (int8 mode only,
+   for stablelm), every prefill flash once a layer, every chunk the paged
+   kernel once a layer and no flash; TTFT, TPOT and step p50/p99, the
+   peak memory after ``init`` and after serving, and a decode step at 8
+   rows and a 1024-token prefill eager and graphed (wall, device busy,
+   idle share). Each phase prints the time it ended at.
+
+``--phases 3,11`` runs the build and the listed phases only, for a short
+development call (5 runs phases 5 and 6 together); with no argument every
+phase runs.
 
 The two lines before the last are the JSON kernel table and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -161,6 +192,7 @@ name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -939,6 +971,31 @@ def sdpa_decode_ms(q, k, v, lens):
     return cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
 
 
+def sdpa_cached_ms(q, kp, vp, lengths):
+    """SDPA over an identity-table view's contiguous cache (the slot cache
+    or a batch-1 staging cache the pool view reshapes): T queries a row,
+    query t attending keys < lengths + t + 1 through a boolean mask,
+    ``enable_gqa`` (the yardstick only). Returns (its ``cuda_ms``, its max
+    |difference| from the paged kernel's plain version)."""
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    B, T = q.shape[:2]
+    kc, vc = (t.reshape(B, -1, *t.shape[2:]) for t in (kp, vp))
+    Smax = kc.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kc, vc))
+    lim = lengths.long()[:, None] + torch.arange(1, T + 1, device="cuda")[None, :]
+    mask = (torch.arange(Smax, device="cuda")[None, None, :] < lim[:, :, None])[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def call():
+        return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    tables = torch.arange(kp.shape[0], dtype=torch.int32, device="cuda").view(B, -1)
+    ref = pda.plain_paged_decode_attention(q, kp, vp, tables, lengths)
+    diff = (call().transpose(1, 2).float() - ref.float()).abs().max().item()
+    return cuda_ms(call), diff
+
+
 def ownership(tables, seed, empty_row=2):
     """A random block ownership [B,MB] int32 in which one row owns nothing."""
     g = torch.Generator().manual_seed(seed)
@@ -1247,7 +1304,8 @@ class StepLog:
     """Records each call of a model's compiled steps (every callable its
     ``jit_step`` makes from here on: create the log before the engine):
     (name, token width T, paged launches inside it, flash launches inside
-    it), read from the wrappers' counts, which a replay advances by its
+    it, int8 paged launches inside it), read from the wrappers' counts,
+    which a replay advances by its
     graph's launch vector; keeps the last call's logits and a device-side
     flag of non-finite ones (no host sync in the loop)."""
 
@@ -1279,11 +1337,13 @@ class _Logged:
         from repro_torch.kernels import paged_decode_attention as pda
 
         p0, f0 = pda.paged_decode_attention.launches, fa.flash_attention.launches
+        i0 = pda.paged_decode_attention.launches_int8
         logits, out = self.fn(*a, **kw)
         log = self.log
         log.calls.append((self.name, int(a[TOKEN_ARG[self.name]].shape[1]),
                           pda.paged_decode_attention.launches - p0,
-                          fa.flash_attention.launches - f0))
+                          fa.flash_attention.launches - f0,
+                          pda.paged_decode_attention.launches_int8 - i0))
         log.last = logits
         log.bad |= ~torch.isfinite(logits).all()
         return logits, out
@@ -1510,14 +1570,14 @@ def split_pair(label, eager, graphed, kernels, card):
         f"device busy {eb:.2f} -> {gb:.2f} ms; idle share {1 - eb / ew:.0%} -> {1 - gb / gw:.0%}")
 
 
-def time_split(params, card):
-    """Where a full-width smollm-135m decode step (8 paged rows) and a
+def time_split(params, card, arch="smollm-135m"):
+    """Where a full-width ``arch`` decode step (8 paged rows) and a
     1024-token prefill spend their time, eager and graphed."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.serve.kv_cache import PagedKVCache
 
-    cfg = get_config("smollm-135m")
+    cfg = get_config(arch)
     model = Model(cfg)  # a fresh model object: no StepLog wrappers
     kv = PagedKVCache(model, 8, 2048, block_size=16)
     rng = np.random.default_rng(0)
@@ -1538,9 +1598,10 @@ def time_split(params, card):
             kv.advance(r)
 
     graphed, prefill = model.jit_step("decode_step_paged"), model.jit_step("prefill")
-    split_pair("decode step, 8 paged rows", lambda: decode(model.decode_step_paged),
+    name = "" if arch == "smollm-135m" else f"{arch} "
+    split_pair(f"{name}decode step, 8 paged rows", lambda: decode(model.decode_step_paged),
                lambda: decode(graphed), ("paged_decode_kernel",), card)
-    split_pair("prefill, 1024 tokens", lambda: model.prefill(params, prompt, 2048),
+    split_pair(f"{name}prefill, 1024 tokens", lambda: model.prefill(params, prompt, 2048),
                lambda: prefill(params, prompt, 2048), ("flash_kernel",), card)
     return model, kv, decode
 
@@ -1627,7 +1688,7 @@ def _upcast(tree):
     return tree.float() if isinstance(tree, torch.Tensor) and tree.is_floating_point() else tree
 
 
-def parity_bf16(arch, B=2, S=512):
+def parity_bf16(arch, B=2, S=512, layers=None):
     """bf16 ``arch`` at full width (seeded random weights): a B x S prompt
     prefilled, then one decode step on the greedy token of the plain
     path, through the kernels and through the plain reference backend,
@@ -1636,14 +1697,18 @@ def parity_bf16(arch, B=2, S=512):
     further from the float32 logits than ``E2E_BF16_RATIO`` times the bf16
     plain path's (relative L2 norm); the two bf16 paths' own difference is
     printed beside. The kernel prefill must take the wgmma flash kernel
-    (head size 64 or 80) once per attention layer and the decode step the
-    paged kernel (int8 for an int8 cache) once per attention layer; the
-    plain paths launch nothing."""
+    (head size 64, 80 or 128) once per attention layer and the decode step
+    the paged kernel (int8 for an int8 cache) once per attention layer; the
+    plain paths launch nothing. ``layers`` cuts the depth (the float32 copy
+    of a 14B or 20B model would not fit the card beside its bf16 one)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.model import Model
 
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        arch = f"{arch} (depth {layers})"
     model = Model(cfg)
     params = model.init(seed=2)
     sites = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.num_layers
@@ -2142,12 +2207,16 @@ def phase8_kernels(card):
             plain = cuda_ms(lambda: pda.plain_paged_decode_attention(q, kp, vp, tables, lengths),
                             iters=5)
             bms, by = paged_bound(q, kp, tables, lengths, dtype)
+            lib, lib_text = None, "null"
+            if key in ("slot_verify", "paged_chunk"):  # a contiguous identity view: one SDPA call
+                lib, diff = sdpa_cached_ms(q, kp, vp, lengths)
+                lib_text = f"{fmt_ms(lib)} (SDPA, boolean mask, enable_gqa; |SDPA - plain| {diff:.2e})"
             log(f"paged_decode_attention {dn} {label} lengths={lengths.tolist()} "
                 f"plan={paged_plan_of(q, kp, tables)}: max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) "
                 f"ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) "
-                f"library_ms=null{extra}")
+                f"library_ms={lib_text}{extra}")
             if key != "slot_verify":
-                rows[(key, dtype)] = kernel_row(err, ms, plain, bms, by)
+                rows[(key, dtype)] = kernel_row(err, ms, plain, bms, by, lib)
     return rows
 
 
@@ -2804,7 +2873,356 @@ def phase10_serving(card):
         torch.cuda.empty_cache()
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 11: the int8 paged pool and the three dense configs at full width
+
+# arch, depth of the float32 parity and bf16-against-float32 runs (None:
+# full depth): the float32 plain path of a full-depth 14B or 20B model would
+# not fit the card beside the kernels'
+P11 = (("stablelm-3b", None), ("phi3-medium-14b", 4), ("internlm2-20b", 4))
+P11_PREFIX = 512  # stablelm's shared prefix in the speculative, chunked run
+
+
+def phase11_kernels(card):
+    """The paged kernel and flash at the shapes the three configs give
+    them, float32 and bf16, each against its plain version: the int8 mode
+    on stablelm-3b's pool (H = KV = 32, hd 80, BS 16) at T = 1, T = 5 (each
+    query bitwise a decode) and a 256-query chunk over a 256-key identity
+    view (at 768, 0 and 1792); float pools at phi3-medium-14b's (H 40, KV
+    10) and internlm2-20b's (H 48, KV 8) hd-128 heads at T = 1 and T = 5
+    (bitwise); causal flash at each config's serving prefill (B = 1, S =
+    1024; bf16 at hd 128 on wgmma, timed beside the CUDA-core kernel and
+    SDPA) and non-causal at hd 128 (B = 2, S = 512, phi3's heads), the
+    latter driven once through ``kernels.ops.flash_attention`` first.
+    Returns the JSON rows (bf16) and the non-causal entry launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    rows = {}
+    heads = {"stablelm": (32, 32, 80), "phi3": (40, 10, 128), "internlm2": (48, 8, 128)}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        cases = [("p11_int8", "stablelm-3b int8 pool B=8 T=1 H=32 KV=32 hd=80 BS=16 MB=128", 1,
+                  lambda: paged_case(dtype, 1, H=32, KV=32, hd=80, int8=True)),
+                 ("p11_int8_verify", "stablelm-3b int8 pool B=8 T=5 H=32 KV=32 hd=80 BS=16 MB=128",
+                  5, lambda: paged_case(dtype, 5, H=32, KV=32, hd=80, int8=True)),
+                 ("p11_int8_chunk", "stablelm-3b int8 chunk view B=1 T=256 H=32 KV=32 hd=80 BS=256 "
+                  "MB=8 (lengths 768; 0; 1792)", 256,
+                  lambda: slot_case(dtype, B=1, T=256, H=32, KV=32, hd=80, lengths=[768],
+                                    int8=True))]
+        for arch in ("phi3", "internlm2"):
+            H, KV, hd = heads[arch]
+            for T in (1, 5):
+                cases.append((f"p11_{arch}" + ("_verify" if T > 1 else ""),
+                              f"{arch} pool B=8 T={T} H={H} KV={KV} hd={hd} BS=16 MB=128", T,
+                              lambda H=H, KV=KV, hd=hd, T=T: paged_case(dtype, T, H=H, KV=KV,
+                                                                       hd=hd)))
+        for key, label, T, case in cases:
+            args = case()
+            q, kp, vp, tables, lengths = args[:5]
+            int8 = kp.dtype == torch.int8
+            out = pda.paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            ref = pda.plain_paged_decode_attention(*args)
+            if int8:
+                rel, absol = INT8_TOL[dtype]
+                err, worst = row_check(out, ref, rel, absol)
+                if T == 256:  # the chunk at the row's start and at its end too
+                    for start in (0, 2048 - 256):
+                        at = torch.full_like(lengths, start)
+                        e, w = row_check(pda.paged_decode_attention(q, kp, vp, tables, at, *args[5:]),
+                                         pda.plain_paged_decode_attention(q, kp, vp, tables, at,
+                                                                          *args[5:]), rel, absol)
+                        err, worst = max(err, e), max(worst, w)
+                tol_text = f"per row <= {rel:.3g}*max|plain|+{absol:.0e}; worst err/tol {worst:.3e}"
+                ok = worst <= 1.0
+            else:
+                err = (out.float() - ref.float()).abs().max().item()
+                tol_text, ok = f"tol {TOL[dtype]:.0e}", err <= TOL[dtype]
+            require(ok and torch.isfinite(out).all(),
+                    f"paged kernel ({label}, {dn}) disagrees with its plain version: {err}")
+            extra = ""
+            if T == 5:
+                for t in range(T):
+                    dec = pda.paged_decode_attention(q[:, t : t + 1].contiguous(), kp, vp, tables,
+                                                     lengths + t, *args[5:])
+                    require(torch.equal(dec[:, 0], out[:, t]),
+                            f"{label}: verify != decode at query {t} ({dn})")
+                extra = "; verify (T=5) equals 5 decodes bitwise"
+            ms = cuda_ms(lambda: pda.paged_decode_attention(*args))
+            plain = cuda_ms(lambda: pda.plain_paged_decode_attention(*args), iters=5)
+            bms, by = paged_bound(q, kp, tables, lengths, dtype)
+            log(f"paged_decode_attention{'[int8]' if int8 else ''} {dn} {label} "
+                f"lengths={lengths.tolist()} plan={paged_plan_of(q, kp, tables)}: "
+                f"max_abs_err={err:.3e} ({tol_text}) ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
+                f"bound_ms={bms:.5f} ({by}) library_ms=null{extra}")
+            if dtype == torch.bfloat16:
+                rows[(key, dtype)] = kernel_row(err, ms, plain, bms, by)
+            del args, q, kp, vp, out, ref
+
+        for arch, (H, KV, hd) in heads.items():
+            B, S = 1, 1024
+            q, k, v = flash_case(dtype, S, S, B=B, H=H, KV=KV, hd=hd)
+            out = fa.flash_attention(q, k, v, 0)
+            torch.cuda.synchronize()
+            ref = fa.plain_flash_attention(q, k, v, 0)
+            label = f"flash_attention {dn} {arch} prefill B={B} S={S} H={H} KV={KV} hd={hd}"
+            err, text = flash_check(out, ref, dtype, label)
+            plan = fa.flash_plan(dtype, B, S, H, KV, hd)
+            if dtype == torch.bfloat16:
+                require(plan["path"] == "wgmma", f"{label}: path {plan['path']}, not wgmma")
+            ms = cuda_ms(lambda: fa.flash_attention(q, k, v, 0))
+            plain = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, 0), iters=5)
+            bms, by = flash_bound(q, k, 0, dtype)
+            lib = sdpa_ms(q, k, v, 0)
+            log(f"{label} plan={plan}: {text} ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
+                f"bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(lib)}"
+                + cuda_core_flash(q, k, v, 0, True, plan["path"]))
+            if dtype == torch.bfloat16:
+                rows[(f"p11_flash_{arch}", dtype)] = kernel_row(err, ms, plain, bms, by, lib)
+            del q, k, v, out, ref
+
+        # non-causal at hd 128: the entry point first (bf16), then the checks
+        H, KV, hd = heads["phi3"]
+        q, k, v = flash_case(dtype, 512, 512, B=2, H=H, KV=KV, hd=hd)
+        entry = 0
+        if dtype == torch.bfloat16:
+            torch.cuda.synchronize()
+            reset_launches()
+            got = kernel_ops.flash_attention(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            n = read_launches()
+            require({kk: vv for kk, vv in n.items() if vv} == {"flash_noncausal": 1},
+                    f"ops.flash_attention(causal=False) at hd 128 launched {n}")
+            entry = n["flash_noncausal"]
+            del got
+        out = fa.flash_attention(q, k, v, 0, causal=False)
+        torch.cuda.synchronize()
+        ref = fa.plain_flash_attention(q, k, v, 0, causal=False)
+        label = f"flash_attention[non-causal] {dn} B=2 S=512 H={H} KV={KV} hd={hd}"
+        err, text = flash_check(out, ref, dtype, label)
+        plan = fa.flash_plan(dtype, 2, 512, H, KV, hd)
+        if dtype == torch.bfloat16:
+            require(plan["path"] == "wgmma", f"{label}: path {plan['path']}, not wgmma")
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, 0, causal=False))
+        plain = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, 0, causal=False), iters=5)
+        bms, by = flash_bound(q, k, 512, dtype)  # every query attends all 512 keys
+        lib = sdpa_ms(q, k, v, 0, causal=False)
+        log(f"{label} plan={plan}: {text} ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
+            f"bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(lib)}"
+            + cuda_core_flash(q, k, v, 0, False, plan["path"]))
+        if dtype == torch.bfloat16:
+            rows[("p11_flash_noncausal", dtype)] = kernel_row(err, ms, plain, bms, by, lib)
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+    return rows, entry
+
+
+def p11_requests(cfg, shared):
+    """Phase 11's bf16 workload: 12 open-loop requests (20 a second) with
+    128-1024-token prompts and at most 32 new tokens; ``shared``: each
+    prompt a 128-512-token tail after one 512-token prefix."""
+    from repro_torch.serve import Request, make_requests
+
+    rng = np.random.default_rng(21)
+    lens = tuple(range(128, 513)) if shared else tuple(range(128, 1025))
+    reqs = make_requests(12, 20.0, vocab=cfg.vocab_size, max_new_tokens=32, prompt_lens=lens,
+                         rng=rng)
+    if not shared:
+        return reqs
+    prefix = rng.integers(0, cfg.vocab_size, size=(P11_PREFIX,)).astype(np.int32)
+    return [Request(prompt=np.concatenate([prefix, r.prompt]), max_new_tokens=r.max_new_tokens,
+                    arrival_time=r.arrival_time) for r in reqs]
+
+
+def phase11_parity(card, arch, layers, cfg=None, device="cuda"):
+    """float32 at full width (``layers``: depth cut): served through the
+    kernels and through the plain reference backend on the paged layout,
+    4 open-loop requests and a pair sharing a 128-token prefix (a prefix
+    hit: an int8 pool dequantizes the chain): the same greedy tokens, or a
+    tie. ``cfg`` and ``device`` replace the config and the card for a
+    rehearsal on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServingEngine, make_requests, make_shared_prefix_requests
+
+    cfg = dataclasses.replace(cfg or get_config(arch), dtype="float32")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = Model(cfg, device)
+    params = model.init(seed=1)
+    engine = ServingEngine(model, params, max_seq=512, kv_layout="paged", block_size=16,
+                           max_batch=4, device=device)
+    streams, hits = {}, {}
+    for backend in ("kernel", "reference"):
+        reqs = (make_requests(4, 50.0, vocab=cfg.vocab_size, max_new_tokens=16,
+                              prompt_lens=tuple(range(64, 257)), rng=np.random.default_rng(3))
+                + make_shared_prefix_requests(2, 50.0, vocab=cfg.vocab_size, prefix_len=128,
+                                              suffix_len=40, max_new_tokens=16,
+                                              rng=np.random.default_rng(4)))
+        for r in reqs[4:]:
+            r.arrival_time += 0.1  # after the open-loop ones, one after the other
+        out = engine.serve(reqs, attention_backend=backend)
+        streams[backend] = [out[r.rid] for r in reqs]
+        hits[backend] = [r.prefix_hit for r in reqs]
+    require(hits["kernel"][-1] >= 128, f"{arch}: the shared-prefix pair did not hit ({hits})")
+    prompts = [np.asarray(r.prompt) for r in reqs]
+    ties = count_ties(model, params, prompts, streams["reference"], streams["kernel"],
+                      f"{arch} paged: kernel and reference")
+    depth = f" depth {layers}" if layers else ""
+    log(f"parity[{arch}{depth} paged{' int8' if cfg.kv_quant else ''}] float32 kernel vs "
+        f"reference on {card}: {len(prompts) - ties} streams identical, {ties} ties (top-2 margin "
+        f"< {LOGIT_TIE_TOL:g}); prefix hits {hits['kernel']} tokens")
+    del engine, params, model
+
+
+def phase11_serving(card, arch, cfg=None, device="cuda"):
+    """bf16, full depth and width: ``arch`` served on the paged layout (8
+    rows, ``max_seq`` 2048) through ``ServingEngine.serve()``, plain and with
+    K = 4 n-gram speculation (stablelm-3b's with ``chunk_size`` 256 and a
+    shared 512-token prefix), each served once to capture, then primed
+    under telemetry (which arms the scheduler's count of captures): the
+    primed run captures nothing (``engine.retraces`` 0) and its launches
+    are exact: a decode or verify step the paged kernel once a layer (int8
+    mode for an int8 pool, no float-pool launch), a prefill flash once a
+    layer, a chunk the paged kernel once a layer and no flash. Then the
+    decode-step and prefill walls against device time, and the peak
+    memory after ``init`` and after serving. Returns the launches at the
+    phase-11 kernel shapes. ``cfg`` and ``device`` replace the config and
+    the card for a rehearsal on the CPU (no timing, no memory)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServingEngine, SpecConfig, Telemetry
+
+    cfg = cfg or get_config(arch)
+    L, quant = cfg.num_layers, cfg.kv_quant
+    gib = 2.0**30
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device)
+    params = model.init(seed=0)
+    n_params = sum(t.numel() for t in _tensors(params))
+    if on_card:
+        torch.cuda.synchronize()
+        log(f"memory[{arch} bf16] on {card}: init {time.perf_counter() - t0:.1f} s, "
+            f"{n_params / 1e9:.2f} B parameters, max_memory_allocated after init "
+            f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB (allocated "
+            f"{torch.cuda.memory_allocated() / gib:.2f} GiB)")
+        torch.cuda.reset_peak_memory_stats()  # the serving peak from here
+    watch = StepLog(model)
+    engine = ServingEngine(model, params, max_seq=2048, kv_layout="paged", block_size=16,
+                           max_batch=8, device=device)
+    spec_kw = {"spec": SpecConfig(k=SPEC_K)}
+    if quant:
+        spec_kw["chunk_size"] = CHUNK
+    modes = (("plain", {}, False), (f"K={SPEC_K}" + (f" chunk {CHUNK} shared prefix" if quant
+                                                      else ""), spec_kw, quant))
+    shape = {"decode": 0, "verify": 0, "chunk": 0, "flash": 0}
+    key_paged = "paged_int8" if quant else "paged"
+    for label, kw, shared in modes:
+        t0 = time.perf_counter()
+        if "chunk_size" in kw:
+            engine.scheduler(8, **kw).prime()
+        engine.serve(p11_requests(cfg, shared), **kw)  # the captures
+        if on_card:
+            torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        caps = compiled(engine)
+        watch.calls.clear()
+        reset_launches()
+        reqs = p11_requests(cfg, shared)
+        out = engine.serve(reqs, telemetry=Telemetry(enabled=True), **kw)
+        n = read_launches()
+        tag = f"{arch} bf16 paged {label}, 8 rows"
+        s = headline(tag, engine.stats, card)
+        require(compiled(engine) == caps and retraces(engine) == 0,
+                f"{tag}: the primed run captured {compiled(engine) - caps} graphs "
+                f"(engine.retraces {retraces(engine)})")
+        steps = watch.of("decode_step_paged", "verify_step_paged")
+        prefills = watch.of("prefill", "prefill_with_prefix")
+        chunks = watch.of("prefill_chunk")
+        step_paged = [c[4] if quant else c[2] for c in steps + chunks]
+        other_paged = [c[2] if quant else c[4] for c in steps + chunks]
+        require(steps and all(p == L for p in step_paged) and not any(other_paged)
+                and not any(c[3] for c in steps + chunks),
+                f"{tag}: a decode, verify or chunk step was not {L} {key_paged} launches "
+                "(and nothing else)")
+        require(all(c[3] == L and not c[2] and not c[4] for c in prefills),
+                f"{tag}: a prefill was not {L} flash launches")
+        require(len(watch.calls) == len(steps) + len(prefills) + len(chunks),
+                f"{tag}: an unexpected step ran")
+        check_launches(n, {key_paged: L * (len(steps) + len(chunks)), "flash": L * len(prefills)},
+                       tag)
+        require(not bool(watch.bad), f"{tag}: non-finite logits")
+        require(s["n_requests"] == len(out) == 12 and all(len(t) > 0 for t in out.values()),
+                f"{tag}: not every request finished with tokens")
+        widths = collections.Counter(c[1] for c in steps)
+        if shared:
+            require(any(r.prefix_hit >= P11_PREFIX for r in reqs) and chunks and not prefills,
+                    f"{tag}: no prefix hit, or a monolithic prefill ran")
+        shape["decode"] += L * widths[1]
+        shape["verify"] += L * widths[SPEC_K + 1]
+        shape["chunk"] += L * sum(1 for c in chunks if c[1] == CHUNK)
+        shape["flash"] += L * len(prefills)
+        log(f"serve[{tag}] on {card}: the capture run {warm:.1f} s made {caps} graphs in all; "
+            f"primed run: 0 captures, engine.retraces 0; {len(steps)} steps at T "
+            f"{dict(sorted(widths.items()))}, {len(chunks)} chunks, {len(prefills)} prefills; "
+            f"launches {key_paged} {n[key_paged]} = {L} x {len(steps) + len(chunks)}, flash "
+            f"{n['flash']} = {L} x {len(prefills)}; prefix hits "
+            f"{sum(r.prefix_hit > 0 for r in reqs)} of {len(reqs)}"
+            + (f"; acceptance {s['speculative']['acceptance_rate']:.3f}" if "spec" in kw else ""))
+    if not on_card:
+        return shape
+    log(f"memory[{arch} bf16] on {card}: max_memory_allocated while serving (from after init) "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB (allocated "
+        f"{torch.cuda.memory_allocated() / gib:.2f} GiB); graph pool "
+        f"{graph_pool_bytes(model) / 2**20:.0f} MiB")
+    del engine, watch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    split_model, kv, decode = time_split(params, card, arch)
+    del split_model, kv, decode, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"memory[{arch}] freed: memory_allocated {torch.cuda.memory_allocated() / gib:.2f} GiB")
+    return shape
+
+
+def phase11(card):
+    """Phase 11: the paged kernel's int8 mode and flash at hd 128 at the
+    three dense configs' shapes; float32 kernel-against-plain parity and
+    bf16 against float32 (depth 4 for the 14B and 20B models); each config
+    served in bf16 at full depth and width."""
+    rows, entry = phase11_kernels(card)
+    for arch, layers in P11:
+        phase11_parity(card, arch, layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        parity_bf16(arch, layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {}
+    for arch, _ in P11:
+        shape = phase11_serving(card, arch)
+        name = arch.split("-")[0]
+        if arch == "stablelm-3b":
+            launches.update(p11_int8=shape["decode"], p11_int8_verify=shape["verify"],
+                            p11_int8_chunk=shape["chunk"])
+        else:
+            launches.update({f"p11_{name}": shape["decode"], f"p11_{name}_verify": shape["verify"]})
+        launches[f"p11_flash_{name}"] = shape["flash"]
+    require(all(launches.values()), f"phase 11: a kernel shape was never launched: {launches}")
+    return rows, launches, entry
+
+
+def main(argv=()) -> int:
+    """Every phase with no arguments (the smoke run); ``--phases 3,11``
+    runs the build and the listed phases only (3: kernels, 4: entry
+    points, 5-6: serving and parity, 7: adviser, 8, 9, 10, 11), for a short
+    development call, and prints the rows those phases made."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2828,47 +3246,67 @@ def main() -> int:
     def phase_done(name):
         log(f"phase {name} done at {time.perf_counter() - start:.1f} s")
 
-    rows = check_kernels()
-    rows.update(check_int8())
-    rows.update(check_ssd())
-    rows.update(check_wide())
-    check_repaired()
-    op_host_us(card)
-    phase_done("3")
-    entry = drive_entry_points()
-    rows.update(check_entry_kernels())
-    phase_done("4")
-    launches, params = serve_full_width(card)
-    launches["ssd"], params = serve_mamba2(card)
-    del params
-    n, params = serve_zamba2(card)
-    del params
-    torch.cuda.empty_cache()  # the bf16 model goes before the float32 ones
-    launches["paged_int8"] = n["paged_int8"]
-    launches["flash"] += n["flash"]
-    launches["ssd"] += n["ssd"]
-    phase_done("5")
-    parity_f32("smollm-135m", ("paged", "slot"), tuple(range(64, 257)))
-    # lengths the plain scan chunks by 16 or more (a prime would run
-    # one-position chunks)
-    parity_f32("mamba2-370m", ("slot",), tuple(range(64, 257, 16)))
-    parity_f32("zamba2-2.7b", ("slot",), tuple(range(64, 257, 16)))
-    parity_bf16("smollm-135m")
-    parity_bf16("zamba2-2.7b")
-    torch.cuda.empty_cache()
-    phase_done("6")
-    adviser_suite(card)
-    serve_decode_plan(card)
-    phase_done("7")
-    phase8_launches, phase8_rows = phase8(card)
-    rows.update(phase8_rows)
-    phase_done("8")
-    phase9_launches, phase9_rows = phase9(card)
-    rows.update(phase9_rows)
-    phase_done("9")
-    phase10_parity(card)
-    phase10_serving(card)
-    phase_done("10")
+    phases = set(range(3, 12))
+    if len(argv) == 2 and argv[0] == "--phases":
+        phases = {int(p) for p in argv[1].split(",")}
+    elif argv:
+        print("usage: chip_smoke.py [--phases 3,11]", file=sys.stderr)
+        return 2
+    rows, entry, launches = {}, {}, {}
+    phase8_launches = phase9_launches = p11_launches = {}
+    p11_entry = 0
+    if 3 in phases:
+        rows.update(check_kernels())
+        rows.update(check_int8())
+        rows.update(check_ssd())
+        rows.update(check_wide())
+        check_repaired()
+        op_host_us(card)
+        phase_done("3")
+    if 4 in phases:
+        entry = drive_entry_points()
+        rows.update(check_entry_kernels())
+        phase_done("4")
+    if 5 in phases:
+        launches, params = serve_full_width(card)
+        launches["ssd"], params = serve_mamba2(card)
+        del params
+        n, params = serve_zamba2(card)
+        del params
+        torch.cuda.empty_cache()  # the bf16 model goes before the float32 ones
+        launches["paged_int8"] = n["paged_int8"]
+        launches["flash"] += n["flash"]
+        launches["ssd"] += n["ssd"]
+        phase_done("5")
+        parity_f32("smollm-135m", ("paged", "slot"), tuple(range(64, 257)))
+        # lengths the plain scan chunks by 16 or more (a prime would run
+        # one-position chunks)
+        parity_f32("mamba2-370m", ("slot",), tuple(range(64, 257, 16)))
+        parity_f32("zamba2-2.7b", ("slot",), tuple(range(64, 257, 16)))
+        parity_bf16("smollm-135m")
+        parity_bf16("zamba2-2.7b")
+        torch.cuda.empty_cache()
+        phase_done("6")
+    if 7 in phases:
+        adviser_suite(card)
+        serve_decode_plan(card)
+        phase_done("7")
+    if 8 in phases:
+        phase8_launches, phase8_rows = phase8(card)
+        rows.update(phase8_rows)
+        phase_done("8")
+    if 9 in phases:
+        phase9_launches, phase9_rows = phase9(card)
+        rows.update(phase9_rows)
+        phase_done("9")
+    if 10 in phases:
+        phase10_parity(card)
+        phase10_serving(card)
+        phase_done("10")
+    if 11 in phases:
+        p11_rows, p11_launches, p11_entry = phase11(card)
+        rows.update(p11_rows)
+        phase_done("11")
 
     bf16, f32 = torch.bfloat16, torch.float32
     table = []
@@ -2900,22 +3338,57 @@ def main() -> int:
             ("paged_verify3", bf16, "paged_decode_attention[verify T=3]", PAGED_SRC, PAGED_TPU),
             ("paged_verify9", bf16, "paged_decode_attention[verify T=9]", PAGED_SRC, PAGED_TPU),
             ("paged_draft2057", bf16, "paged_decode_attention[draft view BS=187 MB=11]", PAGED_SRC,
-             PAGED_TPU)):
+             PAGED_TPU),
+            # phase 11's shapes: launches from its bf16 serving runs at each shape
+            ("p11_int8", bf16, "paged_decode_attention[int8 stablelm-3b pool T=1]", PAGED_SRC,
+             PAGED_INT8_TPU),
+            ("p11_int8_verify", bf16, "paged_decode_attention[int8 stablelm-3b pool verify T=5]",
+             PAGED_SRC, PAGED_INT8_TPU),
+            ("p11_int8_chunk", bf16, "paged_decode_attention[int8 stablelm-3b chunk T=256]",
+             PAGED_SRC, PAGED_INT8_TPU),
+            ("p11_phi3", bf16, "paged_decode_attention[phi3-medium-14b pool T=1 g=4 hd=128]",
+             PAGED_SRC, PAGED_TPU),
+            ("p11_phi3_verify", bf16,
+             "paged_decode_attention[phi3-medium-14b pool verify T=5 g=4 hd=128]", PAGED_SRC,
+             PAGED_TPU),
+            ("p11_internlm2", bf16, "paged_decode_attention[internlm2-20b pool T=1 g=6 hd=128]",
+             PAGED_SRC, PAGED_TPU),
+            ("p11_internlm2_verify", bf16,
+             "paged_decode_attention[internlm2-20b pool verify T=5 g=6 hd=128]", PAGED_SRC,
+             PAGED_TPU),
+            ("p11_flash_stablelm", bf16, "flash_attention[stablelm-3b prefill S=1024 hd=80]",
+             FLASH_SRC, FLASH_TPU),
+            ("p11_flash_phi3", bf16, "flash_attention[phi3-medium-14b prefill S=1024 hd=128]",
+             FLASH_SRC, FLASH_TPU),
+            ("p11_flash_internlm2", bf16, "flash_attention[internlm2-20b prefill S=1024 hd=128]",
+             FLASH_SRC, FLASH_TPU),
+            ("p11_flash_noncausal", bf16, "flash_attention[non-causal B=2 S=512 hd=128]",
+             FLASH_SRC, NONCAUSAL_TPU)):
+        everything = phases == set(range(3, 12))
+        if (key, dtype) not in rows:
+            require(not everything, f"no row for {key}")
+            continue
         r = rows[(key, dtype)]
         # the entry points are the path of the kernels that serving never
         # runs (every serving run requires their counts to stay 0); the
         # wide shapes' path is phase 3b's one driving call each, whose
         # count is in the row
         if key in ENTRY_ONLY:
-            count = {"launches": entry[key], "serving_launches": 0}
+            count = {"launches": entry.get(key), "serving_launches": 0}
         elif key in WIDE:
             count = {}
         elif key in PHASE8:
-            count = {"launches": phase8_launches[PHASE8[key]]}
+            count = {"launches": phase8_launches.get(PHASE8[key])}
         elif key in PHASE9:
-            count = {"launches": phase9_launches[PHASE9[key]]}
+            count = {"launches": phase9_launches.get(PHASE9[key])}
+        elif key == "p11_flash_noncausal":
+            count = {"launches": p11_entry, "serving_launches": 0}
+        elif key.startswith("p11_"):
+            count = {"launches": p11_launches.get(key)}
         else:
-            count = {"launches": launches[key]}
+            count = {"launches": launches.get(key)}
+        require(not everything or count.get("launches", r.get("launches")) is not None,
+                f"no launch count for {key}")
         table.append({"name": name, "route": "cuda", "source": src, "replaces": tpu, **count, **r})
     log(json.dumps({"kernels": table}))
     log(card)
@@ -2925,4 +3398,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -18,7 +18,7 @@
 // 2 * hd * 2 bytes per key), and they reach the card's bf16 rate only on
 // the tensor cores through wgmma.
 //
-// Design, bf16 at hd = 64 or 80 (flash_kernel_wgmma): one thread block per
+// Design, bf16 at hd = 64, 80 or 128 (flash_kernel_wgmma): one thread block per
 // (64 query positions, query head, batch row): one consumer warpgroup owns
 // the 64 rows, one producer warp issues the TMA loads. Q arrives once; K
 // and V tiles of 64 keys arrive into a 2-stage ring, so the next tile
@@ -30,12 +30,18 @@
 // fragment layout is already wgmma's A-operand layout, and O += P V runs
 // on wgmma with V as the N-major B operand. Tiles above the causal
 // diagonal are never loaded. At the flush acc / max(l, 1e-30).
-// hd = 80: a 160-byte row is wider than the 128-byte swizzle atom, so each
-// of Q, K and V arrives as two TMA boxes, a 64-column one (128-byte
-// swizzle) and a 16-column one (32-byte swizzle): S sums 4 + 1 k16 slices
-// over the two, and O is an n64 plus an n16 accumulator.
-// Filling the card: blocks are independent, ~42 KB (hd 64) or ~52 KB
-// (hd 80) of shared memory and 160 threads, so several share an SM; the
+// hd = 80 and 128: a row of 160 or 256 bytes is wider than the 128-byte
+// swizzle atom, so each of Q, K and V arrives as two TMA boxes, a 64-column
+// one (128-byte swizzle) and a tail box after it: 16 columns with a 32-byte
+// swizzle at hd 80, or a second 64-column, 128-byte-swizzled box at hd 128.
+// S sums 4 + 1 (hd 80) or 4 + 4 (hd 128) k16 slices over the two, and O is
+// an n64 plus an n16 accumulator, or two n64 ones. At hd 128 a thread holds
+// 64 O, 32 score and 16 P registers, so that instance is built for two
+// blocks an SM (~200 registers a thread, no spills) where the others take
+// three.
+// Filling the card: blocks are independent, ~42 KB (hd 64), ~52 KB (hd 80)
+// or ~82 KB (hd 128) of shared memory and 160 threads, so several share an
+// SM; the
 // g query heads of a kv group are neighbouring blocks and re-read the same
 // K/V tiles out of L2. The block index runs over the q-blocks slowest,
 // longest causal q-block first, so the short ones fill in behind. At
@@ -114,7 +120,7 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, hd = 64 or 80: TMA-fed wgmma
+// bf16, hd = 64, 80 or 128: TMA-fed wgmma
 
 constexpr int FQ = 64;          // query rows per block (one consumer warpgroup)
 constexpr int FK = 64;          // keys per tile
@@ -122,20 +128,39 @@ constexpr int F_THREADS = 160;  // warps 0-3 consume, warp 4 loads
 
 // Shared memory of a block, every region 1024-byte aligned: Q, then two
 // stages of (K, V). Each of Q, K, V is a [64 x 64] 128-byte-swizzled box
-// and, at hd = 80, a [64 x 16] 32-byte-swizzled box after it.
+// and, past hd 64, a tail box after it: [64 x 16] 32-byte-swizzled at
+// hd = 80, a second [64 x 64] 128-byte-swizzled one at hd = 128.
 template <int HD>
 struct FlashSmem {
+  static_assert(HD == 64 || HD == 80 || HD == 128, "flash_kernel_wgmma: hd 64, 80 or 128");
   static constexpr int kTail = HD - 64;       // columns past the first 64
   static constexpr int kMain = 64 * 64 * 2;   // bytes of the 64-column box
   static constexpr int kTailBytes = 64 * kTail * 2;
+  static constexpr int kTailRow = kTail * 2;  // bytes of a tail-box row
+  static constexpr hopper::Swizzle kTailSw = kTail == 64 ? hopper::SW128 : hopper::SW32;
   static constexpr int kTile = kMain + kTailBytes;  // one of Q, K, V
   static constexpr int kStage = 2 * kTile;          // K then V
   static constexpr int kBars = kTile + 2 * kStage;  // offset of the barriers
   static constexpr size_t kBytes = 1024 + kBars + 7 * sizeof(uint64_t);
+  static constexpr int kOt = kTail > 0 ? kTail / 2 : 1;  // tail O floats a thread
+  // blocks an SM the registers must allow: hd 128's 64 O floats a thread
+  // would spill under three blocks' ~136-register cap
+  static constexpr int kMinBlocks = HD == 128 ? 2 : 3;
 };
 
+// O[:, 64:] (+)= P V[:, 64:] for one 16-key slice: the n16 tail (hd 80) or
+// the second n64 box (hd 128)
+template <int Tail>
+__device__ __forceinline__ void flash_pv_tail(float (&ot)[Tail / 2], const uint32_t (&pa)[4],
+                                              uint64_t desc) {
+  if constexpr (Tail == 64)
+    hopper::wgmma_rs_n64<1>(ot, pa, desc, 1);
+  else
+    hopper::wgmma_rs_n16<1>(ot, pa, desc, 1);
+}
+
 template <int HD, bool kCausal>
-__global__ void __launch_bounds__(F_THREADS, 3)
+__global__ void __launch_bounds__(F_THREADS, FlashSmem<HD>::kMinBlocks)
     flash_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap qtail,
                        const __grid_constant__ CUtensorMap kmap,
@@ -206,18 +231,18 @@ __global__ void __launch_bounds__(F_THREADS, 3)
   // inside it (the causal diagonal) or where it runs past Skv
   const int lim_min = kCausal ? min(Skv, q_offset + q0 + 1) : Skv;
 
-  float o[32], ot[Sm::kTail > 0 ? 8 : 1], sc[32];
+  float o[32], ot[Sm::kOt], sc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = sc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < (Sm::kTail > 0 ? 8 : 1); ++i) ot[i] = 0.f;
+  for (int i = 0; i < Sm::kOt; ++i) ot[i] = 0.f;
   float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
 
-  // Q and K are K-major: rows of 128 (or 32) bytes, 8-row groups 1024 (or
-  // 256) bytes apart. V is N-major: rows are keys, 8-key groups 1024 (or
-  // 256) bytes apart; its one N chunk makes LBO unused.
+  // Q and K are K-major: rows of 128 (or a tail box's 32 or 128) bytes,
+  // 8-row groups 8 rows apart. V is N-major: rows are keys, 8-key groups 8
+  // rows apart; each box is one N chunk, so LBO is unused.
   const uint64_t dq = make_desc(smem, 16, 1024, SW128);
-  const uint64_t dq_tail = make_desc(smem + Sm::kMain, 16, 256, SW32);
+  const uint64_t dq_tail = make_desc(smem + Sm::kMain, 16, 8 * Sm::kTailRow, Sm::kTailSw);
   mbar_wait(q_full, 0);
 
   // Each tile's products are waited for before their registers are
@@ -239,8 +264,12 @@ __global__ void __launch_bounds__(F_THREADS, 3)
 #pragma unroll
     for (int kk = 1; kk < 4; ++kk)
       wgmma_ss_n64<0>(sc, desc_advance(dq, 32 * kk), desc_advance(dk, 32 * kk), 1);
-    if constexpr (Sm::kTail > 0)
-      wgmma_ss_n64<0>(sc, dq_tail, make_desc(kt + Sm::kMain, 16, 256, SW32), 1);
+    if constexpr (Sm::kTail > 0) {
+      const uint64_t dk_tail = make_desc(kt + Sm::kMain, 16, 8 * Sm::kTailRow, Sm::kTailSw);
+#pragma unroll
+      for (int kk = 0; kk < Sm::kTail / 16; ++kk)
+        wgmma_ss_n64<0>(sc, desc_advance(dq_tail, 32 * kk), desc_advance(dk_tail, 32 * kk), 1);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -284,20 +313,21 @@ __global__ void __launch_bounds__(F_THREADS, 3)
     for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
     if constexpr (Sm::kTail > 0) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) ot[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < Sm::kOt; ++i) ot[i] *= corr[(i >> 1) & 1];
     }
 
     // O += P V
     mbar_wait(&v_full[s], parity);
     const uint64_t dv = make_desc(vt, Sm::kMain, 1024, SW128);
-    const uint64_t dv_tail = make_desc(vt + Sm::kMain, Sm::kTailBytes, 256, SW32);
+    const uint64_t dv_tail = make_desc(vt + Sm::kMain, Sm::kTailBytes, 8 * Sm::kTailRow, Sm::kTailSw);
     fence_regs(o);
     fence_regs(ot);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       wgmma_rs_n64<1>(o, pa[kk], desc_advance(dv, 16 * 128 * kk), 1);
-      if constexpr (Sm::kTail > 0) wgmma_rs_n16<1>(ot, pa[kk], desc_advance(dv_tail, 16 * 32 * kk), 1);
+      if constexpr (Sm::kTail > 0)
+        flash_pv_tail<Sm::kTail>(ot, pa[kk], desc_advance(dv_tail, 16 * Sm::kTailRow * kk));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -320,7 +350,7 @@ __global__ void __launch_bounds__(F_THREADS, 3)
           pack_bf16(o[4 * i + 2 * e] / den, o[4 * i + 2 * e + 1] / den);
     if constexpr (Sm::kTail > 0) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < Sm::kTail / 8; ++i)
         *reinterpret_cast<uint32_t*>(dst + 64 + 8 * i) =
             pack_bf16(ot[4 * i + 2 * e] / den, ot[4 * i + 2 * e + 1] / den);
     }
@@ -328,8 +358,9 @@ __global__ void __launch_bounds__(F_THREADS, 3)
 }
 
 // the six TMA descriptors of one call: q, k, v as [B, S, heads, hd]
-// tensors (4-d, innermost first), each cut into 64-column and (hd = 80)
-// 16-column boxes of 64 rows of one head
+// tensors (4-d, innermost first), each cut into 64-column boxes of 64 rows
+// of one head and, at hd 80, 16-column tail boxes; at hd 128 the tail is
+// the 64-column box again, loaded at column 64
 static int flash_maps(CUtensorMap (&maps)[6], const void* q, const void* k, const void* v, int B,
                int Sq, int Skv, int H, int KV, int hd) {
   const void* base[3] = {q, k, v};
@@ -345,14 +376,15 @@ static int flash_maps(CUtensorMap (&maps)[6], const void* q, const void* k, cons
       err = hopper::encode_tma(&maps[2 * t + 1], base[t], 4, dims, strides, tail,
                                CU_TENSOR_MAP_SWIZZLE_32B);
     if (err) return err;
-    if (hd == 64) maps[2 * t + 1] = maps[2 * t];  // no tail box: passed, never read
+    // hd 64: no tail box (passed, never read); hd 128: the same box at column 64
+    if (hd != 80) maps[2 * t + 1] = maps[2 * t];
   }
   return 0;
 }
 
 static int flash_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
                 int H, int KV, int hd, int q_offset, int causal, float scale, void* stream) {
-  if ((hd != 64 && hd != 80) || reinterpret_cast<uintptr_t>(q) % 16 ||
+  if ((hd != 64 && hd != 80 && hd != 128) || reinterpret_cast<uintptr_t>(q) % 16 ||
       reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16)
     return (int)cudaErrorInvalidValue;
   CUtensorMap m[6];
@@ -365,6 +397,7 @@ static int flash_wgmma(const void* q, const void* k, const void* v, void* out, i
   launch<F_THREADS>(flash_kernel_wgmma<HD, C>, grid, FlashSmem<HD>::kBytes, stream, m[0], m[1], \
                     m[2], m[3], m[4], m[5], o, B, Sq, Skv, H, KV, q_offset, scale_log2)
   if (hd == 64) return causal ? REPRO_FLASH_WGMMA(64, true) : REPRO_FLASH_WGMMA(64, false);
+  if (hd == 128) return causal ? REPRO_FLASH_WGMMA(128, true) : REPRO_FLASH_WGMMA(128, false);
   return causal ? REPRO_FLASH_WGMMA(80, true) : REPRO_FLASH_WGMMA(80, false);
 #undef REPRO_FLASH_WGMMA
 }
@@ -373,7 +406,7 @@ static int flash_wgmma(const void* q, const void* k, const void* v, void* out, i
 
 // dtype: 0 = float32, 1 = bfloat16. causal: 1 = causal from q_offset,
 // 0 = every query attends every key (q_offset unused). wgmma: 1 = the
-// bf16 tensor-core kernel (hd 64 or 80, q/k/v 16-byte aligned; the
+// bf16 tensor-core kernel (hd 64, 80 or 128, q/k/v 16-byte aligned; the
 // wrapper's plan decides), 0 = the CUDA-core kernel (float32 always, and
 // every other bf16 input).
 // Returns a cudaError_t (0 = launched), or hopper::TMA_REFUSED + the

@@ -11,8 +11,8 @@ header says what bounds it on the H100 and what the design does about it).
 the plain PyTorch version (``plain_flash_attention``, the full-softmax
 oracle), CUDA tensors the kernel — or it raises. Its ``launches``
 attribute counts causal kernel launches, ``launches_noncausal`` the
-others. On the card ``flash_plan`` decides the path: bf16 at hd 64 or 80
-with 16-byte-aligned q, k and v on the tensor cores (TMA-fed ``wgmma``),
+others. On the card ``flash_plan`` decides the path: bf16 at hd 64, 80 or
+128 with 16-byte-aligned q, k and v on the tensor cores (TMA-fed ``wgmma``),
 every other bf16 input and float32 on the CUDA cores.
 """
 from __future__ import annotations
@@ -25,7 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-WGMMA_HEAD_DIMS = (64, 80)  # csrc/flash_attention.cu's flash_kernel_wgmma
+WGMMA_HEAD_DIMS = (64, 80, 128)  # csrc/flash_attention.cu's flash_kernel_wgmma
 
 
 def flash_plan(dtype, B: int, Sq: int, H: int, KV: int, hd: int, aligned: bool = True) -> dict:
@@ -33,10 +33,11 @@ def flash_plan(dtype, B: int, Sq: int, H: int, KV: int, hd: int, aligned: bool =
     [B,Sq,H,hd] and kv heads KV on the card: its path, query rows and keys
     a tile, threads and grid of a launch, and for the ``wgmma`` path the
     K/V ring's stages and the TMA boxes (elements, innermost first, over
-    [B, S, heads, hd]) that bring Q, K and V in. bf16 at hd 64 or 80 takes
-    the ``wgmma`` path where q, k and v are ``aligned`` (16-byte
+    [B, S, heads, hd]) that bring Q, K and V in. bf16 at hd 64, 80 or 128
+    takes the ``wgmma`` path where q, k and v are ``aligned`` (16-byte
     boundaries, as TMA needs); a head size past the 64-column swizzle atom
-    comes as a 64-column and a 16-column box. Every other bf16 input and
+    comes as a 64-column box and a tail box: 16 columns at hd 80, a second
+    64-column box at hd 128. Every other bf16 input and
     float32 takes the CUDA-core kernel; only a dtype no kernel takes
     raises."""
     if dtype not in _DTYPES:

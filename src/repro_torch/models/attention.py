@@ -13,8 +13,8 @@ a tracer the kernel is called as the operator
 ``repro_torch::paged_decode_attention``, whose vmap rule lets a decode
 plan's per-request decode launch it once for all requests
 (``paged_decode_call``).
-An int8 slot cache (``kv_quant``) stores each new key and value vector
-quantized (``quantize_kv``) beside its bfloat16 scale; the kernel
+An int8 cache (``kv_quant``), slot or paged, stores each new key and value
+vector quantized (``quantize_kv``) beside its bfloat16 scale; the kernel
 dequantizes in place, the reference dequantizes the layer's cache to q's
 dtype first.
 
@@ -233,18 +233,25 @@ def _cached_attention(
     return decode_attention(q, k_cache, v_cache, cache_len + 1)
 
 
-def paged_attention(q, k_pool, v_pool, block_tables, cache_len, *, backend=None):
+def paged_attention(
+    q, k_pool, v_pool, block_tables, cache_len, *, k_scale=None, v_scale=None, backend=None
+):
     """Paged decode/verify attention for one layer: q [B,T,H,hd]; pools
-    [NB,BS,KV,hd]; ``cache_len`` [B] committed lengths (the new token rows
-    are already written). The kernel walks the tables; the reference
-    gathers each row's dense view first."""
+    [NB,BS,KV,hd], int8 with ``k_scale``/``v_scale`` [NB,BS,KV] bfloat16;
+    ``cache_len`` [B] committed lengths (the new token rows are already
+    written). The kernel walks the tables (an int8 pool dequantizes in
+    it); the reference gathers each row's dense view first, dequantized to
+    q's dtype."""
     if kernel_ops.resolve_attention_backend(backend, q.device) == "kernel":
         kernel_ops.require_cuda(q, "paged_attention")
         return _paged.paged_decode_call(
-            q, k_pool, v_pool, block_tables, cache_len.to(torch.int32)
+            q, k_pool, v_pool, block_tables, cache_len.to(torch.int32), k_scale, v_scale
         )
     kd = gather_block_rows(k_pool[None], block_tables)[0]  # [B, MB·BS, KV, hd]
     vd = gather_block_rows(v_pool[None], block_tables)[0]
+    if k_scale is not None:
+        kd = dequantize_kv(kd, gather_block_rows(k_scale[None], block_tables)[0], q.dtype)
+        vd = dequantize_kv(vd, gather_block_rows(v_scale[None], block_tables)[0], q.dtype)
     return decode_attention(q, kd, vd, cache_len + 1)
 
 
@@ -307,8 +314,9 @@ def attention_block(
     for a float one) and the layer index; each row's new token is written
     (quantized, for int8) at its own length.
     Paged decode: cache = {k, v, tables, li} with pool leaves
-    [L,NB,BS,KV,hd]; new tokens go to each row's tail block and attention
-    walks the tables."""
+    [L,NB,BS,KV,hd] (and ``k_scale``/``v_scale`` [L,NB,BS,KV] for an int8
+    pool); new tokens go to each row's tail block (quantized, for int8)
+    and attention walks the tables; ``new_kv`` is the leaves written."""
     B, S, D = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
@@ -335,12 +343,21 @@ def attention_block(
         tables, li = cache["tables"], cache["li"]
         bs = cache["k"].shape[2]
         bid, off = block_write_positions(tables, cache_len, k.shape[1], bs)
-        scatter_block_token(cache["k"][li], k, bid, off)
-        scatter_block_token(cache["v"][li], v, bid, off)
+        quant = "k_scale" in cache
+        if quant:
+            (kq, ksc), (vq, vsc) = quantize_kv(k), quantize_kv(v)
+            writes = (("k", kq), ("k_scale", ksc), ("v", vq), ("v_scale", vsc))
+        else:
+            writes = (("k", k), ("v", v))
+        for name, val in writes:
+            scatter_block_token(cache[name][li], val, bid, off)
         out = paged_attention(
-            q, cache["k"][li], cache["v"][li], tables, cache_len, backend=backend
+            q, cache["k"][li], cache["v"][li], tables, cache_len,
+            k_scale=cache["k_scale"][li] if quant else None,
+            v_scale=cache["v_scale"][li] if quant else None,
+            backend=backend,
         )
-        new_kv = (cache["k"], cache["v"])
+        new_kv = tuple(cache[name] for name, _ in writes)
     else:
         k_all, v_all, ks_all, vs_all, li = cache
         T = k.shape[1]

@@ -14,15 +14,15 @@ holds a recurrent state per layer (``ssm_state``), with no sequence axis
 to page. The hybrid (Zamba2) runs G = L / ``attn_every`` groups of
 ``attn_every`` SSM layers, each group followed by the shared attention
 block and its SwiGLU MLP with a KV cache of its own (one per site).
-``kv_quant`` stores the slot layout's KV cache in int8 with bfloat16
-per-vector scales. ``verify_step`` and ``verify_step_paged`` run a
+``kv_quant`` stores the KV cache (slot cache or paged pool) in int8 with
+bfloat16 per-vector scales. ``verify_step`` and ``verify_step_paged`` run a
 speculative verify (T = K+1 tokens a row, one forward);
 ``prefill_chunk`` is a verify over a batch-1 dense cache that commits
 only a chunk's real tokens, and ``seed_cache_with_prefix`` starts such a
 cache from a prefix-cache hit. ``jit_step`` compiles a step with its
 backend bound (``step_graph.StepGraph``: a CUDA graph a key on the card,
-where the reference has ``jax.jit``). The other families wait for ROADMAP
-§1 item 10.
+where the reference has ``jax.jit``). The other families (MoE, vlm,
+audio) wait for ROADMAP §1 item 10b.
 """
 from __future__ import annotations
 
@@ -96,7 +96,7 @@ class Model:
     def __init__(self, cfg: ModelConfig, device=None):
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP §1 item 10); "
+                f"family {cfg.family!r} is not ported yet (ROADMAP §1 item 10b); "
                 f"the port serves {PORTED_FAMILIES}"
             )
         self.cfg = cfg
@@ -117,8 +117,10 @@ class Model:
         F, V = cfg.d_ff, cfg.padded_vocab
 
         def normal(shape, scale):
+            # scaled in place: one float32 copy of a leaf at a time (a 20B
+            # model's largest leaf is 19 GB in float32)
             x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-            return (x * scale).to(dt)
+            return x.mul_(scale).to(dt)
 
         def ones(*shape):
             return torch.ones(shape, device=dev, dtype=dt)
@@ -291,17 +293,12 @@ class Model:
 
     def init_paged_cache(self, num_blocks, block_size, dtype=None):
         """Physical block pool: k/v [L, num_blocks, block_size, KV, hd], in
-        ``dtype`` (the model's by default). Attention families only: SSM
-        state has no sequence axis to page. An int8 pool waits for ROADMAP
-        §1 item 10."""
+        ``dtype`` (the model's by default); ``kv_quant``: int8 k/v with
+        bfloat16 ``k_scale``/``v_scale`` [L, num_blocks, block_size, KV].
+        Attention families only: SSM state has no sequence axis to page."""
         if self.cfg.family not in ATTN_FAMILIES:
             raise ValueError(
                 f"paged KV cache needs an attention family, got {self.cfg.family!r}"
-            )
-        if self.cfg.kv_quant:
-            raise NotImplementedError(
-                "an int8 (kv_quant) paged pool is not ported yet: its pool writes and "
-                "gather_prefix dequant wait for ROADMAP §1 item 10; use the slot layout"
             )
         pool = self.init_cache(num_blocks, block_size, dtype=dtype)
         pool.pop("len")
@@ -624,7 +621,8 @@ class Model:
         x = embed_tokens(params["embed"], tokens)
         positions = cache_len.long()[:, None] + torch.arange(T, device=self.device)[None, :]
         for li, lp in enumerate(self._layer_params(params)):
-            cache = {"k": pool["k"], "v": pool["v"], "tables": block_tables, "li": li}
+            cache = {name: pool[name] for name in self.kv_names}
+            cache.update(tables=block_tables, li=li)
             x, _ = self._dense_layer(
                 x, lp, backend, positions=positions, cache=cache, cache_len=cache_len
             )

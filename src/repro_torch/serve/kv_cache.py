@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.models.attention import dequantize_kv
 from repro_torch.serve.block import BlockAllocator, PrefixCache
 
 
@@ -385,13 +386,21 @@ class PagedKVCache:
 
     def gather_prefix(self, hit_ids: list[int]):
         """(k, v) [L, 1, h, KV, hd] — a hit chain's post-RoPE KV rows,
-        gathered on the device for ``Model.prefill_with_prefix``."""
+        gathered on the device for ``Model.prefill_with_prefix``. An int8
+        pool dequantizes here with the chain's scales, to the model's dtype,
+        so the suffix prefill always sees dense K/V."""
         ids = torch.as_tensor(hit_ids, dtype=torch.long, device=self.model.device)
         L, _, BS, KV, hd = self.pool["k"].shape
         h = len(hit_ids) * BS
-        return tuple(
-            self.pool[name][:, ids].reshape(L, 1, h, KV, hd) for name in ("k", "v")
-        )
+
+        def rows(name):
+            leaf = self.pool[name][:, ids]
+            return leaf.reshape((L, 1, h) + tuple(leaf.shape[3:]))
+
+        if "k_scale" not in self.pool:
+            return rows("k"), rows("v")
+        dt = self.model.dtype
+        return tuple(dequantize_kv(rows(n), rows(n + "_scale"), dt) for n in ("k", "v"))
 
     def write_prefill(self, row: int, dense_cache, skip_blocks: int = 0) -> None:
         """Install a request's batch=1 dense prefill cache into its fresh

@@ -179,8 +179,8 @@ def test_cache_dtype_override_matches_jax(arch, dtype):
     """``init_cache(dtype=)`` and ``SlotKVCache(dtype=)`` give every leaf
     the JAX package's shape and type (an int8 cache stays int8 with
     bfloat16 scales; the SSM state stays float32); ``init_paged_cache`` and
-    ``PagedKVCache`` take the override too, and an int8 pool stays refused
-    until ROADMAP item 10a."""
+    ``PagedKVCache`` take the override too, and an int8 pool has the JAX
+    pool's leaves: int8 k/v beside bfloat16 scales, whatever the override."""
     cfg, jm, _, tm, _ = _pair(arch)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     pairs = ((jm.init_cache(2, 16, dtype=jdt), tm.init_cache(2, 16, dtype=tdt)),
@@ -198,6 +198,14 @@ def test_cache_dtype_override_matches_jax(arch, dtype):
         assert tuple(tl.shape) == tuple(jl.shape) and tl.dtype == tdt, path
     pkv = PagedKVCache(tm, max_batch=2, max_seq=16, block_size=4, dtype=tdt)
     assert all(v.dtype == tdt for v in pkv.pool.values())
-    quant = TModel(dataclasses.replace(tget(arch).reduced(), kv_quant=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        quant.init_paged_cache(5, 4, dtype=tdt)
+    qcfg = dataclasses.replace(tget(arch).reduced(), kv_quant=True)
+    quant = TModel(qcfg, device="cpu")
+    jquant = JModel(dataclasses.replace(jget(arch).reduced(), kv_quant=True))
+    j, t = (list(_leaves(p)) for p in (jquant.init_paged_cache(5, 4, dtype=jdt),
+                                       quant.init_paged_cache(5, 4, dtype=tdt)))
+    assert [p for p, _ in t] == [p for p, _ in j] == [("k",), ("k_scale",), ("v",), ("v_scale",)]
+    for (path, tl), (_, jl) in zip(t, j):
+        assert tuple(tl.shape) == tuple(jl.shape), path
+        assert str(tl.dtype).split(".")[-1] == str(jl.dtype), path
+    assert {str(v.dtype) for v in PagedKVCache(quant, 2, 16, block_size=4, dtype=tdt).pool.values()} == {
+        "torch.int8", "torch.bfloat16"}

@@ -19,7 +19,8 @@ JAX package on the CPU, in float32.
   must be identical.
 - Dense ``kv_quant`` on the slot layout (reduced smollm-135m), as
   ``tests/test_models.py::test_int8_kv_cache_decode_accuracy`` holds the
-  JAX package: against JAX, and within 5% of the float cache's logits.
+  JAX package: against JAX, and within 5% of the float cache's logits;
+  its paged pool has the JAX pool's leaves and serves the same streams.
 
 Inputs come from numpy seeds and are handed to both packages."""
 import dataclasses
@@ -433,5 +434,12 @@ def test_dense_int8_slot_serving_matches_jax_and_paged_refuses(dense_q):
     want = JEngine(jm, jp, max_seq=48).serve(reqs(j_requests), max_batch=2)
     got = ServingEngine(tm, tp, max_seq=48, device="cpu").serve(reqs(t_requests), max_batch=2)
     assert_streams_equal(want, got, label="dense int8 slot")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_paged_cache(4, 8)
+    # the int8 paged pool no longer refuses: it has the JAX pool's leaves and
+    # serves the same streams (tests/test_torch_dense_int8.py holds the rest)
+    jpool, tpool = jm.init_paged_cache(4, 8), tm.init_paged_cache(4, 8)
+    assert sorted(tpool) == sorted(jpool) == ["k", "k_scale", "v", "v_scale"]
+    for name, leaf in tpool.items():
+        assert tuple(leaf.shape) == tuple(jpool[name].shape), name
+        assert str(leaf.dtype).split(".")[-1] == str(jpool[name].dtype), name
+    paged = ServingEngine(tm, tp, max_seq=48, kv_layout="paged", block_size=8, device="cpu")
+    assert_streams_equal(want, paged.serve(reqs(t_requests), max_batch=2), label="dense int8 paged")

@@ -196,27 +196,31 @@ def test_refused_tma_descriptor_raises_with_its_cause():
     _build.check(0, "flash_attention")
 
 
-# The flash shapes of chip_smoke.py's phases 3-4: (B, Sq, Skv, q_offset, H,
-# KV, hd, causal); the last causal one is zamba2-2.7b's prefill at hd 80.
+# The flash shapes of chip_smoke.py's phases 3-4 and 11: (B, Sq, Skv,
+# q_offset, H, KV, hd, causal); zamba2-2.7b's and stablelm-3b's prefill at hd
+# 80, phi3-medium-14b's and internlm2-20b's at hd 128, and phi3's heads
+# non-causal.
 CHIP_FLASH_SHAPES = [
     (2, 1, 1, 0, 9, 3, 64, True), (2, 37, 37, 0, 9, 3, 64, True),
     (2, 512, 512, 0, 9, 3, 64, True), (2, 2048, 2048, 0, 9, 3, 64, True),
     (2, 64, 576, 512, 9, 3, 64, True), (1, 1024, 1024, 0, 9, 3, 64, True),
     (1, 1024, 1024, 0, 32, 32, 80, True), (2, 512, 512, 0, 9, 3, 64, False),
+    (1, 1024, 1024, 0, 40, 10, 128, True), (1, 1024, 1024, 0, 48, 8, 128, True),
+    (2, 512, 512, 0, 40, 10, 128, False),
 ]
 
 
 @pytest.mark.parametrize("B,Sq,Skv,off,H,KV,hd,causal", CHIP_FLASH_SHAPES)
 def test_flash_plan_at_chip_shapes(B, Sq, Skv, off, H, KV, hd, causal):
-    """bf16 at hd 64 / 80 takes wgmma: one block per (64 query rows, query
-    head, batch row), 64-key tiles in a 2-stage ring; Q, K and V arrive as
-    [64 rows x 64 columns] boxes of one head, plus a 16-column box at hd
-    80. float32 keeps the CUDA-core kernel: a block per (16 positions,
-    batch row, kv head)."""
+    """bf16 at hd 64 / 80 / 128 takes wgmma: one block per (64 query rows,
+    query head, batch row), 64-key tiles in a 2-stage ring; Q, K and V
+    arrive as [64 rows x 64 columns] boxes of one head, plus a 16-column box
+    at hd 80 or a second 64-column box at hd 128. float32 keeps the
+    CUDA-core kernel: a block per (16 positions, batch row, kv head)."""
     plan = fa.flash_plan(torch.bfloat16, B, Sq, H, KV, hd)
     assert plan["path"] == "wgmma" and (plan["rows"], plan["keys"], plan["stages"]) == (64, 64, 2)
     assert plan["threads"] == 160 and plan["grid"] == (-(-Sq // 64) * H * B,)
-    assert plan["boxes"] == [(64, 1, 64, 1)] + ([(16, 1, 64, 1)] if hd == 80 else [])
+    assert plan["boxes"] == [(64, 1, 64, 1)] + ([(hd - 64, 1, 64, 1)] if hd > 64 else [])
     f32 = fa.flash_plan(torch.float32, B, Sq, H, KV, hd)
     assert f32 == {"path": "cuda_cores", "rows": 16 * (H // KV), "keys": 32, "threads": 128,
                    "grid": (-(-Sq // 16), B * KV)}
@@ -227,8 +231,8 @@ def test_flash_plan_grid_at_smollm_serving_prefill():
     assert fa.flash_plan(torch.bfloat16, 1, 1024, 9, 3, 64)["grid"] == (144,)
 
 
-@pytest.mark.parametrize("hd,path", [(16, "cuda_cores"), (96, "cuda_cores"), (128, "cuda_cores"),
-                                     (64, "wgmma"), (80, "wgmma")])
+@pytest.mark.parametrize("hd,path", [(16, "cuda_cores"), (96, "cuda_cores"), (112, "cuda_cores"),
+                                     (64, "wgmma"), (80, "wgmma"), (128, "wgmma")])
 def test_flash_plan_bf16_head_sizes(hd, path):
     assert fa.flash_plan(torch.bfloat16, 1, 128, 4, 2, hd)["path"] == path
 

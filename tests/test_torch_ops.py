@@ -115,6 +115,8 @@ def test_block_contracts_refuse_what_jax_refuses():
     (2, 128, 8, 4, 32, 32, 64),    # GQA g=2
     (2, 128, 8, 2, 32, 64, 32),    # GQA g=4
     (1, 256, 4, 1, 64, 64, 64),    # MQA
+    (1, 128, 8, 2, 128, 64, 64),   # hd 128, g=4 (phi3-medium-14b's group)
+    (1, 128, 12, 2, 128, 64, 64),  # hd 128, g=6 (internlm2-20b's group)
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_matches_pallas(b, s, h, kv, hd, bq, bk, causal):
@@ -419,6 +421,27 @@ def test_matmul_plan_bf16(M, K, N, path, tile, grid):
     # per 64 columns of the tile, into a 4-stage ring
     assert plan["x_box"] == (64, 128) and plan["w_box"] == (64, 64)
     assert plan["w_boxes"] == tile[1] // 64 and plan["stages"] == 4
+
+
+# the launch plan of flash_attention at the dense configs' serving prefill
+# (B = 1, S = 1024) and phase 11's non-causal shape: bf16 at hd 128 runs on
+# TMA-fed wgmma, Q, K and V each as two 64-column boxes of 64 rows
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (1, 1024, 40, 10, 128),   # phi3-medium-14b
+    (1, 1024, 48, 8, 128),    # internlm2-20b
+    (2, 512, 40, 10, 128),    # phi3's heads, non-causal
+    (1, 1024, 32, 32, 80),    # stablelm-3b: a 64- and a 16-column box
+])
+def test_flash_plan_dense_configs(B, S, H, KV, hd):
+    plan = fa.flash_plan(torch.bfloat16, B, S, H, KV, hd)
+    assert plan["path"] == "wgmma" and plan["threads"] == 160 and plan["stages"] == 2
+    assert plan["boxes"] == [(64, 1, 64, 1), (hd - 64, 1, 64, 1)]
+    assert plan["grid"] == (-(-S // 64) * H * B,)
+    # float32 stays on the CUDA cores: the g query heads of a kv head ride
+    # together, 16 positions each
+    assert fa.flash_plan(torch.float32, B, S, H, KV, hd) == {
+        "path": "cuda_cores", "rows": 16 * (H // KV), "keys": 32, "threads": 128,
+        "grid": (-(-S // 16), B * KV)}
 
 
 @pytest.mark.parametrize("M,K,N,grid", [

@@ -115,9 +115,13 @@ def test_out_of_slice_options_refuse(pair):
     base = tget("smollm-135m").reduced()
     with pytest.raises(NotImplementedError, match="family"):
         TModel(dataclasses.replace(base, family="moe"), device="cpu")
-    # int8 KV serves on the slot layout; its paged pool is not ported yet
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        TModel(dataclasses.replace(base, kv_quant=True), device="cpu").init_paged_cache(4, 8)
+    # int8 KV serves on both layouts: the paged pool has the JAX pool's leaves
+    jpool = JModel(dataclasses.replace(jget("smollm-135m").reduced(), kv_quant=True)).init_paged_cache(4, 8)
+    tpool = TModel(dataclasses.replace(base, kv_quant=True), device="cpu").init_paged_cache(4, 8)
+    assert sorted(tpool) == sorted(jpool) == ["k", "k_scale", "v", "v_scale"]
+    for name, leaf in tpool.items():
+        assert tuple(leaf.shape) == tuple(jpool[name].shape), name
+        assert str(leaf.dtype).split(".")[-1] == str(jpool[name].dtype), name
 
 
 def test_no_silent_cpu_fallback(pair):
