@@ -167,9 +167,10 @@ Phases, in order; any failure exits non-zero before the final line:
    for stablelm and depth 4 for the 14B and 20B models (whose float32
    plain path would not fit the card at full depth), served through the
    kernels and the plain backend on the paged layout with a shared-prefix
-   pair (stablelm's int8 hit dequantized): the same greedy tokens, ties
-   aside; bf16 prefill and first-decode logits within ``E2E_BF16_RATIO``
-   of the plain path's distance from float32, at the same depths; then
+   pair (stablelm's int8 hit dequantized), graphed: the same greedy
+   tokens, ties aside; bf16 prefill and first-decode logits within
+   ``E2E_BF16_RATIO`` of the plain path's distance from float32, at the
+   same depths; then
    each config in bf16 at full depth and width on the paged layout (8
    rows, ``max_seq`` 2048, 12 open-loop requests of 128-1024 tokens, at
    most 32 new), plain and with K = 4 n-gram speculation (stablelm's with
@@ -180,9 +181,32 @@ Phases, in order; any failure exits non-zero before the final line:
    kernel once a layer and no flash; TTFT, TPOT and step p50/p99, the
    peak memory after ``init`` and after serving, and a decode step at 8
    rows and a 1024-token prefill eager and graphed (wall, device busy,
-   idle share). Each phase prints the time it ended at.
+   idle share).
+12. the MoE, vlm and audio families — the paged kernel's float modes at
+   g = 2 on granite-moe-1b-a400m's (16 heads over 8, hd 64, T = 1) and
+   internvl2-2b's (hd 128, T = 1 and 5, bitwise) pools, its int8 mode on
+   musicgen-large's (H = KV = 32, hd 64: T = 1, 5 and a 256-query chunk),
+   causal flash at each config's serving prefill (internvl2's S = 256
+   patch rows + 768 tokens), float32 and bf16, each held to its plain
+   version and timed beside its bound; ``moe_block`` at granite's and
+   dbrx-132b's widths, T = 8 and 1024: bf16 against float32 (the same
+   routing) within ``E2E_BF16_RATIO`` of the plain version's distance,
+   capacity, dropped share and device time by part; float32 kernel-versus-
+   plain token parity on a step clock (granite on both layouts, internvl2
+   with seeded patch embeddings plain and with K = 4, musicgen chunked at
+   256 over a shared-prefix pair, dbrx at depth 2), graphed, ties read
+   from the reference run's own margins, musicgen's int8 runs also
+   teacher-forced onto the reference's tokens, the kernel run's logit
+   distance held to ``INT8_WITNESS_RATIO`` times that of a plain run with
+   every ``wo`` one ulp up; bf16 against float32 (a MoE against
+   float32 on each path's own routing); each config served in bf16 at full
+   width (dbrx at depth 4: 14.3 B parameters), plain and, where the family
+   speculates, with K = 4 (musicgen's chunked over a shared 512-token
+   prefix), captured then primed: no capture, exact launches, the peak
+   memory, and the decode step and prefill eager and graphed. Each phase
+   prints the time it ended at.
 
-``--phases 3,11`` runs the build and the listed phases only, for a short
+``--phases 3,12`` runs the build and the listed phases only, for a short
 development call (5 runs phases 5 and 6 together); with no argument every
 phase runs.
 
@@ -194,6 +218,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -221,6 +246,10 @@ SSD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 0.0)}
 INT8_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (1e-2 + 2**-7, 0.0)}
 SPIN_CYCLES = 50_000_000  # ~30 ms at the H100's clock: covers enqueueing a timed run
 LOGIT_TIE_TOL = 1e-3  # top-2 margin under which a float32 argmax flip is a tie
+# an int8 cache's float32 kernel run, forced onto the plain run's tokens, may
+# lie this many times further from the plain logits than the plain path with
+# its wo one ulp up does (parity_serve_f32)
+INT8_WITNESS_RATIO = 4.0
 # bf16 end to end: each bf16 path's distance from the float32 plain path on
 # the same (upcast) weights, ||logits - logits_f32|| / ||logits_f32|| per
 # row. The kernel path (its attention and SSD kernels in place of their
@@ -1570,24 +1599,32 @@ def split_pair(label, eager, graphed, kernels, card):
         f"device busy {eb:.2f} -> {gb:.2f} ms; idle share {1 - eb / ew:.0%} -> {1 - gb / gw:.0%}")
 
 
-def time_split(params, card, arch="smollm-135m"):
+def time_split(params, card, arch="smollm-135m", cfg=None):
     """Where a full-width ``arch`` decode step (8 paged rows) and a
-    1024-token prefill spend their time, eager and graphed."""
+    1024-token prefill spend their time, eager and graphed (``cfg``: its
+    config, when cut in depth). A VLM's prompts carry seeded patch rows,
+    which count in the 1024 and in each row's length."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.serve.kv_cache import PagedKVCache
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     model = Model(cfg)  # a fresh model object: no StepLog wrappers
     kv = PagedKVCache(model, 8, 2048, block_size=16)
     rng = np.random.default_rng(0)
+    n_lead = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+    kw = {}
+    if n_lead:
+        pe = torch.from_numpy(patch_embeds(cfg, 1, 23)[0])[None]
+        kw["patch_embeds"] = pe.to(device="cuda", dtype=model.dtype)
     for r in range(8):
-        toks = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, int(rng.integers(128, 1025))))
-        row, _ = kv.try_admit(r, toks, 64)
-        _, cache = model.prefill(params, torch.tensor([toks], device="cuda"), 2048)
+        toks = tuple(int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                  int(rng.integers(128, 1025 - n_lead))))
+        row, _ = kv.try_admit(r, toks, 64, n_tokens=n_lead + len(toks))
+        _, cache = model.prefill(params, torch.tensor([toks], device="cuda"), 2048, **kw)
         kv.write_prefill(row, cache)
     tok = torch.zeros((8, 1), dtype=torch.long, device="cuda")
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1024))).cuda()
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1024 - n_lead))).cuda()
 
     def decode(step):
         for r in range(8):
@@ -1601,8 +1638,9 @@ def time_split(params, card, arch="smollm-135m"):
     name = "" if arch == "smollm-135m" else f"{arch} "
     split_pair(f"{name}decode step, 8 paged rows", lambda: decode(model.decode_step_paged),
                lambda: decode(graphed), ("paged_decode_kernel",), card)
-    split_pair(f"{name}prefill, 1024 tokens", lambda: model.prefill(params, prompt, 2048),
-               lambda: prefill(params, prompt, 2048), ("flash_kernel",), card)
+    split_pair(f"{name}prefill, 1024 {'rows' if n_lead else 'tokens'}",
+               lambda: model.prefill(params, prompt, 2048, **kw),
+               lambda: prefill(params, prompt, 2048, **kw), ("flash_kernel",), card)
     return model, kv, decode
 
 
@@ -1633,24 +1671,100 @@ def time_split_slots(arch, params, card, kernels):
                lambda: prefill(params, prompt, 2048), kernels, card)
 
 
-def count_ties(model, params, prompts, want, got, label):
+def count_ties(model, params, prompts, want, got, label, margins=None):
     """How many pairs of greedy streams differ, each first difference
     held to be a tie: the plain reference backend's top-2 logit margin on
-    ``want``'s context there must be under ``LOGIT_TIE_TOL``. ``model``
-    must not be wrapped by a ``StepLog`` (its prefill would be logged)."""
+    ``want``'s context there must be under ``LOGIT_TIE_TOL``. ``margins``
+    (one dict a stream, token index → margin: a ``MarginLog`` of the run
+    that made ``want``) gives the margin its run saw; without it the
+    context is prefilled once. ``model`` must not be wrapped by a
+    ``StepLog`` (its prefill would be logged)."""
     ties = 0
-    for prompt, a, b in zip(prompts, want, got):
+    for i, (prompt, a, b) in enumerate(zip(prompts, want, got)):
         a, b = np.asarray(a), np.asarray(b)
         if np.array_equal(a, b):
             continue
         p = int(np.argmax(a != b)) if len(a) == len(b) else min(len(a), len(b))
-        ctx = np.concatenate([np.asarray(prompt), a[:p]]).astype(np.int64)[None]
-        logits, _ = model.prefill(params, ctx, ctx.shape[1], backend="reference")
-        top2 = torch.topk(logits[0].float(), 2).values
-        margin = float(top2[0] - top2[1])
-        require(margin < LOGIT_TIE_TOL, f"{label}: tokens differ at {p} (margin {margin:.2e})")
+        if margins is not None:
+            margin = margins[i][p]
+        else:
+            ctx = np.concatenate([np.asarray(prompt), a[:p]]).astype(np.int64)[None]
+            logits, _ = model.prefill(params, ctx, ctx.shape[1], backend="reference")
+            top2 = torch.topk(logits[0].float(), 2).values
+            margin = float(top2[0] - top2[1])
+        require(margin < LOGIT_TIE_TOL, f"{label}: tokens differ at {p} of stream {i} "
+                f"(margin {margin:.2e})")
         ties += 1
     return ties
+
+
+class MarginLog:
+    """The top-2 logit margin of every token a greedy scheduler samples,
+    recorded from the logits its own run sampled it from (the prefill or
+    last chunk's, a decode step's, a verify's): ``of(req)`` maps the
+    request's token index to the margin. A replay of the context would
+    compute another function where the run's result depends on what else
+    the call held (a MoE's capacity) or on its int8 cache's codes (a
+    chunked prefill attends its own quantized rows, a monolithic one does
+    not). ``keep``: also keep each token's logits (``logits_of``).
+    ``force`` (rid → tokens): teacher forcing; each listed request samples
+    the given token at each index the list covers (its logits are kept as
+    computed, the sampler is handed a row whose argmax is that token), so
+    two runs forced onto one stream make the same calls in the same
+    order."""
+
+    def __init__(self, sched, keep=False, force=None):
+        self.m, self.rows, self.keep, self.force = {}, {}, keep or force is not None, force or {}
+        start, pool = sched._start_decode, sched._decode_pool
+
+        def take(req, i, row):
+            """Record ``row`` [V], the logits of req's token i; return the
+            row to sample from."""
+            t = torch.topk(row.float(), 2).values
+            self.m[(req.rid, i)] = float(t[0] - t[1])
+            if self.keep:
+                self.rows[(req.rid, i)] = row.float().cpu()
+            want = self.force.get(req.rid)
+            if want is None or i >= len(want):
+                return row
+            hot = torch.zeros_like(row)
+            hot[int(want[i])] = 1
+            return hot
+
+        def start_decode(req, row, logits_row):
+            return start(req, row, take(req, len(req.tokens), logits_row))
+
+        def decode_pool():
+            logits = pool()
+            out = logits.clone() if self.force else logits
+            for row, req in sched._active.items():
+                got = take(req, len(req.tokens), logits[row])
+                if self.force:
+                    out[row] = got
+            return out
+
+        def verified(step):
+            def call(*args):
+                logits, state = step(*args)  # [rows, K+1, V]
+                out = logits.clone() if self.force else logits
+                for row, req in sched._active.items():
+                    for j in range(logits.shape[1]):
+                        got = take(req, len(req.tokens) + j, logits[row, j])
+                        if self.force:
+                            out[row, j] = got
+                return out, state
+            return call
+
+        sched._start_decode, sched._decode_pool = start_decode, decode_pool
+        for name in ("_verify", "_verify_paged"):
+            if getattr(sched, name) is not None:
+                setattr(sched, name, verified(getattr(sched, name)))
+
+    def of(self, req):
+        return {i: m for (rid, i), m in self.m.items() if rid == req.rid}
+
+    def logits_of(self, req):
+        return {i: row for (rid, i), row in self.rows.items() if rid == req.rid}
 
 
 def parity_f32(arch, layouts, prompt_lens):
@@ -1688,6 +1802,33 @@ def _upcast(tree):
     return tree.float() if isinstance(tree, torch.Tensor) and tree.is_floating_point() else tree
 
 
+@contextlib.contextmanager
+def moe_routes(record=None, replay=None):
+    """Inside the block, every MoE layer call appends its expert choices
+    [T, k] to ``record``, or (``replay``) routes on the next choices of
+    that list, with gates renormalised from its own float32 router
+    probabilities at them."""
+    from repro_torch.models import moe
+
+    orig = moe._route
+
+    def route(x, router_w, top_k):
+        gates, idx, probs = orig(x, router_w, top_k)
+        if record is not None:
+            record.append(idx.clone())
+        if replay is not None:
+            idx = replay.pop(0)
+            gates = probs.gather(1, idx)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return gates, idx, probs
+
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = orig
+
+
 def parity_bf16(arch, B=2, S=512, layers=None):
     """bf16 ``arch`` at full width (seeded random weights): a B x S prompt
     prefilled, then one decode step on the greedy token of the plain
@@ -1700,7 +1841,16 @@ def parity_bf16(arch, B=2, S=512, layers=None):
     (head size 64, 80 or 128) once per attention layer and the decode step
     the paged kernel (int8 for an int8 cache) once per attention layer; the
     plain paths launch nothing. ``layers`` cuts the depth (the float32 copy
-    of a 14B or 20B model would not fit the card beside its bf16 one)."""
+    of a 14B or 20B model would not fit the card beside its bf16 one). A
+    VLM's prompt carries seeded patch embeddings ahead of its tokens. A
+    MoE's top-k choice is a discontinuity: a rounding that moves a token
+    across an expert boundary changes its layer output by an expert's
+    worth, so a row's distance from float32 counts such crossings more
+    than arithmetic. Each bf16 path of a MoE is therefore held to a float32
+    run that routes every layer call on that path's own expert choices
+    (``moe_routes``; gates from float32); the distances from the float32
+    run's own routing and the share of token-layers routed apart are
+    printed beside."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.model import Model
@@ -1715,23 +1865,39 @@ def parity_bf16(arch, B=2, S=512, layers=None):
     path = fa.flash_plan(torch.bfloat16, B, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)["path"]
     require(path == "wgmma", f"{arch}: the bf16 prefill's flash path is {path}, not wgmma")
     prompt = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (B, S))).cuda()
-    out, tok = {}, None
-    runs = (("plain", model, params, "reference"), ("kernel", model, params, "kernel"),
-            ("float32", Model(dataclasses.replace(cfg, dtype="float32")), None, "reference"))
+    pe = None
+    if cfg.family == "vlm":
+        pe = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (B, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)).cuda().bfloat16()
+    moe = cfg.family == "moe"
+    f32 = Model(dataclasses.replace(cfg, dtype="float32"))
+    out, tok, routes = {}, None, {"plain": [], "kernel": [], "float32": []}
+    runs = [("plain", model, params, "reference"), ("kernel", model, params, "kernel"),
+            ("float32", f32, None, "reference")]
+    if moe:
+        runs += [("float32|plain", f32, None, "reference"),
+                 ("float32|kernel", f32, None, "reference")]
     for name, m, p, backend in runs:
         if p is None:
             p = _upcast(params)
         reset_launches()
-        logits, cache = m.prefill(p, prompt, 2 * S, backend=backend)
-        if tok is None:
-            tok = logits.float().argmax(-1, keepdim=True)
-        step, _ = m.decode_step(p, cache, tok, backend=backend)
+        kw = {} if pe is None else {"patch_embeds": pe.to(m.dtype)}
+        if "|" in name:
+            routing = moe_routes(replay=list(routes[name.split("|")[1]]))
+        else:
+            routing = moe_routes(record=routes[name]) if moe else contextlib.nullcontext()
+        with routing:
+            logits, cache = m.prefill(p, prompt, 2 * S + cfg.n_frontend_tokens, backend=backend,
+                                      **kw)
+            if tok is None:
+                tok = logits.float().argmax(-1, keepdim=True)
+            step, _ = m.decode_step(p, cache, tok, backend=backend)
         torch.cuda.synchronize()
         out[name] = (logits.float(), step.float(), read_launches())
         del p, cache
     n = out["kernel"][2]
     decode_key = "paged_int8" if cfg.kv_quant else "paged"
-    require(not any(out["plain"][2].values()) and not any(out["float32"][2].values()),
+    require(not any(v for name, o in out.items() if name != "kernel" for v in o[2].values()),
             f"{arch}: a plain path launched a kernel")
     require(n["flash"] == sites and n[decode_key] == sites,
             f"{arch}: bf16 prefill + decode launched {n}, not flash and {decode_key} {sites} times each")
@@ -1742,15 +1908,31 @@ def parity_bf16(arch, B=2, S=512, layers=None):
     def fmt(v):
         return "[" + ", ".join(f"{x:.3e}" for x in v) + "]"
 
+    def apart(name):
+        """Share of token-layers whose expert set differs from float32's."""
+        n_apart = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                      for a, b in zip(routes[name], routes["float32"]))
+        return n_apart / sum(a.shape[0] for a in routes[name])
+
     for i, what in ((0, "prefill"), (1, "decode")):
         got, plain, ref = out["kernel"][i], out["plain"][i], out["float32"][i]
+        ref_k, ref_p = ((out["float32|kernel"][i], out["float32|plain"][i]) if moe
+                        else (ref, ref))
         require(torch.isfinite(got).all(), f"{arch}: bf16 {what} logits not finite")
-        d_k, d_p, d_kp = rel(got, ref), rel(plain, ref), rel(got, plain)
-        log(f"parity[{arch} bf16] {what} logits per row, ||. - float32||/||float32||: kernels "
-            f"(flash path {path}) {fmt(d_k)}, plain {fmt(d_p)} (kernels <= {E2E_BF16_RATIO:g} x plain; "
-            f"worst ratio {max(a / b for a, b in zip(d_k, d_p)):.3f}); kernels vs bf16 plain {fmt(d_kp)}")
+        d_k, d_p, d_kp = rel(got, ref_k), rel(plain, ref_p), rel(got, plain)
+        against = "float32 on each path's routing" if moe else "float32"
+        extra = ""
+        if moe:
+            extra = (f"; from float32's own routing: kernels {fmt(rel(got, ref))}, plain "
+                     f"{fmt(rel(plain, ref))}; token-layers routed apart from float32: kernels "
+                     f"{apart('kernel'):.4f}, plain {apart('plain'):.4f}")
+        log(f"parity[{arch} bf16] {what} logits per row, ||. - ref||/||ref|| against {against}: "
+            f"kernels (flash path {path}) {fmt(d_k)}, plain {fmt(d_p)} (kernels <= "
+            f"{E2E_BF16_RATIO:g} x plain; worst ratio "
+            f"{max(a / b for a, b in zip(d_k, d_p)):.3f}); kernels vs bf16 plain {fmt(d_kp)}"
+            + extra)
         require(all(a <= E2E_BF16_RATIO * b for a, b in zip(d_k, d_p)),
-                f"{arch}: the bf16 kernel path's {what} logits are further from float32 than "
+                f"{arch}: the bf16 kernel path's {what} logits are further from {against} than "
                 f"{E2E_BF16_RATIO:g} x the plain path's: {d_k} against {d_p}")
 
 
@@ -2883,6 +3065,82 @@ P11 = (("stablelm-3b", None), ("phi3-medium-14b", 4), ("internlm2-20b", 4))
 P11_PREFIX = 512  # stablelm's shared prefix in the speculative, chunked run
 
 
+def paged_row(key, label, T, args, dtype, rows):
+    """One paged-kernel case against its plain version: an int8 pool held
+    per row (``INT8_TOL``; a 256-query chunk also at the row's start and
+    its end), a float pool to ``TOL``; at T = 5 each query bitwise a decode;
+    timed beside its bound. Its bf16 row goes to ``rows[(key, dtype)]``."""
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    dn = str(dtype).split(".")[-1]
+    q, kp, vp, tables, lengths = args[:5]
+    int8 = kp.dtype == torch.int8
+    out = pda.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = pda.plain_paged_decode_attention(*args)
+    if int8:
+        rel, absol = INT8_TOL[dtype]
+        err, worst = row_check(out, ref, rel, absol)
+        if T == 256:  # the chunk at the row's start and at its end too
+            for start in (0, 2048 - 256):
+                at = torch.full_like(lengths, start)
+                e, w = row_check(pda.paged_decode_attention(q, kp, vp, tables, at, *args[5:]),
+                                 pda.plain_paged_decode_attention(q, kp, vp, tables, at,
+                                                                  *args[5:]), rel, absol)
+                err, worst = max(err, e), max(worst, w)
+        tol_text = f"per row <= {rel:.3g}*max|plain|+{absol:.0e}; worst err/tol {worst:.3e}"
+        ok = worst <= 1.0
+    else:
+        err = (out.float() - ref.float()).abs().max().item()
+        tol_text, ok = f"tol {TOL[dtype]:.0e}", err <= TOL[dtype]
+    require(ok and torch.isfinite(out).all(),
+            f"paged kernel ({label}, {dn}) disagrees with its plain version: {err}")
+    extra = ""
+    if T == 5:
+        for t in range(T):
+            dec = pda.paged_decode_attention(q[:, t : t + 1].contiguous(), kp, vp, tables,
+                                             lengths + t, *args[5:])
+            require(torch.equal(dec[:, 0], out[:, t]),
+                    f"{label}: verify != decode at query {t} ({dn})")
+        extra = "; verify (T=5) equals 5 decodes bitwise"
+    ms = cuda_ms(lambda: pda.paged_decode_attention(*args))
+    plain = cuda_ms(lambda: pda.plain_paged_decode_attention(*args), iters=5)
+    bms, by = paged_bound(q, kp, tables, lengths, dtype)
+    log(f"paged_decode_attention{'[int8]' if int8 else ''} {dn} {label} "
+        f"lengths={lengths.tolist()} plan={paged_plan_of(q, kp, tables)}: "
+        f"max_abs_err={err:.3e} ({tol_text}) ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
+        f"bound_ms={bms:.5f} ({by}) library_ms=null{extra}")
+    if dtype == torch.bfloat16:
+        rows[(key, dtype)] = kernel_row(err, ms, plain, bms, by)
+
+
+def flash_prefill_row(key, arch, H, KV, hd, dtype, rows, B=1, S=1024):
+    """Causal flash at a config's serving prefill against its plain
+    version (bf16 on ``wgmma``, checked and timed beside the CUDA-core
+    kernel and SDPA). Its bf16 row goes to ``rows[(key, dtype)]``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dn = str(dtype).split(".")[-1]
+    q, k, v = flash_case(dtype, S, S, B=B, H=H, KV=KV, hd=hd)
+    out = fa.flash_attention(q, k, v, 0)
+    torch.cuda.synchronize()
+    ref = fa.plain_flash_attention(q, k, v, 0)
+    label = f"flash_attention {dn} {arch} prefill B={B} S={S} H={H} KV={KV} hd={hd}"
+    err, text = flash_check(out, ref, dtype, label)
+    plan = fa.flash_plan(dtype, B, S, H, KV, hd)
+    if dtype == torch.bfloat16:
+        require(plan["path"] == "wgmma", f"{label}: path {plan['path']}, not wgmma")
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, 0))
+    plain = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, 0), iters=5)
+    bms, by = flash_bound(q, k, 0, dtype)
+    lib = sdpa_ms(q, k, v, 0)
+    log(f"{label} plan={plan}: {text} ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
+        f"bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(lib)}"
+        + cuda_core_flash(q, k, v, 0, True, plan["path"]))
+    if dtype == torch.bfloat16:
+        rows[(key, dtype)] = kernel_row(err, ms, plain, bms, by, lib)
+
+
 def phase11_kernels(card):
     """The paged kernel and flash at the shapes the three configs give
     them, float32 and bf16, each against its plain version: the int8 mode
@@ -2897,7 +3155,6 @@ def phase11_kernels(card):
     Returns the JSON rows (bf16) and the non-causal entry launches."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kernel_ops
-    from repro_torch.kernels import paged_decode_attention as pda
 
     rows = {}
     heads = {"stablelm": (32, 32, 80), "phi3": (40, 10, 128), "internlm2": (48, 8, 128)}
@@ -2919,69 +3176,9 @@ def phase11_kernels(card):
                               lambda H=H, KV=KV, hd=hd, T=T: paged_case(dtype, T, H=H, KV=KV,
                                                                        hd=hd)))
         for key, label, T, case in cases:
-            args = case()
-            q, kp, vp, tables, lengths = args[:5]
-            int8 = kp.dtype == torch.int8
-            out = pda.paged_decode_attention(*args)
-            torch.cuda.synchronize()
-            ref = pda.plain_paged_decode_attention(*args)
-            if int8:
-                rel, absol = INT8_TOL[dtype]
-                err, worst = row_check(out, ref, rel, absol)
-                if T == 256:  # the chunk at the row's start and at its end too
-                    for start in (0, 2048 - 256):
-                        at = torch.full_like(lengths, start)
-                        e, w = row_check(pda.paged_decode_attention(q, kp, vp, tables, at, *args[5:]),
-                                         pda.plain_paged_decode_attention(q, kp, vp, tables, at,
-                                                                          *args[5:]), rel, absol)
-                        err, worst = max(err, e), max(worst, w)
-                tol_text = f"per row <= {rel:.3g}*max|plain|+{absol:.0e}; worst err/tol {worst:.3e}"
-                ok = worst <= 1.0
-            else:
-                err = (out.float() - ref.float()).abs().max().item()
-                tol_text, ok = f"tol {TOL[dtype]:.0e}", err <= TOL[dtype]
-            require(ok and torch.isfinite(out).all(),
-                    f"paged kernel ({label}, {dn}) disagrees with its plain version: {err}")
-            extra = ""
-            if T == 5:
-                for t in range(T):
-                    dec = pda.paged_decode_attention(q[:, t : t + 1].contiguous(), kp, vp, tables,
-                                                     lengths + t, *args[5:])
-                    require(torch.equal(dec[:, 0], out[:, t]),
-                            f"{label}: verify != decode at query {t} ({dn})")
-                extra = "; verify (T=5) equals 5 decodes bitwise"
-            ms = cuda_ms(lambda: pda.paged_decode_attention(*args))
-            plain = cuda_ms(lambda: pda.plain_paged_decode_attention(*args), iters=5)
-            bms, by = paged_bound(q, kp, tables, lengths, dtype)
-            log(f"paged_decode_attention{'[int8]' if int8 else ''} {dn} {label} "
-                f"lengths={lengths.tolist()} plan={paged_plan_of(q, kp, tables)}: "
-                f"max_abs_err={err:.3e} ({tol_text}) ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
-                f"bound_ms={bms:.5f} ({by}) library_ms=null{extra}")
-            if dtype == torch.bfloat16:
-                rows[(key, dtype)] = kernel_row(err, ms, plain, bms, by)
-            del args, q, kp, vp, out, ref
-
+            paged_row(key, label, T, case(), dtype, rows)
         for arch, (H, KV, hd) in heads.items():
-            B, S = 1, 1024
-            q, k, v = flash_case(dtype, S, S, B=B, H=H, KV=KV, hd=hd)
-            out = fa.flash_attention(q, k, v, 0)
-            torch.cuda.synchronize()
-            ref = fa.plain_flash_attention(q, k, v, 0)
-            label = f"flash_attention {dn} {arch} prefill B={B} S={S} H={H} KV={KV} hd={hd}"
-            err, text = flash_check(out, ref, dtype, label)
-            plan = fa.flash_plan(dtype, B, S, H, KV, hd)
-            if dtype == torch.bfloat16:
-                require(plan["path"] == "wgmma", f"{label}: path {plan['path']}, not wgmma")
-            ms = cuda_ms(lambda: fa.flash_attention(q, k, v, 0))
-            plain = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, 0), iters=5)
-            bms, by = flash_bound(q, k, 0, dtype)
-            lib = sdpa_ms(q, k, v, 0)
-            log(f"{label} plan={plan}: {text} ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
-                f"bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(lib)}"
-                + cuda_core_flash(q, k, v, 0, True, plan["path"]))
-            if dtype == torch.bfloat16:
-                rows[(f"p11_flash_{arch}", dtype)] = kernel_row(err, ms, plain, bms, by, lib)
-            del q, k, v, out, ref
+            flash_prefill_row(f"p11_flash_{arch}", arch, H, KV, hd, dtype, rows)
 
         # non-causal at hd 128: the entry point first (bf16), then the checks
         H, KV, hd = heads["phi3"]
@@ -3019,21 +3216,180 @@ def phase11_kernels(card):
     return rows, entry
 
 
-def p11_requests(cfg, shared):
-    """Phase 11's bf16 workload: 12 open-loop requests (20 a second) with
-    128-1024-token prompts and at most 32 new tokens; ``shared``: each
+def patch_embeds(cfg, n, seed):
+    """``n`` seeded VLM patch embeddings [P, D] (numpy float32)."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+            for _ in range(n)]
+
+
+def serving_requests(cfg, shared):
+    """Phases 11-12's bf16 workload: 12 open-loop requests (20 a second)
+    with 128-1024-token prompts and at most 32 new tokens (a VLM's
+    128-768 tokens after its 256 seeded patch rows); ``shared``: each
     prompt a 128-512-token tail after one 512-token prefix."""
     from repro_torch.serve import Request, make_requests
 
     rng = np.random.default_rng(21)
-    lens = tuple(range(128, 513)) if shared else tuple(range(128, 1025))
-    reqs = make_requests(12, 20.0, vocab=cfg.vocab_size, max_new_tokens=32, prompt_lens=lens,
-                         rng=rng)
+    vlm = cfg.family == "vlm"
+    lens = range(128, 513) if shared else range(128, 1025 - cfg.n_frontend_tokens)
+    reqs = make_requests(12, 20.0, vocab=cfg.vocab_size, max_new_tokens=32,
+                         prompt_lens=tuple(lens), rng=rng)
+    if vlm:
+        for r, pe in zip(reqs, patch_embeds(cfg, len(reqs), 22)):
+            r.patch_embeds = pe
     if not shared:
         return reqs
     prefix = rng.integers(0, cfg.vocab_size, size=(P11_PREFIX,)).astype(np.int32)
     return [Request(prompt=np.concatenate([prefix, r.prompt]), max_new_tokens=r.max_new_tokens,
                     arrival_time=r.arrival_time) for r in reqs]
+
+
+def _wo_ulp(params, up):
+    """Every attention output projection (``wo``) one float32 ulp up, or
+    back down (``up`` False): bitwise the weights it started from."""
+    wo = params["layers"]["attn"]["wo"]
+    wo.copy_(torch.nextafter(wo, torch.full_like(wo, math.inf if up else -math.inf)))
+
+
+def _first_parts(want, got):
+    """Per stream pair, the first token index where they differ (None if
+    equal)."""
+    out = []
+    for a, b in zip(want, got):
+        a, b = np.asarray(a), np.asarray(b)
+        if np.array_equal(a, b):
+            out.append(None)
+        else:
+            out.append(int(np.argmax(a != b)) if len(a) == len(b) else min(len(a), len(b)))
+    return out
+
+
+def parity_serve_f32(card, arch, layers=None, layouts=("paged",), runs=(("plain", {}),),
+                     shared=True, cfg=None, device="cuda"):
+    """float32 at full width (``layers``: depth cut): served through the
+    plain reference backend and through the kernels on each layout, on a
+    step clock (``drive``: both runs admit and batch alike), graphed, 4
+    open-loop requests (a VLM's with seeded patch embeddings) and, with
+    ``shared``, a pair sharing a 128-token prefix (a prefix hit: an int8
+    pool dequantizes the chain), once for each of ``runs`` (label, serve
+    options): the same greedy tokens, or a tie (the reference run's own
+    top-2 margin under ``LOGIT_TIE_TOL``, ``MarginLog``).
+
+    An int8 cache rounds each new row to codes: where two paths' values
+    differ by float32 ulps, some round a code apart, and later layers carry
+    that to the logits. So an int8 config is also served teacher-forced
+    onto the reference run's tokens, through the kernels and through a
+    witness: the reference backend with every ``wo`` one float32 ulp up
+    (``_wo_ulp``), the same plain path a rounding apart. Each run keeps its
+    own codes. Token by token, the kernel run's largest |logit - reference
+    logit| must stay within ``INT8_WITNESS_RATIO`` of the witness's, and
+    every stream where the free kernel run parts from the reference must
+    part where the reference's top-2 margin is under twice the forced
+    kernel run's distance there (the distance explains the swap). Where
+    the witness served freely parts from the reference is printed beside.
+    ``cfg`` and ``device`` replace the config and the card for a rehearsal
+    on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServingEngine, make_requests, make_shared_prefix_requests
+
+    cfg = dataclasses.replace(cfg or get_config(arch), dtype="float32")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = Model(cfg, device)
+    params = model.init(seed=1)
+    pes = patch_embeds(cfg, 4, 9) if cfg.family == "vlm" else None
+    quant = cfg.kv_quant
+
+    def workload():
+        reqs = make_requests(4, 50.0, vocab=cfg.vocab_size, max_new_tokens=16,
+                             prompt_lens=tuple(range(64, 257)), rng=np.random.default_rng(3))
+        for r, pe in zip(reqs, pes or ()):
+            r.patch_embeds = pe
+        if shared:
+            pair = make_shared_prefix_requests(2, 50.0, vocab=cfg.vocab_size, prefix_len=128,
+                                               suffix_len=40, max_new_tokens=16,
+                                               rng=np.random.default_rng(4))
+            for r in pair:
+                r.arrival_time += 0.1  # after the open-loop ones, one after the other
+            reqs += pair
+        return reqs
+
+    def serve(engine, kw, backend, force=None):
+        """One run: (requests, streams, the run's ``MarginLog``)."""
+        reqs = workload()
+        sched = engine.scheduler(4, attention_backend=backend, spec=kw.get("spec"),
+                                 chunk_size=kw.get("chunk_size"))
+        tl = MarginLog(sched, keep=quant,
+                       force=None if force is None else {r.rid: f for r, f in zip(reqs, force)})
+        out = drive(sched, reqs, 0.005)
+        return reqs, [out[r.rid] for r in reqs], tl
+
+    depth = f" depth {layers}" if layers else ""
+    for layout in layouts:
+        engine = ServingEngine(model, params, max_seq=768 if pes else 512,
+                               kv_layout=layout, block_size=16, max_batch=4, device=device)
+        for label, opts in runs:
+            kw = _serve_kw(opts)
+            reqs, want, ref = serve(engine, kw, "reference")
+            kreqs, got, _ = serve(engine, kw, "kernel")
+            hits = [r.prefix_hit for r in kreqs]
+            if shared:
+                require(hits[-1] >= 128, f"{arch}: the shared-prefix pair did not hit ({hits})")
+            name = f"{arch}{depth} {layout}{' int8' if quant else ''} {label}"
+            margins = [ref.of(r) for r in reqs]
+            if not quant:
+                prompts = [np.asarray(r.prompt) for r in reqs]
+                ties = count_ties(model, params, prompts, want, got,
+                                  f"{arch} {layout} {label}: kernel and reference", margins=margins)
+                log(f"parity[{name}] float32 kernel vs reference on {card}: "
+                    f"{len(prompts) - ties} streams identical, {ties} ties (top-2 margin < "
+                    f"{LOGIT_TIE_TOL:g}); prefix hits {hits} tokens")
+                continue
+            _wo_ulp(params, True)
+            try:
+                _, wfree, _ = serve(engine, kw, "reference")
+                wreqs, _, wit = serve(engine, kw, "reference", force=want)
+            finally:
+                _wo_ulp(params, False)
+            freqs, _, forced = serve(engine, kw, "kernel", force=want)
+            dist = {}
+            for tag, rs, tl in (("kernel", freqs, forced), ("witness", wreqs, wit)):
+                d = []
+                for r, q in zip(reqs, rs):
+                    a, b = ref.logits_of(r), tl.logits_of(q)
+                    require(a.keys() == b.keys(), f"{name}: the {tag} run, forced onto the "
+                            "reference's tokens, sampled other positions")
+                    d.append({i: float((b[i] - a[i]).abs().max()) for i in a})
+                dist[tag] = d
+            dk = max(max(d.values()) for d in dist["kernel"])
+            dw = max(max(d.values()) for d in dist["witness"])
+            require(dk <= INT8_WITNESS_RATIO * dw,
+                    f"{name}: the forced kernel run's logits lie {dk:.3e} from the reference's, "
+                    f"more than {INT8_WITNESS_RATIO:g} x the ulp witness's {dw:.3e}")
+            parts, wparts, ties = _first_parts(want, got), _first_parts(want, wfree), 0
+            notes = []
+            for i, p in enumerate(parts):
+                if p is None:
+                    continue
+                m, d = margins[i][p], dist["kernel"][i][p]
+                require(m < max(LOGIT_TIE_TOL, 2 * d),
+                        f"{name}: tokens differ at {p} of stream {i} (margin {m:.2e}), more than "
+                        f"twice the forced kernel run's distance there ({d:.2e})")
+                ties += m < LOGIT_TIE_TOL
+                notes.append(f"stream {i} at token {p} (reference margin {m:.2e}, forced kernel "
+                             f"distance {d:.2e}, witness {dist['witness'][i][p]:.2e}; the free "
+                             f"witness parts there: {wparts[i] == p})")
+            log(f"parity[{name}] float32 kernel vs reference on {card}: "
+                f"{parts.count(None)} streams identical, {ties} ties (top-2 margin < "
+                f"{LOGIT_TIE_TOL:g}), {len(notes)} parted: {'; '.join(notes) or 'none'}; "
+                f"forced onto the reference's tokens, max |dlogit| kernel {dk:.3e}, ulp witness "
+                f"{dw:.3e} (ratio {dk / dw:.3f}, limit {INT8_WITNESS_RATIO:g}); the free witness "
+                f"parts in {len(wparts) - wparts.count(None)} streams at {wparts}; prefix hits "
+                f"{hits} tokens")
+        del engine
+    del params, model
 
 
 def phase11_parity(card, arch, layers, cfg=None, device="cuda"):
@@ -3077,25 +3433,30 @@ def phase11_parity(card, arch, layers, cfg=None, device="cuda"):
     del engine, params, model
 
 
-def phase11_serving(card, arch, cfg=None, device="cuda"):
-    """bf16, full depth and width: ``arch`` served on the paged layout (8
-    rows, ``max_seq`` 2048) through ``ServingEngine.serve()``, plain and with
-    K = 4 n-gram speculation (stablelm-3b's with ``chunk_size`` 256 and a
-    shared 512-token prefix), each served once to capture, then primed
-    under telemetry (which arms the scheduler's count of captures): the
-    primed run captures nothing (``engine.retraces`` 0) and its launches
-    are exact: a decode or verify step the paged kernel once a layer (int8
-    mode for an int8 pool, no float-pool launch), a prefill flash once a
-    layer, a chunk the paged kernel once a layer and no flash. Then the
-    decode-step and prefill walls against device time, and the peak
-    memory after ``init`` and after serving. Returns the launches at the
-    phase-11 kernel shapes. ``cfg`` and ``device`` replace the config and
-    the card for a rehearsal on the CPU (no timing, no memory)."""
+def serve_bf16(card, arch, layers=None, cfg=None, device="cuda"):
+    """bf16 at full width (``layers``: depth cut): ``arch`` served on the
+    paged layout (8 rows, ``max_seq`` 2048) through
+    ``ServingEngine.serve()`` (``serving_requests``), plain and, for the
+    families that speculate, with K = 4 n-gram speculation (an int8 pool's
+    with ``chunk_size`` 256 and a shared 512-token prefix), each served
+    once to capture, then primed under telemetry (which arms the
+    scheduler's count of captures): the primed run captures nothing
+    (``engine.retraces`` 0) and its launches are exact: a decode or verify
+    step the paged kernel once a layer (int8 mode for an int8 pool, no
+    float-pool launch), a prefill flash once a layer, a chunk the paged
+    kernel once a layer and no flash. Then the decode-step and prefill
+    walls against device time, and the peak memory after ``init`` and
+    after serving. Returns the launches at the phase kernel shapes.
+    ``cfg`` and ``device`` replace the config and the card for a rehearsal
+    on the CPU (no timing, no memory)."""
     from repro_torch.configs import get_config
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import SPEC_FAMILIES, Model
     from repro_torch.serve import ServingEngine, SpecConfig, Telemetry
 
     cfg = cfg or get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        arch = f"{arch} (depth {layers})"
     L, quant = cfg.num_layers, cfg.kv_quant
     gib = 2.0**30
     on_card = device == "cuda"
@@ -3120,20 +3481,22 @@ def phase11_serving(card, arch, cfg=None, device="cuda"):
         spec_kw["chunk_size"] = CHUNK
     modes = (("plain", {}, False), (f"K={SPEC_K}" + (f" chunk {CHUNK} shared prefix" if quant
                                                       else ""), spec_kw, quant))
+    if cfg.family not in SPEC_FAMILIES:
+        modes = modes[:1]
     shape = {"decode": 0, "verify": 0, "chunk": 0, "flash": 0}
     key_paged = "paged_int8" if quant else "paged"
     for label, kw, shared in modes:
         t0 = time.perf_counter()
         if "chunk_size" in kw:
             engine.scheduler(8, **kw).prime()
-        engine.serve(p11_requests(cfg, shared), **kw)  # the captures
+        engine.serve(serving_requests(cfg, shared), **kw)  # the captures
         if on_card:
             torch.cuda.synchronize()
         warm = time.perf_counter() - t0
         caps = compiled(engine)
         watch.calls.clear()
         reset_launches()
-        reqs = p11_requests(cfg, shared)
+        reqs = serving_requests(cfg, shared)
         out = engine.serve(reqs, telemetry=Telemetry(enabled=True), **kw)
         n = read_launches()
         tag = f"{arch} bf16 paged {label}, 8 rows"
@@ -3183,7 +3546,7 @@ def phase11_serving(card, arch, cfg=None, device="cuda"):
     del engine, watch, model
     gc.collect()
     torch.cuda.empty_cache()
-    split_model, kv, decode = time_split(params, card, arch)
+    split_model, kv, decode = time_split(params, card, arch, cfg)
     del split_model, kv, decode, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3206,7 +3569,7 @@ def phase11(card):
         torch.cuda.empty_cache()
     launches = {}
     for arch, _ in P11:
-        shape = phase11_serving(card, arch)
+        shape = serve_bf16(card, arch)
         name = arch.split("-")[0]
         if arch == "stablelm-3b":
             launches.update(p11_int8=shape["decode"], p11_int8_verify=shape["verify"],
@@ -3218,10 +3581,171 @@ def phase11(card):
     return rows, launches, entry
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the MoE, vlm and audio families
+
+# (arch, depth cut, layouts, runs, shared-prefix pair) of the float32 parity;
+# dbrx-132b at depth 2: its float32 copy is ~526 GB at full depth
+P12_PARITY = (("granite-moe-1b-a400m", None, ("slot", "paged"), (("plain", {}),), False),
+              ("internvl2-2b", None, ("paged",), (("plain", {}), (f"K={SPEC_K}", {"spec": SPEC_K})),
+               False),
+              ("musicgen-large", None, ("paged",), ((f"chunk {CHUNK}", {"chunk_size": CHUNK}),),
+               True),
+              ("dbrx-132b", 2, ("paged",), (("plain", {}),), False))
+# (arch, depth cut) of the bf16 serving; dbrx-132b (131.6 B parameters, 263
+# GB in bf16) at depth 4: 14.3 B, 28.6 GB
+P12_SERVE = (("granite-moe-1b-a400m", None), ("internvl2-2b", None), ("musicgen-large", None),
+             ("dbrx-132b", 4))
+
+
+def phase12_kernels(card):
+    """The paged kernel and flash at the shapes the four configs give
+    them, float32 and bf16, each against its plain version: float pools
+    at g = 2 (granite-moe-1b-a400m's H 16 over KV 8 at hd 64, T = 1;
+    internvl2-2b's at hd 128, T = 1 and T = 5, each verify query bitwise a
+    decode); the int8 mode on musicgen-large's pool (H = KV = 32, hd 64,
+    BS 16) at T = 1, T = 5 (bitwise) and a 256-query chunk over a 256-key
+    identity view (at 768, 0 and 1792); causal flash at each config's
+    serving prefill (B = 1, S = 1024: internvl2's 256 patch rows and 768
+    tokens). dbrx-132b's heads (48 over 8, hd 128) are internlm2-20b's,
+    phase 11's rows. Returns the JSON rows (bf16)."""
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [
+            ("p12_granite", "granite-moe-1b-a400m pool B=8 T=1 H=16 KV=8 hd=64 BS=16 MB=128", 1,
+             lambda: paged_case(dtype, 1, H=16, KV=8, hd=64)),
+            ("p12_internvl2", "internvl2-2b pool B=8 T=1 H=16 KV=8 hd=128 BS=16 MB=128", 1,
+             lambda: paged_case(dtype, 1, H=16, KV=8, hd=128)),
+            ("p12_internvl2_verify", "internvl2-2b pool B=8 T=5 H=16 KV=8 hd=128 BS=16 MB=128", 5,
+             lambda: paged_case(dtype, 5, H=16, KV=8, hd=128)),
+            ("p12_int8", "musicgen-large int8 pool B=8 T=1 H=32 KV=32 hd=64 BS=16 MB=128", 1,
+             lambda: paged_case(dtype, 1, H=32, KV=32, hd=64, int8=True)),
+            ("p12_int8_verify", "musicgen-large int8 pool B=8 T=5 H=32 KV=32 hd=64 BS=16 MB=128",
+             5, lambda: paged_case(dtype, 5, H=32, KV=32, hd=64, int8=True)),
+            ("p12_int8_chunk", "musicgen-large int8 chunk view B=1 T=256 H=32 KV=32 hd=64 "
+             "BS=256 MB=8 (lengths 768; 0; 1792)", 256,
+             lambda: slot_case(dtype, B=1, T=256, H=32, KV=32, hd=64, lengths=[768], int8=True))]
+        for key, label, T, case in cases:
+            paged_row(key, label, T, case(), dtype, rows)
+        for name, arch, (H, KV, hd) in (("granite", "granite-moe-1b-a400m", (16, 8, 64)),
+                                        ("musicgen", "musicgen-large", (32, 32, 64)),
+                                        ("internvl2", "internvl2-2b", (16, 8, 128))):
+            flash_prefill_row(f"p12_flash_{name}", arch, H, KV, hd, dtype, rows)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def moe_plain(x, params, gates, idx, keep):
+    """The MoE layer without its dispatch buffers: every expert's FFN on
+    every token, then each token's kept choices gate-weighted (``keep``
+    [T*k]: the dispatch's kept assignments)."""
+    import torch.nn.functional as F
+
+    T, k = idx.shape
+    E = params["we1"].shape[0]
+    xe = x[None].expand(E, T, x.shape[1])
+    y = torch.bmm(F.silu(torch.bmm(xe, params["we1"])) * torch.bmm(xe, params["we3"]),
+                  params["we2"])  # [E, T, D]
+    w = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+    w.scatter_(1, idx, gates * keep.view(T, k))
+    return torch.einsum("etd,te->td", y, w.to(y.dtype))
+
+
+def phase12_moe(card):
+    """``moe_block`` on the card at granite-moe-1b-a400m's and dbrx-132b's
+    widths (seeded random layer, seeded inputs), T = 8 (a decode step of 8
+    rows) and T = 1024 (a prefill): the bf16 layer's output no further from
+    the float32 layer's (same weights and inputs, upcast; the same routing,
+    required) than ``E2E_BF16_RATIO`` times the bf16 plain version's
+    (``moe_plain``), then its capacity, dropped share and device time by
+    part (route, dispatch, expert products, combine) beside the whole
+    layer, the plain version and the bound (the kept assignments' FFN and
+    the used experts' weights)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    for arch in ("granite-moe-1b-a400m", "dbrx-132b"):
+        cfg = get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        p = moe.init_moe(cfg, torch.bfloat16, gen)
+        p32 = {name: leaf.float() for name, leaf in p.items()}
+        E, k, D, F = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff
+        for T in (8, 1024):
+            x = torch.randn((T, D), generator=gen, device="cuda").bfloat16()
+            C = moe.moe_capacity(T, cfg)
+            y = moe.moe_block(x[None], p, cfg)[0][0]
+            y32 = moe.moe_block(x.float()[None], p32, cfg)[0][0]
+            gates, idx, _ = moe._route(x, p["router"], k)
+            require(torch.equal(idx, moe._route(x.float(), p32["router"], k)[1]),
+                    f"{arch} T={T}: bf16 and float32 layers routed apart")
+            buf, lin, gf = moe._dispatch_local(x, gates, idx, E, C)
+            keep = lin < E * C
+            plain = moe_plain(x, p, gates, idx, keep)
+            d_k, d_p = ((a.float() - y32).norm().item() / y32.norm().item() for a in (y, plain))
+            require(torch.isfinite(y).all() and d_k <= E2E_BF16_RATIO * d_p,
+                    f"{arch} T={T}: bf16 moe_block {d_k:.3e} from float32, the plain version "
+                    f"{d_p:.3e} (limit {E2E_BF16_RATIO:g}x)")
+            ye = moe._expert_ffn(buf, p["we1"], p["we3"], p["we2"])
+            parts = {
+                "route": cuda_ms(lambda: moe._route(x, p["router"], k)),
+                "dispatch": cuda_ms(lambda: moe._dispatch_local(x, gates, idx, E, C)),
+                "expert products": cuda_ms(lambda: moe._expert_ffn(buf, p["we1"], p["we3"],
+                                                                   p["we2"])),
+                "combine": cuda_ms(lambda: moe._combine_local(ye, lin, gf, T, k)),
+            }
+            whole = cuda_ms(lambda: moe.moe_block(x[None], p, cfg))
+            plain_ms = cuda_ms(lambda: moe_plain(x, p, gates, idx, keep), iters=5)
+            n_kept = int(keep.sum())
+            used = int(torch.unique(idx.reshape(-1)[keep]).numel())
+            nbytes = used * 3 * D * F * 2 + D * E * 4 + 2 * T * D * 2
+            bms, by = bound(nbytes, 2 * n_kept * 3 * D * F + 2 * T * D * E, torch.bfloat16)
+            log(f"moe[{arch} T={T}] bf16 on {card}: capacity {C} slots an expert ({E} experts, top "
+                f"{k}), dropped share {1 - n_kept / keep.numel():.4f} ({keep.numel() - n_kept} "
+                f"of {keep.numel()}), {used} experts used; ||y - float32|| / ||float32|| "
+                f"{d_k:.3e}, plain {d_p:.3e} (<= {E2E_BF16_RATIO:g}x); device ms by part: "
+                + ", ".join(f"{name} {fmt_ms(t)}" for name, t in parts.items())
+                + f"; moe_block {fmt_ms(whole)}, plain {fmt_ms(plain_ms)}, bound {bms:.5f} "
+                f"({by})")
+            del x, y, y32, buf, ye, plain
+        del p, p32
+        torch.cuda.empty_cache()
+
+
+def phase12(card):
+    """Phase 12: the paged kernel and flash at the four configs' shapes;
+    the MoE layer at granite's and dbrx's widths; float32 kernel-against-
+    plain parity and bf16 against float32 (dbrx at depth 2); each config
+    served in bf16 at full width (dbrx at depth 4)."""
+    rows = phase12_kernels(card)
+    phase12_moe(card)
+    for arch, layers, layouts, runs, shared in P12_PARITY:
+        parity_serve_f32(card, arch, layers, layouts, runs, shared)
+        gc.collect()
+        torch.cuda.empty_cache()
+        parity_bf16(arch, layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {}
+    for arch, layers in P12_SERVE:
+        shape = serve_bf16(card, arch, layers)
+        name = arch.split("-")[0]
+        if arch == "musicgen-large":
+            launches.update(p12_int8=shape["decode"], p12_int8_verify=shape["verify"],
+                            p12_int8_chunk=shape["chunk"])
+        elif arch == "internvl2-2b":
+            launches.update(p12_internvl2=shape["decode"], p12_internvl2_verify=shape["verify"])
+        elif arch == "granite-moe-1b-a400m":
+            launches["p12_granite"] = shape["decode"]
+        if arch != "dbrx-132b":
+            launches[f"p12_flash_{name}"] = shape["flash"]
+    require(all(launches.values()), f"phase 12: a kernel shape was never launched: {launches}")
+    return rows, launches
+
+
 def main(argv=()) -> int:
     """Every phase with no arguments (the smoke run); ``--phases 3,11``
     runs the build and the listed phases only (3: kernels, 4: entry
-    points, 5-6: serving and parity, 7: adviser, 8, 9, 10, 11), for a short
+    points, 5-6: serving and parity, 7: adviser, 8, 9, 10, 11, 12), for a short
     development call, and prints the rows those phases made."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3246,14 +3770,14 @@ def main(argv=()) -> int:
     def phase_done(name):
         log(f"phase {name} done at {time.perf_counter() - start:.1f} s")
 
-    phases = set(range(3, 12))
+    phases = set(range(3, 13))
     if len(argv) == 2 and argv[0] == "--phases":
         phases = {int(p) for p in argv[1].split(",")}
     elif argv:
         print("usage: chip_smoke.py [--phases 3,11]", file=sys.stderr)
         return 2
     rows, entry, launches = {}, {}, {}
-    phase8_launches = phase9_launches = p11_launches = {}
+    phase8_launches = phase9_launches = p11_launches = p12_launches = {}
     p11_entry = 0
     if 3 in phases:
         rows.update(check_kernels())
@@ -3307,6 +3831,10 @@ def main(argv=()) -> int:
         p11_rows, p11_launches, p11_entry = phase11(card)
         rows.update(p11_rows)
         phase_done("11")
+    if 12 in phases:
+        p12_rows, p12_launches = phase12(card)
+        rows.update(p12_rows)
+        phase_done("12")
 
     bf16, f32 = torch.bfloat16, torch.float32
     table = []
@@ -3363,8 +3891,30 @@ def main(argv=()) -> int:
             ("p11_flash_internlm2", bf16, "flash_attention[internlm2-20b prefill S=1024 hd=128]",
              FLASH_SRC, FLASH_TPU),
             ("p11_flash_noncausal", bf16, "flash_attention[non-causal B=2 S=512 hd=128]",
-             FLASH_SRC, NONCAUSAL_TPU)):
-        everything = phases == set(range(3, 12))
+             FLASH_SRC, NONCAUSAL_TPU),
+            # phase 12's shapes: launches from its bf16 serving runs at each shape
+            ("p12_granite", bf16, "paged_decode_attention[granite-moe-1b-a400m pool T=1 g=2 hd=64]",
+             PAGED_SRC, PAGED_TPU),
+            ("p12_internvl2", bf16, "paged_decode_attention[internvl2-2b pool T=1 g=2 hd=128]",
+             PAGED_SRC, PAGED_TPU),
+            ("p12_internvl2_verify", bf16,
+             "paged_decode_attention[internvl2-2b pool verify T=5 g=2 hd=128]", PAGED_SRC,
+             PAGED_TPU),
+            ("p12_int8", bf16, "paged_decode_attention[int8 musicgen-large pool T=1 hd=64]",
+             PAGED_SRC, PAGED_INT8_TPU),
+            ("p12_int8_verify", bf16,
+             "paged_decode_attention[int8 musicgen-large pool verify T=5 hd=64]", PAGED_SRC,
+             PAGED_INT8_TPU),
+            ("p12_int8_chunk", bf16, "paged_decode_attention[int8 musicgen-large chunk T=256]",
+             PAGED_SRC, PAGED_INT8_TPU),
+            ("p12_flash_granite", bf16,
+             "flash_attention[granite-moe-1b-a400m prefill S=1024 g=2 hd=64]", FLASH_SRC,
+             FLASH_TPU),
+            ("p12_flash_musicgen", bf16, "flash_attention[musicgen-large prefill S=1024 hd=64]",
+             FLASH_SRC, FLASH_TPU),
+            ("p12_flash_internvl2", bf16,
+             "flash_attention[internvl2-2b prefill S=256+768 g=2 hd=128]", FLASH_SRC, FLASH_TPU)):
+        everything = phases == set(range(3, 13))
         if (key, dtype) not in rows:
             require(not everything, f"no row for {key}")
             continue
@@ -3385,6 +3935,8 @@ def main(argv=()) -> int:
             count = {"launches": p11_entry, "serving_launches": 0}
         elif key.startswith("p11_"):
             count = {"launches": p11_launches.get(key)}
+        elif key.startswith("p12_"):
+            count = {"launches": p12_launches.get(key)}
         else:
             count = {"launches": launches.get(key)}
         require(not everything or count.get("launches", r.get("launches")) is not None,

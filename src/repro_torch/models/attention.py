@@ -299,9 +299,29 @@ def dequantize_kv(q, scale, dtype):
 # full block
 
 
+def _dead_rows_own_view(out, q, k, v, cache_len, codes):
+    """A paged step's dead rows (length 0, every table entry the null
+    block) attending only the T tokens they write, as each row's private
+    dense view does on the JAX package's reference route (its
+    ``decode_step_paged`` gathers one a row): over the pool their writes
+    collide in the null block, and which lands is not determined.
+    ``codes``: an int8 pool's (k, k_scale, v, v_scale) of the new rows,
+    which the view reads dequantized as the pool holds them. At T = 1 the
+    view's one key takes softmax weight exactly 1, so its answer is v
+    itself (bitwise the plain attention's)."""
+    if codes is not None:
+        kq, ks, vq, vs = codes
+        k, v = dequantize_kv(kq, ks, q.dtype), dequantize_kv(vq, vs, q.dtype)
+    if q.shape[1] == 1:
+        own = _repeat_kv(v, q.shape[2] // v.shape[2]).to(q.dtype)
+    else:
+        own = gqa_attention(q, k, v, backend="reference")
+    return torch.where((cache_len == 0)[:, None, None, None], own, out)
+
+
 def attention_block(
     params, x, *, cfg, positions=None, cache=None, cache_len=None,
-    prefix_kv=None, backend=None,
+    prefix_kv=None, backend=None, dead_rows_own_view=False,
 ):
     """Pre-norm'd GQA attention. Returns (out, new_kv).
 
@@ -316,7 +336,10 @@ def attention_block(
     Paged decode: cache = {k, v, tables, li} with pool leaves
     [L,NB,BS,KV,hd] (and ``k_scale``/``v_scale`` [L,NB,BS,KV] for an int8
     pool); new tokens go to each row's tail block (quantized, for int8)
-    and attention walks the tables; ``new_kv`` is the leaves written."""
+    and attention walks the tables; ``new_kv`` is the leaves written.
+    ``dead_rows_own_view``: dead rows (length 0) answer from their own new
+    tokens alone (``_dead_rows_own_view``), for a caller whose next layer
+    reads their output."""
     B, S, D = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
@@ -344,9 +367,10 @@ def attention_block(
         bs = cache["k"].shape[2]
         bid, off = block_write_positions(tables, cache_len, k.shape[1], bs)
         quant = "k_scale" in cache
+        codes = None
         if quant:
-            (kq, ksc), (vq, vsc) = quantize_kv(k), quantize_kv(v)
-            writes = (("k", kq), ("k_scale", ksc), ("v", vq), ("v_scale", vsc))
+            codes = quantize_kv(k) + quantize_kv(v)
+            writes = tuple(zip(("k", "k_scale", "v", "v_scale"), codes))
         else:
             writes = (("k", k), ("v", v))
         for name, val in writes:
@@ -357,6 +381,8 @@ def attention_block(
             v_scale=cache["v_scale"][li] if quant else None,
             backend=backend,
         )
+        if dead_rows_own_view:
+            out = _dead_rows_own_view(out, q, k, v, cache_len, codes)
         new_kv = tuple(cache[name] for name, _ in writes)
     else:
         k_all, v_all, ks_all, vs_all, li = cache

@@ -1,28 +1,34 @@
-"""The dense decoder, the SSM stack and the hybrid: init, forward,
-prefill and the decode steps.
+"""The decoder families: init, forward, prefill and the decode steps.
 
-Port of the JAX package's ``models/model.py`` for families ``"dense"``,
-``"ssm"`` and ``"hybrid"``. Parameters are a plain dict of tensors in the
-JAX package's layouts, layer-stacked along a leading [L] axis (``wq
-[L,D,H,hd]``, ``wo [L,H,hd,D]``, ``w1 [L,D,F]``, ``ssm/wx [L,D,Di]``, …);
-the hybrid's one shared attention block (``params["shared"]``) has no
-layer axis. ``params_from_reference`` turns the JAX package's parameter
-pytree, given as numpy arrays, into them. The layer stack is a Python
-loop (PyTorch runs eagerly: there is no trace to keep compact). The SSM
-family and the hybrid serve on the slot layout only: their decode cache
-holds a recurrent state per layer (``ssm_state``), with no sequence axis
-to page. The hybrid (Zamba2) runs G = L / ``attn_every`` groups of
-``attn_every`` SSM layers, each group followed by the shared attention
-block and its SwiGLU MLP with a KV cache of its own (one per site).
-``kv_quant`` stores the KV cache (slot cache or paged pool) in int8 with
-bfloat16 per-vector scales. ``verify_step`` and ``verify_step_paged`` run a
-speculative verify (T = K+1 tokens a row, one forward);
-``prefill_chunk`` is a verify over a batch-1 dense cache that commits
-only a chunk's real tokens, and ``seed_cache_with_prefix`` starts such a
-cache from a prefix-cache hit. ``jit_step`` compiles a step with its
-backend bound (``step_graph.StepGraph``: a CUDA graph a key on the card,
-where the reference has ``jax.jit``). The other families (MoE, vlm,
-audio) wait for ROADMAP §1 item 10b.
+Port of the JAX package's ``models/model.py`` for every family it
+registers: the dense decoder, the MoE (``"moe"``: each layer's MLP a
+top-k routed expert MLP, ``models/moe.py``), the VLM (``"vlm"``: projected
+patch embeddings prepended to the token embeddings, ``patch_proj``), the
+audio decoder (``"audio"``: a dense decoder over codec tokens), the SSM
+stack and the hybrid. Parameters are a plain dict of tensors in the JAX
+package's layouts, layer-stacked along a leading [L] axis (``wq
+[L,D,H,hd]``, ``wo [L,H,hd,D]``, ``w1 [L,D,F]``, ``moe/we1 [L,E,D,F]``,
+``ssm/wx [L,D,Di]``, …); the hybrid's one shared attention block
+(``params["shared"]``) has no layer axis. ``params_from_reference`` turns
+the JAX package's parameter pytree, given as numpy arrays, into them. The
+layer stack is a Python loop (PyTorch runs eagerly: there is no trace to
+keep compact). The SSM family and the hybrid serve on the slot layout
+only: their decode cache holds a recurrent state per layer
+(``ssm_state``), with no sequence axis to page. The hybrid (Zamba2) runs
+G = L / ``attn_every`` groups of ``attn_every`` SSM layers, each group
+followed by the shared attention block and its SwiGLU MLP with a KV cache
+of its own (one per site). A VLM prompt's patch rows lead its tokens in
+the cache: its length counts them. ``kv_quant`` stores the KV cache (slot
+cache or paged pool) in int8 with bfloat16 per-vector scales.
+``verify_step`` and ``verify_step_paged`` run a speculative verify (T =
+K+1 tokens a row, one forward); ``prefill_chunk`` is a verify over a
+batch-1 dense cache that commits only a chunk's real tokens, and
+``seed_cache_with_prefix`` starts such a cache from a prefix-cache hit.
+The family sets below say which family each of them serves, as the
+reference's do. ``jit_step`` compiles a step with its backend bound
+(``step_graph.StepGraph``: a CUDA graph a key on the card, where the
+reference has ``jax.jit``). Serving drops the MoE's aux loss, as the
+reference's serving steps do.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import step_graph
 from repro_torch.models.layers import embed_tokens, rms_norm, swiglu
@@ -65,7 +72,8 @@ PAD_PREFILL_FAMILIES = ("dense", "audio", "vlm")
 # attends over a prefix hit; VLM patch rows do not chunk).
 CHUNKED_PREFILL_FAMILIES = ("dense", "audio")
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+# leaves kept float32 whatever the model dtype, as the JAX package keeps them
+FLOAT32_PARAMS = ssm_mod.FLOAT32_PARAMS + moe_mod.FLOAT32_PARAMS
 
 
 def prefill_bucket(n: int, cap: Optional[int] = None) -> int:
@@ -94,11 +102,6 @@ class Model:
     ``device`` defaults to CUDA and raises when none is present."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP §1 item 10b); "
-                f"the port serves {PORTED_FAMILIES}"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -130,10 +133,11 @@ class Model:
             "final_norm": ones(D),
         }
 
-        def attn_block(lead):
-            """An attention layer and its SwiGLU MLP, each leaf with the
-            leading dims ``lead`` (``(L,)`` stacked, ``()`` shared)."""
-            return {
+        def attn_block(lead, moe=False):
+            """An attention layer and its SwiGLU MLP (``moe``: its routed
+            expert MLP), each leaf with the leading dims ``lead`` (``(L,)``
+            stacked, ``()`` shared)."""
+            block = {
                 "attn": {
                     "wq": normal(lead + (D, H, hd), D**-0.5),
                     "wk": normal(lead + (D, KV, hd), D**-0.5),
@@ -142,12 +146,16 @@ class Model:
                 },
                 "attn_norm": ones(*lead, D),
                 "mlp_norm": ones(*lead, D),
-                "mlp": {
+            }
+            if moe:
+                block["moe"] = moe_mod.init_moe(cfg, dt, gen, lead=lead)
+            else:
+                block["mlp"] = {
                     "w1": normal(lead + (D, F), D**-0.5),
                     "w3": normal(lead + (D, F), D**-0.5),
                     "w2": normal(lead + (F, D), F**-0.5),
-                },
-            }
+                }
+            return block
 
         if cfg.family in ("ssm", "hybrid"):
             params["layers"] = {
@@ -155,22 +163,25 @@ class Model:
                 "norm": ones(L, D),
             }
         else:
-            params["layers"] = attn_block((L,))
+            params["layers"] = attn_block((L,), moe=cfg.family == "moe")
         if cfg.family == "hybrid":
             params["shared"] = attn_block(())
         if not cfg.tie_embeddings:
             params["lm_head"] = normal((D, V), D**-0.5)
+        if cfg.family == "vlm":
+            params["patch_proj"] = normal((D, D), D**-0.5)
         return params
 
     def params_from_reference(self, tree) -> dict:
         """The JAX package's parameter pytree (nested dicts of numpy
         arrays, e.g. ``jax.tree.map(np.asarray, params)``) as the port's
         parameters: same keys and layouts, on this model's device, in its
-        dtype except the SSM scalars (``ssm.FLOAT32_PARAMS``), which stay
-        float32 as the JAX package keeps them."""
+        dtype except the SSM scalars and the MoE router
+        (``FLOAT32_PARAMS``), which stay float32 as the JAX package keeps
+        them."""
 
         def leaf(name, arr):
-            dt = torch.float32 if name in ssm_mod.FLOAT32_PARAMS else self.dtype
+            dt = torch.float32 if name in FLOAT32_PARAMS else self.dtype
             arr = np.array(arr, dtype=np.float32)  # a writable copy
             return torch.from_numpy(arr).to(device=self.device, dtype=dt)
 
@@ -208,8 +219,11 @@ class Model:
         )
         x = x + h
         hin = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + swiglu(hin, lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])
-        return x, new_kv
+        if "moe" in lp:
+            h = moe_mod.moe_mlp(hin, lp["moe"], cfg)  # serving drops the aux loss
+        else:
+            h = swiglu(hin, lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])
+        return x + h, new_kv
 
     def _ssm_layer(self, x, lp, backend, state=None, want_state=False):
         cfg = self.cfg
@@ -228,14 +242,21 @@ class Model:
         G = self.cfg.num_layers // per
         return [[(i, views[i]) for i in range(gi * per, (gi + 1) * per)] for gi in range(G)]
 
-    def forward(self, params, tokens, *, backend=None):
-        """tokens [B,S] → (final-normed hidden [B,S,D], cache entries):
-        per layer (k, v) [B,S,KV,hd] for the dense family and the final
-        state dict for the SSM family; for the hybrid, the pair (per-site
-        (k, v) of the shared block, per-layer states). Prefill attention
+    def forward(self, params, tokens, *, patch_embeds=None, backend=None):
+        """tokens [B,S] → (final-normed hidden [B,S',D], cache entries):
+        per layer (k, v) [B,S',KV,hd] for the attention families and the
+        final state dict for the SSM family; for the hybrid, the pair
+        (per-site (k, v) of the shared block, per-layer states). The VLM
+        takes ``patch_embeds`` [B,P,D], projected by ``patch_proj`` and
+        prepended to the token embeddings: S' = P + S. Prefill attention
         runs on the unquantized k/v; only a cache stores them in int8."""
         backend = kernel_ops.resolve_attention_backend(backend, self.device)
         x = embed_tokens(params["embed"], self._tokens(tokens))
+        if self.cfg.family == "vlm":
+            if patch_embeds is None:
+                raise ValueError("a vlm prompt needs its patch_embeds [B, P, d_model]")
+            pe = torch.as_tensor(patch_embeds, device=self.device).to(x.dtype)
+            x = torch.cat([pe @ params["patch_proj"], x], dim=1)
         caches = []
         if self.cfg.family == "hybrid":
             kvs = []
@@ -369,12 +390,15 @@ class Model:
 
     # ------------------------------------------------------------------
     # prefill
-    def prefill(self, params, tokens, max_seq, prompt_len=None, *, backend=None, into=None):
+    def prefill(self, params, tokens, max_seq, prompt_len=None, *, patch_embeds=None,
+                backend=None, into=None):
         """Run the prompt: (next-token logits [B,V], filled cache).
         ``prompt_len`` [B] marks real lengths when ``tokens`` is
         right-padded to a ``prefill_bucket``: logits come from each row's
         last real token and ``len`` is the real length (pad keys sit after
-        every real query, so causal masking hides them). The SSM family
+        every real query, so causal masking hides them). A VLM's
+        ``patch_embeds`` [B,P,D] lead the tokens: the P patch rows offset
+        the logits index and count in ``len``. The SSM family
         takes no ``prompt_len``: its state would integrate the pads; its
         cache holds each layer's final state, and so does the hybrid's,
         beside its per-site KV. ``into``: a cache of B rows and ``max_seq``
@@ -388,16 +412,17 @@ class Model:
                 "integrates pad positions; MoE capacity depends on tokens-per-call)"
             )
         tokens = self._tokens(tokens)
-        x, caches = self.forward(params, tokens, backend=backend)
-        B, S = tokens.shape
+        x, caches = self.forward(params, tokens, patch_embeds=patch_embeds, backend=backend)
+        B, S = x.shape[0], x.shape[1]
         if prompt_len is None:
             lengths = torch.full((B,), S, dtype=torch.int32, device=self.device)
         else:
-            lengths = self._lengths(prompt_len)
+            n_lead = S - tokens.shape[1]  # VLM patch rows lead the tokens
+            lengths = self._lengths(prompt_len) + n_lead
         idx = lengths.long() - 1
         x_last = x[torch.arange(B, device=self.device), idx]
         logits = x_last @ self._head(params)
-        if cfg.family == "dense":
+        if cfg.family in ATTN_FAMILIES:
             return logits, self._fill_cache(B, max_seq, caches, lengths, into)
         if cfg.family == "ssm":
             cache = {"len": lengths} if into is None else {**into, "len": lengths}
@@ -422,8 +447,15 @@ class Model:
         post-RoPE KV rows. The suffix attends over prefix + suffix at
         ``q_offset = h``. Returns (logits [B,V], dense cache with the full
         prefix + suffix KV, len = h + Ssuf or h + ``suffix_len``), written
-        ``into`` a caller's cache as ``prefill`` does."""
+        ``into`` a caller's cache as ``prefill`` does. ``PREFIX_FAMILIES``
+        only: a MoE suffix routes with another capacity than the cold
+        prompt, and VLM patch rows are not token-addressable."""
         cfg = self.cfg
+        if cfg.family not in PREFIX_FAMILIES:
+            raise ValueError(
+                f"prefix prefill is only token-identical for {PREFIX_FAMILIES}, "
+                f"got {cfg.family!r} (MoE capacity routing / VLM patch rows diverge)"
+            )
         backend = kernel_ops.resolve_attention_backend(backend, self.device)
         tokens = self._tokens(tokens)
         B, Ssuf = tokens.shape
@@ -623,8 +655,12 @@ class Model:
         for li, lp in enumerate(self._layer_params(params)):
             cache = {name: pool[name] for name in self.kv_names}
             cache.update(tables=block_tables, li=li)
+            # a MoE layer routes the dead rows' tokens beside the live ones
+            # and they take capacity ahead of them: their attention must be
+            # the reference route's, not the null block's colliding writes
             x, _ = self._dense_layer(
-                x, lp, backend, positions=positions, cache=cache, cache_len=cache_len
+                x, lp, backend, positions=positions, cache=cache, cache_len=cache_len,
+                dead_rows_own_view=self.cfg.family == "moe",
             )
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return x @ self._head(params), pool

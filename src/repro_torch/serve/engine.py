@@ -348,15 +348,18 @@ class ServingEngine:
         return {"cells": cells, "ks": ks, "backends": names, "max_batch": mb,
                 "layout": layout}
 
-    def generate(self, prompts, n_steps: int, *, seed: int = 0) -> torch.Tensor:
+    def generate(self, prompts, n_steps: int, *, seed: int = 0, patch_embeds=None) -> torch.Tensor:
         """prompts [B, S0] → generated tokens [B, n_steps] (int32, CPU):
-        B requests all arriving at t=0 into a B-row pool."""
+        B requests all arriving at t=0 into a B-row pool; a VLM's
+        ``patch_embeds`` [B, P, D] go with them, row i to request i."""
         prompts = np.asarray(prompts.cpu() if torch.is_tensor(prompts) else prompts)
         B = int(prompts.shape[0])
         if n_steps <= 0:
             self.stats.reset()
             return torch.zeros((B, 0), dtype=torch.int32)
-        reqs = [Request(prompt=prompts[i], max_new_tokens=n_steps) for i in range(B)]
+        reqs = [Request(prompt=prompts[i], max_new_tokens=n_steps,
+                        patch_embeds=None if patch_embeds is None else patch_embeds[i])
+                for i in range(B)]
         out = self.scheduler(B, seed=seed).run(reqs)
         return torch.stack([torch.from_numpy(out[r.rid]) for r in reqs])
 

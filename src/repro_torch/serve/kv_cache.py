@@ -6,7 +6,9 @@ pool of ``max_batch`` decode-cache slots; ``PagedKVCache`` maps
 ``max_batch`` decode rows through per-row block tables into a pool of
 fixed-size blocks (attention families only: the model refuses to page
 an SSM state), with a prefix trie that lets prompts sharing a prefix
-alias the same immutable blocks. Pool tensors live on the model's device
+alias the same immutable blocks (``PREFIX_FAMILIES`` only: a MoE suffix
+routes with another capacity than its cold prompt, and VLM patch rows are
+not token-addressable). Pool tensors live on the model's device
 and are updated in place; block tables and lengths are host numpy, with
 device copies refreshed only when they change (``kernel_inputs``).
 Speculation rewinds both pools by the rejected tail (``truncate_row``,
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import dequantize_kv
+from repro_torch.models.model import PREFIX_FAMILIES
 from repro_torch.serve.block import BlockAllocator, PrefixCache
 
 
@@ -235,9 +238,11 @@ class PagedKVCache:
 
         key = ("paged", self.num_blocks + 1, self.block_size, dtype)
         self.pool = make() if storage is None else storage.take(key, self, make)
-        # the dense family's suffix prefill equals a cold prefill, so
-        # prompts sharing a prefix may alias its blocks
-        self.prefix = PrefixCache(self.block_size) if prefix_cache else None
+        # only PREFIX_FAMILIES' suffix prefill equals a cold prefill, so
+        # only their prompts may alias a shared prefix's blocks (the model's
+        # prefill_with_prefix refuses the others as well)
+        self.prefix = (PrefixCache(self.block_size)
+                       if prefix_cache and model.cfg.family in PREFIX_FAMILIES else None)
         # an optional telemetry MetricsRegistry: the allocator records its
         # alloc/share/park/evict counts, this layer the trie's lookups and
         # hit blocks; None (telemetry off) records nothing
@@ -316,17 +321,20 @@ class PagedKVCache:
             self._m_hit_blocks.inc(len(hits))
         return hits
 
-    def try_admit(self, rid: int, tokens, budget: int, register: bool = True):
+    def try_admit(self, rid: int, tokens, budget: int, n_tokens: Optional[int] = None,
+                  register: bool = True):
         """Admit ``rid`` into a free row if its block budget fits: returns
         (row, hit_ids) or None. Shared prefix blocks alias (refcount++),
         fresh prompt blocks are allocated now, the decode tail is only
-        reserved (claimed lazily by ``ensure_tail``). ``register=False``
+        reserved (claimed lazily by ``ensure_tail``). ``n_tokens``: the
+        cache rows the prefill fills, where they are more than ``tokens``
+        (a VLM prompt's patch rows). ``register=False``
         defers the trie registration to ``register_prompt`` (chunked
         prefill: the prompt blocks hold no KV yet, and a concurrent
         admission must not alias half-written blocks)."""
         if not self._row_free:
             return None
-        S = len(tokens)
+        S = len(tokens) if n_tokens is None else int(n_tokens)
         hit_ids = self.lookup(tokens)
         n_total = self.blocks_for(S + budget)
         n_prompt = self.blocks_for(S)

@@ -38,6 +38,7 @@ class Request:
     max_new_tokens: int
     arrival_time: float = 0.0  # seconds from run start (open-loop schedule)
     eos_id: Optional[int] = None  # early finish on this token
+    patch_embeds: Any = None  # [P, D] VLM frontend embeddings
     priority: int = 0  # higher = more important (strict-priority admission)
     rid: int = field(default_factory=lambda: next(_RID))
 

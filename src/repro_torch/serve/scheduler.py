@@ -6,7 +6,9 @@ Port of the JAX package's ``serve/scheduler.py``. Each ``step()``:
      ``priority`` first, then arrival, then rid): slotted admission
      prefills a wave of same-bucket prompts as one batched call
      (same-length prompts for the SSM family, whose state would integrate
-     pads) and writes each row into its slot; paged admission charges
+     pads, and the MoE, whose capacity counts them; a VLM's of one patch
+     shape, its patch rows ahead of its tokens) and writes each row into
+     its slot; paged admission charges
      blocks one request at a time and, on a prefix-cache hit, prefills
      only the un-cached suffix. The first token is sampled from the
      prefill logits (that instant is the TTFT). When the pool is dry and
@@ -497,8 +499,21 @@ class Scheduler:
         """Strict priority (higher first), then arrival, then rid."""
         return (-req.priority, req.arrival_time, req.rid)
 
+    @staticmethod
+    def _n_patches(req: Request) -> int:
+        """The cache rows a VLM request's patch embeddings fill ahead of its
+        tokens (0 without them)."""
+        return 0 if req.patch_embeds is None else int(np.shape(req.patch_embeds)[0])
+
     def submit(self, req: Request) -> None:
-        need = int(np.asarray(req.prompt).shape[0]) + req.max_new_tokens + self._spec_margin
+        need = (int(np.asarray(req.prompt).shape[0]) + self._n_patches(req)
+                + req.max_new_tokens + self._spec_margin)
+        if self.chunk_size is not None and req.patch_embeds is not None:
+            self.stats.rejected_submissions += 1
+            raise ValueError(
+                f"request {req.rid}: chunked prefill cannot split patch embeddings "
+                "(not token-addressable) — serve VLM requests with chunk_size=None"
+            )
         if need > self.max_seq:
             # past max_seq a cache write would land out of the row
             self.stats.rejected_submissions += 1
@@ -614,26 +629,38 @@ class Scheduler:
         lens = torch.as_tensor([len(p) for p in prompts], dtype=torch.int32)
         return torch.from_numpy(mat).to(self.device), lens
 
+    def _width(self, S: int, n_lead: int = 0) -> int:
+        """A prompt's prefill width: its pow2 bucket where pads cannot
+        change tokens and the bucket's rows (after ``n_lead`` patch rows)
+        fit the row, else its length."""
+        W = prefill_bucket(S) if self._bucket else S
+        return S if n_lead + W > self.max_seq else W
+
     def _admit(self, reqs: list, now: float) -> None:
         """Slotted admission of a wave: effective prompts of one pow2
-        bucket (of one length, without bucketing) prefill as ONE batched
-        call, each row then written into its own slot. Resumed requests
-        re-prefill prompt + committed tokens and continue their stream."""
+        bucket (of one length, without bucketing) and one patch shape
+        prefill as ONE batched call, each row then written into its own
+        slot. Resumed requests re-prefill prompt + committed tokens and
+        continue their stream."""
         for req in reqs:
             self._note_admitted(req, now)
-        groups: dict[int, list] = {}
+        groups: dict[tuple, list] = {}
         for req in reqs:
             eff = self._effective_prompt(req)
-            S = len(eff)
-            W = prefill_bucket(S) if self._bucket else S
-            groups.setdefault(S if W > self.max_seq else W, []).append((req, eff))
-        for W, group in groups.items():
+            pe = None if req.patch_embeds is None else tuple(np.shape(req.patch_embeds))
+            W = self._width(len(eff), self._n_patches(req))
+            groups.setdefault((W, pe), []).append((req, eff))
+        for (W, pe), group in groups.items():
             toks, lens = self._padded([eff for _, eff in group], W)
+            kw = {}
+            if pe is not None:
+                kw["patch_embeds"] = torch.stack(
+                    [torch.as_tensor(np.asarray(r.patch_embeds)) for r, _ in group])
             self.widths["prefill"][W] += 1
             with self.tel.annotate("serve.prefill"):
                 logits, cache = self._prefill(
                     self.params, toks, self.max_seq, prompt_len=lens if self._bucket else None,
-                    into=self._staging_rows(len(group)))
+                    into=self._staging_rows(len(group)), **kw)
             for i, (req, eff) in enumerate(group):
                 slot = self.kv.alloc(req.rid)
                 req.slot = slot
@@ -669,6 +696,10 @@ class Scheduler:
         blocks hold KV."""
         resume = bool(req.tokens)
         eff = self._effective_prompt(req)
+        # patch rows fill cache rows ahead of the tokens and are not
+        # token-addressable: no prefix matching for them
+        n_lead = self._n_patches(req)
+        tokens = () if n_lead else tuple(int(t) for t in eff)
         # the budget carries the speculative margin (a verify's rejected
         # tail occupies blocks past the final length for a moment); a
         # resume charges only the remaining budget, +1 for the pending
@@ -676,7 +707,7 @@ class Scheduler:
         budget = req.max_new_tokens + self._spec_margin
         if resume:
             budget -= len(req.tokens) - 1
-        got = self.kv.try_admit(req.rid, tuple(int(t) for t in eff), budget,
+        got = self.kv.try_admit(req.rid, tokens, budget, n_tokens=n_lead + len(eff),
                                 register=self.chunk_size is None)
         if got is None:
             return False
@@ -685,7 +716,7 @@ class Scheduler:
         req.slot = row
         hit = len(hit_ids) * self.kv.block_size
         if resume:
-            self.stats.recomputed_tokens += len(eff) - hit
+            self.stats.recomputed_tokens += n_lead + len(eff) - hit
         else:
             # the first admission's hit feeds the prompt-token hit rate
             req.prefix_hit = hit
@@ -699,8 +730,7 @@ class Scheduler:
             return True
         if hit:
             suffix = eff[hit:]
-            W = prefill_bucket(len(suffix))
-            W = len(suffix) if hit + W > self.max_seq else W
+            W = self._width(len(suffix), hit)
             toks, lens = self._padded([suffix], W)
             pk, pv = self.kv.gather_prefix(hit_ids)
             with self.tel.annotate("serve.prefill"):
@@ -708,12 +738,15 @@ class Scheduler:
                     self.params, toks, pk, pv, self.max_seq, suffix_len=lens,
                     into=self._staging_rows(1))
         else:
-            W = prefill_bucket(len(eff))
-            W = len(eff) if W > self.max_seq else W
+            kw = {}
+            if n_lead:
+                kw["patch_embeds"] = torch.as_tensor(np.asarray(req.patch_embeds))[None]
+            W = self._width(len(eff), n_lead)
             toks, lens = self._padded([eff], W)
             with self.tel.annotate("serve.prefill"):
-                logits, cache = self._prefill(self.params, toks, self.max_seq, prompt_len=lens,
-                                              into=self._staging_rows(1))
+                logits, cache = self._prefill(
+                    self.params, toks, self.max_seq, prompt_len=lens if self._bucket else None,
+                    into=self._staging_rows(1), **kw)
         self.widths["prefill"][W] += 1
         self.kv.write_prefill(row, cache, skip_blocks=len(hit_ids))
         self._arm(req, row, logits[0])
@@ -745,7 +778,7 @@ class Scheduler:
         gen = self._gens.pop(row, None)
         req.sample_state = None if gen is None else gen.get_state()
         committed = None
-        if self.kv_layout == "paged":
+        if self.kv_layout == "paged" and req.patch_embeds is None:
             committed = tuple(int(t) for t in self._effective_prompt(req))
         self.kv.preempt_row(row, committed)
         req.state = PREEMPTED

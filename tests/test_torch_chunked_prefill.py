@@ -285,12 +285,17 @@ def test_chunked_rejects_unsupported_family(pair):
 
 
 def test_chunked_patch_embeds_not_reachable(pair):
-    """The JAX scheduler refuses VLM patch embeddings under chunking; in the
-    port no request can carry them: the VLM family waits for ROADMAP §1
-    item 10, and ``Request`` has no ``patch_embeds``."""
-    cfg, _, _, _, _ = pair
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TModel(dataclasses.replace(tget("smollm-135m").reduced(), family="vlm"), device="cpu")
-    with pytest.raises(TypeError):
-        Request(prompt=np.arange(4), max_new_tokens=2,
-                patch_embeds=np.zeros((2, cfg.d_model), np.float32))
+    """VLM patch embeddings ride the monolithic path only, as in the JAX
+    scheduler: a chunked scheduler refuses (and counts) a ``Request``
+    carrying them with the reference's ``ValueError``, and a vlm model
+    refuses chunking outright."""
+    cfg, _, _, tm, tp = pair
+    eng = ServingEngine(tm, tp, max_seq=64, max_batch=2, device="cpu")
+    with pytest.raises(ValueError, match="chunked prefill cannot split patch embeddings"):
+        eng.scheduler(2, chunk_size=8).submit(
+            Request(prompt=np.arange(4), max_new_tokens=2,
+                    patch_embeds=np.zeros((2, cfg.d_model), np.float32)))
+    assert eng.stats.rejected_submissions == 1
+    vlm = TModel(tget("internvl2-2b").reduced(), device="cpu")
+    with pytest.raises(ValueError, match="chunked prefill"):
+        ServingEngine(vlm, vlm.init(0), max_seq=32, device="cpu").scheduler(2, chunk_size=8)

@@ -23,7 +23,9 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.kernels.relic_matmul, repro_torch.kernels.decode_attention\n"
         "import repro_torch.serve, repro_torch.configs, repro_torch.configs.zamba2_2p7b\n"
         "import repro_torch.configs.stablelm_3b, repro_torch.configs.phi3_medium_14b\n"
-        "import repro_torch.configs.internlm2_20b\n"
+        "import repro_torch.configs.internlm2_20b, repro_torch.configs.granite_moe_1b\n"
+        "import repro_torch.configs.internvl2_2b, repro_torch.configs.musicgen_large\n"
+        "import repro_torch.configs.dbrx_132b, repro_torch.models.moe\n"
         "import repro_torch.serve.speculative, repro_torch.serve.scheduler\n"
         "import repro_torch.serve.controller, repro_torch.serve.telemetry\n"
         "import repro_torch.serve.kv_cache, repro_torch.serve.load\n"

@@ -96,8 +96,9 @@ def test_sampling_is_seeded(pair):
 
 def test_out_of_slice_options_refuse(pair):
     """Sharded serving (ROADMAP §1 item 9) still refuses, naming its item;
-    speculation, chunked prefill, priorities and the online controller
-    serve (tests/test_torch_speculative.py, tests/test_torch_controller.py
+    every family builds and serves (a MoE model here: its tokens against
+    the JAX engine's are in tests/test_torch_families.py); speculation,
+    chunked prefill, priorities and the online controller serve (tests/test_torch_speculative.py, tests/test_torch_controller.py
     and the chunked and preemption files hold them to the JAX engine)."""
     from repro_torch.serve import PinnedController
     from repro_torch.serve.engine import _NOT_PORTED
@@ -113,8 +114,10 @@ def test_out_of_slice_options_refuse(pair):
     out = eng.serve([Request(prompt=np.arange(4), max_new_tokens=2, priority=1)], chunk_size=4)
     assert [len(t) for t in out.values()] == [2]
     base = tget("smollm-135m").reduced()
-    with pytest.raises(NotImplementedError, match="family"):
-        TModel(dataclasses.replace(base, family="moe"), device="cpu")
+    moe = TModel(tget("granite-moe-1b-a400m").reduced(), device="cpu")
+    out = ServingEngine(moe, moe.init(0), max_seq=32, max_batch=2, device="cpu").serve(
+        [Request(prompt=np.arange(5), max_new_tokens=3)])
+    assert [len(t) for t in out.values()] == [3]
     # int8 KV serves on both layouts: the paged pool has the JAX pool's leaves
     jpool = JModel(dataclasses.replace(jget("smollm-135m").reduced(), kv_quant=True)).init_paged_cache(4, 8)
     tpool = TModel(dataclasses.replace(base, kv_quant=True), device="cpu").init_paged_cache(4, 8)
