@@ -205,10 +205,39 @@ Phases, in order; any failure exits non-zero before the final line:
    prefix), captured then primed: no capture, exact launches, the peak
    memory, and the decode step and prefill eager and graphed. Each phase
    prints the time it ended at.
+13. sharded paged serving — first, in this process, the paged kernel on a
+   head split's rank: smollm-135m's (9 heads over 3, tp = 3) and
+   internlm2-20b's (48 over 8, tp = 4) pools at B = 8 and 32, T = 1 and 5,
+   float32 and bf16, every rank's launch over its local heads bitwise
+   equal to those heads of the single-device launch (the plan repair:
+   ``plan_kv_heads``), the local launch and the partials mode at
+   internlm2's seq-2 shard timed beside their bounds; then 6 gloo rank
+   processes (``launch/mesh.py::run_ranks``, a file store under
+   ``build/phase13``) share the card: which collectives gloo runs on CUDA
+   tensors; smollm-135m in float32 at full depth on tp = 3, seq = 2 and
+   (3, 2), internlm2-20b in float32 at depth 2 on tp = 2, tp = 4, seq = 2
+   and (2, 2) — one-step decode and verify logits against the single-device
+   kernel path (max |dlogit|, bitwise where it is; seq splits within 1e-4),
+   served streams equal but for ties (``count_ties``), the sharded decode
+   step's p50 wall against the graphed single-device one and its time
+   inside collectives; internlm2-20b in bf16 at depth 4 (plain and K = 4)
+   and stablelm-3b's int8 pool at full depth (K = 4, chunk 256 over a
+   shared 512-token prefix) on their meshes, each sharded decode within
+   ``E2E_BF16_RATIO`` of the bf16 plain path's distance from float32;
+   every serve's launches exact (a sharded decode or verify step one paged
+   launch a layer on a head split, one partials launch a layer on a seq
+   split; a chunk one paged launch a layer); granite-moe-1b-a400m's
+   ``moe_block`` on ("data", "model") = (2, 2), its three paths against
+   their references; each rank's peak memory, collective calls, time and
+   host staging. Phases 5–12 never call the partials mode.
 
 ``--phases 3,12`` runs the build and the listed phases only, for a short
 development call (5 runs phases 5 and 6 together); with no argument every
-phase runs.
+phase runs. To rehearse phase 13 on the CPU at ``.reduced()`` width (the
+kernel wrappers' plain versions counted as launches, head counts from
+``P13_REHEARSAL``; ~40 s on 6 processes), from a script guarded by
+``if __name__ == "__main__"``: ``chip_smoke.phase13("cpu", device="cpu",
+reduced=True)``.
 
 The two lines before the last are the JSON kernel table and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -283,8 +312,11 @@ GEMV_TPU = "src/repro/kernels/relic_matmul.py:106"
 DECODE_TPU = "src/repro/kernels/decode_attention.py:90"
 PARTIALS_TPU = "src/repro/kernels/paged_decode_attention.py:111"  # the partials flush
 NONCAUSAL_TPU = "src/repro/kernels/flash_attention.py:38"  # causal=False
-# the kernels and modes that only the entry points run (never serving)
-ENTRY_ONLY = ("relic_matmul", "relic_gemv", "decode", "partials", "flash_noncausal")
+# the kernels and modes that only the entry points run (never serving); the
+# partials mode serves on a kv-sequence split only (phase 13), so no phase
+# of one device launches it either (``SINGLE_DEVICE_IDLE``)
+ENTRY_ONLY = ("relic_matmul", "relic_gemv", "decode", "flash_noncausal")
+SINGLE_DEVICE_IDLE = ENTRY_ONLY + ("partials",)
 # the input ranges phase 3b holds (no model of the repo reaches them)
 WIDE = ("decode_wide", "paged_wide", "paged_int8_wide", "ssd_wide")
 # phase 8's kernel rows → its launch counts at their shapes
@@ -1467,7 +1499,8 @@ def serve_full_width(card):
         require(prefills > 0 and n["flash"] == L * prefills, "prefill did not run through the flash kernel")
         require(n["ssd"] == 0 and n["paged_int8"] == 0,
                 "a dense model with a float cache launched the SSD or int8 paged kernel")
-        require(not any(n[k] for k in ENTRY_ONLY), "serving launched an entry-point-only kernel")
+        require(not any(n[k] for k in SINGLE_DEVICE_IDLE),
+                "serving launched an entry-point-only kernel or the partials mode")
         require(not bool(watch.bad), "non-finite logits")
         require(s["n_requests"] == len(out) and all(len(t) > 0 for t in out.values()),
                 "not every request finished with tokens")
@@ -1508,7 +1541,8 @@ def serve_mamba2(card):
     require(decodes > 0, "no decode step ran")
     require(n["paged"] == n["paged_int8"] == n["flash"] == 0,
             "the SSM model launched an attention kernel")
-    require(not any(n[k] for k in ENTRY_ONLY), "serving launched an entry-point-only kernel")
+    require(not any(n[k] for k in SINGLE_DEVICE_IDLE),
+            "serving launched an entry-point-only kernel or the partials mode")
     require(not bool(watch.bad), "non-finite logits")
     require(s["n_requests"] == len(out) == 12 and all(len(t) > 0 for t in out.values()),
             "not every request finished with tokens")
@@ -1549,7 +1583,8 @@ def serve_zamba2(card):
     require(decodes > 0 and n["paged_int8"] == G * decodes,
             "decode did not run through the int8 paged kernel")
     require(n["paged"] == 0, "the int8 cache launched a float-pool paged kernel")
-    require(not any(n[k] for k in ENTRY_ONLY), "serving launched an entry-point-only kernel")
+    require(not any(n[k] for k in SINGLE_DEVICE_IDLE),
+            "serving launched an entry-point-only kernel or the partials mode")
     require(not bool(watch.bad), "non-finite logits")
     require(s["n_requests"] == len(out) == 12 and all(len(t) > 0 for t in out.values()),
             "not every request finished with tokens")
@@ -3742,11 +3777,658 @@ def phase12(card):
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: sharded paged serving over gloo ranks on one card
+
+P13_WORLD = 6  # the largest mesh: smollm's (model, seq) = (3, 2)
+P13_SMOLLM = (((3,), ("model",)), ((2,), ("seq",)), ((3, 2), ("model", "seq")))
+P13_INTERNLM2 = (((2,), ("model",)), ((4,), ("model",)), ((2,), ("seq",)),
+                 ((2, 2), ("model", "seq")))
+P13_STABLELM = (((2,), ("model",)), ((2,), ("seq",)))
+P13_MAX_SEQ = 1024
+P13_BS = 16  # block size of the sharded pools
+# each config's pool: a little over the blocks its 4 requests reserve, so
+# the allocator's ids reach every seq shard (a roomy pool's first shard
+# would hold every block)
+P13_POOL = {"smollm-135m": 80, "internlm2-20b": 160, "stablelm-3b": 224}
+P13_SEQ_ATOL = 1e-4  # a seq split's one-step float32 logits (assert_logits_close)
+# CPU rehearsal: head counts that divide the meshes at .reduced() width
+P13_REHEARSAL = {"smollm-135m": dict(n_heads=6, n_kv_heads=3),
+                 "internlm2-20b": dict(n_heads=8, n_kv_heads=4),
+                 "stablelm-3b": dict(n_heads=4, n_kv_heads=4)}
+_P13_STEPS = collections.Counter()  # sharded step calls by step name
+
+
+def _mesh_name(shape, names):
+    return "x".join(f"{n}{k}" for n, k in zip(names, shape))
+
+
+def p13_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def p13_barrier(mesh):
+    """Every rank of ``mesh`` waits for the others (a barrier along each
+    axis in turn)."""
+    import torch.distributed as dist
+
+    for a in mesh.mesh_dim_names:
+        dist.barrier(group=mesh.get_group(a))
+
+
+def p13_count_steps(sched):
+    """Count the scheduler's sharded step calls in ``_P13_STEPS``."""
+    for step in (sched._decode_paged, sched._verify_paged):
+        if step is None or getattr(step, "_p13", False):
+            continue
+        inner = step._eager
+
+        def eager(args, kwargs, inner=inner, name=step.name):
+            _P13_STEPS[name] += 1
+            return inner(args, kwargs)
+
+        step._eager, step._p13 = eager, True
+
+
+def p13_requests(cfg, n, lens, new, seed, prefix=0):
+    """``n`` seeded requests arriving at once, prompt lengths from ``lens``
+    (after a shared ``prefix`` of that many tokens)."""
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, cfg.vocab_size, size=(prefix,)).astype(np.int32)
+    return [Request(prompt=np.concatenate([head, rng.integers(0, cfg.vocab_size, size=(
+        int(rng.choice(lens)),)).astype(np.int32)]), max_new_tokens=new) for _ in range(n)]
+
+
+def p13_one_step(model, params, mesh, prompts, T, backend=None, max_seq=P13_MAX_SEQ):
+    """Logits [B, T, V] (float32, on the CPU) of one paged step at T
+    queries a row after the prompts' prefills: ``decode_step_paged`` (T = 1)
+    or ``verify_step_paged``, sharded over ``mesh`` (or single-device for
+    None), the prefills through ``backend``'s prefill (unsharded), each
+    rank writing its shard. The step's tokens are the prompts' last T."""
+    from repro_torch.serve.kv_cache import PagedKVCache
+
+    need = sum(-(-(len(p) + T + 1) // P13_BS) for p in prompts)  # just the blocks it takes
+    kv = PagedKVCache(model, len(prompts), max_seq, block_size=P13_BS, num_blocks=need,
+                      mesh=mesh, prefix_cache=False)
+    for i, p in enumerate(prompts):
+        require(kv.try_admit(i, p, budget=T + 1) is not None, "one-step: admission failed")
+        _, dense = model.prefill(params, torch.as_tensor(p[None]).long(), max_seq, backend=backend)
+        kv.write_prefill(i, dense)
+        kv.ensure_tail_n(i, T)
+    name = "decode_step_paged" if T == 1 else "verify_step_paged"
+    step = (model.jit_step(name, backend) if mesh is None
+            else model.sharded_paged_step(name, mesh, backend))
+    tok = torch.as_tensor(np.stack([p[-T:] for p in prompts])).long()
+    pool, tables, lens = kv.kernel_inputs()
+    logits, _ = step(params, pool, tables, lens, tok)
+    p13_sync(model.device)
+    used = kv.block_tables[np.arange(kv.blocks_per_row)[None] * P13_BS
+                           < (kv.cache_len + T)[:, None]]
+    by_shard = np.bincount(used // kv.local_blocks, minlength=kv.seq_shards).tolist()
+    return logits.float().reshape(len(prompts), T, -1).cpu(), (step, (params, pool, tables, lens,
+                                                                     tok), by_shard)
+
+
+def p13_wall(fn, dev, n=10):
+    """Median host wall (ms) of ``n`` synchronised calls."""
+    times = []
+    for _ in range(n):
+        p13_sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        p13_sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def p13_serve(eng, reqs, mb, *, spec=None, chunk=None, quant=False, sharded=True):
+    """One serve through ``eng.scheduler``; for a sharded engine, the
+    launches of the run checked against its step calls exactly: every
+    sharded decode or verify step one paged launch a layer on a head split
+    (the int8 mode for an int8 pool) or one partials launch a layer on a
+    seq split, every prefill chunk (unsharded) one paged launch a layer.
+    Returns (streams in admission order, launches, steps, chunks)."""
+    sched = eng.scheduler(mb, spec=spec, chunk_size=chunk)
+    if sharded:
+        p13_count_steps(sched)
+    _P13_STEPS.clear()
+    reset_launches()
+    out = sched.run(reqs)
+    p13_sync(eng.device)
+    n = read_launches()
+    streams = [np.asarray(out[r.rid]) for r in reqs]
+    require(all(len(s) == r.max_new_tokens for s, r in zip(streams, reqs)),
+            "a request did not finish with its tokens")
+    steps = sum(_P13_STEPS.values())
+    chunks = sum(sched.widths["chunk"].values())
+    if sharded:
+        L = eng.model.cfg.num_layers
+        seq = eng.mesh is not None and "seq" in eng.mesh.mesh_dim_names
+        key = "paged_int8" if quant else "paged"
+        want = {key: L * chunks + (0 if seq else L * steps), "partials": L * steps if seq else 0}
+        got = {k: n[k] for k in ("paged", "paged_int8", "partials")}
+        want = {k: want.get(k, 0) for k in got}
+        require(steps > 0 and got == want, f"sharded serve launched {got}, expected {want} "
+                f"({steps} sharded steps, {chunks} chunks, {L} layers)")
+    return streams, n, steps, chunks
+
+
+def p13_float32_parity(rank, arch, meshes, cfg, params, base_streams, reqs_fn, mb, label, dev):
+    """Float32 on each mesh: the one-step decode (T = 1) and verify (T = 5)
+    logits against the single-device kernel path's (max |dlogit| printed,
+    and whether bitwise; a seq split's held to 1e-4), the served streams
+    against the single-device ones (ties aside: ``count_ties``), the
+    launches exact, the sharded decode step's p50 wall against the
+    single-device one and the time inside collectives. Returns this rank's
+    partials launches a serve."""
+    from repro_torch.launch.mesh import in_mesh, make_test_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.parallel import collectives
+    from repro_torch.serve import ServingEngine
+    from repro_torch.serve.differential import assert_logits_close
+
+    partials = {}
+    if params is not None:  # this rank serves on some mesh of the run
+        model = Model(cfg, device=dev)
+        prompts = [np.asarray(r.prompt) for r in reqs_fn()][:4]
+    if rank == 0:
+        single = {T: p13_one_step(model, params, None, prompts, T) for T in (1, 5)}
+        t_single = p13_wall(lambda: single[1][1][0](*single[1][1][1]), dev)
+    pool_blocks = P13_POOL[arch]
+    for shape, names in meshes:
+        mesh = make_test_mesh(shape, names, device=dev)  # every rank makes the groups
+        if params is None or not in_mesh(mesh):
+            continue
+        mname = _mesh_name(shape, names)
+        gaps = {}
+        for T in (1, 5):
+            got, (step, args, by_shard) = p13_one_step(model, params, mesh, prompts, T)
+            require("seq" not in names or min(by_shard) > 0,
+                    f"{label} {mname}: a seq shard holds none of the rows' blocks: {by_shard}")
+            if rank == 0:
+                want = single[T][0]
+                gap = float((got - want).abs().max())
+                gaps[T] = f"{gap:.3e}" + (" (bitwise)" if torch.equal(got, want) else "")
+                if "seq" in names:
+                    assert_logits_close(want.numpy(), got.numpy(), atol=P13_SEQ_ATOL,
+                                        label=f"{label} {mname} T={T}")
+            if T == 1:
+                collectives.reset_stats()
+                t_sh = p13_wall(lambda: step(*args), dev)
+                coll = collectives.STATS["seconds"] * 1e3 / 10
+                staged = collectives.STATS["staged_calls"] / 10
+        eng = ServingEngine(model, params, max_seq=P13_MAX_SEQ, kv_layout="paged",
+                            block_size=P13_BS, num_blocks=pool_blocks, mesh=mesh, device=dev)
+        streams, n, steps, _ = p13_serve(eng, reqs_fn(), mb)
+        partials[mname] = n["partials"]
+        if rank == 0:
+            ties = count_ties(model, params, [r.prompt for r in reqs_fn()], base_streams, streams,
+                              f"{label} {mname}")
+            log(f"p13[{label} {mname}] float32: one-step max|dlogit| against the single-device "
+                f"kernel path (blocks by seq shard {by_shard}): decode {gaps[1]}, verify T=5 "
+                f"{gaps[5]}; streams equal but "
+                f"{ties} ties over {len(streams)} ({steps} sharded steps, launches {n['paged']} "
+                f"paged, {n['partials']} partials a rank); decode step p50 wall {t_sh:.2f} ms "
+                f"against {t_single:.2f} single-device (graphed), inside collectives "
+                f"{coll:.2f} ms a step ({staged:.0f} staged calls)")
+        del eng
+        p13_barrier(mesh)
+    return partials
+
+
+def p13_bf16_ref(model, params, prompts, dev):
+    """The bf16 plain path's and the float32 plain path's (same weights,
+    upcast) one-step decode logits, single-device, and the greedy tokens
+    the step fed: rank 0's yardstick for ``E2E_BF16_RATIO``."""
+    import dataclasses as dc
+
+    from repro_torch.models.model import Model
+
+    plain, _ = p13_one_step(model, params, None, prompts, 1, backend="reference")
+    f32 = Model(dc.replace(model.cfg, dtype="float32"), device=dev)
+    p32 = _upcast(params)
+    ref, _ = p13_one_step(f32, p32, None, prompts, 1, backend="reference")
+    del p32, f32
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    return plain, ref
+
+
+def p13_bf16(rank, arch, meshes, cfg, params, reqs_fn, mb, runs, label, dev, refs):
+    """bf16 on each mesh: the one-step decode logits through the sharded
+    kernel path no further from the float32 plain path than
+    ``E2E_BF16_RATIO`` times the bf16 plain path (per row, relative L2),
+    then ``runs`` served (launches exact, every request finished), the
+    streams' agreement with the single-device kernel path's printed.
+    Returns this rank's launches by (mesh, run)."""
+    from repro_torch.launch.mesh import in_mesh, make_test_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServingEngine
+
+    out = {}
+    if params is not None:
+        model = Model(cfg, device=dev)
+        prompts = [np.asarray(r.prompt) for r in reqs_fn()][:4]
+    if rank == 0:
+        base = ServingEngine(model, params, max_seq=P13_MAX_SEQ, kv_layout="paged",
+                             block_size=P13_BS, num_blocks=P13_POOL[arch], device=dev)
+        base_streams = {name: p13_serve(base, reqs_fn(), mb, sharded=False, **kw)[0]
+                        for name, kw in runs}
+        del base
+    for shape, names in meshes:
+        mesh = make_test_mesh(shape, names, device=dev)  # every rank makes the groups
+        if params is None or not in_mesh(mesh):
+            continue
+        mname = _mesh_name(shape, names)
+        got, (_, _, by_shard) = p13_one_step(model, params, mesh, prompts, 1)
+        require("seq" not in names or min(by_shard) > 0,
+                f"{label} {mname}: a seq shard holds none of the rows' blocks: {by_shard}")
+        if rank == 0:
+            plain, ref = refs
+            d_k = ((got[:, 0] - ref[:, 0]).norm(dim=-1) / ref[:, 0].norm(dim=-1)).tolist()
+            d_p = ((plain[:, 0] - ref[:, 0]).norm(dim=-1) / ref[:, 0].norm(dim=-1)).tolist()
+            # held on the card; a CPU rehearsal at .reduced() width only
+            # prints it (a 64-wide model's rows are too few for the ratio)
+            require(torch.isfinite(got).all() and (dev.type != "cuda" or all(
+                a <= E2E_BF16_RATIO * b for a, b in zip(d_k, d_p))),
+                f"{label} {mname}: bf16 sharded decode logits {d_k} from float32, the plain "
+                f"path {d_p} (limit {E2E_BF16_RATIO:g}x)")
+        eng = ServingEngine(model, params, max_seq=P13_MAX_SEQ, kv_layout="paged",
+                            block_size=P13_BS, num_blocks=P13_POOL[arch], mesh=mesh, device=dev)
+        for name, kw in runs:
+            streams, n, steps, chunks = p13_serve(eng, reqs_fn(), mb, quant=cfg.kv_quant, **kw)
+            out[(mname, name)] = n
+            if rank == 0:
+                same = sum(np.array_equal(a, b) for a, b in zip(streams, base_streams[name]))
+                log(f"p13[{label} {mname} {name}] bf16 (blocks by seq shard {by_shard}): decode "
+                    f"logits per row from float32 "
+                    f"{', '.join(f'{x:.3e}' for x in d_k)} (plain {', '.join(f'{x:.3e}' for x in d_p)}"
+                    f"; <= {E2E_BF16_RATIO:g}x); {len(streams)} requests finished, {same} streams "
+                    f"equal to the single-device kernel path's; {steps} sharded steps, {chunks} "
+                    f"chunks, launches a rank: paged {n['paged']}, int8 {n['paged_int8']}, "
+                    f"partials {n['partials']}, flash {n['flash']}")
+        del eng
+        p13_barrier(mesh)
+    return out
+
+
+def p13_moe(rank, dev, card):
+    """granite-moe-1b-a400m's ``moe_block`` at full width on a ("data",
+    "model") = (2, 2) mesh, float32: the dispatch path (T = 1024) against
+    ``_moe_reference`` on each token shard (the capacity a shard's tokens
+    get), the dense path and the legacy one (T = 8) against the dense
+    mixture, all within 2e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import in_mesh, make_test_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import ShardingRules
+
+    mesh = make_test_mesh((2, 2), ("data", "model"), device=dev)
+    if not in_mesh(mesh):
+        return
+    cfg = get_config("granite-moe-1b-a400m")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p = moe.init_moe(cfg, torch.float32, gen)
+    rules = ShardingRules(mesh, cfg)
+    errs = {}
+    x = torch.randn((1, 1024, cfg.d_model), generator=gen, device=dev)
+    y, _ = moe.moe_block(x, p, cfg, rules, path="dispatch")
+    want = torch.cat([moe._moe_reference(s, p, cfg)[0] for s in x[0].chunk(4)])
+    errs["dispatch"] = float((y[0] - want).abs().max())
+    xd = torch.randn((8, 1, cfg.d_model), generator=gen, device=dev)
+    gates, idx, _ = moe._route(xd[:, 0], p["router"], cfg.top_k)
+    gmat = torch.zeros((8, cfg.n_experts), device=dev).scatter_add(1, idx, gates)
+    h = torch.nn.functional.silu(torch.einsum("td,edf->etf", xd[:, 0], p["we1"]))
+    h = h * torch.einsum("td,edf->etf", xd[:, 0], p["we3"])
+    mix = torch.einsum("etd,te->td", torch.einsum("etf,efd->etd", h, p["we2"]), gmat)
+    errs["dense"] = float((moe.moe_block(xd, p, cfg, rules, path="dense")[0][:, 0] - mix).abs().max())
+    moe.LEGACY_DENSE = True
+    try:
+        errs["legacy"] = float((moe.moe_block(xd, p, cfg, rules, path="dense")[0][:, 0]
+                                - mix).abs().max())
+    finally:
+        moe.LEGACY_DENSE = False
+    scale = {"dispatch": float(want.abs().max()), "dense": float(mix.abs().max())}
+    scale["legacy"] = scale["dense"]
+    for k, e in errs.items():
+        require(e <= 2e-4 * (1 + scale[k]), f"moe[{k}] on (data, model) = (2, 2): max err {e}")
+    if rank == 0:
+        log(f"p13[granite-moe-1b-a400m moe_block (data, model) = (2, 2)] float32 on {card}: "
+            f"max |err| dispatch {errs['dispatch']:.3e} (T=1024, against _moe_reference a token "
+            f"shard), dense {errs['dense']:.3e} and legacy {errs['legacy']:.3e} (T=8, against "
+            f"the dense mixture); within 2e-4 (1 + max|ref|)")
+    p13_barrier(mesh)
+
+
+def p13_probe(rank, dev):
+    """Which collectives gloo runs on CUDA tensors itself (on a 2-rank
+    mesh): each op called on CUDA tensors, its result checked."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import in_mesh, make_test_mesh
+
+    mesh = make_test_mesh((2,), ("model",), device=dev)
+    if not in_mesh(mesh) or dev.type != "cuda":
+        return {}
+    g = mesh.get_group("model")
+    x = torch.full((4,), float(rank + 1), device=dev)
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=g),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0, group=g),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x,
+                                              group=g),
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x, group=g),
+    }
+    found = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            found[name] = "native"
+        except Exception as e:  # noqa: BLE001 - the probe reports what gloo refuses
+            found[name] = f"refused: {str(e).splitlines()[0][:120]}"
+        p13_barrier(mesh)
+    return found
+
+
+def p13_rank(rank, world, card, out, device="cuda", reduced=False):
+    """One rank of phase 13 (every rank runs it; a run whose mesh leaves a
+    rank out skips it there). ``device="cpu"`` with ``reduced`` rehearses
+    it at ``.reduced()`` width on the CPU: the kernel wrappers' plain
+    versions stand in, counted as launches."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import collectives
+    from repro_torch.serve import SpecConfig
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.kernels import _build
+
+        _build.library()  # the parent's build, loaded
+    else:
+        p13_rehearsal_patches()
+    t0 = time.perf_counter()
+    found = {"probe": p13_probe(rank, dev), "launches": {}, "peak_gb": None}
+    if rank == 0 and found["probe"]:
+        log(f"p13 gloo on CUDA tensors ({card}): " + json.dumps(found["probe"]) + "; the port "
+            f"hands gloo {sorted(collectives.GLOO_CUDA_NATIVE)} on CUDA tensors and stages the "
+            "others through host memory (collectives.GLOO_CUDA_NATIVE)")
+
+    def config(arch, **kw):
+        cfg = get_config(arch)
+        if reduced:
+            cfg = dc.replace(cfg.reduced(), **P13_REHEARSAL[arch])
+        return dc.replace(cfg, **kw)
+
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServingEngine
+
+    def free(section):
+        """Drop a section's tensors, print this rank's memory, and line the
+        ranks up (a rank no mesh of the next section holds waits here)."""
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            log(f"p13 rank {rank} after {section}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                f"allocated, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        dist.barrier()
+
+    def weights(cfg, meshes):
+        """The seeded weights on the ranks some mesh of the run holds."""
+        need = max(int(np.prod(shape)) for shape, _ in meshes)
+        return Model(cfg, device=dev).init(seed=2) if rank < need else None
+
+    def base_streams(arch, cfg, params, reqs):
+        """Rank 0's single-device kernel-path streams (graphed)."""
+        if rank != 0:
+            return None
+        eng = ServingEngine(Model(cfg, device=dev), params, max_seq=P13_MAX_SEQ,
+                            kv_layout="paged", block_size=P13_BS, num_blocks=P13_POOL[arch],
+                            device=dev)
+        return p13_serve(eng, reqs, 4, sharded=False)[0]
+
+    # smollm-135m, float32, full depth: tp = 3, seq = 2, (3, 2)
+    cfg = config("smollm-135m", dtype="float32")
+    params = weights(cfg, P13_SMOLLM)
+
+    def smollm_reqs():
+        return p13_requests(cfg, 4, range(64, 257), 16, seed=31)
+
+    found["launches"]["smollm"] = p13_float32_parity(
+        rank, "smollm-135m", P13_SMOLLM, cfg, params, base_streams("smollm-135m", cfg, params, smollm_reqs()),
+        smollm_reqs, 4, "smollm-135m", dev)
+    del params
+    free("smollm-135m")
+    if rank == 0:
+        log(f"p13 smollm-135m done at {time.perf_counter() - t0:.1f} s")
+
+    # internlm2-20b: float32 at depth 2, then bf16 at depth 4
+    f32 = config("internlm2-20b", dtype="float32", num_layers=2)
+    params = weights(f32, P13_INTERNLM2)
+
+    def internlm2_reqs(c=f32):
+        return p13_requests(c, 4, range(128, 513), 16, seed=32)
+
+    found["launches"]["internlm2_f32"] = p13_float32_parity(
+        rank, "internlm2-20b", P13_INTERNLM2, f32, params,
+        base_streams("internlm2-20b", f32, params, internlm2_reqs()), internlm2_reqs, 4,
+        "internlm2-20b (depth 2)", dev)
+    del params
+    free("internlm2-20b float32")
+    cfg = config("internlm2-20b", num_layers=4, dtype="bfloat16")
+    params = weights(cfg, P13_INTERNLM2)
+    refs = None
+    if rank == 0:
+        prompts = [np.asarray(r.prompt) for r in internlm2_reqs(cfg)][:4]
+        refs = p13_bf16_ref(Model(cfg, device=dev), params, prompts, dev)
+    found["launches"]["internlm2"] = p13_bf16(
+        rank, "internlm2-20b", P13_INTERNLM2, cfg, params, lambda: internlm2_reqs(cfg), 4,
+        (("plain", {}), ("K=4", {"spec": SpecConfig(k=4)})), "internlm2-20b (depth 4)", dev, refs)
+    del params, refs
+    free("internlm2-20b bf16")
+    if rank == 0:
+        log(f"p13 internlm2-20b done at {time.perf_counter() - t0:.1f} s")
+
+    # stablelm-3b, bf16, int8 pool, full depth: K = 4 and chunk 256 over a
+    # shared 512-token prefix (prefix hits gathered from the shards)
+    cfg = config("stablelm-3b", dtype="bfloat16")
+    params = weights(cfg, P13_STABLELM)
+
+    def stablelm_reqs():
+        return p13_requests(cfg, 4, range(64, 257), 16, seed=33, prefix=P11_PREFIX)
+
+    refs = None
+    if rank == 0:
+        prompts = [np.asarray(r.prompt) for r in stablelm_reqs()][:4]
+        refs = p13_bf16_ref(Model(cfg, device=dev), params, prompts, dev)
+    found["launches"]["stablelm"] = p13_bf16(
+        rank, "stablelm-3b", P13_STABLELM, cfg, params, stablelm_reqs, 4,
+        (("K=4 chunk 256", {"spec": SpecConfig(k=4), "chunk": 256}),), "stablelm-3b", dev, refs)
+    del params, refs
+    free("stablelm-3b")
+    if rank == 0:
+        log(f"p13 stablelm-3b done at {time.perf_counter() - t0:.1f} s")
+
+    if not reduced:
+        p13_moe(rank, dev, card)
+    if dev.type == "cuda":
+        found["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    found["seconds"] = time.perf_counter() - t0
+    found["collectives"] = dict(collectives.STATS)
+    import pickle
+
+    with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(found, f)
+
+
+def p13_rehearsal_patches():
+    """The CPU rehearsal's stand-ins: ``require_cuda`` a no-op and the
+    kernel backend the default, so each kernel wrapper runs its plain
+    version on CPU tensors, counted as the wrapper counts a launch."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    kernel_ops.require_cuda = lambda t, what: None
+    kernel_ops.set_attention_backend("kernel")
+    plain_paged, plain_flash = pda.plain_paged_decode_attention, fa.plain_flash_attention
+
+    def paged(q, k_pool, *a, **kw):
+        part = kw.get("partials") or (len(a) > 6 and a[6])
+        w = pda.paged_decode_attention
+        attr = "launches_partials" if part else (
+            "launches_int8" if k_pool.dtype == torch.int8 else "launches")
+        setattr(w, attr, getattr(w, attr) + 1)
+        return plain_paged(q, k_pool, *a, **kw)
+
+    def flash(*a, **kw):
+        fa.flash_attention.launches += 1
+        return plain_flash(*a, **kw)
+
+    pda.plain_paged_decode_attention, fa.plain_flash_attention = paged, flash
+
+
+def p13_kernels(card):
+    """The paged kernel on a head split's rank, on the card: at smollm-135m's
+    (9 heads over 3, tp = 3: 3 over 1) and internlm2-20b's (48 over 8, tp =
+    4: 12 over 2) pools, T = 1 and 5, float32 and bf16, each rank's launch
+    over its local heads (``plan_kv_heads``) bitwise equal to those heads of
+    the single-device launch at B = 8 and 32 (the plan repair; without it
+    a B = 32 rank's plan splits each row otherwise, printed); the local
+    launch at B = 8, T = 1 timed beside its plain version and its bound. Then the partials mode at internlm2's seq-2
+    shard (the blocks of the lower half of the pool owned), held to its
+    plain version, the two halves combined to the unsplit kernel, timed
+    beside its bound. Returns the bf16 rows."""
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for arch, H, KV, hd, tp in (("smollm-135m", 9, 3, 64, 3), ("internlm2-20b", 48, 8, 128, 4)):
+            h, kv = H // tp, KV // tp
+            for B, T in ((8, 1), (8, 5), (32, 1), (32, 5)):
+                q, kp, vp, tables, lengths = paged_case(dtype, T, B=B, H=H, KV=KV, hd=hd)[:5]
+                full = pda.paged_decode_attention(q, kp, vp, tables, lengths)
+                shards = []
+                for r in range(tp):
+                    args = (q[:, :, r * h:(r + 1) * h].contiguous(),
+                            kp[:, :, r * kv:(r + 1) * kv].contiguous(),
+                            vp[:, :, r * kv:(r + 1) * kv].contiguous(), tables, lengths)
+                    out = pda.paged_decode_attention(*args, plan_kv_heads=KV)
+                    require(torch.equal(out, full[:, :, r * h:(r + 1) * h]),
+                            f"{arch} tp={tp} rank {r} T={T} {dn}: local heads differ from the "
+                            "single-device launch's")
+                    shards.append(args)
+                args = shards[0]
+                unrepaired = pda.paged_decode_attention(*args)
+                plan_local = paged_plan_of(*args[:2], tables)
+                plan_full = paged_plan_of(q, kp, tables)
+                line = (f"p13 paged_decode_attention {dn} {arch} tp={tp} rank-local B={B} T={T} "
+                        f"H={h} KV={kv} hd={hd}: every rank's launch bitwise equal to its heads of "
+                        f"the single-device launch (splits {plan_full['splits']}); without "
+                        f"plan_kv_heads the local plan's splits are "
+                        f"{pda.paged_plan(dtype, dtype, B, T, h, kv, hd, 16, 128)['splits']} and "
+                        f"its output {'is' if torch.equal(unrepaired, full[:, :, :h]) else 'is not'}"
+                        f" bitwise the same")
+                if B == 8 and T == 1:
+                    ref = pda.plain_paged_decode_attention(*args)
+                    err = (full[:, :, :h].float() - ref.float()).abs().max().item()
+                    require(err <= TOL[dtype], f"{arch} local heads: {err} from the plain version")
+                    ms = cuda_ms(lambda: pda.paged_decode_attention(*args, plan_kv_heads=KV))
+                    plain = cuda_ms(lambda: pda.plain_paged_decode_attention(*args), iters=5)
+                    bms, by = paged_bound(args[0], args[1], tables, lengths, dtype)
+                    line += (f"; local launch plan={plan_local} ms={fmt_ms(ms)} plain_ms="
+                             f"{fmt_ms(plain)} bound_ms={bms:.5f} ({by}) library_ms=null")
+                    if dtype == torch.bfloat16 and arch == "internlm2-20b":
+                        rows[("p13_internlm2_tp4", dtype)] = kernel_row(err, ms, plain, bms, by)
+                log(line)
+                del q, kp, vp, full, shards, args
+        # the partials mode at internlm2's seq-2 shard
+        q, kp, vp, tables, lengths = paged_case(dtype, 1, H=48, KV=8, hd=128)[:5]
+        half = kp.shape[0] // 2
+        owned = (tables < half).to(torch.int32)
+        parts = [pda.paged_decode_attention(q, kp, vp, tables, lengths, owned=o, partials=True)
+                 for o in (owned, 1 - owned)]
+        want = pda.plain_paged_decode_attention(q, kp, vp, tables, lengths, owned=owned,
+                                                partials=True)
+        dm, dl, da = partials_err(parts[0], want)
+        require(max(dm, dl, da) <= PARTIALS_TOL, f"partials at internlm2's seq shard ({dn}): "
+                f"{dm}, {dl}, {da}")
+        whole = pda.paged_decode_attention(q, kp, vp, tables, lengths)
+        comb = (combine(parts) - whole.float()).abs().max().item()
+        require(comb <= TOL[dtype], f"partials halves combine {comb} from the unsplit kernel")
+        ms = cuda_ms(lambda: pda.paged_decode_attention(q, kp, vp, tables, lengths, owned=owned,
+                                                        partials=True))
+        plain = cuda_ms(lambda: pda.plain_paged_decode_attention(
+            q, kp, vp, tables, lengths, owned=owned, partials=True), iters=5)
+        bms, by = partials_bound(q, kp, tables, lengths, owned, dtype)
+        log(f"p13 paged_decode_attention[partials] {dn} internlm2-20b seq=2 shard B=8 T=1 H=48 "
+            f"KV=8 hd=128 (blocks < {half} owned): max_abs_err m {dm:.3e}, l {dl:.3e}, acc "
+            f"{da:.3e} (tol {PARTIALS_TOL:g}); halves combined to the unsplit kernel within "
+            f"{comb:.3e}; ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) "
+            f"library_ms=null")
+        if dtype == torch.bfloat16:
+            rows[("partials", dtype)] = kernel_row(max(dm, dl, da), ms, plain, bms, by)
+        del q, kp, vp, parts, whole
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase13(card, device="cuda", reduced=False):
+    """Phase 13: the kernel at a rank's shapes (``p13_kernels``, on the
+    card), then the sharded serving runs in ``P13_WORLD`` gloo rank
+    processes sharing the card (``p13_rank``; a failure in any rank fails
+    the phase). Prints each rank's peak memory, the time inside collectives
+    and the host staging. Returns (rows, launches): the partials launches
+    and the internlm2 tp = 4 paged launches summed over the ranks' serves."""
+    import pickle
+
+    from repro_torch.launch.mesh import run_ranks
+
+    rows = p13_kernels(card) if device == "cuda" else {}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out = os.path.join(ROOT, "build", "phase13")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    run_ranks(p13_rank, P13_WORLD, card, out, device, reduced, store=os.path.join(out, "store"),
+              timeout_s=600.0)
+    found = []
+    for r in range(P13_WORLD):
+        with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+            found.append(pickle.load(f))
+    partials = sum(v for f in found for runs in f["launches"].values()
+                   for key, n in runs.items()
+                   for v in ([n] if isinstance(n, int) else [n["partials"]]))
+    tp4 = sum(n["paged"] for f in found for (mname, _), n in f["launches"].get("internlm2", {}).items()
+              if mname == "model4")
+    require(partials > 0 and (tp4 > 0 or device != "cuda"),
+            f"phase 13: partials {partials}, internlm2 tp=4 paged {tp4} launches")
+    log(f"p13 ranks ({P13_WORLD} gloo processes on one {card}): wall {time.perf_counter() - t0:.1f} "
+        f"s; per rank: " + "; ".join(
+            f"rank {r} peak {f['peak_gb'] if f['peak_gb'] is None else round(f['peak_gb'], 2)} GiB, "
+            f"{f['seconds']:.1f} s, collectives {f['collectives']['calls']} calls "
+            f"{f['collectives']['seconds']:.2f} s, staged {f['collectives']['staged_calls']} "
+            f"calls {f['collectives']['staged_bytes'] / 2**20:.1f} MiB"
+            for r, f in enumerate(found))
+        + "; every sharded step runs eagerly (gloo collectives cannot be captured in a CUDA "
+        "graph: the family keeps StepGraph's per-key record)")
+    return rows, {"partials": partials, "p13_internlm2_tp4": tp4}
+
+
 def main(argv=()) -> int:
     """Every phase with no arguments (the smoke run); ``--phases 3,11``
     runs the build and the listed phases only (3: kernels, 4: entry
-    points, 5-6: serving and parity, 7: adviser, 8, 9, 10, 11, 12), for a short
-    development call, and prints the rows those phases made."""
+    points, 5-6: serving and parity, 7: adviser, 8, 9, 10, 11, 12, 13), for
+    a short development call, and prints the rows those phases made."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -3770,7 +4452,7 @@ def main(argv=()) -> int:
     def phase_done(name):
         log(f"phase {name} done at {time.perf_counter() - start:.1f} s")
 
-    phases = set(range(3, 13))
+    phases = set(range(3, 14))
     if len(argv) == 2 and argv[0] == "--phases":
         phases = {int(p) for p in argv[1].split(",")}
     elif argv:
@@ -3791,6 +4473,17 @@ def main(argv=()) -> int:
         entry = drive_entry_points()
         rows.update(check_entry_kernels())
         phase_done("4")
+    # no phase of one device may launch the partials mode: every call of
+    # its entry point from here to phase 13 is counted
+    from repro_torch.kernels import ops as kernel_ops
+
+    partials_entry, single_device_partials = kernel_ops.paged_attention_partials, [0]
+
+    def counted_partials(*a, **kw):
+        single_device_partials[0] += 1
+        return partials_entry(*a, **kw)
+
+    kernel_ops.paged_attention_partials = counted_partials
     if 5 in phases:
         launches, params = serve_full_width(card)
         launches["ssd"], params = serve_mamba2(card)
@@ -3835,6 +4528,15 @@ def main(argv=()) -> int:
         p12_rows, p12_launches = phase12(card)
         rows.update(p12_rows)
         phase_done("12")
+    kernel_ops.paged_attention_partials = partials_entry
+    require(single_device_partials[0] == 0,
+            f"phases 5-12 called the partials mode {single_device_partials[0]} times")
+    log(f"partials mode calls in phases {sorted(phases & set(range(5, 13)))}: 0")
+    p13_launches = {}
+    if 13 in phases:
+        p13_rows, p13_launches = phase13(card)
+        rows.update(p13_rows)
+        phase_done("13")
 
     bf16, f32 = torch.bfloat16, torch.float32
     table = []
@@ -3913,8 +4615,12 @@ def main(argv=()) -> int:
             ("p12_flash_musicgen", bf16, "flash_attention[musicgen-large prefill S=1024 hd=64]",
              FLASH_SRC, FLASH_TPU),
             ("p12_flash_internvl2", bf16,
-             "flash_attention[internvl2-2b prefill S=256+768 g=2 hd=128]", FLASH_SRC, FLASH_TPU)):
-        everything = phases == set(range(3, 13))
+             "flash_attention[internvl2-2b prefill S=256+768 g=2 hd=128]", FLASH_SRC, FLASH_TPU),
+            # phase 13: a head split's rank (launches from its internlm2 tp = 4 serves)
+            ("p13_internlm2_tp4", bf16,
+             "paged_decode_attention[internlm2-20b tp=4 rank-local T=1 H=12 KV=2 hd=128]",
+             PAGED_SRC, PAGED_TPU)):
+        everything = phases == set(range(3, 14))
         if (key, dtype) not in rows:
             require(not everything, f"no row for {key}")
             continue
@@ -3925,6 +4631,12 @@ def main(argv=()) -> int:
         # count is in the row
         if key in ENTRY_ONLY:
             count = {"launches": entry.get(key), "serving_launches": 0}
+        elif key in ("partials", "p13_internlm2_tp4"):
+            # phase 13's serving runs, summed over the ranks; the partials
+            # row's numbers are its seq shard's (phase 4's if 13 did not run)
+            count = {"launches": p13_launches.get(key)}
+            if key == "partials":
+                count["entry_launches"] = entry.get(key)
         elif key in WIDE:
             count = {}
         elif key in PHASE8:

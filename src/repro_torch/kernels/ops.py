@@ -121,11 +121,16 @@ def set_attention_backend(name: Optional[str]) -> None:
 
 
 def resolve_attention_backend(
-    backend: Optional[str] = None, device: Optional[torch.device] = None
+    backend: Optional[str] = None, device: Optional[torch.device] = None, mesh=None
 ) -> str:
     """Per-call name → ``set_attention_backend`` → ``REPRO_ATTENTION_BACKEND``
     → ``"auto"``; ``"auto"`` resolves to ``"kernel"`` on a CUDA ``device``
-    and to ``"reference"`` otherwise."""
+    and to ``"reference"`` otherwise. A serving ``mesh`` changes nothing:
+    each rank launches the kernel on its own shard, so ``"kernel"`` stays
+    ``"kernel"`` on the card and raises on CPU tensors as it does unsharded
+    (the JAX package turns it into Pallas interpret mode on a host mesh,
+    which has no Hopper counterpart)."""
+    del mesh
     global _ATTN_BACKEND
     if backend is not None and backend != "auto":
         name = _validate_backend(backend, "backend")
@@ -211,27 +216,29 @@ def _attention_backend(mode, q, what):
 
 
 def paged_attention(
-    q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None, *, mode="auto"
+    q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None, *, mode="auto",
+    plan_kv_heads=None,
 ):
     """Block-paged decode/verify attention straight off the pool: q
     [B,T,H,hd]; pools [NB,BS,KV,hd] (int8 with ``k_scale``/``v_scale``
     [NB,BS,KV]); ``block_tables`` [B,MB]; ``lengths`` [B] committed lengths
     (query t attends positions < lengths + t + 1). ``mode`` resolves
     through the attention registry (``"ref"`` is spelled ``"reference"``
-    there)."""
+    there). ``plan_kv_heads``: a head split's unsharded kv heads, for the
+    kernel's launch plan (``paged_decode_attention``)."""
     if _attention_backend(mode, q, "paged_attention") == "reference":
         return ref.paged_attention_ref(
             q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale
         )
     return _paged_kernel(
         q, k_pool, v_pool, block_tables.to(torch.int32), lengths.to(torch.int32),
-        k_scale, v_scale,
+        k_scale, v_scale, plan_kv_heads=plan_kv_heads,
     )
 
 
 def paged_attention_partials(
     q, k_pool, v_pool, block_tables, lengths, owned, k_scale=None, v_scale=None, *,
-    mode="auto",
+    mode="auto", plan_kv_heads=None,
 ):
     """The kernel's partials mode for the kv-sequence split: the inputs of
     ``paged_attention`` on this rank's pool shard plus ``owned`` [B,MB]
@@ -246,4 +253,5 @@ def paged_attention_partials(
     return _paged_kernel(
         q, k_pool, v_pool, block_tables.to(torch.int32), lengths.to(torch.int32),
         k_scale, v_scale, owned=owned.to(torch.int32), partials=True,
+        plan_kv_heads=plan_kv_heads,
     )

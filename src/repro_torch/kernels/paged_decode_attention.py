@@ -49,7 +49,7 @@ TABLE_IDS = 256  # table entries of a split's tiles the kernel keeps in shared m
 
 
 def paged_plan(q_dtype, kv_dtype, B: int, T: int, H: int, KV: int, hd: int, BS: int, MB: int,
-               aligned: bool = True) -> dict:
+               aligned: bool = True, plan_kv: Optional[int] = None) -> dict:
     """How ``csrc/paged_decode_attention.cu`` runs T queries of ``q_dtype``
     over [NB,BS,KV,hd] pools of ``kv_dtype`` and [B,MB] tables: a row's
     table is cut into ``n_tiles`` tiles of at most ``tile`` keys —
@@ -66,7 +66,10 @@ def paged_plan(q_dtype, kv_dtype, B: int, T: int, H: int, KV: int, hd: int, BS: 
     sized for the widest block (8 rows, 4 over int8 pools). The tiles
     arrive by 16-byte ``cp.async`` (path "cp.async") where a head's row
     is a multiple of 16 bytes and the pools are ``aligned``, else by
-    element loads ("direct")."""
+    element loads ("direct"). ``plan_kv``: the kv heads the splits are
+    counted for, where a rank of a head split launches over KV of them
+    (its local heads): the splits then equal the unsharded launch's, and
+    each query's reduction order with them."""
     if q_dtype not in _Q_DTYPES:
         raise TypeError(f"paged_decode_attention: no kernel for q of {q_dtype}")
     int8 = kv_dtype == torch.int8
@@ -82,7 +85,7 @@ def paged_plan(q_dtype, kv_dtype, B: int, T: int, H: int, KV: int, hd: int, BS: 
     else:
         epr, spe = 1, _cdiv(BS, tile)
         n_tiles = MB * spe
-    pairs = max(1, B * KV)
+    pairs = max(1, B * (KV if plan_kv is None else plan_kv))
     splits = 1
     while splits < min(PAGED_MAX_SPLITS, n_tiles) and (
             splits * pairs < _build.TARGET_BLOCKS or _cdiv(n_tiles, splits) > PAGED_TILES_PER_SPLIT):
@@ -174,7 +177,8 @@ def _check(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale, owned):
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None,
-                           *, owned=None, partials: bool = False):
+                           *, owned=None, partials: bool = False,
+                           plan_kv_heads: Optional[int] = None):
     """q [B,T,H,hd] float32/bfloat16; pools [NB,BS,KV,hd] in q's type, or
     int8 with ``k_scale``/``v_scale`` [NB,BS,KV] bfloat16; ``block_tables``
     [B,MB] int32 block ids (< NB); ``lengths`` [B] int32 committed lengths
@@ -182,7 +186,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale=Non
     dtype. ``owned`` [B,MB] int32: table entries whose value is 0 are
     skipped. ``partials=True`` returns ``(m, l, acc)`` instead: float32
     [B,T,H], [B,T,H] and [B,T,H,hd], unnormalised, exactly
-    (-1e30, 0, 0) for a query that attends no key."""
+    (-1e30, 0, 0) for a query that attends no key. ``plan_kv_heads``: the
+    unsharded kv head count of a head split's rank, whose launch over its
+    local heads then splits each row as the single-device launch does
+    (``paged_plan``'s ``plan_kv``), so those heads come out bitwise the
+    same."""
     kv_code = _check(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale, owned)
     if q.device.type == "cpu":
         return plain_paged_decode_attention(
@@ -202,7 +210,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale=Non
         return (m, l, out) if partials else out
     int8 = kv_code == _INT8
     plan = paged_plan(q.dtype, k_pool.dtype, B, T, H, KV, hd, BS, block_tables.shape[1],
-                      _build.aligned16(k_pool, v_pool))
+                      _build.aligned16(k_pool, v_pool), plan_kv_heads)
     err = _build.library().paged_decode_attention(
         _Q_DTYPES[q.dtype], kv_code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
@@ -290,13 +298,19 @@ def _paged_vmap(info, in_dims, q, k_pool, v_pool, block_tables, lengths, k_scale
     return out.reshape((g, -1) + tuple(out.shape[1:])), 0
 
 
-def paged_decode_call(q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None):
+def paged_decode_call(q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None,
+                      plan_kv_heads: Optional[int] = None):
     """The paged kernel as the models call it: through the operator
     (``paged_attention_op``) where a ``torch.func`` transform (a decode
     plan's vmap) or a dispatch mode (``make_fx``) is active, since only the
     operator's rules carry the call there, and straight to the wrapper
     otherwise, which spares every eager decode the dispatcher's host time
-    (chip_smoke.py prints both per call)."""
+    (chip_smoke.py prints both per call). ``plan_kv_heads`` (a head
+    split's rank) goes to the wrapper; the sharded step runs eagerly, never
+    under a transform."""
     if torch._C._are_functorch_transforms_active() or torch._C._len_torch_dispatch_stack():
+        if plan_kv_heads is not None:
+            raise ValueError("paged_decode_call: plan_kv_heads is for the sharded step's eager call")
         return paged_attention_op(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)
-    return paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)
+    return paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale,
+                                  plan_kv_heads=plan_kv_heads)

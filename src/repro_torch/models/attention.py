@@ -21,6 +21,13 @@ dtype first.
 KV writes update the cache tensors in place (``index_put_``), where the
 reference returns new arrays (``.at[].set``): an eager port would
 otherwise copy a whole layer stack per token.
+
+On a serving mesh ``attention_block`` runs a rank's shard of a paged step
+(``Model.sharded_paged_step``): over a kv-sequence split it localises the
+tables, runs the partials mode over the blocks this rank holds and
+combines the partials across ``seq_axis`` (``distributed_softmax``); over a
+head split it gathers the head shards across ``tp_axis`` before the whole
+output projection.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels.ref import paged_partials_ref
 from repro_torch.models.layers import apply_rope, rope_tables
+from repro_torch.parallel import collectives
 
 NEG = -1e30
 
@@ -234,18 +242,21 @@ def _cached_attention(
 
 
 def paged_attention(
-    q, k_pool, v_pool, block_tables, cache_len, *, k_scale=None, v_scale=None, backend=None
+    q, k_pool, v_pool, block_tables, cache_len, *, k_scale=None, v_scale=None, backend=None,
+    plan_kv_heads=None,
 ):
     """Paged decode/verify attention for one layer: q [B,T,H,hd]; pools
     [NB,BS,KV,hd], int8 with ``k_scale``/``v_scale`` [NB,BS,KV] bfloat16;
     ``cache_len`` [B] committed lengths (the new token rows are already
     written). The kernel walks the tables (an int8 pool dequantizes in
     it); the reference gathers each row's dense view first, dequantized to
-    q's dtype."""
+    q's dtype. ``plan_kv_heads``: a head split's unsharded kv heads (the
+    kernel's plan)."""
     if kernel_ops.resolve_attention_backend(backend, q.device) == "kernel":
         kernel_ops.require_cuda(q, "paged_attention")
         return _paged.paged_decode_call(
-            q, k_pool, v_pool, block_tables, cache_len.to(torch.int32), k_scale, v_scale
+            q, k_pool, v_pool, block_tables, cache_len.to(torch.int32), k_scale, v_scale,
+            plan_kv_heads,
         )
     kd = gather_block_rows(k_pool[None], block_tables)[0]  # [B, MB·BS, KV, hd]
     vd = gather_block_rows(v_pool[None], block_tables)[0]
@@ -257,7 +268,7 @@ def paged_attention(
 
 def paged_flash_partials(
     q, k_pool, v_pool, block_tables, cache_len, owned, *, k_scale=None, v_scale=None,
-    backend=None,
+    backend=None, plan_kv_heads=None,
 ):
     """Per-rank flash partials for kv-sequence-split serving: the inputs of
     ``paged_attention`` on this rank's pool shard (tables localised, unowned
@@ -266,11 +277,11 @@ def paged_flash_partials(
     [B,T,H,hd] over owned positions only, unnormalised; a query with none
     reports (-1e30, 0, 0), which the cross-rank combine scales to 0. The
     kernel backend runs the paged kernel's partials mode, the reference the
-    dense-gather partials oracle. (The sequence split that calls it is not
-    ported yet.)"""
+    dense-gather partials oracle."""
     if kernel_ops.resolve_attention_backend(backend, q.device) == "kernel":
         return kernel_ops.paged_attention_partials(
-            q, k_pool, v_pool, block_tables, cache_len, owned, k_scale, v_scale, mode="kernel"
+            q, k_pool, v_pool, block_tables, cache_len, owned, k_scale, v_scale, mode="kernel",
+            plan_kv_heads=plan_kv_heads,
         )
     return paged_partials_ref(
         q, k_pool, v_pool, block_tables, cache_len, owned, k_scale, v_scale
@@ -321,7 +332,8 @@ def _dead_rows_own_view(out, q, k, v, cache_len, codes):
 
 def attention_block(
     params, x, *, cfg, positions=None, cache=None, cache_len=None,
-    prefix_kv=None, backend=None, dead_rows_own_view=False,
+    prefix_kv=None, backend=None, dead_rows_own_view=False, mesh=None, tp_axis=None,
+    seq_axis=None, plan_kv_heads=None,
 ):
     """Pre-norm'd GQA attention. Returns (out, new_kv).
 
@@ -339,11 +351,24 @@ def attention_block(
     and attention walks the tables; ``new_kv`` is the leaves written.
     ``dead_rows_own_view``: dead rows (length 0) answer from their own new
     tokens alone (``_dead_rows_own_view``), for a caller whose next layer
-    reads their output."""
+    reads their output. A flat layout (``wq`` [D, H·hd], ``wo`` [H·hd, D])
+    runs as the reference's ``attn_flat_tp`` does.
+
+    On a mesh (a rank's local view, ``cfg`` with its head counts):
+    ``seq_axis`` localises the paged tables to this rank's pool shard and
+    combines the partials of the blocks it holds across that axis;
+    ``tp_axis`` gathers the head shards across that axis before the whole
+    ``wo``. ``plan_kv_heads`` goes to the paged kernel's plan."""
     B, S, D = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if params["wq"].dim() == 2:  # flat layout
+        q = (x @ params["wq"]).reshape(B, S, H, hd)
+        k = (x @ params["wk"]).reshape(B, S, KV, hd)
+        v = (x @ params["wv"]).reshape(B, S, KV, hd)
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+        k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+        v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -365,6 +390,14 @@ def attention_block(
     elif isinstance(cache, dict):
         tables, li = cache["tables"], cache["li"]
         bs = cache["k"].shape[2]
+        owned = None
+        if seq_axis is not None:
+            # this rank's pool shard: owned entries become local slots, the
+            # others its scratch slot, so writes land on the owner only
+            from repro_torch.serve.kv_cache import local_table_view
+
+            tables, owned = local_table_view(
+                tables, cache["k"].shape[1], collectives.axis_index(mesh, seq_axis))
         bid, off = block_write_positions(tables, cache_len, k.shape[1], bs)
         quant = "k_scale" in cache
         codes = None
@@ -375,12 +408,21 @@ def attention_block(
             writes = (("k", k), ("v", v))
         for name, val in writes:
             scatter_block_token(cache[name][li], val, bid, off)
-        out = paged_attention(
-            q, cache["k"][li], cache["v"][li], tables, cache_len,
-            k_scale=cache["k_scale"][li] if quant else None,
-            v_scale=cache["v_scale"][li] if quant else None,
-            backend=backend,
-        )
+        scales = dict(k_scale=cache["k_scale"][li] if quant else None,
+                      v_scale=cache["v_scale"][li] if quant else None)
+        if owned is None:
+            out = paged_attention(
+                q, cache["k"][li], cache["v"][li], tables, cache_len, **scales,
+                backend=backend, plan_kv_heads=plan_kv_heads,
+            )
+        else:
+            # each rank attends over the positions it holds; the combine
+            # (with the empty-shard guard) completes every row's softmax
+            m_p, l_p, acc_p = paged_flash_partials(
+                q, cache["k"][li], cache["v"][li], tables, cache_len, owned, **scales,
+                backend=backend, plan_kv_heads=plan_kv_heads,
+            )
+            out = collectives.distributed_softmax(m_p, l_p, acc_p, mesh, seq_axis).to(q.dtype)
         if dead_rows_own_view:
             out = _dead_rows_own_view(out, q, k, v, cache_len, codes)
         new_kv = tuple(cache[name] for name, _ in writes)
@@ -408,5 +450,13 @@ def attention_block(
         )
         new_kv = (k_all, v_all, ks_all, vs_all)
 
+    if tp_axis is not None:
+        # softmax is per head, so the shards are final: gather them in head
+        # order and run the whole wo, whose contraction is then the
+        # single-device one
+        out = collectives.all_gather(out, mesh, tp_axis, dim=2)
+    if params["wo"].dim() == 2:  # flat layout
+        o2 = out.to(x.dtype).reshape(B, out.shape[1], out.shape[2] * hd)
+        return o2 @ params["wo"], new_kv
     out = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), params["wo"])
     return out, new_kv

@@ -34,6 +34,8 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -45,6 +47,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import step_graph
 from repro_torch.models.layers import embed_tokens, rms_norm, swiglu
+from repro_torch.parallel import sharding as sharding_mod
+from repro_torch.parallel.sharding import ShardingRules, mesh_shape
 
 # Families whose decode cache is addressed by position (the JAX package's
 # ``ATTN_FAMILIES``): only they can page it.
@@ -99,12 +103,29 @@ def _map_leaves(fn, tree, *rest, name=None):
 
 class Model:
     """Stateless model wrapper: methods take the parameters explicitly.
-    ``device`` defaults to CUDA and raises when none is present."""
+    ``device`` defaults to CUDA and raises when none is present.
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    ``mesh``: a ``DeviceMesh`` (``launch/mesh.py``) whose ``ShardingRules``
+    the layers read (a MoE layer then runs its expert-parallel paths).
+    ``tp_axis`` / ``seq_axis`` make this model a rank's local view inside
+    ``sharded_paged_step``: its cfg carries the rank's head counts, its
+    paged attention gathers the head shards over ``tp_axis`` before the
+    output projection and combines kv-sequence partials over ``seq_axis``,
+    and ``mesh`` then only names the groups (a local view has no rules, as
+    the JAX package's has none)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, *, mesh=None, tp_axis=None, seq_axis=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
+        self.mesh = mesh
+        local_view = tp_axis is not None or seq_axis is not None
+        self.rules = ShardingRules(mesh, cfg) if mesh is not None and not local_view else None
+        self.tp_axis = tp_axis
+        self.seq_axis = seq_axis
+        # a head split's unsharded kv heads, for the paged kernel's plan
+        # (set on the local view by sharded_paged_step)
+        self.plan_kv_heads = None
         self._views = None  # (params, per-layer views) of the last params seen
         self._graph_pool = None  # (memory pool, side stream) of the captured steps
 
@@ -211,15 +232,21 @@ class Model:
 
     # ------------------------------------------------------------------
     # layer stack
-    def _dense_layer(self, x, lp, backend, **kw):
+    def _dense_layer(self, x, lp, backend, path="dispatch", **kw):
+        """An attention layer and its MLP. ``path``: the MoE path a mesh's
+        rules take ("dispatch" for prefill, "dense" for the decode steps,
+        as the reference's callers pass it)."""
         cfg = self.cfg
         h, new_kv = attn.attention_block(
             lp["attn"], rms_norm(x, lp["attn_norm"], cfg.norm_eps),
-            cfg=cfg, backend=backend, **kw,
+            cfg=cfg, backend=backend, mesh=self.mesh, tp_axis=self.tp_axis,
+            seq_axis=self.seq_axis, plan_kv_heads=self.plan_kv_heads, **kw,
         )
         x = x + h
         hin = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        if "moe" in lp:
+        if "moe" in lp and self.rules is not None:
+            h, _ = moe_mod.moe_block(hin, lp["moe"], cfg, self.rules, path=path)
+        elif "moe" in lp:
             h = moe_mod.moe_mlp(hin, lp["moe"], cfg)  # serving drops the aux loss
         else:
             h = swiglu(hin, lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])
@@ -283,7 +310,7 @@ class Model:
         """The KV leaves of a decode cache."""
         return ("k", "v", "k_scale", "v_scale") if self.cfg.kv_quant else ("k", "v")
 
-    def init_cache(self, batch, max_seq, dtype=None):
+    def init_cache(self, batch, max_seq, dtype=None, kv_heads=None):
         """Decode cache with ``len`` [B] int32. Dense: k/v
         [L,B,max_seq,KV,hd]. SSM: ``ssm_state`` leaves stacked over layers,
         ``ssm`` [L,B,H,hd,N] float32 and ``conv_x``/``conv_B``/``conv_C``
@@ -291,7 +318,8 @@ class Model:
         layers and k/v over the G attention sites. ``kv_quant``: k/v int8
         and ``k_scale``/``v_scale`` [n,B,max_seq,KV] bfloat16. ``dtype``
         overrides the model dtype of the k/v and conv leaves, as the
-        reference's does (an int8 cache stays int8)."""
+        reference's does (an int8 cache stays int8); ``kv_heads`` the kv
+        heads of the k/v leaves (a rank's shard of them on a mesh)."""
         cfg, L = self.cfg, self.cfg.num_layers
         dt = dtype or self.dtype
         cache: dict[str, Any] = {
@@ -303,7 +331,7 @@ class Model:
         if cfg.family == "ssm":
             return cache
         n = L // cfg.attn_every if cfg.family == "hybrid" else L
-        shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        shape = (n, batch, max_seq, kv_heads or cfg.n_kv_heads, cfg.head_dim)
         kv_dtype = torch.int8 if cfg.kv_quant else dt
         for name in self.kv_names:
             if name.endswith("_scale"):
@@ -312,18 +340,47 @@ class Model:
                 cache[name] = torch.zeros(shape, dtype=kv_dtype, device=self.device)
         return cache
 
-    def init_paged_cache(self, num_blocks, block_size, dtype=None):
+    def init_paged_cache(self, num_blocks, block_size, dtype=None, kv_heads=None):
         """Physical block pool: k/v [L, num_blocks, block_size, KV, hd], in
         ``dtype`` (the model's by default); ``kv_quant``: int8 k/v with
         bfloat16 ``k_scale``/``v_scale`` [L, num_blocks, block_size, KV].
+        ``kv_heads``: KV, where a rank holds its shard of the heads.
         Attention families only: SSM state has no sequence axis to page."""
         if self.cfg.family not in ATTN_FAMILIES:
             raise ValueError(
                 f"paged KV cache needs an attention family, got {self.cfg.family!r}"
             )
-        pool = self.init_cache(num_blocks, block_size, dtype=dtype)
+        pool = self.init_cache(num_blocks, block_size, dtype=dtype, kv_heads=kv_heads)
         pool.pop("len")
         return pool
+
+    def cache_axes(self, cache):
+        """Logical axes of every cache leaf, in its structure (the JAX
+        package's ``cache_axes``, for the sharding rules)."""
+
+        def leaf_axes(name, leaf):
+            if name in ("k_scale", "v_scale"):
+                return (None, "batch", "kv_seq", "kv_heads")
+            if name in ("k", "v"):
+                return (None, "batch", "kv_seq", "kv_heads", None)
+            if name == "ssm":
+                return (None, "batch", "ssm_heads", None, None)
+            if name == "conv_x":
+                return (None, "batch", None, "ssm_inner")
+            if name in ("conv_B", "conv_C"):
+                return (None, "batch", None, None)
+            if name == "len":
+                return (None,)
+            return (None,) * leaf.dim()
+
+        return _map_leaves(leaf_axes, cache)
+
+    def paged_pool_specs(self, axis="model", seq_axis=None):
+        """Specs of the block-pool leaves on a serving mesh: the kv-head
+        dim over ``axis`` (the head split) and the block dim over
+        ``seq_axis`` (the kv-sequence split); tables and lengths are data,
+        replicated (``parallel.sharding.paged_pool_specs``)."""
+        return sharding_mod.paged_pool_specs(axis, seq_axis, quantized=bool(self.cfg.kv_quant))
 
     def cache_batch_axes(self, cache):
         """Per-leaf batch-axis index of a decode cache, in its structure:
@@ -490,6 +547,49 @@ class Model:
         backend = kernel_ops.resolve_attention_backend(backend, self.device)
         return step_graph.StepGraph(self, name, backend)
 
+    def sharded_paged_step(self, name: str, mesh, backend=None, axis="model", seq_axis="seq"):
+        """``jit_step``'s counterpart for paged serving on a mesh, for
+        ``decode_step_paged`` and ``verify_step_paged``: this rank's shard
+        of the step (``ShardedStep``). Everything but the pool (params,
+        block tables, lengths, tokens, logits) is replicated; every rank of
+        ``mesh`` calls it with the same arguments.
+
+        Head split (``axis``): rank r slices its contiguous head block out
+        of ``wq``/``wk``/``wv`` (q heads [r·H/P, (r+1)·H/P) and their kv
+        groups: a GQA group never straddles ranks) and runs the unsharded
+        step body through a local-view model whose cfg carries the rank's
+        head counts; the head shards are gathered back before the whole
+        ``wo``. The paged kernel splits each row as the single-device launch
+        does (``plan_kv_heads``), so each head's attention is bitwise the
+        single-device one given the same q/k/v.
+
+        Sequence split (``seq_axis``): each rank owns a contiguous range of
+        pool slots; attention localises the tables (``local_table_view``),
+        runs the paged kernel's partials mode over its owned positions and
+        combines the partials with ``collectives.distributed_softmax``: a
+        cross-rank float reduction, equal to the single-device logits to
+        rounding. Both compose on a 2D mesh. A 1×1 mesh is ``jit_step``."""
+        backend = kernel_ops.resolve_attention_backend(backend, self.device, mesh=mesh)
+        cfg, shape = self.cfg, mesh_shape(mesh)
+        tp = shape.get(axis, 1) if axis else 1
+        sp = shape.get(seq_axis, 1) if seq_axis else 1
+        if tp == 1 and sp == 1:
+            return self.jit_step(name, backend)
+        if tp > 1 and (cfg.n_kv_heads % tp or cfg.n_heads % tp):
+            raise ValueError(
+                f"n_kv_heads={cfg.n_kv_heads}/n_heads={cfg.n_heads} do not divide mesh axis "
+                f"{axis!r} (size {tp}); ShardingRules dropped the head mapping — serve "
+                "replicated instead"
+            )
+        local = Model(
+            dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp),
+            mesh=mesh, tp_axis=axis if tp > 1 else None,
+            seq_axis=seq_axis if sp > 1 else None, device=self.device,
+        )
+        if tp > 1:
+            local.plan_kv_heads = cfg.n_kv_heads
+        return step_graph.ShardedStep(local, name, backend, self, mesh, axis, tp)
+
     def graph_pool(self):
         """(memory pool, side stream) that every captured step of this
         model shares: the graphs' memory, and the stream a step's first
@@ -530,7 +630,8 @@ class Model:
         def attn_step(x, li, lp):
             kv = (cache["k"], cache["v"], cache.get("k_scale"), cache.get("v_scale"), li)
             x, _ = self._dense_layer(
-                x, lp, backend, positions=positions, cache=kv, cache_len=cache_len
+                x, lp, backend, path="dense", positions=positions, cache=kv,
+                cache_len=cache_len,
             )
             return x
 
@@ -584,7 +685,10 @@ class Model:
         null block)."""
         self._require_spec()
         backend = kernel_ops.resolve_attention_backend(backend, self.device)
-        if backend != "reference":
+        # a kv-sequence split's rank runs the layer loop on either backend:
+        # the dense route gathers through the global tables, which cannot
+        # address its pool shard
+        if backend != "reference" or self.seq_axis is not None:
             return self._step_paged_kernel(params, pool, block_tables, cache_len, tokens, backend)
         bs = pool["k"].shape[2]
         T = tokens.shape[1]
@@ -659,8 +763,8 @@ class Model:
             # and they take capacity ahead of them: their attention must be
             # the reference route's, not the null block's colliding writes
             x, _ = self._dense_layer(
-                x, lp, backend, positions=positions, cache=cache, cache_len=cache_len,
-                dead_rows_own_view=self.cfg.family == "moe",
+                x, lp, backend, path="dense", positions=positions, cache=cache,
+                cache_len=cache_len, dead_rows_own_view=self.cfg.family == "moe",
             )
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return x @ self._head(params), pool

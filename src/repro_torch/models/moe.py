@@ -1,11 +1,8 @@
-"""Top-k routed expert MLP: the single-device path.
+"""Top-k routed expert MLP, with expert parallelism over the 'model' axis.
 
-Port of the JAX package's ``models/moe.py`` without its mesh: the
-expert-parallel paths (``_moe_dispatch_sharded``, ``_moe_dense_sharded``
-and the legacy dense one) wait for sharded serving (ROADMAP §1 item 9),
-and every call here is the reference's local ``_moe_reference``: route,
-capacity-based dispatch, expert FFN, weighted combine, in the reference's
-order and dtypes.
+Port of the JAX package's ``models/moe.py``. Without a mesh every call is
+the reference's local ``_moe_reference``: route, capacity-based dispatch,
+expert FFN, weighted combine, in the reference's order and dtypes.
 
 - Routing runs in float32 (the router weight is float32 in every model
   dtype; ``FLOAT32_PARAMS``): softmax over the experts, top-k, gates
@@ -21,6 +18,24 @@ order and dtypes.
   computes them in ``einsum`` outside any kernel).
 - The capacity depends on shapes only, so a step holding a MoE layer makes
   no host synchronisation and captures as one CUDA graph.
+
+On a mesh (``moe_block(x, params, cfg, rules, path)``) the reference's
+``shard_map`` bodies run as each rank's own code over
+``parallel/collectives.py``; the arguments and the result are the global
+arrays, as ``shard_map`` takes and gives them, and each rank takes its
+shards of them:
+
+- ``"dispatch"`` (train and prefill, ``_moe_dispatch_sharded``): the
+  tokens split over the batch axes and 'model', each rank routes its own,
+  an all-to-all over 'model' carries each expert's slots to the rank that
+  holds it (E/ep experts a rank), the expert FFN, the all-to-all back, the
+  combine; the token shards are gathered back;
+- ``"dense"`` (decode, ``_moe_dense_sharded``): the few tokens are gathered
+  to the experts' shards, each rank computes its experts' masked share of
+  every token (over its F shard, FSDP), and a sum over 'model' (and 'data')
+  completes it: tokens move to the weights, the weights never move;
+- ``LEGACY_DENSE`` swaps in ``_moe_dense_legacy``, the baseline that needs
+  each expert's whole F on its rank.
 """
 from __future__ import annotations
 
@@ -28,6 +43,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import mesh_shape
 
 # leaves kept float32 whatever the model dtype
 FLOAT32_PARAMS = ("router",)
@@ -146,9 +164,128 @@ def moe_mlp(x, params, cfg):
     return y.reshape(B, S, D).to(x.dtype)
 
 
-def moe_block(x, params, cfg):
+# ---------------------------------------------------------------------------
+# the expert-parallel paths (one rank's share; global arrays in and out)
+
+
+def _axes_size(mesh, axes) -> int:
+    shape = mesh_shape(mesh)
+    return math.prod(shape[a] for a in col.present_axes(mesh, axes))
+
+
+def _local_experts(mesh, cfg):
+    """(ep, this rank's expert ids as a slice)."""
+    ep = mesh_shape(mesh)["model"]
+    assert cfg.n_experts % ep == 0, (cfg.n_experts, ep)
+    el = cfg.n_experts // ep
+    m = col.axis_index(mesh, "model")
+    return ep, slice(m * el, (m + 1) * el)
+
+
+def _masked_ffn(x_all, router, we1, we3, we2, cfg, experts: slice):
+    """Every token's gate-weighted output of the experts ``experts`` (the
+    rank's), each expert run on every token: [T, D]. ``we*`` are the
+    rank's slices; with F split, a partial sum over the F shards."""
+    gates, idx, probs = _route(x_all, router, cfg.top_k)
+    my = torch.arange(experts.start, experts.stop, device=x_all.device)
+    g_local = ((idx[:, :, None] == my[None, None, :]) * gates[:, :, None]).sum(1)  # [T, el]
+    xe = x_all.unsqueeze(0).expand(we1.shape[0], -1, -1)  # [el, T, D]
+    h = F.silu(torch.bmm(xe, we1)) * torch.bmm(xe, we3)
+    y = torch.bmm(h, we2)  # [el, T, D]
+    return torch.einsum("etd,te->td", y, g_local.to(y.dtype)), probs, idx
+
+
+def _mean_aux(probs, idx, mesh, axes):
+    """The aux loss of this rank's tokens, averaged over ``axes`` (pmean)."""
+    aux = switch_aux(probs, idx)
+    return col.all_reduce_axes(aux, mesh, axes) / _axes_size(mesh, axes)
+
+
+def _moe_dispatch_sharded(x2d, params, cfg, rules):
+    """The expert-parallel all-to-all path: x [T, D] → (y [T, D], aux)."""
+    mesh = rules.mesh
+    ep, mine = _local_experts(mesh, cfg)
+    token_axes = rules.table["tokens_ep"]
+    T = x2d.shape[0]
+    n_shards = _axes_size(mesh, token_axes)
+    T_l = T // n_shards
+    C = moe_capacity(T_l, cfg)
+    i = col.shard_index(mesh, token_axes)
+    x_loc = x2d[i * T_l:(i + 1) * T_l]
+    gates, idx, probs = _route(x_loc, params["router"], cfg.top_k)
+    buf, lin, gf = _dispatch_local(x_loc, gates, idx, cfg.n_experts, C)
+    el = cfg.n_experts // ep
+    recv = col.all_to_all(buf.reshape(ep, el, C, -1), mesh, "model")  # [ep, el, C, D]
+    # the rank's experts over every source's slots: [el, ep·C, D]
+    xe = recv.transpose(0, 1).reshape(el, ep * C, -1)
+    y = _expert_ffn(xe, params["we1"][mine], params["we3"][mine], params["we2"][mine])
+    y = y.reshape(el, ep, C, -1).transpose(0, 1).contiguous()
+    back = col.all_to_all(y, mesh, "model")
+    out = _combine_local(back.reshape(cfg.n_experts, C, -1), lin, gf, T_l, cfg.top_k)
+    aux = _mean_aux(probs, idx, mesh, token_axes)
+    return col.all_gather_axes(out, mesh, token_axes, dim=0), aux
+
+
+# the baseline switch: the pre-optimisation dense path needs each expert's
+# whole F on its rank (FSDP shards all-gathered every step in the reference)
+LEGACY_DENSE = False
+
+
+def _moe_dense_legacy(x2d, params, cfg, rules):
+    """The baseline decode path: x [T, D] → (y [T, D], aux); each rank
+    routes its batch shard and runs its experts over their whole F."""
+    mesh = rules.mesh
+    _, mine = _local_experts(mesh, cfg)
+    batch_axes = rules.table["batch"]
+    n_b = _axes_size(mesh, batch_axes)
+    T_l = x2d.shape[0] // n_b
+    i = col.shard_index(mesh, batch_axes)
+    x_loc = x2d[i * T_l:(i + 1) * T_l]
+    out, probs, idx = _masked_ffn(x_loc, params["router"], params["we1"][mine],
+                                  params["we3"][mine], params["we2"][mine], cfg, mine)
+    out = col.all_reduce(out, mesh, "model")
+    aux = _mean_aux(probs, idx, mesh, batch_axes)
+    return col.all_gather_axes(out, mesh, batch_axes, dim=0), aux
+
+
+def _moe_dense_sharded(x2d, params, cfg, rules):
+    """The decode path: x [T, D] → (y [T, D], aux). The (few) tokens are
+    gathered from the batch shards, each rank computes its (expert slice ×
+    F slice) share of every token, and a sum over 'model' (and the FSDP
+    axis) completes them; the weights stay where they are."""
+    mesh = rules.mesh
+    _, mine = _local_experts(mesh, cfg)
+    batch_axes = rules.table["batch"]
+    n_b = _axes_size(mesh, batch_axes)
+    T_l = x2d.shape[0] // n_b
+    i = col.shard_index(mesh, batch_axes)
+    x_all = col.all_gather_axes(x2d[i * T_l:(i + 1) * T_l], mesh, batch_axes, dim=0)
+    fsdp = rules.cfg.param_sharding == "fsdp" and "data" in mesh_shape(mesh)
+    f = slice(None)
+    if fsdp:
+        nd, di = mesh_shape(mesh)["data"], col.axis_index(mesh, "data")
+        f_l = params["we1"].shape[-1] // nd
+        f = slice(di * f_l, (di + 1) * f_l)
+    out, probs, idx = _masked_ffn(x_all, params["router"], params["we1"][mine][:, :, f],
+                                  params["we3"][mine][:, :, f], params["we2"][mine][:, f],
+                                  cfg, mine)
+    out = col.all_reduce_axes(out, mesh, ("model", "data") if fsdp else ("model",))
+    # every rank now holds every token's output: the reference slices its
+    # own token shard back out and shard_map gathers them, which gives this
+    return out, _mean_aux(probs, idx, mesh, batch_axes)
+
+
+def moe_block(x, params, cfg, rules=None, path: str = "dispatch"):
     """x [B, S, D] → (y [B, S, D] in x's dtype, aux loss), as the JAX
-    package's ``moe_block``."""
+    package's ``moe_block``: the local reference without a mesh, else the
+    expert-parallel ``path`` ("dispatch", or "dense" for decode)."""
     B, S, D = x.shape
-    y, aux = _moe_reference(x.reshape(B * S, D), params, cfg)
+    x2d = x.reshape(B * S, D)
+    if rules is None or rules.mesh is None:
+        y, aux = _moe_reference(x2d, params, cfg)
+    elif path == "dense":
+        impl = _moe_dense_legacy if LEGACY_DENSE else _moe_dense_sharded
+        y, aux = impl(x2d, params, cfg, rules)
+    else:
+        y, aux = _moe_dispatch_sharded(x2d, params, cfg, rules)
     return y.reshape(B, S, D).to(x.dtype), aux

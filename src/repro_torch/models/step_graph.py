@@ -34,7 +34,9 @@ that fails raises: nothing falls back to eager.
 
 On the CPU an entry is the record of its key and the call runs eagerly, so
 ``_cache_size()`` (and the scheduler's retrace count) means there what it
-means in JAX.
+means in JAX. So does ``ShardedStep``, a rank's shard of a paged step on a
+serving mesh, on the card too: its collectives run over gloo, which a CUDA
+graph cannot capture.
 
 The kernels count their launches in Python. A capture counts the launches
 of the call it records, keeps them as the graph's launch vector and takes
@@ -178,7 +180,8 @@ class StepGraph:
             raise ValueError(f"jit_step: unknown step {name!r}; steps are {STEPS}")
         self.model, self.name, self.backend = model, name, backend
         self.device = model.device
-        self._entries: dict = {}  # key → {state addresses: _Capture} (CPU: None)
+        self.eager = self.device.type != "cuda"  # record keys, run eagerly
+        self._entries: dict = {}  # key → {state addresses: _Capture} (eager: None)
         self._size = 0
 
     def __repr__(self) -> str:
@@ -208,7 +211,7 @@ class StepGraph:
         leaves = list(_flatten(args, ("a",))) + list(_flatten(kwargs, ("k",)))
         key = tuple((p, tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor) else (p, v)
                     for p, v in leaves)
-        if self.device.type != "cuda":
+        if self.eager:
             if key not in self._entries:
                 self._entries[key] = None
                 self._size += 1
@@ -290,6 +293,59 @@ class StepGraph:
             else:
                 values.append(v)
         return _fill(cap.skeleton, values)
+
+
+class ShardedStep(StepGraph):
+    """This rank's shard of ``decode_step_paged`` / ``verify_step_paged`` on
+    a serving mesh (``Model.sharded_paged_step``; the JAX package's
+    ``jit(shard_map(...))``). ``model`` is the local view; ``full`` the
+    model whose parameters the caller passes. On a head split (``tp`` > 1
+    ranks along ``axis``) the rank's columns of ``wq``/``wk``/``wv`` are
+    sliced once per parameter dict (flat [L, D, H·hd] or [L, D, H, hd]
+    layouts) and ``wo`` stays whole. The step's collectives run over gloo,
+    which a CUDA graph cannot capture, so the family keeps the per-key
+    record and runs eagerly, as a ``StepGraph`` does on the CPU."""
+
+    def __init__(self, model, name: str, backend: str, full, mesh, axis, tp: int):
+        if name not in ("decode_step_paged", "verify_step_paged"):
+            raise ValueError(f"sharded_paged_step: {name!r} is not a paged step")
+        super().__init__(model, name, backend)
+        self.eager = True
+        self.full, self.mesh, self.axis, self.tp = full, mesh, axis, tp
+        self._src = self._local = None
+
+    def __repr__(self) -> str:
+        return (f"ShardedStep({self.name!r}, backend={self.backend!r}, "
+                f"mesh={dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))}, "
+                f"entries={self._size})")
+
+    def local_params(self, params) -> dict:
+        """``params`` with this rank's head columns of the q/k/v
+        projections (copies, made once per parameter dict)."""
+        if self._src is not params:
+            self._src, self._local = params, self._slice(params)
+        return self._local
+
+    def _slice(self, params) -> dict:
+        if self.tp == 1:
+            return params
+        cfg = self.model.cfg
+        r, hd = self.mesh.get_local_rank(self.axis), cfg.head_dim
+
+        def sl(w, n_loc):
+            if w.dim() == 3:  # flat [L, D, H·hd]: a head block is a column range
+                return w[:, :, r * n_loc * hd:(r + 1) * n_loc * hd].contiguous()
+            return w[:, :, r * n_loc:(r + 1) * n_loc].contiguous()
+
+        attn = params["layers"]["attn"]
+        attn = dict(attn, wq=sl(attn["wq"], cfg.n_heads), wk=sl(attn["wk"], cfg.n_kv_heads),
+                    wv=sl(attn["wv"], cfg.n_kv_heads))
+        return dict(params, layers=dict(params["layers"], attn=attn))
+
+    def _eager(self, args, kwargs):
+        params, *rest = args
+        return getattr(self.model, self.name)(self.local_params(params), *rest,
+                                              backend=self.backend, **kwargs)
 
 
 def cache_size(fns) -> int:

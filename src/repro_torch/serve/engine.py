@@ -15,8 +15,20 @@ records the flight recorder's trace and ticks the windowed metrics;
 the speculation depth, the attention backend and admission live, priced
 on those windows, after ``prime()`` has measured the K × backend grid.
 The engine runs on the model's device, CUDA unless the caller asks for
-the CPU. Options of the reference that are not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+the CPU.
+
+``mesh=`` (a ``DeviceMesh`` from ``launch/mesh.py``; on the constructor,
+or on a first ``serve()``) serves on the paged layout sharded over the
+mesh: every rank of the mesh builds the same engine and makes the same
+calls. Each rank holds the whole parameters and its shard of the block
+pool (kv heads over ``"model"``, blocks over ``"seq"``), runs the same
+unsharded prefill and writes its shard of the new KV, and runs the decode
+and verify steps through ``Model.sharded_paged_step``. The schedule is
+replicated: each step, rank 0's clock is broadcast (and, with a
+controller, rank 0's decision), and the block tables, lengths and tokens
+are hashed across the ranks, which raises on divergence. A mesh whose
+``"model"`` axis does not divide the heads falls back to replicated
+serving, warned once (``mesh_fallbacks``); the slot layout is refused.
 
 As in the reference, the engine owns its compiled step families, built
 lazily per backend through ``Model.jit_step`` and shared by every
@@ -31,6 +43,7 @@ caches and draft caches.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Optional
 
@@ -40,20 +53,13 @@ from torch.utils import _pytree as pytree
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.parallel.sharding import ShardingRules, mesh_shape
 from repro_torch.serve.kv_cache import PagedKVCache, SlotKVCache, StateStorage
 from repro_torch.serve.request import Request, ServeStats  # noqa: F401 (re-export)
 from repro_torch.serve.scheduler import Scheduler, sorted_cache
-from repro_torch.serve.telemetry import get_telemetry
+from repro_torch.serve.telemetry import TID_BACKEND, get_telemetry
 
-_NOT_PORTED = {
-    "mesh": "sharded serving (ROADMAP §1 item 9)",
-}
-
-
-def _refuse(**options) -> None:
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(f"{name}= ({_NOT_PORTED[name]}) is not ported yet")
+log = logging.getLogger("repro_torch.serve")
 
 
 class ServingEngine:
@@ -77,7 +83,6 @@ class ServingEngine:
         mesh=None,
         telemetry=None,
     ):
-        _refuse(mesh=mesh)
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(
@@ -97,10 +102,15 @@ class ServingEngine:
         # flight recorder and windowed metrics, shared by every scheduler
         # this engine makes; the default is the module global, disabled
         self.telemetry = telemetry if telemetry is not None else get_telemetry()
-        self.attention_backend = kernel_ops.resolve_attention_backend(
-            attention_backend, self.device
-        )
         self.stats = ServeStats()
+        # the serving mesh, or None after the warned GQA fallback (once per
+        # (cfg, mesh); repeated serve(mesh=) calls keep one record)
+        self._mesh_warned: set = set()
+        self.mesh_fallbacks: list[str] = []
+        self.mesh = self._check_mesh(mesh)
+        self.attention_backend = kernel_ops.resolve_attention_backend(
+            attention_backend, self.device, mesh=self.mesh
+        )
         # the compiled step families, per backend, shared by every
         # scheduler this engine makes, and the state storage they bind
         self._steps: dict[str, dict] = {}
@@ -111,8 +121,47 @@ class ServingEngine:
         if decode_plan is not None:
             self.set_decode_plan(decode_plan)
 
+    def _check_mesh(self, mesh):
+        """The engine's serving mesh, or None after the loud GQA fallback:
+        head counts the ``"model"`` axis does not divide make
+        ``ShardingRules`` drop the head mapping, and the engine serves
+        replicated — warned, never silent, never wrong tokens. A pure
+        ``"seq"`` mesh always passes (it splits blocks, not heads). The
+        record is kept once on ``mesh_fallbacks`` and warned once per
+        (cfg, mesh)."""
+        if mesh is None or mesh_shape(mesh).get("model", 1) == 1:
+            return mesh
+        cfg = self.model.cfg
+        rules = ShardingRules(mesh, cfg)
+        tp = mesh_shape(mesh)["model"]
+        if rules.table["kv_heads"] is None or cfg.n_heads % tp:
+            record = (f"kv_heads:{cfg.n_kv_heads}/heads:{cfg.n_heads} ∤ mesh "
+                      f"model({tp}); serving replicated")
+            if record not in self.mesh_fallbacks:
+                self.mesh_fallbacks.append(record)
+                if self.telemetry.enabled:
+                    self.telemetry.count("serve.mesh_fallbacks", registry=self.stats.registry)
+                    self.telemetry.tracer.instant("mesh-fallback", "backend", tid=TID_BACKEND,
+                                                  args={"record": record})
+            rules.fallbacks.append(record)
+            key = (id(cfg), tuple(sorted(mesh_shape(mesh).items())))
+            if key not in self._mesh_warned:
+                self._mesh_warned.add(key)
+                log.warning(
+                    "serving mesh dropped: n_kv_heads=%d/n_heads=%d do not divide mesh axis "
+                    "'model' (size %d) — serving replicated (ShardingRules fallbacks: %s)",
+                    cfg.n_kv_heads, cfg.n_heads, tp, rules.fallbacks)
+            return None
+        return mesh
+
     # ------------------------------------------------------------------
     # the compiled step families
+    def _paged_step(self, name: str, backend: str):
+        """A paged step of ``backend``: this rank's shard of it on a mesh."""
+        if self.mesh is not None:
+            return self.model.sharded_paged_step(name, self.mesh, backend)
+        return self.model.jit_step(name, backend)
+
     def _step_fns(self, backend: str) -> dict:
         """The step family of ``backend``, built lazily (only attention
         families page, only SPEC_FAMILIES verify) and kept per backend."""
@@ -126,7 +175,7 @@ class ServingEngine:
         """(paged decode, prefix prefill) of ``backend``."""
         fns = self._step_fns(backend)
         if "decode_paged" not in fns:
-            fns["decode_paged"] = self.model.jit_step("decode_step_paged", backend)
+            fns["decode_paged"] = self._paged_step("decode_step_paged", backend)
             fns["prefill_prefix"] = self.model.jit_step("prefill_with_prefix", backend)
         return fns["decode_paged"], fns["prefill_prefix"]
 
@@ -136,7 +185,7 @@ class ServingEngine:
         if "verify" not in fns:
             fns["verify"] = self.model.jit_step("verify_step", backend)
         if layout == "paged" and "verify_paged" not in fns:
-            fns["verify_paged"] = self.model.jit_step("verify_step_paged", backend)
+            fns["verify_paged"] = self._paged_step("verify_step_paged", backend)
         return fns["verify"], fns.get("verify_paged")
 
     def _chunk_fn(self, backend: str):
@@ -159,7 +208,7 @@ class ServingEngine:
         """What a scheduler serving ``layout`` (with ``spec`` and
         ``chunk``) runs on ``backend``: its resolver, so that a live backend
         switch lands in this engine's families, which ``prime()`` warms."""
-        backend = kernel_ops.resolve_attention_backend(backend, self.device)
+        backend = kernel_ops.resolve_attention_backend(backend, self.device, mesh=self.mesh)
         fns = self._step_fns(backend)
         out = {"backend": backend, "prefill": fns["prefill"], "decode": fns["decode"],
                "draft": lambda model: self._draft_fns(model, backend)}
@@ -206,6 +255,12 @@ class ServingEngine:
                 spec = (SpecConfig(k=kmax, drafter="ngram") if spec is None
                         else dataclasses.replace(spec, k=kmax))
         layout = kv_layout or self.kv_layout
+        if self.mesh is not None and layout != "paged":
+            raise ValueError(
+                "a serving mesh shards the paged block pool; the slotted layout has no "
+                "head-partitioned storage — use kv_layout='paged' (or build the engine "
+                "without mesh=)"
+            )
         chunk = int(chunk) if chunk else None
         return Scheduler(
             self.model,
@@ -227,6 +282,7 @@ class ServingEngine:
             controller=controller,
             step_fns=lambda b: self._family(b, layout, spec, chunk),
             storage=self._storage,
+            mesh=self.mesh,
         )
 
     def serve(
@@ -249,8 +305,26 @@ class ServingEngine:
         (``chunk_size``; ``0`` forces monolithic), recording a trace
         (``telemetry``) and closed-loop controlled (``controller``; see
         ``scheduler()``, and run ``prime()`` first so the first decision
-        prices measured cells). Returns rid → generated tokens."""
-        _refuse(mesh=mesh)
+        prices measured cells). ``mesh`` must be the engine's serving mesh;
+        on an engine without one it adopts it, provided no paged step was
+        built yet (a mesh the GQA fallback drops adopts nothing, and warns
+        once). Returns rid → generated tokens."""
+        if mesh is not None and mesh is not self.mesh:
+            if self.mesh is not None:
+                raise ValueError(
+                    "serve(mesh=) differs from the engine's mesh — the sharded step family "
+                    "is built against the constructor mesh; create one engine per mesh"
+                )
+            checked = self._check_mesh(mesh)
+            if checked is not None:
+                if any("decode_paged" in f or "verify_paged" in f for f in self._steps.values()):
+                    raise ValueError(
+                        "serve(mesh=) after paged steps were built without a mesh — pass "
+                        "mesh= to the ServingEngine constructor instead"
+                    )
+                self.mesh = checked
+                self.attention_backend = kernel_ops.resolve_attention_backend(
+                    self.attention_backend, self.device, mesh=self.mesh)
         backend = kernel_ops.resolve_attention_backend(
             attention_backend or self.attention_backend, self.device)
         if self._decode_plan is not None and backend != self.attention_backend:
@@ -323,7 +397,7 @@ class ServingEngine:
         if layout == "paged":
             kv = PagedKVCache(self.model, mb, self.max_seq, block_size=self.block_size,
                               num_blocks=self.num_blocks, prefix_cache=False,
-                              storage=self._storage)
+                              storage=self._storage, mesh=self.mesh)
             pool, tables, lens = kv.kernel_inputs()
         else:
             kv = SlotKVCache(self.model, mb, self.max_seq, storage=self._storage)

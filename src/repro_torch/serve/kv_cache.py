@@ -1,7 +1,6 @@
 """KV-cache pools for continuous batching: slotted and block-paged.
 
-Port of the JAX package's ``serve/kv_cache.py`` (single device; the
-serving mesh waits for ROADMAP §1 item 9). ``SlotKVCache`` owns a fixed
+Port of the JAX package's ``serve/kv_cache.py``. ``SlotKVCache`` owns a fixed
 pool of ``max_batch`` decode-cache slots; ``PagedKVCache`` maps
 ``max_batch`` decode rows through per-row block tables into a pool of
 fixed-size blocks (attention families only: the model refuses to page
@@ -15,6 +14,16 @@ Speculation rewinds both pools by the rejected tail (``truncate_row``,
 ``truncate_rows``); preemption evicts a row (``preempt_row``), the paged
 pool first parking its committed full blocks in the trie so that the
 resume recomputes only the partial tail block.
+
+On a serving mesh (``PagedKVCache(mesh=)``) each rank allocates only its
+shard of the pool: its kv heads over the ``"model"`` axis, its blocks over
+the ``"seq"`` axis. The allocator, tables and lengths are host data every
+rank keeps alike (every rank runs the same schedule); ``_slot`` lays the
+allocator's ids out over the seq shards so that each shard ends in one
+scratch slot no id maps to, and ``local_table_view`` turns the replicated
+tables into a rank's view of its shard. Every rank runs the same
+unsharded prefill and writes only its own shard (``write_prefill``); a
+prefix hit gathers the chain's rows from their owners (``gather_prefix``).
 
 The compiled steps (``models/step_graph.py``) capture state by address,
 so an engine keeps its state in a ``StateStorage`` and each pool it makes
@@ -35,7 +44,24 @@ import torch
 
 from repro_torch.models.attention import dequantize_kv
 from repro_torch.models.model import PREFIX_FAMILIES
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import mesh_shape
 from repro_torch.serve.block import BlockAllocator, PrefixCache
+
+
+def local_table_view(tables, nb_loc: int, rank: int):
+    """A rank's view of the replicated block tables under the kv-sequence
+    split. ``PagedKVCache`` lays slots out in contiguous shards of
+    ``nb_loc`` slots, each ending in a scratch slot no id maps to; rank
+    ``rank`` owns global slots [rank·nb_loc, (rank+1)·nb_loc). Owned
+    entries become their in-shard offset, every other entry the rank's
+    scratch slot ``nb_loc - 1``: a safe source (its positions are skipped
+    through ``owned``) and a safe write target (the owner writes the real
+    row, every other rank its scratch). Returns (local tables [B, MB] in
+    the tables' dtype, owned [B, MB] bool)."""
+    owned = torch.div(tables, nb_loc, rounding_mode="floor") == rank
+    local = torch.where(owned, tables % nb_loc, torch.full_like(tables, nb_loc - 1))
+    return local, owned
 
 
 def _zeroed(tree):
@@ -202,7 +228,9 @@ class PagedKVCache:
     rows' writes land in scratch. Admission charges the worst-case block
     budget; physical blocks are claimed as a request reaches them, and
     prefix-shared blocks are charged once. ``dtype`` overrides the pool's
-    type; ``storage``: a ``StateStorage`` to take the pool from."""
+    type; ``storage``: a ``StateStorage`` to take the pool from. ``mesh``: a
+    serving mesh, whose ``"model"`` axis shards the pool's kv heads and
+    whose ``"seq"`` axis its blocks; this rank allocates its shard only."""
 
     def __init__(
         self,
@@ -216,6 +244,7 @@ class PagedKVCache:
         metrics=None,
         dtype=None,
         storage=None,
+        mesh=None,
     ):
         self.model = model
         self.max_batch = int(max_batch)
@@ -231,12 +260,40 @@ class PagedKVCache:
         if num_blocks is None:
             num_blocks = self.max_batch * self.blocks_per_row
         self.num_blocks = int(num_blocks)
-        self.null_block = self.num_blocks
+        # The slot layout: the allocator hands out ids [0, num_blocks) and
+        # the null id num_blocks; ``_slot`` maps them onto pool slots. One
+        # shard: the identity (dead rows' entries point at the null slot,
+        # so their writes land in scratch). A "seq" axis of sp > 1: sp
+        # contiguous shards of d data slots plus one scratch slot each,
+        # never the image of an id, where a rank's view sends every entry
+        # it does not own (``local_table_view``).
+        self.mesh = mesh
+        shape = mesh_shape(mesh)
+        sp, tp = shape.get("seq", 1), shape.get("model", 1)
+        self.seq_shards, self.head_shards = sp, tp
+        ids = self.num_blocks + 1
+        arange = np.arange(ids, dtype=np.int32)
+        if sp > 1:
+            d = math.ceil(ids / sp)  # data slots a shard
+            self._slot = ((arange // d) * (d + 1) + arange % d).astype(np.int32)
+            self.total_blocks = sp * (d + 1)
+        else:
+            self._slot = arange
+            self.total_blocks = ids
+        self.null_block = int(self._slot[self.num_blocks])
+        KV = model.cfg.n_kv_heads
+        if KV % tp:
+            raise ValueError(f"n_kv_heads={KV} does not divide the mesh's 'model' axis ({tp})")
+        self.local_blocks = self.total_blocks // sp  # this rank's pool slots
+        self.kv_heads = KV // tp  # this rank's kv heads
+        self.seq_rank = collectives.axis_index(mesh, "seq") if sp > 1 else 0
+        self.head_rank = collectives.axis_index(mesh, "model") if tp > 1 else 0
 
         def make():
-            return model.init_paged_cache(self.num_blocks + 1, self.block_size, dtype=dtype)
+            return model.init_paged_cache(self.local_blocks, self.block_size, dtype=dtype,
+                                          kv_heads=self.kv_heads)
 
-        key = ("paged", self.num_blocks + 1, self.block_size, dtype)
+        key = ("paged", self.local_blocks, self.block_size, dtype, self.kv_heads)
         self.pool = make() if storage is None else storage.take(key, self, make)
         # only PREFIX_FAMILIES' suffix prefill equals a cold prefill, so
         # only their prompts may alias a shared prefix's blocks (the model's
@@ -354,7 +411,7 @@ class PagedKVCache:
         self._row_blocks[row] = blocks
         self._row_outstanding[row] = n_total - n_prompt
         self._outstanding_total += self._row_outstanding[row]
-        self.block_tables[row, : len(blocks)] = blocks
+        self.block_tables[row, : len(blocks)] = self._slot[blocks]
         self.cache_len[row] = S
         self._tables_version += 1
         self._len_version += 1
@@ -392,28 +449,50 @@ class PagedKVCache:
             self._dev_len_version = self._len_version
         return self.pool, self._dev_tables, self._dev_len
 
+    def _own(self, ids):
+        """(local slots, owned) of allocator ``ids`` on this rank: each
+        id's slot and whether this rank's seq shard holds it."""
+        slots = self._slot[np.asarray(ids, np.int64)]
+        own = slots // self.local_blocks == self.seq_rank
+        return slots % self.local_blocks, own
+
     def gather_prefix(self, hit_ids: list[int]):
         """(k, v) [L, 1, h, KV, hd] — a hit chain's post-RoPE KV rows,
         gathered on the device for ``Model.prefill_with_prefix``. An int8
         pool dequantizes here with the chain's scales, to the model's dtype,
-        so the suffix prefill always sees dense K/V."""
-        ids = torch.as_tensor(hit_ids, dtype=torch.long, device=self.model.device)
-        L, _, BS, KV, hd = self.pool["k"].shape
+        so the suffix prefill always sees dense K/V. On a mesh each rank
+        contributes the blocks and heads it holds: the seq shards sum
+        (every block has one owner, the others add zeros), the head shards
+        gather in head order; both are exact."""
+        local, own = self._own(hit_ids)
+        dev = self.model.device
+        idx = torch.as_tensor(local, dtype=torch.long, device=dev)
+        L, _, BS = self.pool["k"].shape[:3]
         h = len(hit_ids) * BS
 
         def rows(name):
-            leaf = self.pool[name][:, ids]
-            return leaf.reshape((L, 1, h) + tuple(leaf.shape[3:]))
+            return self.pool[name][:, idx]  # [L, n, BS, KV_loc, ...]
 
-        if "k_scale" not in self.pool:
-            return rows("k"), rows("v")
-        dt = self.model.dtype
-        return tuple(dequantize_kv(rows(n), rows(n + "_scale"), dt) for n in ("k", "v"))
+        if "k_scale" in self.pool:
+            dt = self.model.dtype
+            kv = [dequantize_kv(rows(n), rows(n + "_scale"), dt) for n in ("k", "v")]
+        else:
+            kv = [rows("k"), rows("v")]
+        if self.seq_shards > 1:
+            keep = torch.as_tensor(own, device=dev).view(1, -1, 1, 1, 1)
+            # the sum runs in float32: exact for every pool dtype
+            kv = [collectives.all_reduce(torch.where(keep, t, torch.zeros_like(t)).float(),
+                                         self.mesh, "seq").to(t.dtype) for t in kv]
+        if self.head_shards > 1:
+            kv = [collectives.all_gather(t, self.mesh, "model", dim=3) for t in kv]
+        return tuple(t.reshape((L, 1, h) + tuple(t.shape[3:])) for t in kv)
 
     def write_prefill(self, row: int, dense_cache, skip_blocks: int = 0) -> None:
         """Install a request's batch=1 dense prefill cache into its fresh
         prompt blocks, on the device. ``skip_blocks`` leading blocks are a
-        prefix hit — shared and immutable, so not rewritten."""
+        prefix hit — shared and immutable, so not rewritten. On a mesh the
+        dense cache holds every head and this rank writes its own heads of
+        the blocks its seq shard holds."""
         if self._row_owner[row] is None:
             raise RuntimeError(f"write into free row {row}")
         bs = self.block_size
@@ -421,10 +500,18 @@ class PagedKVCache:
         ids = self._row_blocks[row][skip_blocks:n_prompt]
         if not ids:
             return
-        idx = torch.as_tensor(ids, dtype=torch.long, device=self.model.device)
+        local, own = self._own(ids)
+        if not own.any():
+            return
+        dev = self.model.device
+        idx = torch.as_tensor(local[own], dtype=torch.long, device=dev)
+        pick = torch.as_tensor(np.nonzero(own)[0], dtype=torch.long, device=dev)
+        h0 = self.head_rank * self.kv_heads
         for name, leaf in self.pool.items():
             d = dense_cache[name][:, 0, skip_blocks * bs : n_prompt * bs]
-            leaf[:, idx] = d.reshape((d.shape[0], len(ids), bs) + tuple(d.shape[2:])).to(leaf.dtype)
+            d = d.reshape((d.shape[0], len(ids), bs) + tuple(d.shape[2:]))
+            d = d[:, :, :, h0 : h0 + self.kv_heads]
+            leaf[:, idx] = (d if len(pick) == len(ids) else d[:, pick]).to(leaf.dtype)
 
     def ensure_tail(self, row: int) -> None:
         """Claim the block the row's next decode write lands in, from its
@@ -442,7 +529,7 @@ class PagedKVCache:
             assert self._row_outstanding[row] > 0, "tail block was not reserved"
             b = self.allocator.alloc()
             self._row_blocks[row].append(b)
-            self.block_tables[row, bi] = b
+            self.block_tables[row, bi] = self._slot[b]
             self._tables_version += 1
             self._row_outstanding[row] -= 1
             self._outstanding_total -= 1
@@ -544,7 +631,7 @@ class PagedKVCache:
             if row not in live_rows:
                 assert not blocks and self._row_outstanding[row] == 0
             for j, b in enumerate(blocks):
-                assert self.block_tables[row, j] == b, "table/block-list skew"
+                assert self.block_tables[row, j] == self._slot[b], "table/block-list skew"
                 refs[b] += 1
             assert (self.block_tables[row, len(blocks):] == self.null_block).all()
         assert refs == self.allocator.refcount, "refcounts not conserved"

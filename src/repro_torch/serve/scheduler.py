@@ -58,6 +58,16 @@ every ``decision_interval`` working steps the scheduler reads
 decision: the live speculation depth K (within ``spec.k``, which sizes
 the admission margin and the drafter), the attention backend and an
 admission budget a step.
+
+On a serving mesh (``mesh=``, from the engine) every rank runs this
+scheduler, and each must decide the same schedule: the paged pool is
+allocated as this rank's shard, each step takes rank 0's clock (its
+``now``, broadcast), a controller's decision is rank 0's (broadcast), and
+before every decode or verify the block tables, lengths and tokens are
+hashed across the ranks (``collectives.check_replicated``), which raises
+on every rank when one has diverged. The logits every rank samples from
+are the same on every rank (the collectives give each rank the same
+values), so the rest follows.
 """
 from __future__ import annotations
 
@@ -78,6 +88,7 @@ from repro_torch.models.model import (
     prefill_bucket,
 )
 from repro_torch.models.step_graph import cache_size
+from repro_torch.parallel import collectives
 from repro_torch.serve.kv_cache import PagedKVCache, SlotKVCache, StateStorage
 from repro_torch.serve.request import (
     DECODE,
@@ -139,8 +150,10 @@ class Scheduler:
         controller=None,
         step_fns=None,
         storage=None,
+        mesh=None,
     ):
         self.model = model
+        self._mesh = mesh
         self.params = params
         self.device = model.device
         self.max_seq = int(max_seq)
@@ -183,8 +196,12 @@ class Scheduler:
                 model, max_batch, max_seq, block_size=block_size,
                 num_blocks=num_blocks, prefix_cache=prefix_cache,
                 metrics=self.stats.registry if self._ton else None, storage=self._storage,
+                mesh=mesh,
             )
         else:
+            if mesh is not None:
+                raise ValueError("a serving mesh shards the paged block pool; use "
+                                 "kv_layout='paged'")
             self.kv = SlotKVCache(model, max_batch, max_seq, storage=self._storage)
         self.attention_backend = kernel_ops.resolve_attention_backend(
             attention_backend, self.device
@@ -287,13 +304,19 @@ class Scheduler:
                    "draft": lambda m: drafts.setdefault(m, {
                        "decode": m.jit_step("decode_step", backend),
                        "prefill": m.jit_step("prefill", backend)})}
+            mesh = self._mesh
+
+            def paged(name):
+                return (jit(name, backend) if mesh is None
+                        else self.model.sharded_paged_step(name, mesh, backend))
+
             if self.kv_layout == "paged":
-                fns["decode_paged"] = jit("decode_step_paged", backend)
+                fns["decode_paged"] = paged("decode_step_paged")
                 fns["prefill_prefix"] = jit("prefill_with_prefix", backend)
             if self.spec is not None:
                 fns["verify"] = jit("verify_step", backend)
                 if self.kv_layout == "paged":
-                    fns["verify_paged"] = jit("verify_step_paged", backend)
+                    fns["verify_paged"] = paged("verify_step_paged")
             if self.chunk_size is not None:
                 fns["prefill_chunk"] = jit("prefill_chunk", backend)
             self._local_fns[backend] = fns
@@ -412,9 +435,16 @@ class Scheduler:
         self._ctl_steps += 1
         if self._ctl_steps % max(1, int(getattr(c, "decision_interval", 8))):
             return
-        summary = self.stats.registry.window_summary(int(getattr(c, "window", 16)))
-        d = c.decide(summary, k_live=self._live_k, backend_live=self.attention_backend,
-                     step=self._ctl_steps)
+        if self._mesh is None or self._mesh.get_rank() == self._root:
+            summary = self.stats.registry.window_summary(int(getattr(c, "window", 16)))
+            d = c.decide(summary, k_live=self._live_k, backend_live=self.attention_backend,
+                         step=self._ctl_steps)
+        else:
+            d = None
+        if self._mesh is not None:
+            # rank 0 decides for every rank: its measured windows (and a
+            # prime() it was seeded with) are its own
+            d = collectives.broadcast_object(d, self._mesh)
         self._apply_decision(d)
         reg = self.stats.registry
         reg.counter("controller.decisions").inc()
@@ -483,6 +513,18 @@ class Scheduler:
         if self._t0 is None:
             self._t0 = time.perf_counter()
         return time.perf_counter() - self._t0
+
+    @property
+    def _root(self) -> int:
+        """The global rank of mesh coordinate (0, …, 0)."""
+        return int(self._mesh.mesh.reshape(-1)[0])
+
+    def _check_schedule(self, tok) -> None:
+        """On a mesh: the replicated step inputs must be alike on every
+        rank (raises on every rank when one differs)."""
+        if self._mesh is not None:
+            collectives.check_replicated(self._mesh, self.kv.block_tables, self.kv.cache_len,
+                                         tok, what="schedule (block tables, lengths, tokens)")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -814,6 +856,7 @@ class Scheduler:
         if self.kv_layout == "paged":
             for row in self._active:
                 self.kv.ensure_tail(row)
+            self._check_schedule(self._tok)
             pool, tables, lens = self.kv.kernel_inputs()
             with self.tel.annotate("serve.decode"):
                 logits, self.kv.pool = self._decode_paged(self.params, pool, tables, lens, tok)
@@ -845,13 +888,13 @@ class Scheduler:
             drafts = self._drafter.propose(self._active, self._tok)
         t_draft = time.perf_counter()
         self.stats.draft_ms.append((t_draft - t_start) * 1e3)
-        tokens_in = torch.from_numpy(
-            np.concatenate([self._tok[:, None], np.asarray(drafts, np.int64)], axis=1)
-        ).to(self.device)
+        host_in = np.concatenate([self._tok[:, None], np.asarray(drafts, np.int64)], axis=1)
+        tokens_in = torch.from_numpy(host_in).to(self.device)
         self.widths["verify"][K + 1] += 1
         if self.kv_layout == "paged":
             for row in self._active:
                 self.kv.ensure_tail_n(row, K + 1)
+            self._check_schedule(host_in)
             pool, tables, lens = self.kv.kernel_inputs()
             with self.tel.annotate("serve.verify"):
                 logits, self.kv.pool = self._verify_paged(
@@ -1068,6 +1111,9 @@ class Scheduler:
     def _step_inner(self, now: Optional[float] = None) -> bool:
         if now is None:
             now = self._clock()
+        if self._mesh is not None:
+            # one clock for the whole mesh: admission reads it
+            now = collectives.mesh_broadcast_value(now, self._mesh)
         t0 = time.perf_counter()
         ton = self._ton
         admitted = self._admit_phase(now)

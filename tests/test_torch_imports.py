@@ -32,6 +32,9 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.core, repro_torch.core.deps, repro_torch.core.spec\n"
         "import repro_torch.bench_suite, repro_torch.bench_suite.fig34\n"
         "import repro_torch.bench_suite.pfl, repro_torch.bench_suite.cc\n"
+        "import repro_torch.parallel, repro_torch.parallel.sharding\n"
+        "import repro_torch.parallel.collectives, repro_torch.launch.mesh\n"
+        "import repro_torch.serve.differential\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items() if v is not None]\n"
     )

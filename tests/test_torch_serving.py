@@ -94,22 +94,37 @@ def test_sampling_is_seeded(pair):
     assert torch.equal(a, eng.generate(prompts, 6, seed=3))
 
 
+class _SeqMesh:
+    """A one-axis ("seq", 2) mesh as the engine reads one before serving
+    (axis names and sizes): enough for the refusals, which come first."""
+
+    mesh_dim_names, shape = ("seq",), (2,)
+
+
 def test_out_of_slice_options_refuse(pair):
-    """Sharded serving (ROADMAP §1 item 9) still refuses, naming its item;
-    every family builds and serves (a MoE model here: its tokens against
-    the JAX engine's are in tests/test_torch_families.py); speculation,
-    chunked prefill, priorities and the online controller serve (tests/test_torch_speculative.py, tests/test_torch_controller.py
-    and the chunked and preemption files hold them to the JAX engine)."""
+    """No option of the engine refuses as not ported any more: sharded
+    serving (ROADMAP §1 item 9) is ported, and a mesh refuses what the
+    reference's refuses — the slot layout, and a ``serve(mesh=)`` other
+    than the engine's (its sharded serving against the JAX engine is in
+    tests/test_torch_sharded_serving.py); every family builds and serves
+    (a MoE model here: its tokens against the JAX engine's are in
+    tests/test_torch_families.py); speculation, chunked prefill,
+    priorities and the online controller serve
+    (tests/test_torch_speculative.py, tests/test_torch_controller.py and
+    the chunked and preemption files hold them to the JAX engine)."""
+    import repro_torch.serve.engine as engine_mod
     from repro_torch.serve import PinnedController
-    from repro_torch.serve.engine import _NOT_PORTED
 
     cfg, _, _, tm, tp = pair
-    assert set(_NOT_PORTED) == {"mesh"}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ServingEngine(tm, tp, device="cpu", mesh=4, **KW)
+    assert not hasattr(engine_mod, "_NOT_PORTED") and not hasattr(engine_mod, "_refuse")
+    mesh = _SeqMesh()
+    sharded = ServingEngine(tm, tp, device="cpu", mesh=mesh, **KW)
+    assert sharded.mesh is mesh
+    with pytest.raises(ValueError, match="slotted layout has no head-partitioned storage"):
+        sharded.scheduler(2, kv_layout="slot")
+    with pytest.raises(ValueError, match="differs from the engine's mesh"):
+        sharded.serve([], mesh=_SeqMesh())
     eng = ServingEngine(tm, tp, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.serve([], mesh=4)
     assert eng.scheduler(2, controller=PinnedController(0)).controller is not None
     out = eng.serve([Request(prompt=np.arange(4), max_new_tokens=2, priority=1)], chunk_size=4)
     assert [len(t) for t in out.values()] == [2]
