@@ -90,8 +90,9 @@ Phases, in order; any failure exits non-zero before the final line:
    vectorisation, not SMT: the gains are the overlap model's for the
    paper's i7-12700 core); then
    smollm-135m at full width on the slot layout served through a decode
-   plan (``decode_region`` + ``Aira`` + ``set_decode_plan``), 8 rows and
-   7: float32 tokens equal to the no-plan path's (or ties), the paged
+   plan (``decode_region`` + ``Aira`` + ``set_decode_plan``), float32 at 7
+   rows (a padded last chunk) and bf16 at 8: float32 tokens equal to the
+   no-plan path's (or ties), the paged
    kernel launched exactly layers x chunks per stream x decode steps;
    bf16 logits of one plan step within ``E2E_BF16_RATIO`` of the plain
    path's distance from float32;
@@ -144,8 +145,8 @@ Phases, in order; any failure exits non-zero before the final line:
    prefill and decode) against its eager call on the same state, max
    |Δlogit| held to the float32 kernel tolerance, then a step-clock serve
    of each model eager (``step_graph.disabled()``) and graphed: the same
-   streams token for token; bf16 at full width: ``make_requests`` (16
-   open-loop requests, 128-1024-token prompts, 64 new tokens, 8 rows) on
+   streams token for token; bf16 at full width: ``make_requests`` (8
+   open-loop requests, 128-1024-token prompts, 32 new tokens, 8 rows) on
    smollm-135m paged with K = 4 speculation and ``chunk_size`` 256,
    mamba2-370m and zamba2-2.7b on slots, served once to capture its
    shapes, then eager and graphed: TTFT, TPOT and step p50/p99 side by
@@ -230,6 +231,28 @@ Phases, in order; any failure exits non-zero before the final line:
    ``moe_block`` on ("data", "model") = (2, 2), its three paths against
    their references; each rank's peak memory, collective calls, time and
    host staging. Phases 5–12 never call the partials mode.
+14. training (``repro_torch.train``, ``ckpt``, ``data``,
+   ``parallel/compression.py``, ``parallel/pipeline.py``) — 14a:
+   smollm-135m at full depth and width in bf16 through ``Trainer``, 20
+   steps of B = 8, S = 1024, accum 2, remat "dots", a checkpoint every 5
+   steps, an induced failure at step 7 and the resume from step 5 held
+   bitwise to an uninterrupted run (the two runs in two processes at
+   once) under deterministic algorithms
+   (``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts; an op without a
+   deterministic implementation is named and the max |Δ| printed instead);
+   the loss falls; step wall p50/p99, tokens/s, peak memory and the
+   checkpoint's save time; then, alone on the card, one step under each
+   remat mode and a profiled step's device busy time and idle share;
+   14b: one float32 step at full width and depth 2 on CUDA and on the CPU
+   (loss, grad_norm, every gradient leaf, the stepped parameters); 14c: one
+   bf16 step of mamba2, zamba2 (one attention group), granite, internvl2
+   and musicgen at full width (depth 2); no kernel launches in 14a-14c
+   (training runs the reference route; the kernels refuse autograd); 14d:
+   the trained weights served (4 requests, paged, graphed) with exact
+   paged and flash launch counts, their prefill and first-decode logits
+   held to the plain route by ``E2E_BF16_RATIO``; 14e: 2 gloo ranks on the
+   card, the data-parallel step against the single-device one,
+   ``compressed_psum`` and the 2-stage pipeline.
 
 ``--phases 3,12`` runs the build and the listed phases only, for a short
 development call (5 runs phases 5 and 6 together); with no argument every
@@ -1606,12 +1629,13 @@ def profile_split(label, fn, kernels, card):
         fn()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 5 * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device-side events only (kernels, copies): the CPU side's op events,
+    # thousands a step, cost seconds to collect and would repeat the device
+    # time of the kernels they launched
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-    # device-side events only (kernels, copies): CPU-side op rows repeat
-    # the device time of the kernels they launched
     gpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_all = sum(e.time_range.elapsed_us() for e in gpu) / 3e3
     shares = ", ".join(
@@ -1864,7 +1888,7 @@ def moe_routes(record=None, replay=None):
         moe._route = orig
 
 
-def parity_bf16(arch, B=2, S=512, layers=None):
+def parity_bf16(arch, B=2, S=512, layers=None, params=None):
     """bf16 ``arch`` at full width (seeded random weights): a B x S prompt
     prefilled, then one decode step on the greedy token of the plain
     path, through the kernels and through the plain reference backend,
@@ -1876,7 +1900,9 @@ def parity_bf16(arch, B=2, S=512, layers=None):
     (head size 64, 80 or 128) once per attention layer and the decode step
     the paged kernel (int8 for an int8 cache) once per attention layer; the
     plain paths launch nothing. ``layers`` cuts the depth (the float32 copy
-    of a 14B or 20B model would not fit the card beside its bf16 one). A
+    of a 14B or 20B model would not fit the card beside its bf16 one);
+    ``params``: bf16 parameters to hold (phase 14d: trained ones) in place
+    of the seeded draw. A
     VLM's prompt carries seeded patch embeddings ahead of its tokens. A
     MoE's top-k choice is a discontinuity: a rounding that moves a token
     across an expert boundary changes its layer output by an expert's
@@ -1895,7 +1921,8 @@ def parity_bf16(arch, B=2, S=512, layers=None):
         cfg = dataclasses.replace(cfg, num_layers=layers)
         arch = f"{arch} (depth {layers})"
     model = Model(cfg)
-    params = model.init(seed=2)
+    if params is None:
+        params = model.init(seed=2)
     sites = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.num_layers
     path = fa.flash_plan(torch.bfloat16, B, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)["path"]
     require(path == "wgmma", f"{arch}: the bf16 prefill's flash path is {path}, not wgmma")
@@ -2072,11 +2099,16 @@ def _plan_schedule(plan, n):
     return g, target // (g * ns)
 
 
+# the rows each dtype's decode plan serves
+P7_PLAN_ROWS = (("float32", (7,)), ("bfloat16", (8,)))
+
+
 def serve_decode_plan(card):
     """smollm-135m at full width on the slot layout, served through a
     decode plan: ``decode_region(prompts, force=True)`` advised by
-    ``Aira(hw=CPU_HW)``, then ``set_decode_plan``; 8 rows, then 7 (the
-    last chunk padded). float32: the plan path's greedy tokens equal the
+    ``Aira(hw=CPU_HW)``, then ``set_decode_plan``; float32 at 7 rows (the
+    last chunk padded), bf16 at 8 (``P7_PLAN_ROWS``: each advice costs
+    10-30 s of host time). float32: the plan path's greedy tokens equal the
     no-plan path's (or tie, as phase 6 counts ties), and the paged kernel
     launches exactly layers x chunks per stream x decode steps on the plan
     path (the kernel ran under vmap once a chunk, nothing on the plain
@@ -2090,11 +2122,11 @@ def serve_decode_plan(card):
 
     base = get_config("smollm-135m")
     L, S, steps, max_seq = base.num_layers, 128, 8, 256
-    for dtype in ("float32", "bfloat16"):
+    for dtype, rows in P7_PLAN_ROWS:
         cfg = dataclasses.replace(base, dtype=dtype)
         model = Model(cfg)
         params = model.init(seed=3)
-        for B in (8, 7):
+        for B in rows:
             prompts = np.random.default_rng(B).integers(0, cfg.vocab_size, (B, S))
             engine = ServingEngine(model, params, max_seq=max_seq)
             region = engine.decode_region(prompts, force=True)
@@ -3025,9 +3057,15 @@ def host_split(card):
         + ", ".join(f"{a.key} {a.self_cpu_time_total / 1e3:.2f} ms x{a.count}" for a in top))
 
 
+# phase 10's serving workload, small enough that the whole script, training
+# included, fits its time limit on a slow host
+P10_REQUESTS, P10_NEW = 8, 32
+
+
 def phase10_serving(card):
     """bf16, full width: each model of ``P10`` serves ``make_requests``
-    (16 open-loop requests, 128-1024-token prompts, 64 new tokens, 8 rows)
+    (``P10_REQUESTS`` open-loop requests, 128-1024-token prompts,
+    ``P10_NEW`` new tokens, 8 rows)
     once to capture its shapes, then eagerly (``step_graph.disabled()``)
     and graphed on the same requests: TTFT, TPOT and step p50/p99 side by
     side, the captures, the graph pool's bytes; then each model's decode
@@ -3049,8 +3087,8 @@ def phase10_serving(card):
                                max_batch=8)
 
         def reqs():
-            return make_requests(16, 20.0, vocab=cfg.vocab_size, max_new_tokens=64,
-                                 prompt_lens=tuple(range(128, 1025)),
+            return make_requests(P10_REQUESTS, 20.0, vocab=cfg.vocab_size,
+                                 max_new_tokens=P10_NEW, prompt_lens=tuple(range(128, 1025)),
                                  rng=np.random.default_rng(10))
 
         t0 = time.perf_counter()
@@ -3067,7 +3105,8 @@ def phase10_serving(card):
             with step_graph.disabled() if mode == "eager" else contextlib.nullcontext():
                 out = engine.serve(reqs(), **kw)
             s = engine.stats.serving_summary()
-            require(s["n_requests"] == len(out) == 16, f"{arch} {mode}: not every request finished")
+            require(s["n_requests"] == len(out) == P10_REQUESTS,
+                    f"{arch} {mode}: not every request finished")
             rows[mode] = {k: round(s[k], 3) for k in keys}
             rows[mode]["captures"] = compiled(engine) - c0
         label = f"{arch} bf16 {layout} {opts}, 8 rows"
@@ -4424,11 +4463,531 @@ def phase13(card, device="cuda", reduced=False):
     return rows, {"partials": partials, "p13_internlm2_tp4": tp4}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training
+
+P14_STEPS, P14_FAIL_AT, P14_CKPT_EVERY = 20, 7, 5
+P14_BATCH, P14_SEQ = 8, 1024  # smollm-135m's trainer: accum 2 (its train_accum)
+P14_PARITY = dict(layers=2, batch=2, seq=256)  # 14b: float32, CUDA against CPU
+P14_LOSS_RTOL = 1e-5  # float32 loss, CUDA against CPU
+P14_GNORM_RTOL = P14_GRAD_RTOL = 1e-4  # grad_norm; relative L2 of each gradient leaf
+P14_PARAM_ATOL = 5e-2  # tests/test_sharded.py's bound on a step's parameters
+P14_MESH_LOSS_ATOL = 5e-3  # tests/test_sharded.py's bound on the sharded step's loss
+P14_PIPE_ATOL = 1e-5  # tests/test_sharded.py's bound on the pipeline
+# 14c: one step of each other family at full width; depth 2, zamba2 one
+# attention group (6 SSM layers and the shared block)
+P14_OTHERS = ("mamba2-370m", "zamba2-2.7b", "granite-moe-1b-a400m", "internvl2-2b",
+              "musicgen-large")
+P14_DIR = os.path.join(ROOT, "build", "phase14")
+
+
+def p14_grads(model, params, batch):
+    """(loss, gradient leaves in ``tree.flatten`` order) of ``Model.loss``."""
+    from repro_torch.tree import flatten, unflatten
+
+    leaves, spec = flatten(params)
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    loss, _ = model.loss(unflatten(spec, leaves), batch)
+    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+
+def p14_profile(label, fn, wall_ms, card):
+    """Device busy ms of one call of ``fn`` (warm), from a CUDA-only
+    ``torch.profiler`` trace (a step's ~27k kernels: the CPU side's events
+    would cost more to collect than the step), against ``wall_ms``, the
+    synchronised wall of the same work; the top kernel names by device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    gpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in gpu) / 1e3
+    by_name = collections.Counter()
+    for e in gpu:
+        by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    top = ", ".join(f"{k} {v:.1f}" for k, v in by_name.most_common(5))
+    log(f"time[{label}] on {card}: wall p50 {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle "
+        f"share {1 - busy / wall_ms:.0%}, {len(gpu)} device operations; top ms: {top}")
+    return busy
+
+
+def _p14_accum(batch, a):
+    return {k: v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:])) for k, v in batch.items()}
+
+
+def _p14a_setup(device="cuda", reduced=False):
+    """smollm-135m (remat "dots"), its data and optimizer for 14a
+    (``reduced``: the CPU rehearsal's ``.reduced()`` bf16 config, B = 4,
+    S = 64)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.model import Model
+    from repro_torch.train import AdamW
+
+    cfg = get_config("smollm-135m")
+    cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16") if reduced else cfg
+    cfg = dataclasses.replace(cfg, remat="dots")
+    batch, seq = (4, 64) if reduced else (P14_BATCH, P14_SEQ)
+    data = SyntheticLMData(cfg, batch=batch, seq=seq, seed=0, device=device)
+    return (cfg, Model(cfg, device=device), data,
+            AdamW(lr=1e-3, warmup_steps=5, total_steps=P14_STEPS))
+
+
+def p14a_run(i, out, device="cuda", reduced=False):
+    """One of 14a's two runs, each in a process of its own (they share the
+    card, which either leaves mostly idle): 0 the run with the induced
+    failure at step 7 and its resume, 1 the uninterrupted run, which also
+    times its steps, its peak memory and one more checkpoint save. Both run
+    under deterministic algorithms (warn-only: an op without a
+    deterministic implementation is recorded) and save their final state
+    and findings to ``out``."""
+    import warnings
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tree import flatten
+
+    name = "ab"[i]
+    cuda = torch.device(device).type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, model, data, opt = _p14a_setup(device, reduced)
+    tc = TrainerConfig(total_steps=P14_STEPS, ckpt_every=P14_CKPT_EVERY,
+                       ckpt_dir=os.path.join(out, name), accum_steps=cfg.train_accum,
+                       log_every=5)
+    tr = Trainer(model, opt, data, tc, fail_at_step=P14_FAIL_AT if name == "a" else None,
+                 log_fn=lambda m: log(f"p14a[{name}] {m}"))
+    losses, inner = [], tr.step_fn
+
+    def step(*args):
+        res = inner(*args)
+        losses.append(res[2]["loss"])
+        return res
+
+    tr.step_fn = step
+    found = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            t0 = time.perf_counter()
+            if name == "a":
+                try:
+                    tr.run()
+                    require(False, "p14a: the induced failure did not fire")
+                except RuntimeError as e:
+                    require("induced node failure" in str(e), f"p14a: {e}")
+            elif cuda:
+                torch.cuda.reset_peak_memory_stats()
+            state, _ = tr.run()
+            found["wall_s"] = time.perf_counter() - t0
+            found["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+        finally:
+            torch.use_deterministic_algorithms(False)
+    tree = {"params": state.params, "opt": state.opt_state}
+    if name == "b":
+        # the save of the trained state, timed: the host copy, then the write
+        mgr = CheckpointManager(os.path.join(out, "timed"), keep=1)
+        t1 = time.perf_counter()
+        mgr.save(P14_STEPS, tree)
+        found["ckpt_host_s"] = time.perf_counter() - t1
+        mgr.wait()
+        found["ckpt_save_s"] = time.perf_counter() - t1
+        found["ckpt_bytes"] = sum(t.numel() * t.element_size() for t in flatten(tree)[0])
+    found.update(step=state.step, events=tr.events, step_times=tr.step_times,
+                 losses=[float(x) for x in losses],
+                 nondet=sorted({str(w.message).splitlines()[0] for w in caught
+                                if "deterministic" in str(w.message)}))
+    torch.save({"tree": tree, "found": found}, os.path.join(out, f"{name}.pt"))
+
+
+def phase14_train(card, device="cuda", reduced=False):
+    """14a: smollm-135m at full depth and width in bf16 through ``Trainer``:
+    20 steps of B = 8, S = 1024, accum 2, remat "dots", a checkpoint every 5
+    steps; an induced failure at step 7 and the resume from step 5, held
+    bitwise to an uninterrupted run under deterministic algorithms (an op
+    that has none is named, and the max |Δ| printed instead). The two runs
+    go in two processes at once (``p14a_run``): each leaves the card mostly
+    idle. Returns the trained parameters."""
+    import shutil
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.model import Model
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import flatten
+
+    cfg, model, data, opt = _p14a_setup(device, reduced)
+    host = SyntheticLMData(cfg, batch=data.batch, seq=data.seq, seed=0, device="cpu")
+    for step in (0, 13):
+        a, b = data.batch_at(step), host.batch_at(step)
+        require(all(torch.equal(a[k].cpu(), b[k]) for k in a),
+                f"p14a: the batch of step {step} differs between CUDA and the CPU")
+    out = os.path.join(P14_DIR, "train")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(p14a_run, args=(out, device, reduced), nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+    runs = {n: torch.load(os.path.join(out, f"{n}.pt"), map_location=device, weights_only=False)
+            for n in "ab"}
+    shutil.rmtree(out, ignore_errors=True)
+    fa, fb = runs["a"]["found"], runs["b"]["found"]
+    require(any(f"restored step {P14_CKPT_EVERY}" in e for e in fa["events"]),
+            f"p14a: the resume did not restore step {P14_CKPT_EVERY}: {fa['events']}")
+    require(fa["step"] == fb["step"] == P14_STEPS, "p14a: a run stopped short")
+    nondet = sorted(set(fa["nondet"]) | set(fb["nondet"]))
+    la, lb = flatten(runs["a"]["tree"])[0], flatten(runs["b"]["tree"])[0]
+    differ = sum(not torch.equal(x, y) for x, y in zip(la, lb))
+    dmax = max(float((x.float() - y.float()).abs().max()) for x, y in zip(la, lb))
+    if nondet:
+        log(f"p14a resume: ops without a deterministic implementation: {nondet}; {differ} of "
+            f"{len(la)} leaves differ from the uninterrupted run, max |delta| {dmax:.3e}")
+    else:
+        require(differ == 0, f"p14a: the resumed run differs from the uninterrupted one in "
+                             f"{differ} of {len(la)} leaves (max |delta| {dmax:.3e})")
+        log(f"p14a resume from step {P14_CKPT_EVERY} after the failure at step {P14_FAIL_AT}: "
+            f"params and optimizer state bitwise equal to the uninterrupted run "
+            f"({len(la)} leaves; deterministic algorithms, no op warned)")
+    losses = fb["losses"]
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"p14a: the loss did not fall: {losses}")
+    steps = np.array(fb["step_times"][1:]) * 1e3
+    p50, p99 = float(np.percentile(steps, 50)), float(np.percentile(steps, 99))
+    log(f"p14a train[smollm-135m bf16, B={data.batch} S={data.seq} accum {cfg.train_accum} remat "
+        f"dots] on {card}: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps; "
+        f"step wall (synchronised) p50 {p50:.2f} ms p99 {p99:.2f} ms (first step "
+        f"{fb['step_times'][0] * 1e3:.1f} ms, not counted); "
+        f"{data.batch * data.seq / p50 * 1e3:.0f} tokens/s at p50; peak memory "
+        f"{fb['peak_gb']:.2f} GiB; events {fa['events']}; "
+        f"checkpoint of {fb['ckpt_bytes'] / 2**30:.3f} GiB: host copy "
+        f"{fb['ckpt_host_s'] * 1e3:.1f} ms, published after {fb['ckpt_save_s'] * 1e3:.1f} ms; "
+        f"the runs {fa['wall_s']:.1f} s and {fb['wall_s']:.1f} s at once, {wall:.1f} s with "
+        f"their processes' start")
+    trained = runs["b"]["tree"]["params"]
+    ostate = runs["b"]["tree"]["opt"]
+    del runs, la, lb
+    # a step alone on the card, under each remat mode: its synchronised wall
+    # and peak memory, after a first step (the trainer's p50 above ran beside
+    # the other run); then where the "dots" step's time goes, one step's
+    # device time (the profiler's kernels and copies, on one stream) against
+    # its wall alone
+    batch = _p14_accum(data.batch_at(0), cfg.train_accum)
+    walls, fns = {}, {}
+    for remat in ("none", "full", "dots"):
+        fns[remat] = make_train_step(Model(dataclasses.replace(cfg, remat=remat), device=device),
+                                     opt, accum_steps=cfg.train_accum)
+        fns[remat](trained, ostate, batch)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fns[remat](trained, ostate, batch)
+        torch.cuda.synchronize()
+        walls[remat] = ((time.perf_counter() - t1) * 1e3,
+                        torch.cuda.max_memory_allocated() / 2**30)
+    log(f"p14a remat on {card}: one step alone, wall ms and peak GiB (with what earlier "
+        f"phases still hold): " + ", ".join(
+            f"{k} {w:.1f} ms {m:.2f} GiB" for k, (w, m) in walls.items()))
+    p14_profile("p14a train step, smollm-135m bf16 B=8 S=1024 accum 2 remat dots",
+                lambda: fns["dots"](trained, ostate, batch), walls["dots"][0], card)
+    del ostate
+    gc.collect()
+    torch.cuda.empty_cache()
+    return trained
+
+
+def phase14_parity(card):
+    """14b: one float32 train step of smollm-135m at full width and depth 2
+    (B = 2, S = 256) on CUDA and on the CPU, from the same parameters and
+    batch: loss, grad_norm, every gradient leaf and the stepped
+    parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.model import Model
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.tree import flatten, map_tree
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("smollm-135m"), num_layers=P14_PARITY["layers"],
+                              dtype="float32")
+    gm, cm = Model(cfg), Model(cfg, device="cpu")
+    params = gm.init(seed=3)
+    cparams = map_tree(lambda p: p.cpu(), params)
+    batch = SyntheticLMData(cfg, P14_PARITY["batch"], P14_PARITY["seq"], seed=1,
+                            device="cpu").batch_at(0)
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    gl, gg = p14_grads(gm, params, gbatch)
+    cl, cg = p14_grads(cm, cparams, batch)
+    rel = [float((a.cpu() - b).norm() / b.norm().clamp(min=1e-30)) for a, b in zip(gg, cg)]
+    opt = AdamW(lr=1e-3, warmup_steps=2, total_steps=10)
+    gp, _, gmet = make_train_step(gm, opt)(params, opt.init(params), gbatch)
+    cp, _, cmet = make_train_step(cm, opt)(cparams, opt.init(cparams), batch)
+    d_loss = abs(float(gl) - float(cl)) / abs(float(cl))
+    d_gn = abs(float(gmet["grad_norm"]) - float(cmet["grad_norm"])) / float(cmet["grad_norm"])
+    d_p = max(float((a.cpu() - b).abs().max()) for a, b in zip(flatten(gp)[0], flatten(cp)[0]))
+    log(f"p14b parity[smollm-135m float32 depth 2, B=2 S=256] CUDA against CPU on {card} "
+        f"({time.perf_counter() - t0:.1f} s): loss "
+        f"{float(gl):.6f} vs {float(cl):.6f} (rel {d_loss:.2e} <= {P14_LOSS_RTOL:g}); grad_norm "
+        f"rel {d_gn:.2e} (<= {P14_GNORM_RTOL:g}); gradient leaves rel L2 max {max(rel):.2e} "
+        f"(<= {P14_GRAD_RTOL:g}, {len(rel)} leaves); stepped params max |delta| {d_p:.2e} "
+        f"(< {P14_PARAM_ATOL:g})")
+    require(d_loss <= P14_LOSS_RTOL, f"p14b: loss rel {d_loss}")
+    require(d_gn <= P14_GNORM_RTOL, f"p14b: grad_norm rel {d_gn}")
+    require(max(rel) <= P14_GRAD_RTOL, f"p14b: gradient rel L2 {rel}")
+    require(d_p < P14_PARAM_ATOL, f"p14b: params {d_p}")
+    del gp, cp, params, cparams, gg, cg
+    torch.cuda.empty_cache()
+
+
+def phase14_families(card):
+    """14c: one bf16 train step of each other family at full width (depth
+    2; zamba2 one attention group): a finite loss, the parameters moved,
+    the peak memory. dbrx-132b is left out: at depth 1 it still holds ~4.5 B
+    parameters, whose float32 moments (36 GB), bf16 weights and gradients
+    (18 GB) and float32 temporaries of its 1.06 B-element expert leaves in
+    the update leave no margin on one 80 GB card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.model import Model
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.tree import flatten
+
+    for arch in P14_OTHERS:
+        cfg = get_config(arch)
+        depth = cfg.attn_every if cfg.family == "hybrid" else 2
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg)
+        params = model.init(seed=4)
+        seq = 512 + cfg.n_frontend_tokens
+        batch = SyntheticLMData(cfg, batch=4, seq=seq, seed=2).batch_at(0)
+        opt = AdamW(lr=1e-3, warmup_steps=2, total_steps=10)
+        step = make_train_step(model, opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p2, _, met = step(params, opt.init(params), batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loss = float(met["loss"])
+        moved = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(flatten(params)[0], flatten(p2)[0]))
+        n = sum(p.numel() for p in flatten(params)[0])
+        log(f"p14c train[{arch} bf16 depth {depth}, B=4 S={seq}, remat {cfg.remat}] on {card}: "
+            f"{n / 1e9:.3f} B parameters, loss {loss:.4f} (ce {float(met['ce']):.4f}, aux "
+            f"{float(met['aux']):.4f}), grad_norm {float(met['grad_norm']):.3f}, params moved "
+            f"max {moved:.3e}, first step {dt * 1e3:.1f} ms, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        require(math.isfinite(loss) and moved > 0, f"p14c {arch}: loss {loss}, moved {moved}")
+        del model, params, p2, batch, met
+        torch.cuda.empty_cache()
+
+
+def phase14_serve(card, params):
+    """14d: the trained parameters serve 4 requests through the engine on
+    the kernel backend, graphed, with exact launch counts; the prefill and
+    first-decode logits held to the plain route by ``E2E_BF16_RATIO``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServingEngine, make_requests
+
+    parity_bf16("smollm-135m", params=params)
+    cfg = get_config("smollm-135m")
+    model = Model(cfg)
+    watch = StepLog(model)
+    engine = ServingEngine(model, params, max_seq=2048, kv_layout="paged", block_size=16,
+                           max_batch=4)
+    reqs = make_requests(4, 1e3, vocab=cfg.vocab_size, max_new_tokens=16,
+                         prompt_lens=tuple(range(64, 513)), rng=np.random.default_rng(14))
+    reset_launches()
+    out = engine.serve(reqs)
+    n = read_launches()
+    L = cfg.num_layers
+    decodes = watch.n("decode_step_paged")
+    prefills = watch.n("prefill", "prefill_with_prefix")
+    s = headline("p14d trained smollm-135m, paged, graphed", engine.stats, card)
+    log(f"p14d serve: {decodes} decode steps -> {n['paged']} paged launches (= {L} x {decodes}); "
+        f"{prefills} prefills -> {n['flash']} flash launches (= {L} x {prefills}); "
+        f"{compiled(engine)} captured step entries")
+    require(decodes > 0 and n["paged"] == L * decodes, f"p14d: paged launches {n}")
+    require(prefills > 0 and n["flash"] == L * prefills, f"p14d: flash launches {n}")
+    require(compiled(engine) > 0, "p14d: no step was captured")
+    require(not bool(watch.bad), "p14d: non-finite logits")
+    require(s["n_requests"] == len(out) == 4 and all(len(t) > 0 for t in out.values()),
+            "p14d: not every request finished with tokens")
+    return n
+
+
+def _p14_tanh_stack(sp, x):
+    for w in sp:
+        x = torch.tanh(x @ w)
+    return x
+
+
+def p14_rank(rank, world, out, device="cuda", reduced=False):
+    """One of 14e's 2 gloo ranks on the card: the data-parallel smollm-135m
+    step (float32, full width, depth 2, B = 4 split over "data") against
+    the single-device step, then ``compressed_psum`` and the 2-stage
+    pipeline over "pod". Rank 0 saves what it found. ``device="cpu"`` with
+    ``reduced`` rehearses it at ``.reduced()`` width on the CPU."""
+    import pickle
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.compression import compressed_psum
+    from repro_torch.parallel.pipeline import pipelined_apply
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.tree import flatten
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    found = {}
+    mesh = make_test_mesh((2,), ("data",), device=dev)
+    cfg = get_config("smollm-135m")
+    # remat "none": the mesh is under test here, and a fresh process's
+    # first step under "dots" pays the selective checkpoint's setup
+    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg, num_layers=2, dtype="float32",
+                              remat="none")
+    model = Model(cfg, device=dev)
+    params = model.init(seed=5)
+    batch = SyntheticLMData(cfg, batch=4, seq=256, seed=3, device=dev).batch_at(0)
+    opt = AdamW(lr=1e-3, warmup_steps=2, total_steps=10)
+    col.reset_stats()
+    t0 = time.perf_counter()
+    p2, _, met = make_train_step(model, opt, mesh=mesh)(params, opt.init(params), batch)
+    if cuda:
+        torch.cuda.synchronize()
+    found["dp_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    found["collectives"] = dict(col.STATS)
+    p1, _, met1 = make_train_step(model, opt)(params, opt.init(params), batch)
+    col.check_replicated(mesh, *[p.cpu().numpy() for p in flatten(p2)[0]], what="parameters")
+    found["loss"], found["loss_single"] = float(met["loss"]), float(met1["loss"])
+    found["params_diff"] = max(float((a - b).abs().max())
+                               for a, b in zip(flatten(p2)[0], flatten(p1)[0]))
+    pod = make_test_mesh((2,), ("pod",), device=dev)
+    rng = np.random.default_rng(2)
+    g = torch.from_numpy(rng.standard_normal(64).astype(np.float32)).to(dev)
+    mean, err = compressed_psum(g, pod, "pod", torch.zeros_like(g))
+    found["compress"] = {"recon": float((mean + err - g).abs().max()),
+                         "err_max": float(err.abs().max()), "g_max": float(g.abs().max())}
+    # rank r holds g·(1 + r): one scale, 2·max|g| / 127, and the int8 sum
+    mean_r, _ = compressed_psum(g * (1 + rank), pod, "pod", torch.zeros_like(g))
+    scale = (2 * g).abs().max() / 127.0
+    q = [torch.clamp(torch.round(g * (1 + r) / scale), -127, 127) for r in (0, 1)]
+    found["compress"]["shared_scale"] = float((mean_r - (q[0] + q[1]) * scale / 2).abs().max())
+    ws = torch.from_numpy((rng.standard_normal((4, 8, 8)) * 0.3).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32)).to(dev)
+    got = pipelined_apply(_p14_tanh_stack, ws.reshape(2, 2, 8, 8), x, mesh=pod, n_micro=4)
+    want = _p14_tanh_stack(ws[2:], _p14_tanh_stack(ws[:2], x))
+    found["pipeline"] = float((got - want).abs().max())
+    found["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    if rank == 0:
+        with open(os.path.join(out, "rank0.pkl"), "wb") as f:
+            pickle.dump(found, f)
+
+
+class _P14Mesh:
+    """14e's 2 gloo rank processes (``p14_rank``), started on a thread of
+    their own so that they share the card with 14a's runs, which leave it
+    mostly idle; ``finish`` joins them and re-raises what they raised."""
+
+    def __init__(self, device="cuda", reduced=False):
+        import threading
+
+        from repro_torch.launch.mesh import run_ranks
+
+        self.out = os.path.join(P14_DIR, "mesh")
+        os.makedirs(self.out, exist_ok=True)
+        self.t0, self.error = time.perf_counter(), None
+
+        def ranks():
+            try:
+                run_ranks(p14_rank, 2, self.out, device, reduced,
+                          store=os.path.join(self.out, "store"), timeout_s=600.0)
+            except BaseException as e:  # raised again by finish()
+                self.error = e
+
+        self.thread = threading.Thread(target=ranks, daemon=True)
+        self.thread.start()
+
+    def finish(self, card):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        phase14_mesh_check(card, self.out, time.perf_counter() - self.t0)
+
+
+def phase14_mesh_check(card, out, wall):
+    """14e's checks and line, from what rank 0 saved under ``out``."""
+    import pickle
+
+    with open(os.path.join(out, "rank0.pkl"), "rb") as f:
+        found = pickle.load(f)
+    c = found["compress"]
+    log(f"p14e mesh (2 gloo ranks on one {card}, {wall:.1f} s, beside 14a's runs): "
+        f"data-parallel smollm-135m float32 depth 2 step loss {found['loss']:.6f} vs "
+        f"single-device {found['loss_single']:.6f} (|delta| "
+        f"{abs(found['loss'] - found['loss_single']):.2e} < {P14_MESH_LOSS_ATOL:g}), params max "
+        f"|delta| {found['params_diff']:.2e} (< {P14_PARAM_ATOL:g}); the step "
+        f"{found['dp_wall_ms']:.1f} ms wall, collectives {found['collectives']['calls']} calls "
+        f"{found['collectives']['seconds'] * 1e3:.1f} ms; compressed_psum: mean + err - g "
+        f"{c['recon']:.2e}, max |err| {c['err_max']:.3e} < max |g| / 64 = {c['g_max'] / 64:.3e}, "
+        f"shared-scale sum {c['shared_scale']:.2e}; pipeline max |delta| {found['pipeline']:.2e} "
+        f"(<= {P14_PIPE_ATOL:g}); rank 0 peak {found['peak_gb']:.2f} GiB")
+    require(abs(found["loss"] - found["loss_single"]) < P14_MESH_LOSS_ATOL, "p14e: loss")
+    require(found["params_diff"] < P14_PARAM_ATOL, "p14e: params")
+    require(c["recon"] <= 1e-6 and c["err_max"] < c["g_max"] / 64 and c["shared_scale"] <= 1e-6,
+            f"p14e: compressed_psum {c}")
+    require(found["pipeline"] <= P14_PIPE_ATOL, f"p14e: pipeline {found['pipeline']}")
+
+
+def phase14(card):
+    """Phase 14: 14a-14d in order, 14e's ranks beside them from the start;
+    no kernel may launch in 14a-14c (the training forward runs the
+    reference route). Returns 14d's launches."""
+    t0 = time.perf_counter()
+    reset_launches()
+    mesh = _P14Mesh()  # 14e's ranks run beside 14a's
+    trained = phase14_train(card)
+    log(f"p14a done at {time.perf_counter() - t0:.1f} s")
+    phase14_parity(card)
+    log(f"p14b done at {time.perf_counter() - t0:.1f} s")
+    phase14_families(card)
+    log(f"p14c done at {time.perf_counter() - t0:.1f} s")
+    n = read_launches()
+    require(not any(n.values()), f"phase 14a-c launched kernels: {n}")
+    log(f"p14a-c kernel launches: 0 ({sorted(n)}); {time.perf_counter() - t0:.1f} s")
+    served = phase14_serve(card, trained)
+    log(f"p14d done at {time.perf_counter() - t0:.1f} s")
+    del trained
+    torch.cuda.empty_cache()
+    mesh.finish(card)
+    log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    return served
+
+
 def main(argv=()) -> int:
     """Every phase with no arguments (the smoke run); ``--phases 3,11``
     runs the build and the listed phases only (3: kernels, 4: entry
-    points, 5-6: serving and parity, 7: adviser, 8, 9, 10, 11, 12, 13), for
+    points, 5-6: serving and parity, 7: adviser, 8, 9, 10, 11, 12, 13, 14:
+    training), for
     a short development call, and prints the rows those phases made."""
+    phases = set(range(3, 15))
+    if len(argv) == 2 and argv[0] == "--phases":
+        phases = {int(p) for p in argv[1].split(",")}
+    elif argv:
+        print("usage: chip_smoke.py [--phases 3,11]", file=sys.stderr)
+        return 2
+    if 14 in phases:
+        # cuBLAS reads it when it makes its first handle: phase 14a's
+        # deterministic algorithms need a fixed workspace
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -4452,12 +5011,6 @@ def main(argv=()) -> int:
     def phase_done(name):
         log(f"phase {name} done at {time.perf_counter() - start:.1f} s")
 
-    phases = set(range(3, 14))
-    if len(argv) == 2 and argv[0] == "--phases":
-        phases = {int(p) for p in argv[1].split(",")}
-    elif argv:
-        print("usage: chip_smoke.py [--phases 3,11]", file=sys.stderr)
-        return 2
     rows, entry, launches = {}, {}, {}
     phase8_launches = phase9_launches = p11_launches = p12_launches = {}
     p11_entry = 0
@@ -4537,6 +5090,9 @@ def main(argv=()) -> int:
         p13_rows, p13_launches = phase13(card)
         rows.update(p13_rows)
         phase_done("13")
+    if 14 in phases:
+        phase14(card)
+        phase_done("14")
 
     bf16, f32 = torch.bfloat16, torch.float32
     table = []
@@ -4620,7 +5176,7 @@ def main(argv=()) -> int:
             ("p13_internlm2_tp4", bf16,
              "paged_decode_attention[internlm2-20b tp=4 rank-local T=1 H=12 KV=2 hd=128]",
              PAGED_SRC, PAGED_TPU)):
-        everything = phases == set(range(3, 14))
+        everything = phases == set(range(3, 15))
         if (key, dtype) not in rows:
             require(not everything, f"no row for {key}")
             continue

@@ -1,7 +1,8 @@
-"""PyTorch/CUDA port of the serving path, held against the JAX package
-``repro`` (the reference). Imports ``torch`` and ``numpy`` only — never
-``jax`` and nothing of ``repro``. Entry points run on CUDA unless the
-caller asks for ``device="cpu"``."""
+"""PyTorch/CUDA port of the JAX package ``repro`` (the reference, which
+every module is held against): serving, the adviser and training.
+Imports ``torch`` and ``numpy`` only — never ``jax`` and nothing of
+``repro``. Entry points run on CUDA unless the caller asks for
+``device="cpu"``."""
 import torch
 
 

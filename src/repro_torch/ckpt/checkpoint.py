@@ -1,0 +1,152 @@
+"""Fault-tolerant checkpointing: atomic, versioned, asynchronous, elastic.
+
+Port of the JAX package's ``ckpt/checkpoint.py``:
+
+* atomic publish — a step is written to ``step_N.tmp/`` and published by
+  ``os.rename`` to ``step_N`` (a crashed writer never corrupts the restore
+  point);
+* keep-k garbage collection — the oldest published steps are removed;
+* asynchronous — the device→host copy is synchronous, the serialization
+  runs on a daemon thread (``wait()`` joins it and raises what it raised,
+  as every save and restore does first);
+* elastic restore — leaves are saved whole with their tree's order, and
+  ``restore`` casts each to the target's dtype and device.
+
+numpy has no bfloat16: such a leaf is stored as its raw 16-bit pattern
+(``uint16``) with the dtype's name in ``meta.json``, so it restores bit for
+bit. Trees are nested dicts, lists, tuples and named tuples (``OptState``),
+flattened in JAX's order (``repro_torch/tree.py``).
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.tree import flatten, unflatten
+
+def _to_host(leaf) -> tuple[np.ndarray, str]:
+    """(numpy array, dtype name) of a leaf; a bfloat16 tensor as its bits."""
+    if not isinstance(leaf, torch.Tensor):
+        arr = np.asarray(leaf)
+        return arr, str(arr.dtype)
+    t = leaf.detach().cpu()
+    name = str(t.dtype).removeprefix("torch.")
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), name
+    return t.numpy(), name
+
+
+def _from_host(arr: np.ndarray, name: str) -> torch.Tensor:
+    # (np.ascontiguousarray would turn a 0-d array into shape (1,))
+    t = torch.from_numpy(arr if arr.flags.c_contiguous else arr.copy(order="C"))
+    return t.view(torch.int16).view(torch.bfloat16) if name == "bfloat16" else t
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[Exception] = None  # a failed background save
+
+    # ------------------------------------------------------------------
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.dir, f"step_{step:08d}")
+
+    def all_steps(self) -> list[int]:
+        out = []
+        for name in os.listdir(self.dir):
+            m = re.fullmatch(r"step_(\d+)", name)
+            if m:
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    # ------------------------------------------------------------------
+    def save(self, step: int, tree: Any, *, meta: dict | None = None, blocking: bool = False):
+        """Copy ``tree``'s leaves to the host now, then serialize them
+        (on a thread unless ``blocking``)."""
+        self.wait()
+        leaves, _ = flatten(tree)
+        host = [_to_host(leaf) for leaf in leaves]
+        meta = dict(meta or {}, step=step, n_leaves=len(host), dtypes=[n for _, n in host])
+
+        def work():
+            tmp = self._step_dir(step) + ".tmp"
+            os.makedirs(tmp, exist_ok=True)
+            np.savez(os.path.join(tmp, "arrays.npz"),
+                     **{f"leaf_{i}": a for i, (a, _) in enumerate(host)})
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump(meta, f)
+            final = self._step_dir(step)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)  # atomic publish
+            self._gc()
+
+        def background():
+            try:
+                work()
+            except Exception as e:  # raised again by the next wait()
+                self._error = e
+
+        if blocking:
+            work()
+        else:
+            self._thread = threading.Thread(target=background, daemon=True)
+            self._thread.start()
+
+    def wait(self):
+        """Join the background save; raise what it raised, if anything."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(f"checkpoint save under {self.dir} failed") from err
+
+    def _gc(self):
+        for s in self.all_steps()[: -self.keep]:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+
+    # ------------------------------------------------------------------
+    def restore(self, tree_like: Any, step: int | None = None, *, device=None):
+        """(the checkpoint of ``step`` — the latest by default — in the
+        structure of ``tree_like``, its meta). Each leaf takes the dtype of
+        ``tree_like``'s leaf (a float32 snapshot restores into bfloat16:
+        the elastic path) and its device, or ``device`` where given (a meta
+        target restores on the CPU unless ``device`` says otherwise)."""
+        self.wait()
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.dir}")
+        d = self._step_dir(step)
+        with open(os.path.join(d, "meta.json")) as f:
+            meta = json.load(f)
+        refs, spec = flatten(tree_like)
+        if len(refs) != meta["n_leaves"]:
+            raise ValueError(f"checkpoint step {step} holds {meta['n_leaves']} leaves, the "
+                             f"target tree {len(refs)}")
+        restored = []
+        with np.load(os.path.join(d, "arrays.npz")) as data:
+            for i, ref in enumerate(refs):
+                t = _from_host(data[f"leaf_{i}"], meta["dtypes"][i])
+                if isinstance(ref, torch.Tensor):
+                    dev = device or (ref.device if ref.device.type != "meta" else "cpu")
+                    t = t.to(device=dev, dtype=ref.dtype)
+                elif device is not None:
+                    t = t.to(device)
+                restored.append(t)
+        return unflatten(spec, restored), meta

@@ -1,6 +1,6 @@
 """Aira core: the paper's contribution (the adviser, its tools, Relic's
 ``relic_pfor`` and the plan layer), ported to PyTorch. The JAX package's
-``profiler`` (HLO cost analysis) waits for ROADMAP §1 item 11."""
+``profiler`` (HLO cost analysis) waits for ROADMAP §1 item 11b."""
 from repro_torch.core.adviser import AdviceReport, Aira, Region, RegionDecision, Workload  # noqa: F401
 from repro_torch.core.overlap_model import (  # noqa: F401
     CPU_HW,

@@ -34,7 +34,7 @@ beat one contended core).
 i7-12700 P-core with DDR5, ``CPU_HW``), whose numbers price every
 decision of the benchmark suite. The JAX package's default is a TPU
 preset; the port carries no TPU number, and a Hopper preset waits for
-ROADMAP §1 item 11.
+ROADMAP §1 item 11b.
 
 Runtime presets: Relic's dispatch is ~100 ns (the paper's enabling
 observation); an OpenMP-style runtime pays ~5× that per task plus a

@@ -23,6 +23,8 @@ import tempfile
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -37,6 +39,22 @@ SMS = 132
 TARGET_BLOCKS = 2 * SMS
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a kernel is asked to be differentiated: in grad mode,
+    with an input that requires grad. The kernels have no backward (the JAX
+    package's Pallas kernels have no VJP), and an output computed through
+    ``data_ptr()`` carries no ``grad_fn``: without this check, a backward
+    would drop the gradient of everything upstream without a word. Every
+    wrapper calls it before anything else, on any device."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an input requires grad; "
+            "differentiate the plain route (backend='reference', as Model.loss "
+            "does) or call the kernel under torch.no_grad()"
+        )
 
 
 def aligned16(*tensors) -> bool:

@@ -138,6 +138,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, bk: int = 512):
     """q [B,H,hd]; caches [B,Smax,KV,hd] in q's type (float32 or
     bfloat16); ``cache_len`` [B] int32 → [B,H,hd] in q's type. Head h
     attends the positions < ``cache_len`` of kv head h // (H // KV)."""
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(
             f"decode_attention: bad shapes q{tuple(q.shape)} k{tuple(k_cache.shape)} "

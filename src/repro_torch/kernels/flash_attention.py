@@ -60,6 +60,7 @@ def flash_attention(q, k, v, q_offset: int = 0, causal: bool = True):
     """q [B,Sq,H,hd]; k, v [B,Skv,KV,hd] (H a multiple of KV) → [B,Sq,H,hd].
     Causal: query i attends keys j ≤ ``q_offset + i``; non-causal: every
     query attends every key (``q_offset`` unused)."""
+    _build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return plain_flash_attention(q, k, v, q_offset, causal)
     if q.device.type != "cuda":

@@ -191,6 +191,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale=Non
     local heads then splits each row as the single-device launch does
     (``paged_plan``'s ``plan_kv``), so those heads come out bitwise the
     same."""
+    _build.refuse_grad("paged_decode_attention", q, k_pool, v_pool, k_scale, v_scale)
     kv_code = _check(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale, owned)
     if q.device.type == "cpu":
         return plain_paged_decode_attention(

@@ -113,6 +113,7 @@ def _launch_matmul(x, w, plan: dict):
 def relic_matmul(x, w, *, bm: int = 256, bk: int = 512, bn: int = 256):
     """x [M,K] @ w [K,N] → [M,N] in x's type, float32 accumulation; M, K,
     N multiples of min(bm, M), min(bk, K), min(bn, N)."""
+    _build.refuse_grad("relic_matmul", x, w)
     M, K, N = _check("relic_matmul", x, w, (("M", "bm", bm), ("K", "bk", bk), ("N", "bn", bn)))
     if x.device.type == "cpu":
         return plain_relic_matmul(x, w)
@@ -171,6 +172,7 @@ def gemv_plan(dtype, B: int, K: int, N: int, aligned: bool = True) -> dict:
 def relic_gemv(x, w, *, bk: int = 1024, bn: int = 512):
     """x [B,K] @ w [K,N] → [B,N] in x's type for a few decode rows, float32
     accumulation; K, N multiples of min(bk, K), min(bn, N), any B."""
+    _build.refuse_grad("relic_gemv", x, w)
     B, K, N = _check("relic_gemv", x, w, (("K", "bk", bk), ("N", "bn", bn)))
     if x.device.type == "cpu":
         return plain_relic_gemv(x, w)

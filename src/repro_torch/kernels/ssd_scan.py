@@ -146,6 +146,7 @@ def ssd_scan(xh, a, b, c, dt, chunk: int = 128):
     The kernel runs chunks of at most ``chunk`` positions (``ssd_plan``)
     with a masked ragged last chunk; the plain version shrinks the chunk to
     a divisor of S. Any N, hd and chunk whose layout fits in 227 KB."""
+    _build.refuse_grad("ssd_scan", xh, a, b, c, dt)
     tensors = (("xh", xh), ("a", a), ("b", b), ("c", c), ("dt", dt))
     for name, t in tensors[1:]:
         if t.device != xh.device:

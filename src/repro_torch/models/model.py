@@ -28,16 +28,21 @@ The family sets below say which family each of them serves, as the
 reference's do. ``jit_step`` compiles a step with its backend bound
 (``step_graph.StepGraph``: a CUDA graph a key on the card, where the
 reference has ``jax.jit``). Serving drops the MoE's aux loss, as the
-reference's serving steps do.
+reference's serving steps do. ``loss`` is the training objective (the
+reference route, remat a layer at a time, the MoE aux loss kept), with
+``param_axes`` and ``abstract_params`` beside ``init``.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -46,7 +51,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import step_graph
-from repro_torch.models.layers import embed_tokens, rms_norm, swiglu
+from repro_torch.models.layers import chunked_softmax_xent, embed_tokens, rms_norm, swiglu
 from repro_torch.parallel import sharding as sharding_mod
 from repro_torch.parallel.sharding import ShardingRules, mesh_shape
 
@@ -93,6 +98,31 @@ def _index(tree, i):
     return tree[i]
 
 
+def _unstack(tree) -> list:
+    """Per-layer dicts of a layer-stacked dict of tensors, each leaf an
+    ``unbind`` view (its backward stacks the layers' gradients once)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+# remat "dots": products without a batch dimension are saved. ``einsum``
+# lowers a projection (``bsd,dhk->bshk``) to a bmm of batch 1, and x @ w
+# to mm; attention's score and value products are bmms over batch × heads
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS or (op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_SAVED = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+
+
 def _map_leaves(fn, tree, *rest, name=None):
     """``fn(key, leaf, *matching leaves of rest)`` over a nested dict,
     keeping its structure; ``key`` is the leaf's own dict key."""
@@ -136,7 +166,8 @@ class Model:
         ``torch.Generator`` with the JAX package's scales (its stream
         differs from ``jax.random``'s)."""
         cfg, dev, dt = self.cfg, self.device, self.dtype
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        # a meta model (``abstract_params``) draws nothing
+        gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(int(seed))
         L, D, H, KV, hd = cfg.num_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         F, V = cfg.d_ff, cfg.padded_vocab
 
@@ -169,7 +200,7 @@ class Model:
                 "mlp_norm": ones(*lead, D),
             }
             if moe:
-                block["moe"] = moe_mod.init_moe(cfg, dt, gen, lead=lead)
+                block["moe"] = moe_mod.init_moe(cfg, dt, gen, lead=lead, device=dev)
             else:
                 block["mlp"] = {
                     "w1": normal(lead + (D, F), D**-0.5),
@@ -180,7 +211,7 @@ class Model:
 
         if cfg.family in ("ssm", "hybrid"):
             params["layers"] = {
-                "ssm": ssm_mod.init_ssm(cfg, dt, gen, lead=(L,)),
+                "ssm": ssm_mod.init_ssm(cfg, dt, gen, lead=(L,), device=dev),
                 "norm": ones(L, D),
             }
         else:
@@ -232,10 +263,12 @@ class Model:
 
     # ------------------------------------------------------------------
     # layer stack
-    def _dense_layer(self, x, lp, backend, path="dispatch", **kw):
-        """An attention layer and its MLP. ``path``: the MoE path a mesh's
-        rules take ("dispatch" for prefill, "dense" for the decode steps,
-        as the reference's callers pass it)."""
+    def _dense_layer(self, x, lp, backend, path="dispatch", want_aux=False, **kw):
+        """An attention layer and its MLP → (x, new_kv, aux). ``path``: the
+        MoE path a mesh's rules take ("dispatch" for prefill, "dense" for
+        the decode steps, as the reference's callers pass it). ``aux``: a
+        MoE layer's Switch aux loss where ``want_aux`` (training), else None
+        (serving drops it, as the reference's serving steps do)."""
         cfg = self.cfg
         h, new_kv = attn.attention_block(
             lp["attn"], rms_norm(x, lp["attn_norm"], cfg.norm_eps),
@@ -244,13 +277,14 @@ class Model:
         )
         x = x + h
         hin = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        if "moe" in lp and self.rules is not None:
-            h, _ = moe_mod.moe_block(hin, lp["moe"], cfg, self.rules, path=path)
+        aux = None
+        if "moe" in lp and (self.rules is not None or want_aux):
+            h, aux = moe_mod.moe_block(hin, lp["moe"], cfg, self.rules, path=path)
         elif "moe" in lp:
-            h = moe_mod.moe_mlp(hin, lp["moe"], cfg)  # serving drops the aux loss
+            h = moe_mod.moe_mlp(hin, lp["moe"], cfg)
         else:
             h = swiglu(hin, lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])
-        return x + h, new_kv
+        return x + h, new_kv, aux
 
     def _ssm_layer(self, x, lp, backend, state=None, want_state=False):
         cfg = self.cfg
@@ -269,6 +303,17 @@ class Model:
         G = self.cfg.num_layers // per
         return [[(i, views[i]) for i in range(gi * per, (gi + 1) * per)] for gi in range(G)]
 
+    def _embed_inputs(self, params, tokens, patch_embeds):
+        """Token embeddings [B,S,D]; a VLM's projected ``patch_embeds``
+        [B,P,D] lead them: [B,P+S,D]."""
+        x = embed_tokens(params["embed"], self._tokens(tokens))
+        if self.cfg.family == "vlm":
+            if patch_embeds is None:
+                raise ValueError("a vlm prompt needs its patch_embeds [B, P, d_model]")
+            pe = torch.as_tensor(patch_embeds, device=self.device).to(x.dtype)
+            x = torch.cat([pe @ params["patch_proj"], x], dim=1)
+        return x
+
     def forward(self, params, tokens, *, patch_embeds=None, backend=None):
         """tokens [B,S] → (final-normed hidden [B,S',D], cache entries):
         per layer (k, v) [B,S',KV,hd] for the attention families and the
@@ -278,12 +323,7 @@ class Model:
         prepended to the token embeddings: S' = P + S. Prefill attention
         runs on the unquantized k/v; only a cache stores them in int8."""
         backend = kernel_ops.resolve_attention_backend(backend, self.device)
-        x = embed_tokens(params["embed"], self._tokens(tokens))
-        if self.cfg.family == "vlm":
-            if patch_embeds is None:
-                raise ValueError("a vlm prompt needs its patch_embeds [B, P, d_model]")
-            pe = torch.as_tensor(patch_embeds, device=self.device).to(x.dtype)
-            x = torch.cat([pe @ params["patch_proj"], x], dim=1)
+        x = self._embed_inputs(params, tokens, patch_embeds)
         caches = []
         if self.cfg.family == "hybrid":
             kvs = []
@@ -291,7 +331,7 @@ class Model:
                 for _, lp in group:
                     x, entry = self._ssm_layer(x, lp, backend, want_state=True)
                     caches.append(entry)
-                x, kv = self._dense_layer(x, params["shared"], backend)
+                x, kv, _ = self._dense_layer(x, params["shared"], backend)
                 kvs.append(kv)
             caches = (kvs, caches)
         else:
@@ -299,9 +339,129 @@ class Model:
                 if self.cfg.family == "ssm":
                     x, entry = self._ssm_layer(x, lp, backend, want_state=True)
                 else:
-                    x, entry = self._dense_layer(x, lp, backend)
+                    x, entry, _ = self._dense_layer(x, lp, backend)
                 caches.append(entry)
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps), caches
+
+    # ------------------------------------------------------------------
+    # training
+    def loss(self, params, batch):
+        """The JAX package's ``Model.loss``: ``batch`` tokens [B,S], labels
+        [B,S] and mask [B,S] (+ ``patch_embeds`` [B,P,D] for a VLM) →
+        (loss, {"ce", "aux", "tokens"}). The forward runs on the reference
+        route (no kernel has a backward), a layer at a time under
+        ``cfg.remat``; a VLM's patch rows predict nothing; the head is
+        ``embed.T`` when tied; loss = ce + 0.01 · aux, aux the MoE layers'
+        Switch losses summed (0 for the other families)."""
+        cfg = self.cfg
+        x, aux = self._forward_train(params, batch["tokens"], batch.get("patch_embeds"))
+        if cfg.family == "vlm":
+            x = x[:, cfg.n_frontend_tokens:, :]
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        mask = torch.as_tensor(batch["mask"], device=self.device)
+        ce, cnt = chunked_softmax_xent(x, self._head(params), labels, mask)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux, "tokens": cnt}
+
+    def _forward_train(self, params, tokens, patch_embeds=None):
+        """The training forward: (final-normed hidden [B,S',D], aux loss),
+        with no cache. A layer — for the hybrid, a group of ``attn_every``
+        SSM layers and the shared block after it — is one unit of
+        ``_maybe_remat``, as a scan body is in the JAX package. The layers
+        are ``unbind`` views of the stacked leaves, whose backward stacks
+        the layers' gradients once."""
+        cfg = self.cfg
+        x = self._embed_inputs(params, tokens, patch_embeds)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        layers = _unstack(params["layers"])
+
+        def ssm(x, lp):
+            return self._ssm_layer(x, lp, "reference")[0]
+
+        def group(x, shared, lps):
+            for lp in lps:
+                x = ssm(x, lp)
+            return self._dense_layer(x, shared, "reference")[0]
+
+        def dense(x, lp):
+            x, _, a = self._dense_layer(x, lp, "reference", want_aux=True)
+            return x, a
+
+        if cfg.family == "ssm":
+            body = self._maybe_remat(ssm)
+            for lp in layers:
+                x = body(x, lp)
+        elif cfg.family == "hybrid":
+            body, per = self._maybe_remat(group), cfg.attn_every
+            for g in range(0, cfg.num_layers, per):
+                x = body(x, params["shared"], layers[g:g + per])
+        else:
+            body = self._maybe_remat(dense)
+            for lp in layers:
+                x, a = body(x, lp)
+                if a is not None:
+                    aux = aux + a
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+    def _maybe_remat(self, fn):
+        """``fn`` under ``cfg.remat``: "none" as it is, "full" under a
+        non-reentrant checkpoint (its inputs saved, everything recomputed:
+        JAX's ``nothing_saveable``), "dots" under a selective one that saves
+        the products with no batch dimension and recomputes the rest
+        (``_dots_policy``: JAX's ``dots_with_no_batch_dims_saveable``).
+        Outside grad mode there is nothing to save, and ``fn`` runs as it
+        is."""
+        remat = self.cfg.remat
+        if remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
+        if remat == "none" or not torch.is_grad_enabled():
+            return fn
+        kw = {"context_fn": _DOTS_SAVED} if remat == "dots" else {}
+        return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+    def param_axes(self) -> dict:
+        """The logical axes of every parameter, in the structure of
+        ``init``'s tree: the axes tree the JAX package's ``init`` returns
+        beside its parameters (a stacked layer leaf leads with
+        "layers")."""
+        cfg = self.cfg
+
+        def attn_block(moe):
+            block = {
+                "attn": {
+                    "wq": ("embed", "heads", "head_dim"),
+                    "wk": ("embed", "kv_heads", "head_dim"),
+                    "wv": ("embed", "kv_heads", "head_dim"),
+                    "wo": ("heads", "head_dim", "embed"),
+                },
+                "attn_norm": ("embed",),
+                "mlp_norm": ("embed",),
+            }
+            if moe:
+                block["moe"] = dict(moe_mod.MOE_AXES)
+            else:
+                block["mlp"] = {"w1": ("embed", "mlp"), "w3": ("embed", "mlp"),
+                                "w2": ("mlp", "embed")}
+            return block
+
+        axes: dict[str, Any] = {"embed": ("vocab", "embed"), "final_norm": ("embed",)}
+        if not cfg.tie_embeddings:
+            axes["lm_head"] = ("embed", "vocab")
+        if cfg.family == "vlm":
+            axes["patch_proj"] = (None, "embed")
+        if cfg.family in ("ssm", "hybrid"):
+            layer = {"ssm": dict(ssm_mod.SSM_AXES), "norm": ("embed",)}
+        else:
+            layer = attn_block(cfg.family == "moe")
+        axes["layers"] = _map_leaves(lambda _, ax: ("layers",) + ax, layer)
+        if cfg.family == "hybrid":
+            axes["shared"] = attn_block(False)
+        return axes
+
+    def abstract_params(self):
+        """(parameters as meta tensors, ``param_axes()``): ``init``'s shapes
+        and dtypes with no storage allocated (the JAX package's
+        ``eval_shape`` of ``init``)."""
+        return Model(self.cfg, device="meta").init(), self.param_axes()
 
     # ------------------------------------------------------------------
     # caches
@@ -521,7 +681,7 @@ class Model:
         positions = (h + torch.arange(Ssuf, device=self.device))[None, :]
         kvs = []
         for li, lp in enumerate(self._layer_params(params)):
-            x, kv = self._dense_layer(
+            x, kv, _ = self._dense_layer(
                 x, lp, backend, positions=positions,
                 prefix_kv=(prefix_k[li], prefix_v[li]),
             )
@@ -629,7 +789,7 @@ class Model:
 
         def attn_step(x, li, lp):
             kv = (cache["k"], cache["v"], cache.get("k_scale"), cache.get("v_scale"), li)
-            x, _ = self._dense_layer(
+            x, _, _ = self._dense_layer(
                 x, lp, backend, path="dense", positions=positions, cache=kv,
                 cache_len=cache_len,
             )
@@ -762,7 +922,7 @@ class Model:
             # a MoE layer routes the dead rows' tokens beside the live ones
             # and they take capacity ahead of them: their attention must be
             # the reference route's, not the null block's colliding writes
-            x, _ = self._dense_layer(
+            x, _, _ = self._dense_layer(
                 x, lp, backend, path="dense", positions=positions, cache=cache,
                 cache_len=cache_len, dead_rows_own_view=self.cfg.family == "moe",
             )

@@ -51,14 +51,25 @@ from repro_torch.parallel.sharding import mesh_shape
 FLOAT32_PARAMS = ("router",)
 
 
-def init_moe(cfg, dtype, gen: torch.Generator, lead: tuple = ()) -> dict:
+# the logical axes of ``init_moe``'s leaves (the JAX package's ``init_moe``
+# returns them beside the parameters)
+MOE_AXES = {
+    "router": ("embed", None),
+    "we1": ("experts", None, "expert_mlp"),
+    "we3": ("experts", None, "expert_mlp"),
+    "we2": ("experts", "expert_mlp", None),
+}
+
+
+def init_moe(cfg, dtype, gen: torch.Generator, lead: tuple = (),
+             device=None) -> dict:
     """Seeded random MoE parameters at the JAX package's scales, each with
     the leading dims ``lead`` (``(L,)`` for a layer stack): ``router``
     [D, E] float32, ``we1``/``we3`` [E, D, F] and ``we2`` [E, F, D] in
     ``dtype``. Each leaf is scaled in place: one float32 copy of a leaf at a
-    time."""
+    time. ``gen`` None draws nothing: meta tensors on ``device``."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    dev = gen.device
+    dev = gen.device if gen is not None else device
 
     def normal(shape, scale, dt):
         x = torch.randn(lead + shape, generator=gen, device=dev, dtype=torch.float32)

@@ -25,13 +25,33 @@ FLOAT32_PARAMS = ("A_log", "dt_bias", "D")
 _ssd_chunk_scan = _ssd.plain_ssd_scan
 
 
-def init_ssm(cfg, dtype, gen: torch.Generator, lead: tuple = ()) -> dict:
+# the logical axes of ``init_ssm``'s leaves (the JAX package's ``init_ssm``
+# returns them beside the parameters)
+SSM_AXES = {
+    "wx": ("embed", "ssm_inner"),
+    "wz": ("embed", "ssm_inner"),
+    "wB": ("embed", "state"),
+    "wC": ("embed", "state"),
+    "wdt": ("embed", "ssm_heads"),
+    "conv_x": ("conv", "ssm_inner"),
+    "conv_B": ("conv", "state"),
+    "conv_C": ("conv", "state"),
+    "A_log": ("ssm_heads",),
+    "dt_bias": ("ssm_heads",),
+    "D": ("ssm_heads",),
+    "norm": ("ssm_inner",),
+    "out": ("ssm_inner", "embed"),
+}
+
+
+def init_ssm(cfg, dtype, gen: torch.Generator, lead: tuple = (),
+             device=None) -> dict:
     """Seeded random SSM parameters at the JAX package's scales, each with
     the leading dims ``lead`` (``(L,)`` for a layer stack), drawn on the
-    generator's device."""
+    generator's device (``gen`` None: meta tensors on ``device``)."""
     d, di, ns = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state
     h, cw = cfg.ssm_heads, cfg.ssm_conv
-    dev = gen.device
+    dev = gen.device if gen is not None else device
 
     def normal(shape, scale):
         x = torch.randn(lead + shape, generator=gen, device=dev, dtype=torch.float32)

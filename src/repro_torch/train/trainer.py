@@ -1,0 +1,143 @@
+"""The training loop, with the fault-tolerance features of the JAX
+package's ``train/trainer.py``:
+
+* checkpoint/restart: a snapshot (params + optimizer state + step) every
+  ``ckpt_every`` steps, asynchronous; ``Trainer.run`` resumes from the
+  latest published step;
+* induced failure: ``fail_at_step`` raises once at that step, so a test
+  (or a drill) can check that the restart continues bit for bit;
+* straggler watchdog: an EWMA of the step's wall time (after a device
+  synchronise on CUDA); a step slower than ``straggler_factor`` × the EWMA
+  is logged and checkpointed at once;
+* elastic resume: checkpoints hold whole leaves (``ckpt/checkpoint.py``).
+"""
+from __future__ import annotations
+
+import os
+import tempfile
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.ckpt.checkpoint import CheckpointManager
+from repro_torch.train.optimizer import AdamW
+from repro_torch.train.train_step import make_train_step
+
+
+@dataclass
+class TrainerConfig:
+    total_steps: int = 100
+    ckpt_every: int = 20
+    ckpt_dir: str = field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
+    keep: int = 3
+    straggler_factor: float = 3.0
+    ewma_alpha: float = 0.3
+    accum_steps: int = 1
+    log_every: int = 10
+
+
+@dataclass
+class TrainerState:
+    params: Any
+    opt_state: Any
+    step: int = 0
+
+
+class Trainer:
+    def __init__(
+        self,
+        model,
+        opt: AdamW,
+        data,
+        cfg: TrainerConfig,
+        *,
+        fail_at_step: Optional[int] = None,  # induced-failure hook (tests)
+        log_fn: Callable[[str], None] = print,
+    ):
+        self.model = model
+        self.opt = opt
+        self.data = data
+        self.cfg = cfg
+        self.fail_at_step = fail_at_step
+        self.log = log_fn
+        self.ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
+        self.step_fn = make_train_step(model, opt, accum_steps=cfg.accum_steps)
+        self.events: list[str] = []
+        self.step_times: list[float] = []  # wall seconds of each step run
+        self._ewma: Optional[float] = None
+
+    # ------------------------------------------------------------------
+    def init_state(self, seed: int = 0) -> TrainerState:
+        params = self.model.init(seed)
+        return TrainerState(params=params, opt_state=self.opt.init(params), step=0)
+
+    def _maybe_restore(self, state: TrainerState) -> TrainerState:
+        # an in-process restart may arrive while the last save's thread is
+        # still publishing its step
+        self.ckpt.wait()
+        latest = self.ckpt.latest_step()
+        if latest is None:
+            return state
+        tree = {"params": state.params, "opt": state.opt_state}
+        restored, meta = self.ckpt.restore(tree, latest)
+        self.events.append(f"restored step {latest}")
+        self.log(f"[trainer] restored checkpoint at step {latest}")
+        return TrainerState(params=restored["params"], opt_state=restored["opt"],
+                            step=meta["step"])
+
+    def _save(self, state: TrainerState, blocking=False):
+        self.ckpt.save(state.step, {"params": state.params, "opt": state.opt_state},
+                       meta={"step": state.step}, blocking=blocking)
+
+    def _sync(self):
+        if self.model.device.type == "cuda":
+            torch.cuda.synchronize(self.model.device)
+
+    # ------------------------------------------------------------------
+    def run(self, state: TrainerState | None = None, resume: bool = True):
+        state = state or self.init_state()
+        if resume:
+            state = self._maybe_restore(state)
+        metrics = {}
+        while state.step < self.cfg.total_steps:
+            step = state.step
+            if self.fail_at_step is not None and step == self.fail_at_step:
+                self.fail_at_step = None  # fail once
+                self.events.append(f"induced failure at step {step}")
+                raise RuntimeError(f"induced node failure at step {step}")
+
+            batch = self.data.batch_at(step)
+            if self.cfg.accum_steps > 1:
+                a = self.cfg.accum_steps
+                batch = {k: v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:]))
+                         for k, v in batch.items()}
+            self._sync()
+            t0 = time.perf_counter()
+            params, opt_state, metrics = self.step_fn(state.params, state.opt_state, batch)
+            self._sync()
+            dt = time.perf_counter() - t0
+            self.step_times.append(dt)
+
+            # straggler watchdog
+            if self._ewma is None:
+                self._ewma = dt
+            elif dt > self.cfg.straggler_factor * self._ewma and step > 2:
+                msg = (f"straggler step {step}: {dt * 1e3:.1f}ms vs EWMA "
+                       f"{self._ewma * 1e3:.1f}ms — checkpointing")
+                self.events.append(msg)
+                self.log("[watchdog] " + msg)
+                self._save(TrainerState(params, opt_state, step + 1))
+            else:
+                self._ewma = self.cfg.ewma_alpha * dt + (1 - self.cfg.ewma_alpha) * self._ewma
+
+            state = TrainerState(params=params, opt_state=opt_state, step=step + 1)
+            if state.step % self.cfg.ckpt_every == 0:
+                self._save(state)
+            if step % self.cfg.log_every == 0:
+                self.log(f"[train] step {step} loss {float(metrics['loss']):.4f} "
+                         f"gnorm {float(metrics['grad_norm']):.3f} {dt * 1e3:.0f}ms")
+        self._save(state, blocking=True)
+        return state, metrics

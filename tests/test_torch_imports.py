@@ -1,5 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of the JAX package ``repro``."""
+"""The port stands alone: ``repro_torch`` (serving, the adviser and
+training) and ``chip_smoke.py`` import neither ``jax`` nor anything of the
+JAX package ``repro``, and import with no CUDA device visible."""
+import os
 import re
 import subprocess
 import sys
@@ -35,10 +37,19 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.parallel, repro_torch.parallel.sharding\n"
         "import repro_torch.parallel.collectives, repro_torch.launch.mesh\n"
         "import repro_torch.serve.differential\n"
+        "import repro_torch.train, repro_torch.train.optimizer, repro_torch.train.train_step\n"
+        "import repro_torch.train.trainer, repro_torch.data, repro_torch.data.pipeline\n"
+        "import repro_torch.ckpt, repro_torch.ckpt.checkpoint, repro_torch.tree\n"
+        "import repro_torch.parallel.compression, repro_torch.parallel.pipeline\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items() if v is not None]\n"
+        "import torch\n"
+        "assert not torch.cuda.is_available()\n"
     )
-    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT)
+    # no CUDA device visible: the port imports without one
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
+                       env=env)
     assert r.returncode == 0, r.stderr
 
 
