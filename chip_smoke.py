@@ -93,7 +93,10 @@ Phases, in order; any failure exits non-zero before the final line:
    plan (``decode_region`` + ``Aira`` + ``set_decode_plan``), float32 at 7
    rows (a padded last chunk) and bf16 at 8: float32 tokens equal to the
    no-plan path's (or ties), the paged
-   kernel launched exactly layers x chunks per stream x decode steps;
+   kernel launched exactly layers x chunks per stream x decode steps,
+   served through the captured plan family (one entry, no capture after
+   the first serve), then eagerly (``step_graph.disabled()``): the plan
+   walls, graphed and eager, beside the no-plan path's;
    bf16 logits of one plan step within ``E2E_BF16_RATIO`` of the plain
    path's distance from float32;
 8. speculation, chunked prefill, preemption — full-width smollm-135m in
@@ -237,16 +240,20 @@ Phases, in order; any failure exits non-zero before the final line:
    steps of B = 8, S = 1024, accum 2, remat "dots", a checkpoint every 5
    steps, an induced failure at step 7 and the resume from step 5 held
    bitwise to an uninterrupted run (the two runs in two processes at
-   once) under deterministic algorithms
+   once, each step a replay of the trainer's captured step after the
+   first, one capture in all) under deterministic algorithms
    (``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts; an op without a
    deterministic implementation is named and the max |Δ| printed instead);
-   the loss falls; step wall p50/p99, tokens/s, peak memory and the
-   checkpoint's save time; then, alone on the card, one step under each
-   remat mode and a profiled step's device busy time and idle share;
+   the loss falls; step wall p50/p99, tokens/s, peak memory, graph pool
+   bytes and the checkpoint's save time; then, alone on the card, the
+   captured step under each remat mode (its first call, with the capture,
+   and replays) and a profiled replay's device busy time and idle share;
    14b: one float32 step at full width and depth 2 on CUDA and on the CPU
-   (loss, grad_norm, every gradient leaf, the stepped parameters); 14c: one
-   bf16 step of mamba2, zamba2 (one attention group), granite, internvl2
-   and musicgen at full width (depth 2); no kernel launches in 14a-14c
+   (loss, grad_norm, every gradient leaf, the stepped parameters); 14c: two
+   bf16 steps of mamba2, zamba2 (one attention group), granite, internvl2
+   and musicgen at full width (depth 2) through the captured step (the
+   first eager, the second a replay), the second step's parameters equal
+   to two eager steps'; no kernel launches in 14a-14c
    (training runs the reference route; the kernels refuse autograd); 14d:
    the trained weights served (4 requests, paged, graphed) with exact
    paged and flash launch counts, their prefill and first-decode logits
@@ -2103,6 +2110,46 @@ def _plan_schedule(plan, n):
 P7_PLAN_ROWS = (("float32", (7,)), ("bfloat16", (8,)))
 
 
+def plan_serves(engine, prompts, steps, label, L, per_stream, card):
+    """``engine.generate(prompts, steps)`` through its decode plan three
+    times: graphed (the first serve makes the plan family's one entry: an
+    eager first call, then the capture), graphed again (replays only: no
+    capture) and eager (``step_graph.disabled()``). Each serve must launch
+    the paged kernel exactly L x chunks a stream x decode steps and flash
+    L times (the one batched prefill), and give the first serve's tokens.
+    Then one more graphed serve under the profiler: its device busy time
+    against the graphed wall. Returns ({"first", "graphed", "eager": wall
+    ms, "tokens"}, the last launch counts, [(plan key, _cache_size())])."""
+    from repro_torch.models import step_graph
+
+    walls, first = {}, None
+    for mode in ("first", "graphed", "eager"):
+        torch.cuda.synchronize()
+        reset_launches()
+        with step_graph.disabled() if mode == "eager" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            got = engine.generate(prompts, steps).numpy()
+            walls[mode] = (time.perf_counter() - t0) * 1e3
+        n = read_launches()
+        decodes = len(engine.stats.step_ms)
+        require(decodes == steps - 1, f"{label} {mode}: {decodes} decode steps, not {steps - 1}")
+        expect = L * per_stream * decodes
+        others = {k: v for k, v in n.items() if k not in ("paged", "flash") and v}
+        require(n["paged"] == expect and n["flash"] == L and not others,
+                f"{label} {mode}: launches {n}, expected paged {expect} = {L} layers x "
+                f"{per_stream} chunk(s) x {decodes} steps, flash {L} (the one batched prefill) "
+                "and nothing else")
+        entries = [(k[0].region, f._cache_size()) for k, f in engine._plan_steps.items()]
+        require(len(entries) == 1 and entries[0][1] == 1,
+                f"{label} {mode}: plan families {entries}, expected one entry of one capture")
+        first = got if first is None else first
+        require(np.array_equal(got, first), f"{label} {mode}: tokens differ from the first serve's")
+    walls["tokens"] = first
+    profile_busy(f"{label} graphed serve of {steps} tokens", lambda: engine.generate(prompts, steps),
+                 walls["graphed"], card)
+    return walls, n, entries
+
+
 def serve_decode_plan(card):
     """smollm-135m at full width on the slot layout, served through a
     decode plan: ``decode_region(prompts, force=True)`` advised by
@@ -2112,7 +2159,10 @@ def serve_decode_plan(card):
     no-plan path's (or tie, as phase 6 counts ties), and the paged kernel
     launches exactly layers x chunks per stream x decode steps on the plan
     path (the kernel ran under vmap once a chunk, nothing on the plain
-    version); bf16: one decode step's logits through the plan no further
+    version), through the captured plan family (one entry, captured in the
+    first serve), and again eagerly (``plan_serves``), with the walls of
+    the three serves and of the no-plan path; bf16: one decode step's
+    logits through the plan no further
     from the float32 plain path than ``E2E_BF16_RATIO`` x the bf16 plain
     path's."""
     from repro_torch.configs import get_config
@@ -2136,29 +2186,25 @@ def serve_decode_plan(card):
             label = f"smollm-135m {dtype} slot B={B}: {d.plan.describe()} ({per_stream} chunk(s) a stream)"
             if dtype == "float32":
                 plain = ServingEngine(model, params, max_seq=max_seq)
-                t0 = time.perf_counter()
-                want = plain.generate(prompts, steps).numpy()
-                plain_ms = (time.perf_counter() - t0) * 1e3
+                plain_ms = []
+                for _ in range(2):  # the first serve captures the no-plan steps
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    want = plain.generate(prompts, steps).numpy()
+                    plain_ms.append((time.perf_counter() - t0) * 1e3)
+                profile_busy(f"{label} no-plan graphed serve of {steps} tokens",
+                             lambda: plain.generate(prompts, steps), plain_ms[1], card)
                 engine.set_decode_plan(d.plan)
-                torch.cuda.synchronize()
-                reset_launches()
-                t0 = time.perf_counter()
-                got = engine.generate(prompts, steps).numpy()
-                plan_ms = (time.perf_counter() - t0) * 1e3
-                n = read_launches()
-                decodes = len(engine.stats.step_ms)
-                require(decodes == steps - 1, f"{label}: {decodes} decode steps, not {steps - 1}")
-                expect = L * per_stream * decodes
-                others = {k: v for k, v in n.items() if k not in ("paged", "flash") and v}
-                require(n["paged"] == expect and n["flash"] == L and not others,
-                        f"{label}: launches {n}, expected paged {expect} = {L} layers x "
-                        f"{per_stream} chunk(s) x {decodes} steps, flash {L} (the one batched "
-                        "prefill) and nothing else")
+                walls, n, entries = plan_serves(engine, prompts, steps, label, L, per_stream, card)
+                got = walls.pop("tokens")
                 ties = count_ties(model, params, prompts, want, got,
                                   f"{label}: plan and no-plan")
                 log(f"decode plan[{label}] on {card}: {B - ties} of {B} greedy streams identical to "
                     f"the no-plan path, {ties} ties; paged launches {n['paged']} = {L} x {per_stream} x "
-                    f"{decodes}; wall ms for {steps} tokens: plan {plan_ms:.1f}, no plan {plain_ms:.1f}")
+                    f"{steps - 1} a serve, graphed and eager; plan families {entries}; wall ms for "
+                    f"{steps} tokens: plan graphed {walls['graphed']:.1f} (first serve, with its "
+                    f"capture, {walls['first']:.1f}), plan eager {walls['eager']:.1f}, no plan "
+                    f"graphed {plain_ms[1]:.1f} (first serve {plain_ms[0]:.1f})")
                 continue
             tok = region.items[0]
             reset_launches()
@@ -4468,6 +4514,7 @@ def phase13(card, device="cuda", reduced=False):
 
 P14_STEPS, P14_FAIL_AT, P14_CKPT_EVERY = 20, 7, 5
 P14_BATCH, P14_SEQ = 8, 1024  # smollm-135m's trainer: accum 2 (its train_accum)
+P14_REPLAYS = 5  # timed replays of 14a's captured step, a remat mode
 P14_PARITY = dict(layers=2, batch=2, seq=256)  # 14b: float32, CUDA against CPU
 P14_LOSS_RTOL = 1e-5  # float32 loss, CUDA against CPU
 P14_GNORM_RTOL = P14_GRAD_RTOL = 1e-4  # grad_norm; relative L2 of each gradient leaf
@@ -4491,26 +4538,34 @@ def p14_grads(model, params, batch):
     return loss.detach(), list(torch.autograd.grad(loss, leaves))
 
 
-def p14_profile(label, fn, wall_ms, card):
+def profile_busy(label, fn, wall_ms, card):
     """Device busy ms of one call of ``fn`` (warm), from a CUDA-only
     ``torch.profiler`` trace (a step's ~27k kernels: the CPU side's events
     would cost more to collect than the step), against ``wall_ms``, the
-    synchronised wall of the same work; the top kernel names by device
-    time."""
+    synchronised wall of the same work unprofiled, and against the
+    profiled call's own wall (tracing stretches kernels a little and an
+    eager call's host side more); the top kernel names by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        own_ms = (time.perf_counter() - t0) * 1e3
     gpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in gpu) / 1e3
     by_name = collections.Counter()
     for e in gpu:
         by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
     top = ", ".join(f"{k} {v:.1f}" for k, v in by_name.most_common(5))
+    if not gpu:
+        log(f"time[{label}] on {card}: wall p50 {wall_ms:.2f} ms; device busy not measured (the "
+            f"profiler saw no device operation)")
+        return None
     log(f"time[{label}] on {card}: wall p50 {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle "
-        f"share {1 - busy / wall_ms:.0%}, {len(gpu)} device operations; top ms: {top}")
+        f"share {1 - busy / wall_ms:.0%}; the profiled call's own wall {own_ms:.2f} ms, idle "
+        f"share against it {1 - busy / own_ms:.0%}; {len(gpu)} device operations; top ms: {top}")
     return busy
 
 
@@ -4585,8 +4640,14 @@ def p14a_run(i, out, device="cuda", reduced=False):
             state, _ = tr.run()
             found["wall_s"] = time.perf_counter() - t0
             found["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+            found["pool_gb"] = graph_pool_bytes(model) / 2**30 if cuda else 0.0
         finally:
             torch.use_deterministic_algorithms(False)
+    # one capture in all: the failure and the resume reuse the trainer's
+    # storage, so the resumed steps replay the first run's graph
+    found["captures"] = inner._cache_size()
+    require(found["captures"] == 1, f"p14a[{name}]: step_fn._cache_size() "
+                                    f"{found['captures']}, not 1")
     tree = {"params": state.params, "opt": state.opt_state}
     if name == "b":
         # the save of the trained state, timed: the host copy, then the write
@@ -4615,9 +4676,10 @@ def phase14_train(card, device="cuda", reduced=False):
     import shutil
 
     from repro_torch.data import SyntheticLMData
+    from repro_torch.models import step_graph
     from repro_torch.models.model import Model
-    from repro_torch.train import make_train_step
-    from repro_torch.tree import flatten
+    from repro_torch.train import compiled_train_step
+    from repro_torch.tree import flatten, map_tree
 
     cfg, model, data, opt = _p14a_setup(device, reduced)
     host = SyntheticLMData(cfg, batch=data.batch, seq=data.seq, seed=0, device="cpu")
@@ -4657,11 +4719,14 @@ def phase14_train(card, device="cuda", reduced=False):
     steps = np.array(fb["step_times"][1:]) * 1e3
     p50, p99 = float(np.percentile(steps, 50)), float(np.percentile(steps, 99))
     log(f"p14a train[smollm-135m bf16, B={data.batch} S={data.seq} accum {cfg.train_accum} remat "
-        f"dots] on {card}: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps; "
-        f"step wall (synchronised) p50 {p50:.2f} ms p99 {p99:.2f} ms (first step "
+        f"dots, captured step] on {card}: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+        f"{len(losses)} steps; step wall (synchronised, beside the other run) p50 {p50:.2f} ms "
+        f"p99 {p99:.2f} ms (first step, eager, then the capture: "
         f"{fb['step_times'][0] * 1e3:.1f} ms, not counted); "
         f"{data.batch * data.seq / p50 * 1e3:.0f} tokens/s at p50; peak memory "
-        f"{fb['peak_gb']:.2f} GiB; events {fa['events']}; "
+        f"{fb['peak_gb']:.2f} GiB, graph pool {fb['pool_gb']:.2f} GiB; captures "
+        f"{fa['captures']} (the failing run and its resume), {fb['captures']}; events "
+        f"{fa['events']}; "
         f"checkpoint of {fb['ckpt_bytes'] / 2**30:.3f} GiB: host copy "
         f"{fb['ckpt_host_s'] * 1e3:.1f} ms, published after {fb['ckpt_save_s'] * 1e3:.1f} ms; "
         f"the runs {fa['wall_s']:.1f} s and {fb['wall_s']:.1f} s at once, {wall:.1f} s with "
@@ -4669,29 +4734,54 @@ def phase14_train(card, device="cuda", reduced=False):
     trained = runs["b"]["tree"]["params"]
     ostate = runs["b"]["tree"]["opt"]
     del runs, la, lb
-    # a step alone on the card, under each remat mode: its synchronised wall
-    # and peak memory, after a first step (the trainer's p50 above ran beside
-    # the other run); then where the "dots" step's time goes, one step's
-    # device time (the profiler's kernels and copies, on one stream) against
-    # its wall alone
-    batch = _p14_accum(data.batch_at(0), cfg.train_accum)
-    walls, fns = {}, {}
+    # the captured step alone on the card, under each remat mode, on a copy
+    # of the trained state (it steps its state in place): its first call
+    # (eager, then the capture) with the peak memory and the graph pool it
+    # leaves, then P14_REPLAYS replays' synchronised walls; then where the
+    # "dots" replay's time goes, one replay's device time (the profiler's
+    # kernels and copies) against its wall alone
+    batches = [_p14_accum(data.batch_at(i), cfg.train_accum) for i in range(2)]
+    walls = {}
     for remat in ("none", "full", "dots"):
-        fns[remat] = make_train_step(Model(dataclasses.replace(cfg, remat=remat), device=device),
-                                     opt, accum_steps=cfg.train_accum)
-        fns[remat](trained, ostate, batch)
+        m = Model(dataclasses.replace(cfg, remat=remat), device=device)
+        fn = compiled_train_step(m, opt, accum_steps=cfg.train_accum)
+        p, o = map_tree(torch.clone, trained), map_tree(torch.clone, ostate)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        fns[remat](trained, ostate, batch)
+        fn(p, o, batches[0])
         torch.cuda.synchronize()
-        walls[remat] = ((time.perf_counter() - t1) * 1e3,
-                        torch.cuda.max_memory_allocated() / 2**30)
-    log(f"p14a remat on {card}: one step alone, wall ms and peak GiB (with what earlier "
-        f"phases still hold): " + ", ".join(
-            f"{k} {w:.1f} ms {m:.2f} GiB" for k, (w, m) in walls.items()))
-    p14_profile("p14a train step, smollm-135m bf16 B=8 S=1024 accum 2 remat dots",
-                lambda: fns["dots"](trained, ostate, batch), walls["dots"][0], card)
+        first = (time.perf_counter() - t1) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        reps = []
+        for i in range(P14_REPLAYS):
+            t1 = time.perf_counter()
+            fn(p, o, batches[i % 2])
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t1) * 1e3)
+        require(fn._cache_size() == 1, f"p14a remat {remat}: {fn._cache_size()} captures")
+        walls[remat] = (float(np.percentile(reps, 50)), first, peak, graph_pool_bytes(m) / 2**30)
+        if remat == "dots":
+            profile_busy("p14a train step replay, smollm-135m bf16 B=8 S=1024 accum 2 remat dots",
+                        lambda: fn(p, o, batches[0]), walls[remat][0], card)
+            # the same step eager, in this call, for the comparison
+            eager = []
+            with step_graph.disabled():
+                for i in range(2):
+                    t1 = time.perf_counter()
+                    fn(p, o, batches[i])
+                    torch.cuda.synchronize()
+                    eager.append((time.perf_counter() - t1) * 1e3)
+                profile_busy("p14a train step eager, smollm-135m bf16 B=8 S=1024 accum 2 remat "
+                            "dots", lambda: fn(p, o, batches[0]), eager[1], card)
+        del m, fn, p, o
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"p14a remat on {card}: the captured step alone, replay wall p50 of {P14_REPLAYS}, its "
+        f"first call (eager + capture), peak GiB over the first call (with what earlier phases "
+        f"still hold) and graph pool GiB: " + ", ".join(
+            f"{k} {w:.1f} ms (first {f:.1f} ms) peak {m:.2f} GiB pool {g:.2f} GiB"
+            for k, (w, f, m, g) in walls.items()))
     del ostate
     gc.collect()
     torch.cuda.empty_cache()
@@ -4742,17 +4832,25 @@ def phase14_parity(card):
 
 
 def phase14_families(card):
-    """14c: one bf16 train step of each other family at full width (depth
-    2; zamba2 one attention group): a finite loss, the parameters moved,
-    the peak memory. dbrx-132b is left out: at depth 1 it still holds ~4.5 B
+    """14c: two bf16 train steps of each other family at full width (depth
+    2; zamba2 one attention group) through the captured step
+    (``compiled_train_step``: the first call eager, the second a replay),
+    beside two eager steps of the functional ``make_train_step`` from the
+    same state on the next batches, under deterministic algorithms: the
+    second step's parameters equal the eager ones bit for bit, or the ops
+    without a deterministic implementation are named and the max |Δ|
+    printed; a finite loss, the parameters moved, the peak memory and the
+    graph pool. dbrx-132b is left out: at depth 1 it still holds ~4.5 B
     parameters, whose float32 moments (36 GB), bf16 weights and gradients
     (18 GB) and float32 temporaries of its 1.06 B-element expert leaves in
     the update leave no margin on one 80 GB card."""
+    import warnings
+
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMData
     from repro_torch.models.model import Model
-    from repro_torch.train import AdamW, make_train_step
-    from repro_torch.tree import flatten
+    from repro_torch.train import AdamW, compiled_train_step, make_train_step
+    from repro_torch.tree import flatten, map_tree
 
     for arch in P14_OTHERS:
         cfg = get_config(arch)
@@ -4762,25 +4860,58 @@ def phase14_families(card):
         model = Model(cfg)
         params = model.init(seed=4)
         seq = 512 + cfg.n_frontend_tokens
-        batch = SyntheticLMData(cfg, batch=4, seq=seq, seed=2).batch_at(0)
+        data = SyntheticLMData(cfg, batch=4, seq=seq, seed=2)
+        batches = [data.batch_at(i) for i in range(2)]
         opt = AdamW(lr=1e-3, warmup_steps=2, total_steps=10)
-        step = make_train_step(model, opt)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        p2, _, met = step(params, opt.init(params), batch)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        step, family = make_train_step(model, opt), compiled_train_step(model, opt)
+        gp, go = map_tree(torch.clone, params), opt.init(params)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p1, o1, met = step(params, opt.init(params), batches[0])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                p2, _, _ = step(p1, o1, batches[1])
+                t0 = time.perf_counter()
+                family(gp, go, batches[0])  # eager, then the capture
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                _, _, gmet = family(gp, go, batches[1])  # a replay
+                torch.cuda.synchronize()
+                replay = time.perf_counter() - t0
+            finally:
+                torch.use_deterministic_algorithms(False)
+        nondet = sorted({str(w.message).splitlines()[0] for w in caught
+                         if "deterministic" in str(w.message)})
+        pairs = list(zip(flatten(gp)[0], flatten(p2)[0]))
+        differ = sum(not torch.equal(a, b) for a, b in pairs)
+        dmax = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
         loss = float(met["loss"])
         moved = max(float((a.float() - b.float()).abs().max())
-                    for a, b in zip(flatten(params)[0], flatten(p2)[0]))
+                    for a, b in zip(flatten(params)[0], flatten(p1)[0]))
         n = sum(p.numel() for p in flatten(params)[0])
         log(f"p14c train[{arch} bf16 depth {depth}, B=4 S={seq}, remat {cfg.remat}] on {card}: "
             f"{n / 1e9:.3f} B parameters, loss {loss:.4f} (ce {float(met['ce']):.4f}, aux "
             f"{float(met['aux']):.4f}), grad_norm {float(met['grad_norm']):.3f}, params moved "
-            f"max {moved:.3e}, first step {dt * 1e3:.1f} ms, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"max {moved:.3e}, first step {dt * 1e3:.1f} ms eager; captured step: first call "
+            f"(eager + capture) {first * 1e3:.1f} ms, replay {replay * 1e3:.1f} ms, second "
+            f"step's params against two eager steps: {differ} of {len(pairs)} leaves differ, max "
+            f"|delta| {dmax:.3e}" + (f" (ops without a deterministic implementation: {nondet})"
+                                     if nondet else "") +
+            f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, graph pool "
+            f"{graph_pool_bytes(model) / 2**30:.2f} GiB")
         require(math.isfinite(loss) and moved > 0, f"p14c {arch}: loss {loss}, moved {moved}")
-        del model, params, p2, batch, met
+        require(math.isfinite(float(gmet["loss"])), f"p14c {arch}: replayed loss {gmet['loss']}")
+        require(nondet or differ == 0,
+                f"p14c {arch}: the replayed second step differs from the eager one in {differ} "
+                f"of {len(pairs)} leaves (max |delta| {dmax:.3e}) with no op warned")
+        require(family._cache_size() == 1, f"p14c {arch}: {family._cache_size()} captures")
+        del model, params, p1, o1, p2, gp, go, batches, met, gmet, step, family
+        gc.collect()
         torch.cuda.empty_cache()
 
 

@@ -32,11 +32,13 @@ import torch
 from repro_torch.tree import flatten, unflatten
 
 def _to_host(leaf) -> tuple[np.ndarray, str]:
-    """(numpy array, dtype name) of a leaf; a bfloat16 tensor as its bits."""
+    """(numpy array, dtype name) of a leaf; a bfloat16 tensor as its bits.
+    A tensor is copied, on the CPU too: the trainer updates its state in
+    place while a save serializes the copy on its thread."""
     if not isinstance(leaf, torch.Tensor):
         arr = np.asarray(leaf)
         return arr, str(arr.dtype)
-    t = leaf.detach().cpu()
+    t = leaf.detach().to("cpu", copy=True)
     name = str(t.dtype).removeprefix("torch.")
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), name

@@ -74,7 +74,8 @@ def chunked_softmax_xent(x, lm_head, labels, mask, *, chunk: int = 256):
     total weight). The chunk is min(``chunk``, S), lowered until it divides
     S, as the JAX package's. Each chunk body runs under a non-reentrant
     checkpoint that keeps only its inputs (JAX's ``nothing_saveable``), so
-    backward holds one chunk's [B, chunk, V] logits at a time."""
+    backward holds one chunk's [B, chunk, V] logits at a time; it draws no
+    random number, so the checkpoint keeps no generator state."""
     B, S, _ = x.shape
     chunk = min(chunk, S)
     while S % chunk:
@@ -86,7 +87,8 @@ def chunked_softmax_xent(x, lm_head, labels, mask, *, chunk: int = 256):
     for start in range(0, S, chunk):
         args = (x[:, start:start + chunk], lm_head, labels[:, start:start + chunk],
                 mask[:, start:start + chunk])
-        part = checkpoint(_xent_chunk, *args, use_reentrant=False) if grad else _xent_chunk(*args)
+        part = (checkpoint(_xent_chunk, *args, use_reentrant=False, preserve_rng_state=False)
+                if grad else _xent_chunk(*args))
         tot = tot + part
         cnt = cnt + args[3].sum()
     return tot / torch.clamp(cnt, min=1.0), cnt

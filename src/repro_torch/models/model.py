@@ -409,14 +409,18 @@ class Model:
         the products with no batch dimension and recomputes the rest
         (``_dots_policy``: JAX's ``dots_with_no_batch_dims_saveable``).
         Outside grad mode there is nothing to save, and ``fn`` runs as it
-        is."""
+        is. The loss route draws no random number, so the checkpoints keep
+        no generator state (``preserve_rng_state=False``): reading and
+        setting the CUDA generator's state has no place in a captured train
+        step."""
         remat = self.cfg.remat
         if remat not in ("none", "full", "dots"):
             raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
         if remat == "none" or not torch.is_grad_enabled():
             return fn
         kw = {"context_fn": _DOTS_SAVED} if remat == "dots" else {}
-        return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+        return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+                                 **kw)
 
     def param_axes(self) -> dict:
         """The logical axes of every parameter, in the structure of

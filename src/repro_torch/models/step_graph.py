@@ -46,6 +46,15 @@ would eagerly.
 ``disabled()`` is ``jax.disable_jit()``'s counterpart: inside it every step
 runs eagerly, on the card too, and no entry is made. Tests and
 ``chip_smoke.py`` compare the two paths through it; it is no engine option.
+
+``GraphFamily`` is the same machinery over any callable, for the steps that
+are no ``Model`` step: a decode plan's pool step (the scheduler's
+``_plan_decode``) and the train step (``train/trainer.py``). Its caller
+names the arguments whose tensors are inputs (copied into static buffers,
+whatever their depth: a batch dict's leaves); every other tensor argument
+is state. Every output that is no state tensor comes back as a clone. A
+step that returns new tensors for its state goes through ``in_place``
+first, so that its graph ends by copying them into the caller's state.
 """
 from __future__ import annotations
 
@@ -113,6 +122,13 @@ def _flatten(tree, path=()):
         yield path, tree
 
 
+def _rebuild(tree, items):
+    """A tuple or list of ``tree``'s type over ``items`` (a NamedTuple, such
+    as an ``OptState``, from its fields)."""
+    items = list(items)
+    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+
+
 def _replace(tree, repl: dict, path=()):
     """``tree`` with the leaves at the paths of ``repl`` replaced; a
     container none of whose leaves changed is returned as it is."""
@@ -123,7 +139,7 @@ def _replace(tree, repl: dict, path=()):
         return tree if all(out[k] is tree[k] for k in tree) else out
     if isinstance(tree, (list, tuple)):
         out = [_replace(v, repl, path + (i,)) for i, v in enumerate(tree)]
-        return tree if all(a is b for a, b in zip(out, tree)) else type(tree)(out)
+        return tree if all(a is b for a, b in zip(out, tree)) else _rebuild(tree, out)
     return tree
 
 
@@ -142,7 +158,7 @@ def _skeleton(tree, leaves: list, path=()):
     if isinstance(tree, dict):
         return {k: _skeleton(v, leaves, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_skeleton(v, leaves, path + (i,)) for i, v in enumerate(tree))
+        return _rebuild(tree, (_skeleton(v, leaves, path + (i,)) for i, v in enumerate(tree)))
     leaves.append((path, tree))
     return _Slot(len(leaves) - 1)
 
@@ -151,14 +167,8 @@ def _fill(skeleton, values):
     if isinstance(skeleton, dict):
         return {k: _fill(v, values) for k, v in skeleton.items()}
     if isinstance(skeleton, (list, tuple)):
-        return type(skeleton)(_fill(v, values) for v in skeleton)
+        return _rebuild(skeleton, (_fill(v, values) for v in skeleton))
     return values[skeleton.i]
-
-
-def _is_input(path) -> bool:
-    """Top-level tensor arguments and a cache's ``len`` are the small
-    inputs; every other tensor is state."""
-    return len(path) == 2 or path[-1] == "len"
 
 
 class _Capture:
@@ -170,33 +180,71 @@ class _Capture:
         self.skeleton, self.plan, self.launches = skeleton, plan, launches
 
 
-class StepGraph:
-    """A model step with its backend bound, compiled once per key (see the
-    module docstring). ``model`` owns the graph memory pool; the step is
-    looked up on it at each call."""
+def in_place(fn, writes: dict):
+    """``fn`` with its new state written into the caller's: ``writes`` maps
+    an output position to the argument position whose tree it replaces.
+    Each tensor of that output is copied into the argument's tensor at the
+    same path, and the call returns the argument in the output's place, so
+    a ``GraphFamily`` over it captures the copies at the end of its graph
+    and hands the caller its own state back. The two trees must hold the
+    same paths."""
 
-    def __init__(self, model, name: str, backend: str):
-        if name not in STEPS:
-            raise ValueError(f"jit_step: unknown step {name!r}; steps are {STEPS}")
-        self.model, self.name, self.backend = model, name, backend
-        self.device = model.device
+    def step(*args):
+        out = list(fn(*args))
+        with torch.no_grad():
+            for o, a in writes.items():
+                dst = dict(_flatten(args[a]))
+                new = dict(_flatten(out[o]))
+                if new.keys() != dst.keys():
+                    raise ValueError(f"in_place: output {o} and argument {a} hold other paths: "
+                                     f"{sorted(map(str, new.keys() ^ dst.keys()))[:4]}")
+                for path, t in new.items():
+                    if t is not dst[path]:
+                        dst[path].copy_(t)
+                out[o] = args[a]
+        return tuple(out)
+
+    return step
+
+
+class GraphFamily:
+    """``fn`` compiled once per key (see the module docstring): a captured
+    CUDA graph an entry on the card, the record of the key on the CPU.
+    ``inputs``: the positions (and keyword names) of the arguments whose
+    tensors are inputs; every other tensor argument is state. ``pool``:
+    a callable giving the (memory pool, side stream) the entries share."""
+
+    def __init__(self, fn, device, pool, *, inputs=(), name: str = "step"):
+        self.fn, self.name, self.pool = fn, name, pool
+        self.inputs = frozenset(inputs)
+        self.device = torch.device(device)
         self.eager = self.device.type != "cuda"  # record keys, run eagerly
         self._entries: dict = {}  # key → {state addresses: _Capture} (eager: None)
         self._size = 0
 
     def __repr__(self) -> str:
-        return f"StepGraph({self.name!r}, backend={self.backend!r}, entries={self._size})"
+        return f"{type(self).__name__}({self.name!r}, entries={self._size})"
 
     def _cache_size(self) -> int:
         """Keys compiled, plus every recapture on other state storage."""
         return self._size
 
+    def _is_input(self, path) -> bool:
+        """The leaf at ``path`` (("a", position, …) or ("k", name, …)) is an
+        input: it lies under an argument named in ``inputs``."""
+        return path[1] in self.inputs
+
+    def _keep_own(self, path) -> bool:
+        """An output leaf at ``path`` that is no state may come back as the
+        graph's own buffer, not a clone."""
+        return False
+
     def _eager(self, args, kwargs):
-        return getattr(self.model, self.name)(*args, backend=self.backend, **kwargs)
+        return self.fn(*args, **kwargs)
 
     def _host(self, x):
-        """A host-side argument as a device tensor (the n_valid list, a
-        numpy length vector); tensors move to the device."""
+        """A host-side input as a device tensor (the n_valid list, a numpy
+        length vector, a CPU mask); tensors move to the device."""
         if isinstance(x, (np.ndarray, list, tuple)):
             return torch.as_tensor(np.asarray(x)).to(self.device)
         if isinstance(x, torch.Tensor) and x.device != self.device:
@@ -206,8 +254,8 @@ class StepGraph:
     def __call__(self, *args, **kwargs):
         if _disabled:
             return self._eager(args, kwargs)
-        args = tuple(self._host(a) for a in args)
-        kwargs = {k: self._host(v) for k, v in kwargs.items()}
+        args = tuple(self._host(a) if self._is_input(("a", i)) else a for i, a in enumerate(args))
+        kwargs = {k: self._host(v) if self._is_input(("k", k)) else v for k, v in kwargs.items()}
         leaves = list(_flatten(args, ("a",))) + list(_flatten(kwargs, ("k",)))
         key = tuple((p, tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor) else (p, v)
                     for p, v in leaves)
@@ -218,7 +266,7 @@ class StepGraph:
             return self._eager(args, kwargs)
         entry = self._entries.get(key)
         state = tuple((v.data_ptr(), v.stride()) for p, v in leaves
-                      if isinstance(v, torch.Tensor) and not _is_input(p))
+                      if isinstance(v, torch.Tensor) and not self._is_input(p))
         if entry is None:
             out = self._warm(args, kwargs)
             self._entries[key] = {state: self._capture(args, kwargs, leaves)}
@@ -234,7 +282,7 @@ class StepGraph:
         """The first call of a key, eager, on the side stream the capture
         will use (the documented warm-up for a capture); the current stream
         waits for it."""
-        cur, side = torch.cuda.current_stream(self.device), self.model.graph_pool()[1]
+        cur, side = torch.cuda.current_stream(self.device), self.pool()[1]
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             out = self._eager(args, kwargs)
@@ -243,7 +291,7 @@ class StepGraph:
 
     def _capture(self, args, kwargs, leaves) -> _Capture:
         inputs = [i for i, (p, v) in enumerate(leaves)
-                  if isinstance(v, torch.Tensor) and _is_input(p)]
+                  if isinstance(v, torch.Tensor) and self._is_input(p)]
         static = [leaves[i][1].detach().clone() for i in inputs]
         repl = {leaves[i][0]: buf for i, buf in zip(inputs, static)}
         a_repl = {p[1:]: v for p, v in repl.items() if p[0] == "a"}
@@ -251,7 +299,7 @@ class StepGraph:
         c_args, c_kwargs = _replace(args, a_repl), _replace(kwargs, k_repl)
         before = _launches()
         graph = torch.cuda.CUDAGraph()
-        pool, side = self.model.graph_pool()
+        pool, side = self.pool()
         cur = torch.cuda.current_stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.graph(graph, pool=pool, stream=side):
@@ -260,9 +308,10 @@ class StepGraph:
         launches = [a - b for a, b in zip(_launches(), before)]
         _set_launches(before)
         # each output leaf: the caller's state tensor it is, a clone of a
-        # graph output (logits, len), or the graph's own buffer (a new cache)
+        # graph output (logits, len, metrics), or the graph's own buffer (a
+        # new cache)
         state_of = {id(v): i for i, (p, v) in enumerate(leaves)
-                    if isinstance(v, torch.Tensor) and not _is_input(p)}
+                    if isinstance(v, torch.Tensor) and not self._is_input(p)}
         buffers = {id(b) for b in static}
         out_leaves: list = []
         skeleton = _skeleton(out, out_leaves)
@@ -272,7 +321,7 @@ class StepGraph:
                 plan.append(("const", v))
             elif id(v) in state_of:
                 plan.append(("state", state_of[id(v)]))
-            elif id(v) in buffers or len(path) == 1 or path[-1] == "len":
+            elif id(v) in buffers or not self._keep_own(path):
                 plan.append(("clone", v))
             else:
                 plan.append(("own", v))
@@ -293,6 +342,32 @@ class StepGraph:
             else:
                 values.append(v)
         return _fill(cap.skeleton, values)
+
+
+class StepGraph(GraphFamily):
+    """A model step with its backend bound, compiled once per key (see the
+    module docstring). ``model`` owns the graph memory pool; the step is
+    looked up on it at each call. The inputs are the top-level tensor
+    arguments and a cache's ``len``; a new cache the step returns comes
+    back as the graph's own buffers."""
+
+    def __init__(self, model, name: str, backend: str):
+        if name not in STEPS:
+            raise ValueError(f"jit_step: unknown step {name!r}; steps are {STEPS}")
+        super().__init__(None, model.device, model.graph_pool, name=name)
+        self.model, self.backend = model, backend
+
+    def __repr__(self) -> str:
+        return f"StepGraph({self.name!r}, backend={self.backend!r}, entries={self._size})"
+
+    def _is_input(self, path) -> bool:
+        return len(path) == 2 or path[-1] == "len"
+
+    def _keep_own(self, path) -> bool:
+        return not (len(path) == 1 or path[-1] == "len")
+
+    def _eager(self, args, kwargs):
+        return getattr(self.model, self.name)(*args, backend=self.backend, **kwargs)
 
 
 class ShardedStep(StepGraph):

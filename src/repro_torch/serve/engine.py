@@ -116,6 +116,7 @@ class ServingEngine:
         self._steps: dict[str, dict] = {}
         self._drafts: dict = {}  # (draft model, backend) → its decode and prefill
         self._storage = StateStorage()
+        self._plan_steps: dict = {}  # (plan key, pool size) → compiled plan step
         self._prefill = self._step_fns(self.attention_backend)["prefill"]
         self._decode_plan = None
         if decode_plan is not None:
@@ -283,6 +284,7 @@ class ServingEngine:
             step_fns=lambda b: self._family(b, layout, spec, chunk),
             storage=self._storage,
             mesh=self.mesh,
+            plan_step_cache=self._plan_steps,
         )
 
     def serve(

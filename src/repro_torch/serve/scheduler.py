@@ -36,7 +36,7 @@ synchronise, so it measures the work and not just its launch. Driving is
 open-loop: ``run()`` injects requests at their ``arrival_time``. With a
 decode plan set (``set_decode_plan``; slot layout only) the decode runs
 through the plan's masked executor over the whole pool, the live rows as
-its mask.
+its mask, compiled as one family a (plan key, pool size) (``_plan_decode``).
 
 Every model step runs through a compiled step family
 (``Model.jit_step``: a CUDA graph a step shape on the card), the engine's
@@ -87,7 +87,7 @@ from repro_torch.models.model import (
     SPEC_FAMILIES,
     prefill_bucket,
 )
-from repro_torch.models.step_graph import cache_size
+from repro_torch.models.step_graph import GraphFamily, cache_size, in_place
 from repro_torch.parallel import collectives
 from repro_torch.serve.kv_cache import PagedKVCache, SlotKVCache, StateStorage
 from repro_torch.serve.request import (
@@ -111,6 +111,24 @@ def sorted_cache(tree):
     if isinstance(tree, dict):
         return {k: sorted_cache(tree[k]) for k in sorted(tree)}
     return tree
+
+
+def _plan_step(model, plan):
+    """(cache, tok, mask) → (logits, new cache): the per-request items
+    (token, cache leaves with their batch axis first), the plan's masked
+    executor over them, the new leaves put back in the cache's layout. It
+    holds no scheduler: an engine's plan steps outlive the schedulers."""
+
+    def step(cache, tok, mask):
+        cache = sorted_cache(cache)
+        leaves, spec = pytree.tree_flatten(cache)
+        axes = tuple(pytree.tree_leaves(model.cache_batch_axes(cache)))
+        items = (tok, [leaf.movedim(ax, 0) for leaf, ax in zip(leaves, axes)])
+        logits, new_leaves = plan.execute_masked(items, mask)
+        return logits, pytree.tree_unflatten(
+            [leaf.movedim(0, ax) for leaf, ax in zip(new_leaves, axes)], spec)
+
+    return step
 
 
 @dataclass
@@ -151,6 +169,7 @@ class Scheduler:
         step_fns=None,
         storage=None,
         mesh=None,
+        plan_step_cache: Optional[dict] = None,
     ):
         self.model = model
         self._mesh = mesh
@@ -277,6 +296,9 @@ class Scheduler:
         if controller is not None:
             self._wire_controller(controller)
         self._t0: Optional[float] = None
+        # the compiled plan steps, (plan key, pool size) → family: the
+        # engine's when the engine made this scheduler
+        self._plan_steps = plan_step_cache if plan_step_cache is not None else {}
         self._decode_plan = None
         if decode_plan is not None:
             self.set_decode_plan(decode_plan)
@@ -495,18 +517,21 @@ class Scheduler:
         self._decode_plan = plan
 
     def _plan_decode(self, cache, tok, mask):
-        """One pool decode through the plan: the per-request items (token,
-        cache leaves with their batch axis first), the plan's masked
-        executor over them, the new leaves put back in the cache's layout
-        (dead rows zeroed, as the JAX package's masked plan leaves them)."""
-        cache = sorted_cache(cache)
-        leaves, spec = pytree.tree_flatten(cache)
-        axes = tuple(pytree.tree_leaves(self.model.cache_batch_axes(cache)))
-        items = (tok, [leaf.movedim(ax, 0) for leaf, ax in zip(leaves, axes)])
-        logits, new_leaves = self._decode_plan.execute_masked(items, mask)
-        new_cache = pytree.tree_unflatten(
-            [leaf.movedim(0, ax).contiguous() for leaf, ax in zip(new_leaves, axes)], spec)
-        return logits, new_cache
+        """One pool decode through the plan, as a compiled family a (plan
+        key, pool size), as the reference jits it: a CUDA graph on the card,
+        the record of its key on the CPU. ``tok`` and ``mask`` are its
+        inputs; the slot cache's leaves, ``len`` included, are its state,
+        written back in place (dead rows zeroed, as the JAX package's
+        masked plan leaves them), so the cache stays the storage's. The
+        masked executor keeps the shapes whatever the live count: one
+        entry a key."""
+        key = (self._decode_plan.key, self.kv.max_batch)
+        step = self._plan_steps.get(key)
+        if step is None:
+            step = self._plan_steps[key] = GraphFamily(
+                in_place(_plan_step(self.model, self._decode_plan), {1: 0}), self.device,
+                self.model.graph_pool, inputs=(1, 2), name=f"plan_decode[{key[0].region}]")
+        return step(cache, tok, mask)
 
     # ------------------------------------------------------------------
     def _clock(self) -> float:
@@ -864,8 +889,7 @@ class Scheduler:
             mask = torch.zeros((self.kv.max_batch,), dtype=torch.bool)
             mask[list(self._active)] = True
             with self.tel.annotate("serve.decode"):
-                logits, self.kv.cache = self._plan_decode(
-                    self.kv.cache, tok[:, 0], mask.to(self.device))
+                logits, _ = self._plan_decode(self.kv.cache, tok[:, 0], mask)
         else:
             with self.tel.annotate("serve.decode"):
                 logits, self.kv.cache = self._decode(self.params, self.kv.cache, tok)

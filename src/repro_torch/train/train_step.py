@@ -13,7 +13,13 @@ batch over the mesh's "pod" and "data" axes, with the single-device layer
 code (no sharding rules inside the step), and the gradients are averaged
 over those axes with ``parallel/collectives.all_reduce_axes``; the
 parameters and the optimizer state stay replicated. This is the JAX step
-under GSPMD's batch split. The compressed variant (``compress_pod_grads``)
+under GSPMD's batch split, whose cross-entropy is one masked mean over the
+global batch: each microbatch's mask sums are all-reduced first, and rank r
+differentiates w_r · ce_r + 0.01 · aux_r with w_r = n · cnt_r / Σ cnt (n
+ranks), so the mean of the ranks' objectives is the global masked mean of
+the cross-entropy plus 0.01 × the ranks' mean of the MoE aux loss (the JAX
+package's ``pmean`` of it), and so are their gradients' mean; the reported
+``ce`` is weighted the same way. The compressed variant (``compress_pod_grads``)
 averages over "data" exactly and re-reduces the pod axis in int8 with
 error feedback (``parallel/compression.py``), as the JAX package's
 ``step_compressed`` shows the slow inter-pod hop compressed.
@@ -28,6 +34,7 @@ import math
 
 import torch
 
+from repro_torch.models.step_graph import GraphFamily, in_place
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel.compression import compressed_grad_tree
 from repro_torch.train.optimizer import AdamW, OptState
@@ -68,11 +75,25 @@ def make_train_step(model, opt: AdamW, *, accum_steps: int = 1,
 
         return {k: take(v) for k, v in batch.items()}
 
+    def weight(batch):
+        """This rank's share of the global mask sum, n · cnt_r / Σ cnt (None
+        on one device)."""
+        if not split_axes:
+            return None
+        n = math.prod(col.group_size(mesh, a) for a in split_axes)
+        cnt = torch.as_tensor(batch["mask"], device=local.device).float().sum()
+        total = col.all_reduce_axes(cnt, mesh, split_axes)
+        return n * cnt / torch.clamp(total, min=1.0)
+
     def grad_of(params, batch):
+        w = weight(batch)
         leaves, spec = flatten(params)
         leaves = [p.detach().requires_grad_() for p in leaves]
         with torch.enable_grad():
             loss, metrics = local.loss(unflatten(spec, leaves), batch)
+            if w is not None:
+                metrics = dict(metrics, ce=w * metrics["ce"])
+                loss = metrics["ce"] + 0.01 * metrics["aux"]
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         return loss.detach(), map_tree(torch.Tensor.detach, metrics), unflatten(spec, grads)
@@ -117,3 +138,18 @@ def make_train_step(model, opt: AdamW, *, accum_steps: int = 1,
         return params, opt_state, dict(metrics, loss=loss, **opt_metrics), err
 
     return step_compressed if compress_pod_grads else step
+
+
+def compiled_train_step(model, opt: AdamW, *, accum_steps: int = 1) -> GraphFamily:
+    """``make_train_step(model, opt, accum_steps=…)`` as a compiled family
+    (``models/step_graph.py``; the reference's ``jax.jit`` of the step): the
+    forward, backward, accumulation and AdamW as one CUDA graph a batch
+    shape on the card, the record of the key on the CPU. The batch leaves
+    are its inputs; the parameters and the ``OptState`` (step, moments) are
+    its state, captured by address and updated in place (``in_place``):
+    step(params, opt_state, batch) returns the caller's own ``params`` and
+    ``opt_state`` trees, stepped, and the metrics. One device only: the
+    mesh step's gloo collectives cannot be captured."""
+    return GraphFamily(in_place(make_train_step(model, opt, accum_steps=accum_steps),
+                                {0: 0, 1: 1}),
+                       model.device, model.graph_pool, inputs=(2,), name="train_step")

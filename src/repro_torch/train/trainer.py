@@ -10,6 +10,15 @@ package's ``train/trainer.py``:
   synchronise on CUDA); a step slower than ``straggler_factor`` × the EWMA
   is logged and checkpointed at once;
 * elastic resume: checkpoints hold whole leaves (``ckpt/checkpoint.py``).
+
+The step is ``compiled_train_step``, the reference's ``jax.jit`` of
+``make_train_step``: one CUDA graph a batch shape on the card (the first
+step eager, then captured and replayed), the record of the key on the CPU.
+The trainer owns the state storage that the graph updates in place, as
+``ServingEngine`` owns its ``StateStorage``: ``init_state``, a resume and
+a ``run(state)`` given a state copy into it, so a restart captures nothing
+new. The state ``run`` returns is that storage; the next ``run`` steps it
+in place (a checkpoint's host copy is taken before ``save`` returns).
 """
 from __future__ import annotations
 
@@ -23,7 +32,8 @@ import torch
 
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.train.optimizer import AdamW
-from repro_torch.train.train_step import make_train_step
+from repro_torch.train.train_step import compiled_train_step
+from repro_torch.tree import flatten, map_tree
 
 
 @dataclass
@@ -64,15 +74,37 @@ class Trainer:
         self.fail_at_step = fail_at_step
         self.log = log_fn
         self.ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
-        self.step_fn = make_train_step(model, opt, accum_steps=cfg.accum_steps)
+        self.step_fn = compiled_train_step(model, opt, accum_steps=cfg.accum_steps)
+        self._storage: Optional[TrainerState] = None  # what the step updates in place
         self.events: list[str] = []
         self.step_times: list[float] = []  # wall seconds of each step run
         self._ewma: Optional[float] = None
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> TrainerState:
+        """Fresh parameters and optimizer state, in the trainer's storage
+        (made at the first call)."""
         params = self.model.init(seed)
-        return TrainerState(params=params, opt_state=self.opt.init(params), step=0)
+        opt_state = self.opt.init(params)
+        if self._storage is None:  # fresh tensors: they become the storage
+            self._storage = TrainerState(params=params, opt_state=opt_state)
+        return self._store(params, opt_state, 0)
+
+    def _store(self, params, opt_state, step: int) -> TrainerState:
+        """(params, opt_state) copied into the trainer's storage (made as a
+        copy at the first call), as a state at ``step``."""
+        new = (params, opt_state)
+        if self._storage is None:
+            params, opt_state = map_tree(lambda t: t.detach().clone(), new)
+            self._storage = TrainerState(params=params, opt_state=opt_state)
+        else:
+            held = (self._storage.params, self._storage.opt_state)
+            with torch.no_grad():
+                for dst, src in zip(flatten(held)[0], flatten(new)[0]):
+                    if dst is not src:
+                        dst.copy_(src)
+        return TrainerState(params=self._storage.params, opt_state=self._storage.opt_state,
+                            step=step)
 
     def _maybe_restore(self, state: TrainerState) -> TrainerState:
         # an in-process restart may arrive while the last save's thread is
@@ -85,8 +117,7 @@ class Trainer:
         restored, meta = self.ckpt.restore(tree, latest)
         self.events.append(f"restored step {latest}")
         self.log(f"[trainer] restored checkpoint at step {latest}")
-        return TrainerState(params=restored["params"], opt_state=restored["opt"],
-                            step=meta["step"])
+        return self._store(restored["params"], restored["opt"], meta["step"])
 
     def _save(self, state: TrainerState, blocking=False):
         self.ckpt.save(state.step, {"params": state.params, "opt": state.opt_state},
@@ -98,7 +129,12 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def run(self, state: TrainerState | None = None, resume: bool = True):
-        state = state or self.init_state()
+        """Train to ``total_steps`` from ``state`` (copied into the storage;
+        fresh parameters when None), after resuming from the latest
+        checkpoint when ``resume``. Returns (the final state, which is the
+        trainer's storage, and the last step's metrics)."""
+        state = (self.init_state() if state is None
+                 else self._store(state.params, state.opt_state, state.step))
         if resume:
             state = self._maybe_restore(state)
         metrics = {}

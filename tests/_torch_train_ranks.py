@@ -6,6 +6,7 @@ returns what it found; rank 0 saves it for the test process to compare
 with the JAX package, and a case that raises is saved as its traceback, so
 that only its own test fails. Every rank of a mesh runs the same body, as
 every rank of a data-parallel trainer runs the same step."""
+import dataclasses
 import os
 import pickle
 import traceback
@@ -80,6 +81,28 @@ def dp_step(rank, world, shape, names, np_params, np_batch):
     p2, _, met = make_train_step(model, opt, mesh=mesh)(params, opt.init(params), batch)
     p1, _, met1 = make_train_step(model, opt)(params, opt.init(params), batch)
     return {"mesh": _found(mesh, p2, met), "single": _found(mesh, p1, met1)}
+
+
+def dp_moe(rank, world, capacity_factor, np_batch):
+    """One data-parallel train step of a reduced granite-moe-1b-a400m
+    (seeded weights, ``capacity_factor`` large enough that no expert drops
+    a token on a shard or on one device) on ("data",) = (2,), beside the
+    port's single-device step: the losses, ``ce`` and ``aux``."""
+    mesh = _mesh((2,), ("data",))
+    if mesh is None:
+        return None
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
+                              capacity_factor=capacity_factor)
+    model = Model(cfg, device="cpu")
+    params = model.init(seed=5)
+    batch = {k: torch.from_numpy(np.array(v)) for k, v in np_batch.items()}
+    opt = AdamW(lr=1e-3, warmup_steps=2, total_steps=10)
+    out = {}
+    for name, step in (("mesh", make_train_step(model, opt, mesh=mesh)),
+                       ("single", make_train_step(model, opt))):
+        p, _, met = step(params, opt.init(params), batch)
+        out[name] = dict(_found(mesh, p, met), ce=float(met["ce"]), aux=float(met["aux"]))
+    return out
 
 
 def step_compressed(rank, world, np_params, np_batch):

@@ -2,7 +2,9 @@
 cases of ``tests/test_fault_tolerance.py`` (the induced failure and resume
 bitwise equal to the uninterrupted run, atomic publish and keep-k
 garbage collection, the asynchronous save, the elastic restore's cast, the
-straggler watchdog, the compression quantizer), a bfloat16 leaf and an
+straggler watchdog, the compression quantizer), the resume into the
+trainer's own state storage with its compiled step's one entry (the JAX
+trainer's ``jax.jit`` cache size), a bfloat16 leaf and an
 ``OptState`` round-tripping bit for bit, and ``SyntheticLMData``: a pure
 function of (seed, step), ids below V, the copy share, the vlm shapes and
 ``batch_specs``."""
@@ -45,6 +47,42 @@ def test_induced_failure_and_bitexact_resume(tmp_path):
     # for bit, and the same optimizer state
     tr_b = _trainer(tmp_path / "b")
     state_b, _ = tr_b.run()
+    for a, b in zip(flatten((state_a.params, state_a.opt_state))[0],
+                    flatten((state_b.params, state_b.opt_state))[0]):
+        assert torch.equal(a, b)
+
+
+def test_resume_restores_into_the_trainer_storage(tmp_path):
+    """The trainer's step is a compiled family over state the trainer owns:
+    after the induced failure and the resume, ``step_fn._cache_size()``
+    equals the JAX trainer's ``jax.jit`` cache size over the same run, the
+    restored state is the same storage (the same addresses before and
+    after), and the resumed state is bitwise the uninterrupted run's."""
+    from repro.configs import get_config as jget
+    from repro.data import SyntheticLMData as JData
+    from repro.models import Model as JModel
+    from repro.train import AdamW as JAdamW
+    from repro.train import Trainer as JTrainer
+    from repro.train import TrainerConfig as JTrainerConfig
+
+    jcfg = jget("smollm-135m").reduced()
+    jt = JTrainer(JModel(jcfg), JAdamW(lr=1e-3, warmup_steps=2, total_steps=12),
+                  JData(jcfg, batch=4, seq=32),
+                  JTrainerConfig(total_steps=12, ckpt_every=5, ckpt_dir=str(tmp_path / "jax"),
+                                 log_every=100), fail_at_step=7, log_fn=lambda s: None)
+    with pytest.raises(RuntimeError, match="induced node failure"):
+        jt.run()
+    jt.run()
+
+    tr = _trainer(tmp_path / "a", fail_at=7)
+    with pytest.raises(RuntimeError, match="induced node failure"):
+        tr.run()
+    held = [t.data_ptr() for t in flatten((tr._storage.params, tr._storage.opt_state))[0]]
+    state_a, _ = tr.run()
+    assert state_a.step == 12 and any("restored step 5" in e for e in tr.events)
+    assert [t.data_ptr() for t in flatten((state_a.params, state_a.opt_state))[0]] == held
+    assert tr.step_fn._cache_size() == jt.step_fn._cache_size() == 1
+    state_b, _ = _trainer(tmp_path / "b").run()
     for a, b in zip(flatten((state_a.params, state_a.opt_state))[0],
                     flatten((state_b.params, state_b.opt_state))[0]):
         assert torch.equal(a, b)

@@ -8,8 +8,10 @@ here what they mean in JAX: a chunk keeps one entry across its positions,
 a bucketed prefill one a pow2 bucket; after ``prime()`` live switching of
 K and backend compiles nothing; an unprimed run counts the JAX engine's
 retraces; two serves reuse the engine's state storage; a step's first
-call runs once (the SSM and hybrid states advance once); and
-``step_graph.disabled()`` serves the same streams. Serves run on a step
+call runs once (the SSM and hybrid states advance once);
+``step_graph.disabled()`` serves the same streams; and a decode plan's
+pool step keeps one family a (plan key, pool size), as the JAX engine's
+jitted plan steps, writing the slot cache in place. Serves run on a step
 clock (``drive``), so admission does not depend on either package's
 speed."""
 import dataclasses
@@ -382,3 +384,84 @@ def test_disabled_serves_the_same_streams(pair, layout):
         assert fresh._cache_size() == 0
     assert step_graph.cache_size(_families(te)) == size
     _same(eager, got)
+
+
+# ---------------------------------------------------------------------------
+# (e) the decode plan's pool step: one compiled family a (plan key, pool size)
+
+
+def _advised(jm, jp, tm, tp, prompts):
+    """A JAX engine and the port's, each with the decode plan its own
+    adviser accepted over ``decode_region(prompts, force=True)``."""
+    from repro.core import Aira as JAira
+    from repro.core import Workload as JWorkload
+    from repro.core.overlap_model import CPU_HW as J_CPU_HW
+    from repro_torch.core import CPU_HW, Aira, Workload
+
+    je = JEngine(jm, jp, max_seq=64)
+    jd = JAira(hw=J_CPU_HW).advise(JWorkload("serve", lambda: None, [
+        je.decode_region(jnp.asarray(prompts), force=True)])).decisions[0]
+    je.set_decode_plan(jd.plan)
+    te = ServingEngine(tm, tp, max_seq=64, device="cpu")
+    d = Aira(hw=CPU_HW).advise(Workload("serve", lambda: None, [
+        te.decode_region(prompts, force=True)])).decisions[0]
+    assert d.accepted and jd.accepted
+    te.set_decode_plan(d.plan)
+    return je, te
+
+
+def _leaf_ptrs(cache) -> dict:
+    return {path: t.data_ptr() for path, t in step_graph._flatten(cache)}
+
+
+def test_plan_family_keeps_one_entry_like_jax(pair):
+    """Two serves through one engine's decode plan, requests arriving apart
+    through a 4-row pool (the live count changes mid-serve): the port's
+    plan families (``engine._plan_steps``), each family's ``_cache_size()``
+    and ``engine.retraces`` equal the JAX engine's jitted plan steps'; the
+    streams equal the JAX engine's; the slot cache the plan decodes is the
+    engine's storage (the same addresses, ``len`` included) before and
+    after every serve."""
+    cfg, jm, jp, tm, tp = pair
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (3, 8)).astype(np.int32)
+    je, te = _advised(jm, jp, tm, tp, prompts)
+    ptrs = None
+    for _ in range(2):
+        js = je.scheduler(4, telemetry=JTelemetry(enabled=True))
+        ts = te.scheduler(4, telemetry=Telemetry(enabled=True))
+        before = _leaf_ptrs(ts.kv.cache)
+        ptrs = ptrs or before
+        _same(drive(js, _workload(JRequest, cfg.vocab_size)),
+              drive(ts, _workload(Request, cfg.vocab_size)))
+        assert _leaf_ptrs(ts.kv.cache) == before == ptrs
+        del js, ts
+        assert (te.stats.registry.counter("engine.retraces").value
+                == je.stats.registry.counter("engine.retraces").value)
+    assert len(te._plan_steps) == len(je._plan_steps) == 1
+    assert ([f._cache_size() for f in te._plan_steps.values()]
+            == [f._cache_size() for f in je._plan_steps.values()] == [1])
+
+
+def test_plan_decode_writes_the_storage_in_place(pair):
+    """One plan decode over a 4-row pool with 2 live rows: the family takes
+    ``tok`` and ``mask`` as inputs and writes the new cache into the
+    caller's leaves, which it returns; the dead rows come back zeroed, as
+    the eager plan step leaves them, and the logits equal its own."""
+    from repro_torch.serve.scheduler import _plan_step
+
+    cfg, jm, jp, tm, tp = pair
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (4, 8)).astype(np.int32)
+    _, te = _advised(jm, jp, tm, tp, prompts)
+    _, cache = tm.prefill(tp, torch.as_tensor(prompts), 64)
+    tok = torch.as_tensor(prompts[:, -1]).long()
+    mask = torch.tensor([True, False, True, False])
+    want_logits, want = _plan_step(tm, te._decode_plan)(
+        {k: v.clone() for k, v in cache.items()}, tok, mask)
+    sched = te.scheduler(4)
+    ptrs = _leaf_ptrs(cache)
+    logits, got = sched._plan_decode(cache, tok, mask)
+    assert got is cache and _leaf_ptrs(got) == ptrs
+    torch.testing.assert_close(logits, want_logits, rtol=0, atol=0)
+    for path, t in step_graph._flatten(want):
+        torch.testing.assert_close(dict(step_graph._flatten(got))[path], t, rtol=0, atol=0)
+    assert not got["len"][1] and int(got["len"][0]) == 9

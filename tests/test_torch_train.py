@@ -6,7 +6,8 @@ and its gradients for one config of each family (dense, ssm, hybrid, moe
 with its aux loss, vlm, audio), one whole ``make_train_step`` call and
 the accumulation step, the three remat modes (bitwise equal to each
 other), ``param_axes`` against the JAX ``init``'s axes tree and
-``abstract_params``; then the JAX package's training tests mirrored on the
+``abstract_params``, the compiled step's in-place write-back against the
+functional step and the remat checkpoints' untouched generators; then the JAX package's training tests mirrored on the
 port (AdamW on a quadratic, the smoke step, train then serve) and the
 kernels' refusal to be differentiated."""
 import dataclasses
@@ -34,7 +35,7 @@ from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.models.layers import chunked_softmax_xent
 from repro_torch.models.model import Model as TModel
 from repro_torch.serve import ServingEngine
-from repro_torch.train import AdamW, make_train_step
+from repro_torch.train import AdamW, compiled_train_step, make_train_step
 from repro_torch.train.optimizer import OptState
 from repro_torch.tree import flatten, map_tree, unflatten
 
@@ -180,8 +181,8 @@ def test_loss_and_grads_match_jax(arch):
         assert _rel_l2(g, w) <= GRAD_RTOL, (arch, i, _rel_l2(g, w))
 
 
-def _jstep_inputs(jcfg, jm, jp, B=4, S=32, accum=1):
-    jb = JData(jcfg, batch=B, seq=S).batch_at(0)
+def _jstep_inputs(jcfg, jm, jp, B=4, S=32, accum=1, step=0):
+    jb = JData(jcfg, batch=B, seq=S).batch_at(step)
     if accum > 1:
         jb = jax.tree.map(lambda x: x.reshape((accum, B // accum) + x.shape[1:]), jb)
     return jb, {k: torch.from_numpy(np.array(v)) for k, v in jb.items()}
@@ -224,6 +225,53 @@ def test_remat_modes_bitwise_equal(arch):
         assert torch.equal(loss, runs[0][0])
         for g, w in zip(grads, runs[0][2]):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_compiled_step_writes_back_like_the_functional_step(accum):
+    """Three steps through ``compiled_train_step`` (the trainer's family:
+    on the CPU it records its key and runs eagerly, its new state copied
+    into the caller's by ``in_place``) equal three steps of the functional
+    ``make_train_step`` bit for bit; each call returns the caller's own
+    parameter and optimizer-state tensors, and the family keeps one
+    entry, as the reference's ``jax.jit`` of the step does."""
+    jcfg, _, _, tm, tp = _pair("smollm-135m")
+    opt = AdamW(lr=1e-3, warmup_steps=2, total_steps=10)
+    fn = make_train_step(tm, opt, accum_steps=accum)
+    family = compiled_train_step(tm, opt, accum_steps=accum)
+    params, ostate = map_tree(torch.clone, tp), opt.init(tp)
+    ptrs = [t.data_ptr() for t in flatten((params, ostate))[0]]
+    want_p, want_s = tp, opt.init(tp)
+    for step in range(3):
+        _, tb = _jstep_inputs(jcfg, None, None, accum=accum, step=step)
+        want_p, want_s, want_m = fn(want_p, want_s, tb)
+        got_p, got_s, got_m = family(params, ostate, tb)
+        assert got_p is params and got_s is ostate
+        assert [t.data_ptr() for t in flatten((got_p, got_s))[0]] == ptrs
+        for a, b in zip(flatten((got_p, got_s, got_m))[0], flatten((want_p, want_s, want_m))[0]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(ostate.step) == 3 and family._cache_size() == 1
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_train_step_leaves_the_generators_alone(remat, monkeypatch):
+    """A train step under remat draws no random number and keeps no
+    generator state: the CPU generator's state is the same after the step,
+    and the checkpoints never read it (``preserve_rng_state=False``; a
+    captured step on the card cannot read or set the CUDA generator's)."""
+    cfg = dataclasses.replace(tget("smollm-135m").reduced(), remat=remat)
+    m = TModel(cfg, device="cpu")
+    params = m.init(0)
+    batch = SyntheticLMData(cfg, batch=2, seq=32, device="cpu").batch_at(0)
+    opt = AdamW(lr=1e-3, warmup_steps=2, total_steps=10)
+    reads = []
+    real = torch.get_rng_state
+    monkeypatch.setattr(torch, "get_rng_state", lambda: reads.append(1) or real())
+    torch.manual_seed(11)
+    before = real()
+    make_train_step(m, opt)(params, opt.init(params), batch)
+    assert torch.equal(real(), before)
+    assert not reads
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

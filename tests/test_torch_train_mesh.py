@@ -5,8 +5,10 @@ cases of ``tests/test_sharded.py`` — the sharded train step on the JAX
 test's ("data", "model") = (2, 4) mesh against the JAX single-device step
 (loss within 5e-3, parameters within 5e-2), ``compressed_psum`` over a
 2-rank "pod" axis, the two-stage pipeline (L = 4, D = 8, B = 16, 4
-microbatches, atol 1e-5) on the JAX test's weights and input — and one
-``step_compressed`` call on 2 pod ranks against the plain step."""
+microbatches, atol 1e-5) on the JAX test's weights and input — one
+``step_compressed`` call on 2 pod ranks against the plain step, and a mask
+whose "data" shards keep 3 and 64 positions, on smollm-135m and on a MoE:
+the data-parallel loss is the global masked mean, as the JAX step's."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,8 @@ from repro.data import SyntheticLMData as JData
 from repro.models import Model as JModel
 from repro.train import AdamW as JAdamW
 from repro.train import make_train_step as jmake_train_step
+from repro_torch.configs import get_config as tget
+from repro_torch.data import SyntheticLMData as TData
 from repro_torch.launch.mesh import run_ranks
 from repro_torch.tree import flatten
 
@@ -25,6 +29,10 @@ import _torch_train_ranks as ranks
 LOSS_ATOL = 5e-3  # tests/test_sharded.py's
 PARAM_ATOL = 5e-2  # tests/test_sharded.py's
 PIPE_ATOL = 1e-5  # tests/test_sharded.py's
+DP_RTOL = 1e-5  # the data-parallel step against the port's single-device one
+# the reduced MoE has 4 experts, top-2: at E / k every expert takes all T
+# tokens of a call, so nothing drops on a shard or on one device
+MOE_CAPACITY_FACTOR = 2.0
 
 
 @pytest.fixture(scope="module")
@@ -35,11 +43,26 @@ def reference():
     params, _ = m.init(jax.random.key(0))
     batch = JData(cfg, batch=4, seq=32).batch_at(0)
     opt = JAdamW(lr=1e-3, warmup_steps=2, total_steps=10)
-    p1, _, met1 = jax.jit(jmake_train_step(m, opt))(params, opt.init(params), batch)
+    step = jax.jit(jmake_train_step(m, opt))
+    p1, _, met1 = step(params, opt.init(params), batch)
+    uneven = dict(batch, mask=jnp.asarray(_uneven_mask(np.asarray(batch["mask"]))))
+    _, _, met_u = step(params, opt.init(params), uneven)
     return {"params": jax.tree.map(np.asarray, params),
             "batch": {k: np.asarray(v) for k, v in batch.items()},
-            "loss": float(met1["loss"]),
+            "uneven": {k: np.asarray(v) for k, v in uneven.items()},
+            "loss": float(met1["loss"]), "loss_uneven": float(met_u["loss"]),
             "stepped": [np.asarray(x, np.float32) for x in flatten(p1)[0]]}
+
+
+def _uneven_mask(mask):
+    """``mask`` [B, S] with the first "data" shard (rows < B/2) keeping 3
+    positions of its first row and the second keeping all of its own: the
+    mean of the two shards' masked means is then far from the global
+    masked mean."""
+    mask = np.array(mask, np.float32)
+    mask[: mask.shape[0] // 2] = 0
+    mask[0, :3] = 1
+    return mask
 
 
 def _pipeline_inputs():
@@ -62,8 +85,15 @@ def _pipeline_inputs():
 def cases(tmp_path_factory, reference):
     ws, x, _ = _pipeline_inputs()
     g = np.asarray(jax.random.normal(jax.random.key(2), (64,)))
+    moe_batch = {k: np.asarray(v) for k, v in
+                 TData(tget("granite-moe-1b-a400m").reduced(), batch=4, seq=32,
+                       device="cpu").batch_at(0).items()}
+    moe_batch["mask"] = _uneven_mask(moe_batch["mask"])
     todo = [
         ("dp", "dp_step", ((2, 4), ("data", "model"), reference["params"], reference["batch"])),
+        ("dp_uneven", "dp_step", ((2, 4), ("data", "model"), reference["params"],
+                                  reference["uneven"])),
+        ("dp_moe", "dp_moe", (MOE_CAPACITY_FACTOR, moe_batch)),
         ("compressed_step", "step_compressed", (reference["params"], reference["batch"])),
         ("compress", "compress", (g,)),
         ("pipeline", "pipeline", (ws, x, 4)),
@@ -98,6 +128,35 @@ def test_sharded_train_step_matches_single_device(cases, reference):
     assert _max_diff(mesh["params"], reference["stepped"]) < PARAM_ATOL
     assert _max_diff(mesh["params"], single["params"]) < PARAM_ATOL
     assert _max_diff(single["params"], reference["stepped"]) < PARAM_ATOL
+
+
+def test_dp_step_weights_tokens_not_ranks(cases, reference):
+    """A mask whose "data" shards keep 3 and 64 positions: the data-parallel
+    step's loss is the global masked mean, as the JAX single-device step's
+    is (``LOSS_ATOL``), and its loss and ``grad_norm`` equal the port's
+    single-device step's within ``DP_RTOL``; a mean of the two shards'
+    means would be far from both."""
+    found = _case(cases, "dp_uneven")
+    mesh, single = found["mesh"], found["single"]
+    assert mesh["tokens"] == single["tokens"] == 3 + 2 * 32
+    assert abs(mesh["loss"] - reference["loss_uneven"]) < LOSS_ATOL, (
+        mesh["loss"], reference["loss_uneven"])
+    assert abs(mesh["loss"] - single["loss"]) <= DP_RTOL * single["loss"], (
+        mesh["loss"], single["loss"])
+    assert abs(mesh["grad_norm"] - single["grad_norm"]) <= DP_RTOL * single["grad_norm"], (
+        mesh["grad_norm"], single["grad_norm"])
+
+
+def test_dp_step_weights_tokens_moe(cases):
+    """The uneven mask on a reduced MoE at a capacity factor where nothing
+    drops: the data-parallel ``ce`` is the single-device ``ce`` within
+    ``DP_RTOL``; the aux loss stays the shards' mean (the JAX package's
+    ``pmean`` convention), so only ``ce`` is held to one device."""
+    found = _case(cases, "dp_moe")
+    mesh, single = found["mesh"], found["single"]
+    assert mesh["tokens"] == single["tokens"] == 3 + 2 * 32
+    assert abs(mesh["ce"] - single["ce"]) <= DP_RTOL * single["ce"], (mesh["ce"], single["ce"])
+    assert np.isfinite(mesh["aux"]) and mesh["aux"] > 0
 
 
 def test_compressed_psum_pod_axis(cases):
