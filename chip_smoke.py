@@ -260,6 +260,22 @@ Phases, in order; any failure exits non-zero before the final line:
    held to the plain route by ``E2E_BF16_RATIO``; 14e: 2 gloo ranks on the
    card, the data-parallel step against the single-device one,
    ``compressed_psum`` and the 2-stage pipeline.
+15. the profiler (``repro_torch.core.profile_step``) — smollm-135m at
+   full width in bf16: the paged decode step (kernel backend, 8 rows,
+   block size 16, ``max_seq`` 2048), a 1024-token prefill (kernel
+   backend) and phase 14a's train step (B = 8, S = 1024, accum 2, remat
+   "dots") counted on meta arguments (nothing allocated or run; the
+   kernels charged at their tables' reach) and then once eagerly on real
+   tensors under the counter (the kernels charged by these lengths):
+   FLOPs, bytes, collective bytes, the three roofline terms on
+   ``H100_HW``, the dominant one, the top five op classes and the memory
+   estimate of each, beside the eager call's peak allocation; the aten
+   FLOPs equal on both, the paged operator 30 times a decode step and the
+   flash operator 30 times a prefill, each with bytes; then each step
+   graphed (the step families, the trainer's captured step): wall and
+   device busy beside the counted bound (the roofline share), the train
+   step's top op classes beside the profiler's top device ops; a CUDA
+   graph replay under the counter raises.
 
 ``--phases 3,12`` runs the build and the listed phases only, for a short
 development call (5 runs phases 5 and 6 together); with no argument every
@@ -289,8 +305,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no sparsity
+from repro_torch.core.overlap_model import H100_HW  # noqa: E402  (the H100 SXM data sheet)
+from repro_torch.kernels import work  # noqa: E402
+
+HBM_BYTES_PER_S = H100_HW.hbm_bw
+PEAK_FLOPS = {torch.bfloat16: H100_HW.peak_flops, torch.float32: H100_HW.vpu_flops}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # max |kernel - plain|
 # SSD scan: max |kernel - plain| <= rel * max |plain| + abs, for y and the
 # final state. float32: the kernel chunks by 128 with a ragged last chunk
@@ -417,11 +436,12 @@ def kernel_row(err, ms, plain, bms, by, lib=None) -> dict:
     return row
 
 
-def bound(nbytes, flops, dtype):
-    """(least ms the card could take, "bytes" or "operations"): each input
-    read once and each output written once at the memory rate, against the
-    operations at the peak rate for the type."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+def bound(w, dtype):
+    """(least ms the card could take, "bytes" or "operations") for the
+    ``kernels/work.py`` work ``w``: each input read once and each output
+    written once at the memory rate, against the operations at the peak
+    rate for the type."""
+    t_bytes, t_ops = w.bytes / HBM_BYTES_PER_S, w.flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -490,22 +510,6 @@ def slot_case(dtype, seed=0, B=4, Smax=2048, H=9, KV=3, hd=64, lengths=None, int
     return (q, _dense_as_pool(kc, bs), _dense_as_pool(vc, bs), tables, lengths) + scales
 
 
-def paged_bound(q, kp, tables, lengths, dtype):
-    """Bytes: q and out, the attended keys and values (lengths + T a row,
-    at most the table's reach; int8 pools: one byte an element plus a
-    2-byte bf16 scale per vector), tables, lengths. Operations: 4 hd per
-    (query head, attended key)."""
-    B, T, H, hd = q.shape
-    BS, KV = kp.shape[1], kp.shape[2]
-    it = q.element_size()
-    vec = hd * kp.element_size() + (2 if kp.dtype == torch.int8 else 0)
-    lens = lengths.cpu().long()
-    keys = torch.clamp(lens + T, max=tables.shape[1] * BS).sum().item()
-    nbytes = 2 * q.numel() * it + keys * KV * vec * 2 + 4 * (tables.numel() + B)
-    pairs = sum(int(l) * T + T * (T + 1) // 2 for l in lens)
-    return bound(nbytes, 4 * hd * H * pairs, dtype)
-
-
 def paged_plan_of(q, kp, tables):
     """The paged kernel's launch plan for these inputs, as its wrapper
     takes it (the fields a log line shows)."""
@@ -534,14 +538,6 @@ def flash_case(dtype, Sq, Skv, seed=0, B=2, H=9, KV=3, hd=64):
     k = torch.randn(B, Skv, KV, hd, generator=g)
     v = torch.randn(B, Skv, KV, hd, generator=g)
     return tuple(t.to("cuda", dtype) for t in (q, k, v))
-
-
-def flash_bound(q, k, off, dtype):
-    B, Sq, H, hd = q.shape
-    Skv = k.shape[1]
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    pairs = sum(min(Skv, off + i + 1) for i in range(Sq))
-    return bound(nbytes, 4 * hd * H * B * pairs, dtype)
 
 
 def sdpa_ms(q, k, v, off, causal=True):
@@ -612,7 +608,7 @@ def check_kernels():
             err = (out.float() - ref.float()).abs().max().item()
             ms = cuda_ms(lambda: pda.paged_decode_attention(q, kp, vp, tables, lengths))
             plain = cuda_ms(lambda: pda.plain_paged_decode_attention(q, kp, vp, tables, lengths), iters=5)
-            bms, by = paged_bound(q, kp, tables, lengths, dtype)
+            bms, by = bound(work.paged(q, kp, tables, lengths), dtype)
             log(f"paged_decode_attention {dn} {label} lengths={lengths[:4].tolist()} "
                 f"plan={paged_plan_of(q, kp, tables)}: "
                 f"max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
@@ -642,7 +638,7 @@ def check_kernels():
             err, text = flash_check(out, ref, dtype, label)
             ms = cuda_ms(lambda: fa.flash_attention(q, k, v, off))
             plain = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, off), iters=5)
-            bms, by = flash_bound(q, k, off, dtype)
+            bms, by = bound(work.flash(q, k, off), dtype)
             lib = sdpa_ms(q, k, v, off)
             path = fa.flash_plan(dtype, B, Sq, H, KV, hd)["path"]
             log(f"{label} path={path}: {text} ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
@@ -697,7 +693,7 @@ def check_int8():
             err = row_err.max().item()
             ms = cuda_ms(lambda: pda.paged_decode_attention(*args))
             plain = cuda_ms(lambda: pda.plain_paged_decode_attention(*args), iters=5)
-            bms, by = paged_bound(q, kp, tables, lengths, dtype)
+            bms, by = bound(work.paged(q, kp, tables, lengths), dtype)
             log(f"paged_decode_attention[int8] {dn} {label} lengths={lengths.tolist()} plan={plan}: "
                 f"max_abs_err={err:.3e} (per row <= {rel:.3g}*max|plain|+{absol:.0e}; "
                 f"worst err/tol {(row_err / row_tol).max().item():.3e}) ms={fmt_ms(ms)} "
@@ -732,20 +728,6 @@ def ssd_case(dtype, B, S, seed=0, H=32, hd=64, N=128):
             dt.to(dev))
 
 
-def ssd_bound(x, b, dtype, chunk=128):
-    """Bytes: x and y, a and dt, b and c, the final state, once each.
-    Operations per (batch row, head, chunk of q positions), as the Pallas
-    kernel does them: 2 q^2 N (c.b) + 2 q^2 hd (att x) + 4 q N hd (the
-    state's read into y and its update)."""
-    B, S, H, hd = x.shape
-    N = b.shape[-1]
-    it = x.element_size()
-    nbytes = 2 * x.numel() * it + 2 * B * S * H * 4 + 2 * b.numel() * it + B * H * hd * N * 4
-    qs = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
-    flops = B * H * sum(2 * q * q * N + 2 * q * q * hd + 4 * q * N * hd for q in qs)
-    return bound(nbytes, flops, dtype)
-
-
 def check_ssd():
     from repro_torch.kernels import ssd_scan as ssd
 
@@ -772,7 +754,7 @@ def check_ssd():
             ms = cuda_ms(lambda: ssd.ssd_scan(x, a, b, c, dt, 128))
             # the plain version of a prime S runs 1021 one-position chunks
             plain = cuda_ms(lambda: ssd.plain_ssd_scan(x, a, b, c, dt, 128), iters=5) if S != 1021 else None
-            bms, by = ssd_bound(x, b, dtype)
+            bms, by = bound(work.ssd(x, b), dtype)
             log(f"ssd_scan {dn} B={B} S={S} H={H} hd=64 N={N} chunk=128 plan={ssd_plan_of(x, b)}: "
                 f"{', '.join(errs)} "
                 f"ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) library_ms=null")
@@ -823,7 +805,7 @@ def check_repaired():
         err, text = flash_check(out, ref, bf, label)
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, off, causal))
         plain = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, off, causal), iters=5)
-        bms, by = flash_bound(q, k, off if causal else Skv, bf)
+        bms, by = bound(work.flash(q, k, off, causal), bf)
         log(f"{label} path={path}: {text} ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
             f"bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(sdpa_ms(q, k, v, off, causal))}")
     for M, K, N, blocks, skew in ((1024, 572, 1536, dict(bk=572), False),
@@ -848,7 +830,7 @@ def check_repaired():
         ms = cuda_ms(lambda: rm.relic_matmul(x, w, **blocks), iters=10)
         plain = cuda_ms(lambda: rm.plain_relic_matmul(x, w), iters=10)
         lib = cuda_ms(lambda: torch.matmul(x, w), iters=10)
-        bms, by = matmul_bound(x, w, bf)
+        bms, by = bound(work.matmul(x, w), bf)
         log(f"{label} path={plan['path']} tile={plan['tile']}: max_abs_err={err:.3e} (tol {lim:.2e}) "
             f"ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(lib)}")
 
@@ -893,7 +875,7 @@ def check_wide():
         err = (out.float() - ref.float()).abs().max().item()
         ms = cuda_ms(lambda: da.decode_attention(dq, dk, dv, dl))
         plain = cuda_ms(lambda: da.plain_decode_attention(dq, dk, dv, dl), iters=5)
-        bms, by = decode_bound(dq, dk, dl, dtype)
+        bms, by = bound(work.decode(dq, dk, dl), dtype)
         lib = sdpa_decode_ms(dq, dk, dv, dl)
         plan = da.decode_plan(dtype, 8, 9, 3, 2048, 1024)
         log(f"decode_attention {dn} B=8 Smax=2048 H=9 KV=3 hd=1024 plan="
@@ -911,7 +893,7 @@ def check_wide():
         err = (out.float() - ref.float()).abs().max().item()
         ms = cuda_ms(lambda: pda.paged_decode_attention(q, kp, vp, tables, lengths))
         plain = cuda_ms(lambda: pda.plain_paged_decode_attention(q, kp, vp, tables, lengths), iters=5)
-        bms, by = paged_bound(q, kp, tables, lengths, dtype)
+        bms, by = bound(work.paged(q, kp, tables, lengths), dtype)
         log(f"paged_decode_attention {dn} paged layout B=8 T=1 H=9 KV=3 hd=1024 BS=16 MB=128 "
             f"plan={paged_plan_of(q, kp, tables)}: max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) "
             f"ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) library_ms=null")
@@ -940,7 +922,7 @@ def check_wide():
         err = row_err.max().item()
         ms = cuda_ms(lambda: pda.paged_decode_attention(*args))
         plain = cuda_ms(lambda: pda.plain_paged_decode_attention(*args), iters=5)
-        bms, by = paged_bound(q, kp, tables, lengths, dtype)
+        bms, by = bound(work.paged(q, kp, tables, lengths), dtype)
         log(f"paged_decode_attention[int8] {dn} paged layout B=8 T=1 H=9 KV=3 hd=2560 BS=16 MB=128 "
             f"plan={paged_plan_of(q, kp, tables)}: max_abs_err={err:.3e} (per row <= "
             f"{rel:.3g}*max|plain|+{absol:.0e}; worst err/tol {(row_err / row_tol).max().item():.3e}) "
@@ -963,7 +945,7 @@ def check_wide():
         ms = cuda_ms(lambda: ssd.ssd_scan(x, a, b, c, dt, 256))
         plain = cuda_ms(lambda: ssd.plain_ssd_scan(x, a, b, c, dt, 256), iters=5)
         splan = ssd.ssd_plan(dtype, 1, 1024, 32, 72, 256, 256)
-        bms, by = ssd_bound(x, b, dtype, chunk=splan["chunk"])
+        bms, by = bound(work.ssd(x, b, splan["chunk"]), dtype)
         log(f"ssd_scan {dn} B=1 S=1024 H=32 hd=72 N=256 chunk=256 plan="
             f"{ {f: splan[f] for f in ('path', 'chunk', 'cluster', 'chunks_per_block', 'slice', 'grid')} }: "
             f"y max_abs_err={errs['y']:.3e}, state max_abs_err={errs['state']:.3e} "
@@ -1026,11 +1008,6 @@ def matmul_case(dtype, M, K, N, seed=0):
     return x.to("cuda", dtype), w.to("cuda", dtype)
 
 
-def matmul_bound(x, w, dtype):
-    (M, K), N = x.shape, w.shape[1]
-    return bound((M * K + K * N + M * N) * x.element_size(), 2 * M * N * K, dtype)
-
-
 def decode_case(dtype, B=8, Smax=2048, H=9, KV=3, hd=64, seed=0):
     """A dense slot cache [B,Smax,KV,hd] with cache_len 0, 1, Smax - 1,
     Smax and B - 4 random lengths."""
@@ -1041,15 +1018,6 @@ def decode_case(dtype, B=8, Smax=2048, H=9, KV=3, hd=64, seed=0):
     lens = [0, 1, Smax - 1, Smax] + torch.randint(2, Smax - 1, (B - 4,), generator=g).tolist()
     return (*(t.to("cuda", dtype) for t in (q, k, v)),
             torch.tensor(lens, dtype=torch.int32, device="cuda"))
-
-
-def decode_bound(q, k, lens, dtype):
-    """Bytes: q and out, the attended keys and values, cache_len.
-    Operations: 4 hd per (query head, attended key)."""
-    B, H, hd = q.shape
-    KV, it = k.shape[2], q.element_size()
-    keys = lens.cpu().long().clamp(0, k.shape[1]).sum().item()
-    return bound(2 * q.numel() * it + keys * KV * hd * it * 2 + 4 * B, 4 * hd * H * keys, dtype)
 
 
 def sdpa_decode_ms(q, k, v, lens):
@@ -1118,24 +1086,6 @@ def partials_err(got, want):
     dl = ((l - wl).abs().max() / wl.abs().max().clamp(min=1e-30)).item()
     da = ((acc - wacc).abs().max() / wacc.abs().max().clamp(min=1e-30)).item()
     return dm, dl, da
-
-
-def partials_bound(q, kp, tables, lengths, owned, dtype):
-    """Bytes: q, the float32 outputs (m, l, acc), the attended keys and
-    values of owned blocks (int8: plus a 2-byte scale a vector), tables,
-    ownership, lengths. Operations: 4 hd per (query head, attended key)."""
-    B, T, H, hd = q.shape
-    BS, KV = kp.shape[1], kp.shape[2]
-    vec = hd * kp.element_size() + (2 if kp.dtype == torch.int8 else 0)
-    own = owned.cpu().bool().repeat_interleave(BS, dim=1)  # [B, MB·BS]
-    pos = torch.arange(own.shape[1])
-    lens = lengths.cpu().long()
-    keys = ((pos[None] < (lens + T)[:, None]) & own).sum().item()
-    lim = lens[:, None] + torch.arange(T)[None] + 1
-    pairs = ((pos[None, None] < lim[..., None]) & own[:, None]).sum().item()
-    nbytes = (q.numel() * q.element_size() + B * T * H * (hd + 2) * 4 + keys * KV * vec * 2
-              + 4 * (2 * tables.numel() + B))
-    return bound(nbytes, 4 * hd * H * pairs, dtype)
 
 
 def drive_entry_points():
@@ -1242,7 +1192,7 @@ def check_entry_kernels():
             ms = cuda_ms(lambda: rm.relic_matmul(x, w, **blocks), iters=10)
             plain = cuda_ms(lambda: rm.plain_relic_matmul(x, w), iters=10)
             lib = cuda_ms(lambda: torch.matmul(x, w), iters=10)
-            bms, by = matmul_bound(x, w, dtype)
+            bms, by = bound(work.matmul(x, w), dtype)
             plan = rm.matmul_plan(dtype, M, K, N)
             log(f"relic_matmul {dn} M={M} K={K} N={N} {blocks} path={plan['path']} "
                 f"tile={plan['tile']}: max_abs_err={err:.3e} (tol {lim:.2e}) ms={fmt_ms(ms)} "
@@ -1272,7 +1222,7 @@ def check_entry_kernels():
                 ms = cuda_ms(lambda: rm.relic_gemv(x, w, bk=bk))
                 plain = cuda_ms(lambda: rm.plain_relic_gemv(x, w))
                 lib = cuda_ms(lambda: torch.matmul(x, w))
-                bms, by = matmul_bound(x, w, dtype)
+                bms, by = bound(work.matmul(x, w), dtype)
                 plan = rm.gemv_plan(dtype, B, K, N)
                 plan = {f: plan[f] for f in ("path", "rows", "splits", "k_per_split", "stage_rows",
                                              "stages", "grid")}
@@ -1295,7 +1245,7 @@ def check_entry_kernels():
             ms = cuda_ms(lambda: da.decode_attention(q, k, v, lens))
             plain = cuda_ms(lambda: da.plain_decode_attention(q, k, v, lens), iters=5)
             lib = sdpa_decode_ms(q, k, v, lens)
-            bms, by = decode_bound(q, k, lens, dtype)
+            bms, by = bound(work.decode(q, k, lens), dtype)
             plan = da.decode_plan(dtype, q.shape[0], q.shape[1], k.shape[2], k.shape[1], q.shape[2])
             plan = {f: plan[f] for f in ("path", "rows", "splits", "tile", "stages", "grid")}
             log(f"decode_attention {dn} {label} lengths={lens.tolist()} "
@@ -1318,7 +1268,7 @@ def check_entry_kernels():
         plan = da.decode_plan(dtype, 8, 9, 3, 2048, 256)
         plan = {f: plan[f] for f in ("path", "rows", "splits", "tile", "stages", "grid")}
         ms = cuda_ms(lambda: da.decode_attention(q, k, v, lens))
-        bms, by = decode_bound(q, k, lens, dtype)
+        bms, by = bound(work.decode(q, k, lens), dtype)
         log(f"decode_attention {dn} smollm slot cache at hd=256 B=8 Smax=2048 H=9 KV=3 "
             f"lengths={lens.tolist()} plan={plan}: max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) "
             f"ms={fmt_ms(ms)} plain_ms={fmt_ms(cuda_ms(lambda: da.plain_decode_attention(q, k, v, lens), iters=5))} "
@@ -1355,7 +1305,7 @@ def check_entry_kernels():
             ms = cuda_ms(lambda: pda.paged_decode_attention(*args, owned=own, partials=True))
             plain = cuda_ms(lambda: pda.plain_paged_decode_attention(*args, owned=own, partials=True),
                             iters=5)
-            bms, by = partials_bound(q, kp, tables, lengths, own, dtype)
+            bms, by = bound(work.partials(q, kp, tables, lengths, own), dtype)
             log(f"paged_decode_attention[partials] {dn} {label} plan={paged_plan_of(q, kp, tables)}: "
                 f"|dm| {dm:.2e}, |dl|/max l {dl:.2e}, "
                 f"|dacc|/max|acc| {dacc:.2e} (tol {PARTIALS_TOL:g}); unowned row (-1e30, 0, 0); "
@@ -1373,7 +1323,7 @@ def check_entry_kernels():
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=False))
         plain = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, causal=False), iters=5)
         lib = sdpa_ms(q, k, v, 0, causal=False)
-        bms, by = flash_bound(q, k, k.shape[1], dtype)
+        bms, by = bound(work.flash(q, k, causal=False), dtype)
         path = fa.flash_plan(dtype, 2, 512, 9, 3, 64)["path"]
         log(f"{label} path={path}: {text} ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
             f"bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(lib)}"
@@ -2501,7 +2451,7 @@ def phase8_kernels(card):
             ms = cuda_ms(lambda: pda.paged_decode_attention(q, kp, vp, tables, lengths))
             plain = cuda_ms(lambda: pda.plain_paged_decode_attention(q, kp, vp, tables, lengths),
                             iters=5)
-            bms, by = paged_bound(q, kp, tables, lengths, dtype)
+            bms, by = bound(work.paged(q, kp, tables, lengths), dtype)
             lib, lib_text = None, "null"
             if key in ("slot_verify", "paged_chunk"):  # a contiguous identity view: one SDPA call
                 lib, diff = sdpa_cached_ms(q, kp, vp, lengths)
@@ -2636,7 +2586,7 @@ def phase9_kernels(card):
             ms = cuda_ms(lambda: pda.paged_decode_attention(q, kp, vp, tables, lengths))
             plain = cuda_ms(lambda: pda.plain_paged_decode_attention(q, kp, vp, tables, lengths),
                             iters=5)
-            bms, by = paged_bound(q, kp, tables, lengths, dtype)
+            bms, by = bound(work.paged(q, kp, tables, lengths), dtype)
             log(f"paged_decode_attention {dn} {label} lengths={lengths.tolist()} "
                 f"plan={paged_plan_of(q, kp, tables)}: max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) "
                 f"ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} ({by}) "
@@ -3225,7 +3175,7 @@ def paged_row(key, label, T, args, dtype, rows):
         extra = "; verify (T=5) equals 5 decodes bitwise"
     ms = cuda_ms(lambda: pda.paged_decode_attention(*args))
     plain = cuda_ms(lambda: pda.plain_paged_decode_attention(*args), iters=5)
-    bms, by = paged_bound(q, kp, tables, lengths, dtype)
+    bms, by = bound(work.paged(q, kp, tables, lengths), dtype)
     log(f"paged_decode_attention{'[int8]' if int8 else ''} {dn} {label} "
         f"lengths={lengths.tolist()} plan={paged_plan_of(q, kp, tables)}: "
         f"max_abs_err={err:.3e} ({tol_text}) ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
@@ -3252,7 +3202,7 @@ def flash_prefill_row(key, arch, H, KV, hd, dtype, rows, B=1, S=1024):
         require(plan["path"] == "wgmma", f"{label}: path {plan['path']}, not wgmma")
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, 0))
     plain = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, 0), iters=5)
-    bms, by = flash_bound(q, k, 0, dtype)
+    bms, by = bound(work.flash(q, k, 0), dtype)
     lib = sdpa_ms(q, k, v, 0)
     log(f"{label} plan={plan}: {text} ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
         f"bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(lib)}"
@@ -3324,7 +3274,7 @@ def phase11_kernels(card):
             require(plan["path"] == "wgmma", f"{label}: path {plan['path']}, not wgmma")
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, 0, causal=False))
         plain = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, 0, causal=False), iters=5)
-        bms, by = flash_bound(q, k, 512, dtype)  # every query attends all 512 keys
+        bms, by = bound(work.flash(q, k, causal=False), dtype)
         lib = sdpa_ms(q, k, v, 0, causal=False)
         log(f"{label} plan={plan}: {text} ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} "
             f"bound_ms={bms:.5f} ({by}) library_ms={fmt_ms(lib)}"
@@ -3818,7 +3768,8 @@ def phase12_moe(card):
             n_kept = int(keep.sum())
             used = int(torch.unique(idx.reshape(-1)[keep]).numel())
             nbytes = used * 3 * D * F * 2 + D * E * 4 + 2 * T * D * 2
-            bms, by = bound(nbytes, 2 * n_kept * 3 * D * F + 2 * T * D * E, torch.bfloat16)
+            bms, by = bound(work.Work(2 * n_kept * 3 * D * F + 2 * T * D * E, nbytes),
+                            torch.bfloat16)
             log(f"moe[{arch} T={T}] bf16 on {card}: capacity {C} slots an expert ({E} experts, top "
                 f"{k}), dropped share {1 - n_kept / keep.numel():.4f} ({keep.numel() - n_kept} "
                 f"of {keep.numel()}), {used} experts used; ||y - float32|| / ||float32|| "
@@ -4429,7 +4380,7 @@ def p13_kernels(card):
                     require(err <= TOL[dtype], f"{arch} local heads: {err} from the plain version")
                     ms = cuda_ms(lambda: pda.paged_decode_attention(*args, plan_kv_heads=KV))
                     plain = cuda_ms(lambda: pda.plain_paged_decode_attention(*args), iters=5)
-                    bms, by = paged_bound(args[0], args[1], tables, lengths, dtype)
+                    bms, by = bound(work.paged(args[0], args[1], tables, lengths), dtype)
                     line += (f"; local launch plan={plan_local} ms={fmt_ms(ms)} plain_ms="
                              f"{fmt_ms(plain)} bound_ms={bms:.5f} ({by}) library_ms=null")
                     if dtype == torch.bfloat16 and arch == "internlm2-20b":
@@ -4454,7 +4405,7 @@ def p13_kernels(card):
                                                         partials=True))
         plain = cuda_ms(lambda: pda.plain_paged_decode_attention(
             q, kp, vp, tables, lengths, owned=owned, partials=True), iters=5)
-        bms, by = partials_bound(q, kp, tables, lengths, owned, dtype)
+        bms, by = bound(work.partials(q, kp, tables, lengths, owned), dtype)
         log(f"p13 paged_decode_attention[partials] {dn} internlm2-20b seq=2 shard B=8 T=1 H=48 "
             f"KV=8 hd=128 (blocks < {half} owned): max_abs_err m {dm:.3e}, l {dl:.3e}, acc "
             f"{da:.3e} (tol {PARTIALS_TOL:g}); halves combined to the unsplit kernel within "
@@ -5103,13 +5054,241 @@ def phase14(card):
     return served
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the profiler (core/profiler.py) on smollm-135m at full width
+
+P15_ROWS, P15_BLOCK, P15_MAX_SEQ, P15_PREFILL = 8, 16, 2048, 1024
+P15_REPLAYS, P15_TOP = 5, 5
+P15_PAGED, P15_FLASH = "repro_torch::paged_decode_attention", "repro_torch::flash_attention"
+
+
+def _aten_flops(ps) -> float:
+    """A profiled step's FLOPs less its kernel operators' charges."""
+    return ps.flops - sum(v for k, v in ps.ops.flops_by_op.items() if k.startswith("repro_torch::"))
+
+
+def _mib(n) -> str:
+    return f"{n / 2**20:.1f} MiB"
+
+
+def p15_log(label, ps, card):
+    """One profiled step's count on one line: FLOPs, bytes, collective
+    bytes, the three terms on ``H100_HW``, the dominant one, the top op
+    classes by modeled time and the memory estimate."""
+    t, m = ps.terms, ps.memory_stats
+    hot = ", ".join(f"{op} {s * 1e3:.4f}" for op, s in ps.hotspots(top=P15_TOP))
+    log(f"p15 profile[{label}] (H100_HW terms; {card}): {ps.flops:.6e} FLOPs ({_aten_flops(ps):.6e} "
+        f"aten), {ps.bytes_accessed:.6e} bytes, {ps.collectives.bytes_total:.0f} collective bytes; "
+        f"compute {t.compute_s * 1e3:.4f} ms, memory {t.memory_s * 1e3:.4f} ms, collective "
+        f"{t.collective_s * 1e3:.4f} ms: {t.dominant}-bound, bound {t.bound_s * 1e3:.4f} ms; top "
+        f"{P15_TOP} ms: {hot}; memory: arguments {_mib(m.argument_size_in_bytes)}, outputs "
+        f"{_mib(m.output_size_in_bytes)} ({_mib(m.alias_size_in_bytes)} aliased), temp "
+        f"{_mib(m.temp_size_in_bytes)}")
+
+
+def _p15_inputs(model, params, device, reduced):
+    """Real inputs of the three steps: 8 paged rows holding the caches of
+    128-1024-token prompts (prefilled eagerly), a 1024-token prompt, and
+    phase 14a's first batch split for accumulation (reduced: 16-64-token
+    prompts, a 64-token prompt, B = 4, S = 64)."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.serve.kv_cache import PagedKVCache
+
+    cfg = model.cfg
+    rng = np.random.default_rng(15)
+    lo, hi, n_prompt, B, S = (16, 65, 64, 4, 64) if reduced else (128, 1025, P15_PREFILL, P14_BATCH,
+                                                                  P14_SEQ)
+    max_seq = 128 if reduced else P15_MAX_SEQ
+    kv = PagedKVCache(model, P15_ROWS, max_seq, block_size=P15_BLOCK)
+    for r in range(P15_ROWS):
+        toks = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi))))
+        row, _ = kv.try_admit(r, toks, 64)
+        _, cache = model.prefill(params, torch.tensor([toks], device=device), max_seq)
+        kv.write_prefill(row, cache)
+    for r in range(P15_ROWS):
+        kv.ensure_tail(r)
+    pool, tables, lens = kv.kernel_inputs()
+    tok = torch.zeros((P15_ROWS, 1), dtype=torch.long, device=device)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n_prompt))).to(device)
+    data = SyntheticLMData(cfg, batch=B, seq=S, seed=0, device=device)
+    batch = _p14_accum(data.batch_at(0), cfg.train_accum)
+    return {"decode": (pool, tables, lens, tok), "prefill": (prompt,), "train": batch}, max_seq
+
+
+def phase15_counts(card, device="cuda", reduced=False):
+    """15a-b: the three steps counted by ``profile_step``, first on meta
+    arguments (nothing allocated or run; the kernels charged at the
+    tables' reach), then run once eagerly on real tensors under the
+    counter (the kernels charged by these lengths): the aten FLOPs must
+    agree, every decode step show the paged operator and every prefill
+    the flash operator once a layer; each real run's peak allocation
+    beside the counter's estimate. Returns the model, its parameters, the
+    real inputs and the real counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import profile_step
+    from repro_torch.models.model import Model
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.tree import map_tree
+
+    cfg = get_config("smollm-135m")
+    cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16") if reduced else cfg
+    cfg = dataclasses.replace(cfg, remat="dots")
+    L, accum = cfg.num_layers, cfg.train_accum
+    opt = AdamW(lr=1e-3, warmup_steps=5, total_steps=P14_STEPS)
+    model = Model(cfg, device=device)
+    params = model.init(seed=0)
+    inputs, max_seq = _p15_inputs(model, params, device, reduced)
+    mm = Model(cfg, device="meta")
+
+    def steps(m):
+        return {"decode": lambda p, *a: m.decode_step_paged(p, *a, backend="kernel"),
+                "prefill": lambda p, t: m.prefill(p, t, max_seq, backend="kernel"),
+                "train": lambda p, o, b: make_train_step(m, opt, accum_steps=accum)(p, o, b)}
+
+    def to_meta(tree):
+        return map_tree(lambda t: torch.empty_like(t, device="meta"), tree)
+
+    labels = {"decode": f"decode_step_paged kernel, {P15_ROWS} rows BS={P15_BLOCK} max_seq {max_seq}",
+              "prefill": f"prefill kernel, B=1 S={inputs['prefill'][0].shape[1]}",
+              "train": f"train step B={inputs['train']['tokens'].shape[1] * accum} "
+                       f"S={inputs['train']['tokens'].shape[2]} accum {accum} remat dots"}
+    name = f"smollm-135m{' reduced' if reduced else ''} bf16"
+    mp = mm.init()
+    args = {"decode": (mp,) + to_meta(inputs["decode"]), "prefill": (mp,) + to_meta(inputs["prefill"]),
+            "train": (mp, opt.init(mp), to_meta(inputs["train"]))}
+    counts = {}
+    for key in ("decode", "prefill", "train"):
+        t0 = time.perf_counter()
+        ps = profile_step(steps(mm)[key], *args[key], name=key)
+        p15_log(f"{name} {labels[key]}, meta, counted in {time.perf_counter() - t0:.1f} s", ps, card)
+        counts[key] = {"meta": ps}
+    del args, mp
+    for key in ("decode", "prefill", "train"):
+        real = (params,) + tuple(inputs[key]) if key != "train" else (
+            params, opt.init(params), inputs["train"])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ps = profile_step(steps(model)[key], *real, name=key)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        m = ps.memory_stats
+        est = m.temp_size_in_bytes + m.output_size_in_bytes - m.alias_size_in_bytes
+        p15_log(f"{name} {labels[key]}, real tensors, counted in {wall:.1f} s", ps, card)
+        log(f"p15 memory[{name} {key}] on {card}: the eager counted call's peak above what was "
+            f"allocated before it {_mib(peak)} (torch.cuda.max_memory_allocated {_mib(base + peak)}); "
+            f"the counter's estimate, temp + outputs - aliased: {_mib(est)}")
+        counts[key]["real"] = ps
+        del real
+    for key, c in counts.items():
+        a, b = _aten_flops(c["meta"]), _aten_flops(c["real"])
+        require(a == b, f"p15 {key}: aten FLOPs {a:.6e} on meta, {b:.6e} on real tensors")
+    for key, op in (("decode", P15_PAGED), ("prefill", P15_FLASH)):
+        for kind, ps in counts[key].items():
+            n, nb = ps.ops.calls_by_op.get(op, 0), ps.ops.bytes_by_op.get(op, 0.0)
+            require(n == L and nb > 0, f"p15 {key} ({kind}): {op} {n} times, {nb} bytes")
+    require(not any(k.startswith("repro_torch::") for ps in counts["train"].values()
+                    for k in ps.ops.calls_by_op), "p15 train: a kernel operator in the train step")
+    log(f"p15 check[{name}]: aten FLOPs equal on meta and real tensors for all three steps; "
+        f"{P15_PAGED} {L} times a decode step, {P15_FLASH} {L} times a prefill, both with bytes; "
+        f"the kernels' charges meta -> real: decode "
+        f"{counts['decode']['meta'].ops.flops_by_op[P15_PAGED]:.6e} -> "
+        f"{counts['decode']['real'].ops.flops_by_op[P15_PAGED]:.6e} FLOPs, prefill "
+        f"{counts['prefill']['meta'].ops.flops_by_op[P15_FLASH]:.6e} -> "
+        f"{counts['prefill']['real'].ops.flops_by_op[P15_FLASH]:.6e}")
+    return model, params, opt, inputs, {k: c["real"] for k, c in counts.items()}
+
+
+def phase15_timing(card, model, params, opt, inputs, counted):
+    """15c: each step graphed (the decode and prefill step families, the
+    trainer's captured step): synchronised wall and the profiler's device
+    busy time, against the counted ``bound_s`` (the real tensors' count):
+    the roofline share; for the train step the counter's top op classes
+    beside the profiler's top device ops. Then a CUDA graph replay under
+    the counter, which must raise."""
+    from repro_torch.core.op_cost import OpCounter
+    from repro_torch.models.model import Model
+    from repro_torch.train import compiled_train_step
+    from repro_torch.tree import map_tree
+
+    def share(key, wall, busy):
+        b = counted[key].terms.bound_s * 1e3
+        busy_txt = "not measured" if busy is None else f"{busy:.3f} ms, roofline share {b / busy:.1%}"
+        log(f"p15 roofline[smollm-135m bf16 {key}] on {card}: bound {b:.4f} ms "
+            f"({counted[key].terms.dominant}); graphed wall {wall:.3f} ms, share {b / wall:.1%}; "
+            f"device busy {busy_txt}")
+
+    decode = model.jit_step("decode_step_paged")
+    wall, busy = profile_split("p15 decode step, 8 paged rows, graphed",
+                               lambda: decode(params, *inputs["decode"]), ("paged_decode_kernel",),
+                               card)
+    share("decode", wall, busy)
+    prefill = model.jit_step("prefill")
+    wall, busy = profile_split("p15 prefill, 1024 tokens, graphed",
+                               lambda: prefill(params, *inputs["prefill"], P15_MAX_SEQ),
+                               ("flash_kernel",), card)
+    share("prefill", wall, busy)
+    fn = compiled_train_step(Model(model.cfg), opt, accum_steps=model.cfg.train_accum)
+    p, o = map_tree(torch.clone, params), opt.init(params)
+    batch = inputs["train"]
+    fn(p, o, batch)  # eager, then the capture
+    reps = []
+    for _ in range(P15_REPLAYS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(p, o, batch)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) * 1e3)
+    wall = float(np.percentile(reps, 50))
+    busy = profile_busy("p15 train step replay, smollm-135m bf16 B=8 S=1024 accum 2 remat dots",
+                        lambda: fn(p, o, batch), wall, card)
+    share("train", wall, busy)
+    hot = ", ".join(f"{op} {s * 1e3:.2f}" for op, s in counted["train"].hotspots(top=P15_TOP))
+    log(f"p15 hotspots[smollm-135m bf16 train step] on {card}: the counter's top {P15_TOP} op "
+        f"classes by modeled ms on H100_HW: {hot} (the profiler's top device ops: the line above)")
+    del fn, p, o
+    # no silent zeros: a replay under the counter raises
+    x = torch.zeros(4, device="cuda")
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        x.mul_(2)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        x.mul_(2)
+    try:
+        with OpCounter():
+            graph.replay()
+    except RuntimeError as e:
+        require("op counter" in str(e), f"p15: the replay raised something else: {e}")
+        log("p15 replay under the counter: raised (a replay launches nothing a dispatch mode sees)")
+    else:
+        require(False, "p15: a CUDA graph replay under the op counter did not raise")
+    graph.replay()  # the guard goes with the counter
+    torch.cuda.synchronize()
+
+
+def phase15(card):
+    """Phase 15: the profiler on smollm-135m at full width in bf16."""
+    t0 = time.perf_counter()
+    model, params, opt, inputs, counted = phase15_counts(card)
+    log(f"p15 counts done at {time.perf_counter() - t0:.1f} s")
+    phase15_timing(card, model, params, opt, inputs, counted)
+    del model, params, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=()) -> int:
     """Every phase with no arguments (the smoke run); ``--phases 3,11``
     runs the build and the listed phases only (3: kernels, 4: entry
     points, 5-6: serving and parity, 7: adviser, 8, 9, 10, 11, 12, 13, 14:
-    training), for
+    training, 15: the profiler), for
     a short development call, and prints the rows those phases made."""
-    phases = set(range(3, 15))
+    phases = set(range(3, 16))
     if len(argv) == 2 and argv[0] == "--phases":
         phases = {int(p) for p in argv[1].split(",")}
     elif argv:
@@ -5224,6 +5403,9 @@ def main(argv=()) -> int:
     if 14 in phases:
         phase14(card)
         phase_done("14")
+    if 15 in phases:
+        phase15(card)
+        phase_done("15")
 
     bf16, f32 = torch.bfloat16, torch.float32
     table = []
@@ -5307,7 +5489,7 @@ def main(argv=()) -> int:
             ("p13_internlm2_tp4", bf16,
              "paged_decode_attention[internlm2-20b tp=4 rank-local T=1 H=12 KV=2 hd=128]",
              PAGED_SRC, PAGED_TPU)):
-        everything = phases == set(range(3, 15))
+        everything = phases == set(range(3, 16))
         if (key, dtype) not in rows:
             require(not everything, f"no row for {key}")
             continue

@@ -33,8 +33,9 @@ beat one contended core).
 ``HwModel()``'s defaults are the paper's evaluation machine (one
 i7-12700 P-core with DDR5, ``CPU_HW``), whose numbers price every
 decision of the benchmark suite. The JAX package's default is a TPU
-preset; the port carries no TPU number, and a Hopper preset waits for
-ROADMAP §1 item 11b.
+preset; the port carries no TPU number. ``H100_HW`` is the card the port
+runs on: the profiler (``core/profiler.py``) prices a step's roofline
+terms with it.
 
 Runtime presets: Relic's dispatch is ~100 ns (the paper's enabling
 observation); an OpenMP-style runtime pays ~5× that per task plus a
@@ -80,6 +81,20 @@ OPENMP = RuntimeModel("openmp", o_task=500e-9, o_region=800e-9)
 # The paper's evaluation machine (i7-12700 P-core, DDR5): the bench_suite
 # figure reproduction prices with it; it is also HwModel()'s default.
 CPU_HW = HwModel()
+
+# One NVIDIA H100 SXM5 80GB, from NVIDIA's "H100 Tensor Core GPU" data sheet
+# (https://www.nvidia.com/en-us/data-center/h100/), dense rates without
+# sparsity at the 700 W power limit. It prices roofline terms only
+# (``profile_step``: FLOPs over ``peak_flops``, bytes over ``hbm_bw``,
+# collective bytes over ``ici_bw``); it never prices an ``OverlapModel``
+# microtask pair, so the SMT-core fields (latency, ILP, contention) keep
+# ``CPU_HW``'s values.
+H100_HW = HwModel(
+    peak_flops=989e12,  # data sheet: BF16 Tensor Core, 1,979 TFLOPS with sparsity / 2
+    vpu_flops=67e12,  # data sheet: FP32, 67 TFLOPS (outside the tensor cores)
+    hbm_bw=3.35e12,  # data sheet: GPU memory bandwidth, 3.35 TB/s (HBM3)
+    ici_bw=450e9,  # data sheet: NVLink 900 GB/s, each way 450 GB/s
+)
 
 
 @dataclass(frozen=True)

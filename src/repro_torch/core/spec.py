@@ -35,9 +35,9 @@ class Stage:
 AIRA_SPEC = (
     Stage(
         "profile",
-        "core.tools.ProfileTool",
-        "Package the region's profile-derived per-item cost (perf+LBR "
-        "analogue) as a microtask for the simulator.",
+        "core.profiler.profile_step",
+        "Collect a sampled profile (perf+LBR analogue: aten-op cost "
+        "count); emit hot functions ranked by modeled time.",
     ),
     Stage(
         "annotate",

@@ -57,6 +57,36 @@ def refuse_grad(name: str, *tensors) -> None:
         )
 
 
+def through_operator(t: torch.Tensor) -> bool:
+    """Whether a kernel call goes through its ``torch.library`` operator
+    (``repro_torch::<kernel>``) instead of straight to its wrapper: on meta
+    tensors (the operator's fake gives the output's shape and launches
+    nothing), under a ``torch.func`` transform (whose rule only the
+    operator carries) and under a dispatch mode (``make_fx``, the op
+    counter of ``core/op_cost.py``: the call is one node there, charged by
+    its work). An eager call on real tensors goes straight to the wrapper,
+    which spares it the dispatcher's host time."""
+    return (t.device.type == "meta" or torch._C._are_functorch_transforms_active()
+            or bool(torch._C._len_torch_dispatch_stack()))
+
+
+def loop_vmap(op):
+    """A vmap rule for ``op`` that calls it once a mapped item and stacks
+    the results (tensor or tuple outputs) on a new leading axis: right for
+    any kernel, one launch an item."""
+
+    def rule(info, in_dims, *args):
+        def item(i):
+            return op(*(a.select(d, i) if d is not None else a for a, d in zip(args, in_dims)))
+
+        outs = [item(i) for i in range(info.batch_size)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.stack(o) for o in zip(*outs)), (0,) * len(outs[0])
+        return torch.stack(outs), 0
+
+    return rule
+
+
 def aligned16(*tensors) -> bool:
     """Whether every tensor's data starts on a 16-byte boundary, as TMA
     and 16-byte copies need (a view at an odd element offset does not)."""

@@ -14,6 +14,10 @@ kernel — or it raises. A row with ``cache_len`` 0 gives zeros in both.
 Its ``launches`` attribute counts kernel launches. ``decode_plan`` says how
 the kernel launches: how many blocks (one cluster) share a row's keys, the
 K/V ring's tile and depth, and whether the tiles arrive by 16-byte ``cp.async``.
+``decode_attention_op`` is the same function as the ``torch.library``
+operator ``repro_torch::decode_attention``, which ``decode_call`` takes
+only on meta tensors, under a transform or under a dispatch mode
+(``_build.through_operator``).
 """
 from __future__ import annotations
 
@@ -191,3 +195,27 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, bk: int = 512):
 
 
 decode_attention.launches = 0
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                        cache_len: torch.Tensor, bk: int) -> torch.Tensor:
+    """``decode_attention`` as the operator ``repro_torch::decode_attention``."""
+    return decode_attention(q, k_cache, v_cache, cache_len, bk=bk)
+
+
+@decode_attention_op.register_fake
+def _decode_fake(q, k_cache, v_cache, cache_len, bk):
+    return torch.empty_like(q)
+
+
+decode_attention_op.register_vmap(_build.loop_vmap(decode_attention_op))
+
+
+def decode_call(q, k_cache, v_cache, cache_len, *, bk: int = 512):
+    """The dense decode kernel through its operator where
+    ``_build.through_operator`` says so, straight to the wrapper
+    otherwise."""
+    if _build.through_operator(q):
+        return decode_attention_op(q, k_cache, v_cache, cache_len, bk)
+    return decode_attention(q, k_cache, v_cache, cache_len, bk=bk)

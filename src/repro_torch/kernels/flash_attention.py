@@ -13,7 +13,11 @@ oracle), CUDA tensors the kernel — or it raises. Its ``launches``
 attribute counts causal kernel launches, ``launches_noncausal`` the
 others. On the card ``flash_plan`` decides the path: bf16 at hd 64, 80 or
 128 with 16-byte-aligned q, k and v on the tensor cores (TMA-fed ``wgmma``),
-every other bf16 input and float32 on the CUDA cores.
+every other bf16 input and float32 on the CUDA cores. ``flash_attention_op``
+is the same function as the ``torch.library`` operator
+``repro_torch::flash_attention``; the models call ``flash_call``, which
+takes the operator only on meta tensors, under a transform or under a
+dispatch mode (``_build.through_operator``).
 """
 from __future__ import annotations
 
@@ -114,3 +118,29 @@ def _launch_flash(q, k, v, q_offset: int, causal: bool, plan: dict):
 
 flash_attention.launches = 0
 flash_attention.launches_noncausal = 0
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
+                       causal: bool) -> torch.Tensor:
+    """``flash_attention`` as the operator ``repro_torch::flash_attention``:
+    the kernel on CUDA tensors (counted as the wrapper counts it), the
+    plain version on CPU tensors; its fake gives the output's shape."""
+    return flash_attention(q, k, v, q_offset, causal)
+
+
+@flash_attention_op.register_fake
+def _flash_fake(q, k, v, q_offset, causal):
+    return torch.empty_like(q)
+
+
+flash_attention_op.register_vmap(_build.loop_vmap(flash_attention_op))
+
+
+def flash_call(q, k, v, q_offset: int = 0, causal: bool = True):
+    """The flash kernel as the models and ``kernels.ops`` call it: through
+    the operator where ``_build.through_operator`` says so, straight to the
+    wrapper otherwise."""
+    if _build.through_operator(q):
+        return flash_attention_op(q, k, v, int(q_offset), bool(causal))
+    return flash_attention(q, k, v, q_offset, causal)

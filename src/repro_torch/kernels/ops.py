@@ -19,8 +19,11 @@ Two registries pick plain PyTorch or a hand-written CUDA kernel:
 ``"auto"`` means the kernel for CUDA tensors and the plain version for CPU
 tensors. Bad names fail loudly with the valid choices. The kernel choice
 on CPU tensors raises (``require_cuda``): a kernel path never degrades to
-a plain version silently. The Pallas ``interpret`` mode and the TPU VMEM
-check (``check_vmem``) have no Hopper meaning and are not ported; the
+a plain version silently. On meta tensors it takes each kernel's
+``torch.library`` operator, whose fake gives the output's shape and
+launches nothing (a step traced for its cost, ``core/op_cost.py``). The
+Pallas ``interpret`` mode and the TPU VMEM check (``check_vmem``) have no
+Hopper meaning and are not ported; the
 block-shape arguments keep the JAX functions' divisibility contracts
 where their kernels have one (``matmul``, ``gemv``, ``decode_attention``).
 """
@@ -33,11 +36,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
-from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
-from repro_torch.kernels.paged_decode_attention import paged_decode_attention as _paged_kernel
-from repro_torch.kernels.relic_matmul import relic_gemv, relic_matmul
-from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
+from repro_torch.kernels.decode_attention import decode_call
+from repro_torch.kernels.flash_attention import flash_call
+from repro_torch.kernels.paged_decode_attention import paged_decode_call, paged_partials_call
+from repro_torch.kernels.relic_matmul import gemv_call, matmul_call
+from repro_torch.kernels.ssd_scan import ssd_call
 
 KERNEL_MODES = ("ref", "kernel")
 ATTENTION_BACKENDS = ("reference", "kernel")
@@ -149,8 +152,10 @@ def resolve_attention_backend(
 
 def require_cuda(t: torch.Tensor, what: str) -> None:
     """The kernel wrappers run their plain versions on CPU tensors; an
-    explicit ``"kernel"`` mode or backend must not, so it raises here."""
-    if t.device.type != "cuda":
+    explicit ``"kernel"`` mode or backend must not, so it raises here.
+    Meta tensors pass: they reach the kernels' operators, whose fakes
+    launch nothing."""
+    if t.device.type not in ("cuda", "meta"):
         raise ValueError(
             f"{what}: 'kernel' needs CUDA tensors, got {t.device} "
             "(use the reference on the CPU)"
@@ -166,7 +171,7 @@ def matmul(x, w, *, bm=256, bk=512, bn=256, mode="auto"):
     kernel takes M, K, N multiples of min(bm, M), min(bk, K), min(bn, N)."""
     if _mode(mode, x, "matmul") == "ref":
         return ref.matmul_ref(x, w)
-    return relic_matmul(x, w, bm=bm, bk=bk, bn=bn)
+    return matmul_call(x, w, bm=bm, bk=bk, bn=bn)
 
 
 def gemv(x, w, *, bk=1024, bn=512, mode="auto"):
@@ -174,7 +179,7 @@ def gemv(x, w, *, bk=1024, bn=512, mode="auto"):
     takes K, N multiples of min(bk, K), min(bn, N)."""
     if _mode(mode, x, "gemv") == "ref":
         return ref.matmul_ref(x, w)
-    return relic_gemv(x, w, bk=bk, bn=bn)
+    return gemv_call(x, w, bk=bk, bn=bn)
 
 
 def flash_attention(q, k, v, *, causal=True, bq=256, bk=512, mode="auto"):
@@ -184,7 +189,7 @@ def flash_attention(q, k, v, *, causal=True, bq=256, bk=512, mode="auto"):
     and ``bk`` (the Pallas kernel's blocks) set nothing here."""
     if _mode(mode, q, "flash_attention") == "ref":
         return ref.attention_ref(q, k, v, causal=causal)
-    return _flash_kernel(q, k, v, k.shape[1] - q.shape[1] if causal else 0, causal)
+    return flash_call(q, k, v, k.shape[1] - q.shape[1] if causal else 0, causal)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, bk=512, mode="auto"):
@@ -193,7 +198,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, bk=512, mode="auto"):
     of min(bk, Smax)."""
     if _mode(mode, q, "decode_attention") == "ref":
         return ref.decode_attention_ref(q, k_cache, v_cache, cache_len)
-    return _decode_kernel(q, k_cache, v_cache, cache_len.to(torch.int32), bk=bk)
+    return decode_call(q, k_cache, v_cache, cache_len.to(torch.int32), bk=bk)
 
 
 def ssd(xh, a, b, c, dt, *, chunk=128, mode="auto"):
@@ -201,7 +206,7 @@ def ssd(xh, a, b, c, dt, *, chunk=128, mode="auto"):
     kernel's final state is dropped, as the JAX entry point has none."""
     if _mode(mode, xh, "ssd") == "ref":
         return ref.ssd_ref(xh, a, b, c, dt)
-    return _ssd_kernel(xh, a, b, c, dt, chunk)[0]
+    return ssd_call(xh, a, b, c, dt, chunk)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -230,9 +235,9 @@ def paged_attention(
         return ref.paged_attention_ref(
             q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale
         )
-    return _paged_kernel(
+    return paged_decode_call(
         q, k_pool, v_pool, block_tables.to(torch.int32), lengths.to(torch.int32),
-        k_scale, v_scale, plan_kv_heads=plan_kv_heads,
+        k_scale, v_scale, plan_kv_heads,
     )
 
 
@@ -250,8 +255,7 @@ def paged_attention_partials(
             "paged_attention_partials is the kernel-backend surface; the "
             "reference partials are models/attention.paged_flash_partials"
         )
-    return _paged_kernel(
+    return paged_partials_call(
         q, k_pool, v_pool, block_tables.to(torch.int32), lengths.to(torch.int32),
-        k_scale, v_scale, owned=owned.to(torch.int32), partials=True,
-        plan_kv_heads=plan_kv_heads,
+        owned.to(torch.int32), k_scale, v_scale, plan_kv_heads,
     )

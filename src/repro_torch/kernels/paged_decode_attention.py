@@ -23,9 +23,12 @@ whether the tiles arrive by 16-byte ``cp.async``. ``paged_attention_op``
 is the same function (decode/verify, float or int8 pools) as the
 ``torch.library`` operator ``repro_torch::paged_decode_attention``, with
 a vmap rule, so a decode plan's ``relic_pfor`` over requests launches the
-kernel once a chunk. The models call ``paged_decode_call``, which takes
-the operator only where a transform or a tracer would see the call and
-the wrapper directly otherwise.
+kernel once a chunk; ``paged_partials_op`` is the partials mode as the
+operator ``repro_torch::paged_decode_partials``. The models call
+``paged_decode_call`` and ``paged_partials_call``, which take the
+operator only on meta tensors or where a transform or a dispatch mode
+would see the call (``_build.through_operator``), and the wrapper
+directly otherwise.
 """
 from __future__ import annotations
 
@@ -247,7 +250,8 @@ paged_decode_attention.launches_partials = 0
 def paged_attention_op(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                        block_tables: torch.Tensor, lengths: torch.Tensor,
                        k_scale: Optional[torch.Tensor] = None,
-                       v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       v_scale: Optional[torch.Tensor] = None,
+                       plan_kv_heads: Optional[int] = None) -> torch.Tensor:
     """``paged_decode_attention`` (decode/verify, float or int8 pools) as
     the operator ``repro_torch::paged_decode_attention``: on CUDA tensors
     it launches the kernel (and counts the launch), on CPU tensors it runs
@@ -256,11 +260,13 @@ def paged_attention_op(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tens
     vmapped decode launches the kernel once; under ``make_fx`` it is one
     node. The ctypes launch itself reads ``data_ptr()``, which neither a
     vmapped tensor nor a tracing one has."""
-    return paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)
+    return paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale,
+                                  plan_kv_heads=plan_kv_heads)
 
 
 @paged_attention_op.register_fake
-def _paged_fake(q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None):
+def _paged_fake(q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None,
+                plan_kv_heads=None):
     return torch.empty_like(q)
 
 
@@ -272,14 +278,14 @@ def _to_front(x, d, g):
 
 @paged_attention_op.register_vmap
 def _paged_vmap(info, in_dims, q, k_pool, v_pool, block_tables, lengths, k_scale=None,
-                v_scale=None):
+                v_scale=None, plan_kv_heads=None):
     """The map's g items as g·B rows of one call, as the Pallas kernel's
     batching rule folds them: q and lengths to [g·B, …]; a mapped pool
     (either, or a scale) folds all four to [g·NB, …] and item j's table
     entries move by j·NB, mapped or not; pools the map does not vary stay
     as they are, tables unmoved."""
     g = info.batch_size
-    qd, kd, vd, td, ld, ksd, vsd = tuple(in_dims) + (None,) * (7 - len(in_dims))
+    qd, kd, vd, td, ld, ksd, vsd = (tuple(in_dims) + (None,) * 7)[:7]
 
     def fold(x, d):
         x = _to_front(x, d, g)
@@ -295,23 +301,60 @@ def _paged_vmap(info, in_dims, q, k_pool, v_pool, block_tables, lengths, k_scale
         tables = tables + shift.view((g,) + (1,) * (tables.dim() - 1))
     tables = tables.reshape((-1,) + tuple(tables.shape[2:])).contiguous()
     out = torch.ops.repro_torch.paged_decode_attention(
-        fold(q, qd), pools[0], pools[1], tables, fold(lengths, ld), pools[2], pools[3])
+        fold(q, qd), pools[0], pools[1], tables, fold(lengths, ld), pools[2], pools[3],
+        plan_kv_heads)
     return out.reshape((g, -1) + tuple(out.shape[1:])), 0
 
 
 def paged_decode_call(q, k_pool, v_pool, block_tables, lengths, k_scale=None, v_scale=None,
                       plan_kv_heads: Optional[int] = None):
     """The paged kernel as the models call it: through the operator
-    (``paged_attention_op``) where a ``torch.func`` transform (a decode
-    plan's vmap) or a dispatch mode (``make_fx``) is active, since only the
-    operator's rules carry the call there, and straight to the wrapper
+    (``paged_attention_op``) where ``_build.through_operator`` says so —
+    on meta tensors, under a ``torch.func`` transform (a decode plan's
+    vmap) or a dispatch mode (``make_fx``, the op counter), since only the
+    operator carries the call there — and straight to the wrapper
     otherwise, which spares every eager decode the dispatcher's host time
-    (chip_smoke.py prints both per call). ``plan_kv_heads`` (a head
-    split's rank) goes to the wrapper; the sharded step runs eagerly, never
-    under a transform."""
-    if torch._C._are_functorch_transforms_active() or torch._C._len_torch_dispatch_stack():
-        if plan_kv_heads is not None:
-            raise ValueError("paged_decode_call: plan_kv_heads is for the sharded step's eager call")
-        return paged_attention_op(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)
+    (chip_smoke.py prints both per call). ``plan_kv_heads``: a head split's
+    rank (``paged_decode_attention``)."""
+    if _build.through_operator(q):
+        return paged_attention_op(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale,
+                                  plan_kv_heads)
     return paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale,
                                   plan_kv_heads=plan_kv_heads)
+
+
+@torch.library.custom_op("repro_torch::paged_decode_partials", mutates_args=())
+def paged_partials_op(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                      block_tables: torch.Tensor, lengths: torch.Tensor, owned: torch.Tensor,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None,
+                      plan_kv_heads: Optional[int] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The partials mode (``partials=True``) as the operator
+    ``repro_torch::paged_decode_partials``: float32 ``(m, l, acc)``."""
+    return paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale,
+                                  owned=owned, partials=True, plan_kv_heads=plan_kv_heads)
+
+
+@paged_partials_op.register_fake
+def _partials_fake(q, k_pool, v_pool, block_tables, lengths, owned, k_scale=None, v_scale=None,
+                   plan_kv_heads=None):
+    B, T, H, hd = q.shape
+    return (q.new_empty((B, T, H), dtype=torch.float32),
+            q.new_empty((B, T, H), dtype=torch.float32),
+            q.new_empty((B, T, H, hd), dtype=torch.float32))
+
+
+paged_partials_op.register_vmap(_build.loop_vmap(paged_partials_op))
+
+
+def paged_partials_call(q, k_pool, v_pool, block_tables, lengths, owned, k_scale=None,
+                        v_scale=None, plan_kv_heads: Optional[int] = None):
+    """The partials mode through its operator where
+    ``_build.through_operator`` says so, straight to the wrapper
+    otherwise."""
+    if _build.through_operator(q):
+        return paged_partials_op(q, k_pool, v_pool, block_tables, lengths, owned, k_scale,
+                                 v_scale, plan_kv_heads)
+    return paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale,
+                                  owned=owned, partials=True, plan_kv_heads=plan_kv_heads)

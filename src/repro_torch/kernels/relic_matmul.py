@@ -20,7 +20,10 @@ aligned), every other bf16 input and float32 on the CUDA cores; and
 ``gemv_plan`` how ``relic_gemv`` does: w streamed by TMA through a
 shared-memory ring, x by TMA beside it (or both loaded directly where TMA
 cannot take them), K split over a cluster of blocks that reduce in a
-fixed order inside the launch.
+fixed order inside the launch. Each is also a ``torch.library`` operator
+(``repro_torch::relic_matmul``, ``repro_torch::relic_gemv``), which
+``matmul_call`` and ``gemv_call`` take only on meta tensors, under a
+transform or under a dispatch mode (``_build.through_operator``).
 """
 from __future__ import annotations
 
@@ -193,3 +196,47 @@ def relic_gemv(x, w, *, bk: int = 1024, bn: int = 512):
 
 relic_matmul.launches = 0
 relic_gemv.launches = 0
+
+
+@torch.library.custom_op("repro_torch::relic_matmul", mutates_args=())
+def relic_matmul_op(x: torch.Tensor, w: torch.Tensor, bm: int, bk: int, bn: int) -> torch.Tensor:
+    """``relic_matmul`` as the operator ``repro_torch::relic_matmul``."""
+    return relic_matmul(x, w, bm=bm, bk=bk, bn=bn)
+
+
+@relic_matmul_op.register_fake
+def _matmul_fake(x, w, bm, bk, bn):
+    _check("relic_matmul", x, w, (("M", "bm", bm), ("K", "bk", bk), ("N", "bn", bn)))
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
+@torch.library.custom_op("repro_torch::relic_gemv", mutates_args=())
+def relic_gemv_op(x: torch.Tensor, w: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
+    """``relic_gemv`` as the operator ``repro_torch::relic_gemv``."""
+    return relic_gemv(x, w, bk=bk, bn=bn)
+
+
+@relic_gemv_op.register_fake
+def _gemv_fake(x, w, bk, bn):
+    _check("relic_gemv", x, w, (("K", "bk", bk), ("N", "bn", bn)))
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
+relic_matmul_op.register_vmap(_build.loop_vmap(relic_matmul_op))
+relic_gemv_op.register_vmap(_build.loop_vmap(relic_gemv_op))
+
+
+def matmul_call(x, w, *, bm: int = 256, bk: int = 512, bn: int = 256):
+    """``relic_matmul`` through its operator where ``_build.through_operator``
+    says so, straight to the wrapper otherwise."""
+    if _build.through_operator(x):
+        return relic_matmul_op(x, w, bm, bk, bn)
+    return relic_matmul(x, w, bm=bm, bk=bk, bn=bn)
+
+
+def gemv_call(x, w, *, bk: int = 1024, bn: int = 512):
+    """``relic_gemv`` through its operator where ``_build.through_operator``
+    says so, straight to the wrapper otherwise."""
+    if _build.through_operator(x):
+        return relic_gemv_op(x, w, bk, bn)
+    return relic_gemv(x, w, bk=bk, bn=bn)

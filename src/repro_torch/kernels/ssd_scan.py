@@ -12,7 +12,10 @@ which shrinks the chunk to a divisor of S), CUDA tensors the kernel — or
 it raises. Its ``launches`` attribute counts kernel launches. ``ssd_plan``
 says how the kernel launches: the chunks, how many blocks (one cluster)
 share a (row, head)'s chunks, the column slice of hd a block takes, and
-whether the products run on the tensor cores.
+whether the products run on the tensor cores. ``ssd_scan_op`` is the same
+function as the ``torch.library`` operator ``repro_torch::ssd_scan``,
+which ``ssd_call`` takes only on meta tensors, under a transform or under
+a dispatch mode (``_build.through_operator``).
 """
 from __future__ import annotations
 
@@ -192,3 +195,27 @@ def ssd_scan(xh, a, b, c, dt, chunk: int = 128):
 
 
 ssd_scan.launches = 0
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def ssd_scan_op(xh: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                dt: torch.Tensor, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``ssd_scan`` as the operator ``repro_torch::ssd_scan``."""
+    return ssd_scan(xh, a, b, c, dt, chunk)
+
+
+@ssd_scan_op.register_fake
+def _ssd_fake(xh, a, b, c, dt, chunk):
+    B, _, H, hd = xh.shape
+    return torch.empty_like(xh), xh.new_empty((B, H, hd, b.shape[-1]), dtype=torch.float32)
+
+
+ssd_scan_op.register_vmap(_build.loop_vmap(ssd_scan_op))
+
+
+def ssd_call(xh, a, b, c, dt, chunk: int = 128):
+    """The SSD scan through its operator where ``_build.through_operator``
+    says so, straight to the wrapper otherwise."""
+    if _build.through_operator(xh):
+        return ssd_scan_op(xh, a, b, c, dt, chunk)
+    return ssd_scan(xh, a, b, c, dt, chunk)

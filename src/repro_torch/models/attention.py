@@ -78,7 +78,7 @@ def gqa_attention(q, k, v, *, q_offset=0, chunk: int = 512, backend=None):
     ``masked`` blocking does."""
     if kernel_ops.resolve_attention_backend(backend, q.device) == "kernel":
         kernel_ops.require_cuda(q, "gqa_attention")
-        return _flash.flash_attention(
+        return _flash.flash_call(
             q.contiguous(), k.contiguous(), v.contiguous(), int(q_offset)
         )
     B, Sq, H, hd = q.shape

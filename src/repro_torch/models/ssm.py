@@ -91,7 +91,7 @@ def _causal_conv(x, w, state=None):
 def _chunk_scan(xh, a, b, c, dt, chunk, backend):
     if kernel_ops.resolve_attention_backend(backend, xh.device) == "kernel":
         kernel_ops.require_cuda(xh, "ssm_block")
-        return _ssd.ssd_scan(
+        return _ssd.ssd_call(
             xh.contiguous(), a.contiguous(), b.contiguous(), c.contiguous(),
             dt.contiguous(), chunk,
         )

@@ -17,7 +17,10 @@ a CUDA tensor over a gloo group, an op in ``GLOO_CUDA_NATIVE`` is handed to
 gloo as it is, and every other op is staged through host memory explicitly
 (copy out, collective, copy back), logged once an op. Nothing switches
 backend silently. ``STATS`` counts the calls, the seconds spent inside them
-and the bytes staged, for the caller to read (``reset_stats``).
+and the bytes staged, for the caller to read (``reset_stats``); each call
+also reports its op, under the JAX package's HLO name, and its result's
+bytes on this rank to every callable in ``OBSERVERS`` (the op counter of
+``core/op_cost.py`` while it counts).
 
 ``distributed_softmax`` combines per-rank flash partials (the kv-sequence
 split); ``ring_allgather_matmul``, ``matmul_reducescatter`` and
@@ -52,6 +55,16 @@ STATS = {"calls": 0, "seconds": 0.0, "staged_calls": 0, "staged_bytes": 0}
 _STAGED_LOGGED: set = set()
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+# callables told (op, result bytes on this rank) of each collective call;
+# ops under the JAX package's names: all-reduce, all-gather, all-to-all,
+# and a ring shift as collective-permute
+OBSERVERS: list = []
+
+
+def _report(op: str, result: torch.Tensor) -> None:
+    for observe in OBSERVERS:
+        observe(op, result.numel() * result.element_size())
 
 
 def reset_stats() -> None:
@@ -104,6 +117,7 @@ def all_reduce(t: torch.Tensor, mesh, axis: str, op: str = "sum") -> torch.Tenso
         x = (t.detach().cpu() if staged else t.detach()).clone(
             memory_format=torch.contiguous_format)
         dist.all_reduce(x, op=_OPS[op], group=group)
+        _report("all-reduce", x)
         return x.to(t.device) if staged else x
 
 
@@ -117,6 +131,7 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
         outs = [torch.empty_like(x) for _ in range(group.size())]
         dist.all_gather(outs, x, group=group)
         out = torch.cat(outs, dim=dim)
+        _report("all-gather", out)
         return out.to(t.device) if staged else out
 
 
@@ -130,6 +145,7 @@ def all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         x = (t.detach().cpu() if staged else t.detach()).contiguous()
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=group)
+        _report("all-to-all", out)
         return out.to(t.device) if staged else out
 
 
@@ -160,6 +176,7 @@ def ring_shift_start(t: torch.Tensor, mesh, axis: str) -> _Shift:
         prv = dist.get_global_rank(group, (idx - 1) % p)
         reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, nxt, group),
                                        dist.P2POp(dist.irecv, recv, prv, group)])
+        _report("collective-permute", recv)
     return _Shift(reqs, recv, t.device, staged)
 
 

@@ -41,6 +41,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.train.trainer, repro_torch.data, repro_torch.data.pipeline\n"
         "import repro_torch.ckpt, repro_torch.ckpt.checkpoint, repro_torch.tree\n"
         "import repro_torch.parallel.compression, repro_torch.parallel.pipeline\n"
+        "import repro_torch.core.profiler, repro_torch.core.op_cost\n"
+        "import repro_torch.core.op_analysis, repro_torch.kernels.work\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items() if v is not None]\n"
         "import torch\n"
