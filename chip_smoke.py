@@ -276,6 +276,26 @@ Phases, in order; any failure exits non-zero before the final line:
    device busy beside the counted bound (the roofline share), the train
    step's top op classes beside the profiler's top device ops; a CUDA
    graph replay under the counter raises.
+16. training split over "model" (``Model(cfg, mesh=mesh)``, PR 28) — 4
+   gloo rank processes on the card (``p16_rank``, started beside phases 14
+   and 15), each case at full width, depth 2 (phi3-medium-14b depth 1: its
+   float32 single-device step peaks at 41.5 GB), B = 4, S = 256:
+   smollm-135m on ("data", "model") = (1, 3) over ranks 0-2 (every dim
+   divides) and (2, 2) (9 heads on 2: ``seq_sp``, the kv heads whole),
+   granite-moe-1b-a400m on (2, 2) (16 of 32 experts a rank, capacity
+   factor 4: nothing drops), mamba2-370m on (2, 2) (16 of 32 SSM heads a
+   rank), phi3-medium-14b on (2, 2) (FSDP, accum 2) plain and under
+   ZeRO-2; each float32 split step against the single-device one (run one
+   rank at a time, each keeping its shards of the result; a MoE's with the
+   split's per-shard semantics, its ``ce`` against the plain one): loss
+   and ``grad_norm`` within 1e-5 relative, every gradient leaf within
+   1e-4 of its largest magnitude, the stepped parameters within 5e-2,
+   every stored parameter and moment shaped as its spec's shard, fewer
+   bytes held a rank than a data-parallel rank's; peak memory a rank, the
+   float32 and bf16 split steps' walls, collective calls / ms / bytes by
+   op; ZeRO-2 fewer all-gathers a step than the plain FSDP step; 16e: a
+   smollm-135m step on (2, 2) saved, restored bitwise onto (1, 3) and onto
+   one device, the next step against the uninterrupted one.
 
 ``--phases 3,12`` runs the build and the listed phases only, for a short
 development call (5 runs phases 5 and 6 together); with no argument every
@@ -5282,13 +5302,440 @@ def phase15(card):
     log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training split over "model" (tensor, sequence and expert
+# parallel), the gather-once FSDP path, elastic sharded checkpoints
+
+P16_WORLD = 4
+P16_LAYERS, P16_BATCH, P16_SEQ = 2, 4, 256
+# name → (arch, replaced fields, mesh shape, ranks (None: the first),
+# microbatches, depth); granite at a capacity factor of E / k: an expert
+# could take every token of its shard, so nothing drops. In this order.
+P16_CASES = {
+    # FSDP: the plain step and ZeRO-2; depth 1 (its float32 single-device
+    # step peaks at 41.5 GB; first, so that beside phase 14 it meets 14a's
+    # runs and not 14c's larger steps)
+    "16d phi3-medium-14b (2, 2)": ("phi3-medium-14b", {"zero2": 1}, (2, 2), None, 2, 1),
+    "16a smollm-135m (1, 3)": ("smollm-135m", {}, (1, 3), (0, 1, 2), 1, P16_LAYERS),
+    "16a smollm-135m (2, 2)": ("smollm-135m", {}, (2, 2), None, 1, P16_LAYERS),
+    "16b granite-moe-1b-a400m (2, 2)": ("granite-moe-1b-a400m", {"capacity_factor": 4.0},
+                                        (2, 2), None, 1, P16_LAYERS),
+    "16c mamba2-370m (2, 2)": ("mamba2-370m", {}, (2, 2), None, 1, P16_LAYERS),
+}
+P16_RTOL = 1e-5  # loss and grad_norm against the single-device step
+P16_GRAD_TOL = 1e-4  # of each gradient leaf's largest magnitude
+P16_PARAM_ATOL = 5e-2  # tests/test_sharded.py's bound on a step's parameters
+P16_DIR = os.path.join(ROOT, "build", "phase16")
+
+
+class _P16ShardedAux:
+    """The single-device MoE with the split step's semantics: the B·S
+    tokens in ``n`` contiguous shards (the split's token order), each
+    routed with its own capacity, the aux loss the shards' mean (the JAX
+    package's ``pmean``); swaps ``moe._moe_reference`` while entered."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def _ref(self, x2d, params, cfg):
+        from repro_torch.models import moe
+
+        ys, auxs = [], []
+        for c in x2d.chunk(self.n):
+            y, probs, idx = moe._moe_local(c, params, cfg)
+            ys.append(y)
+            auxs.append(moe.switch_aux(probs, idx))
+        return torch.cat(ys), torch.stack(auxs).mean()
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.saved, moe._moe_reference = moe._moe_reference, self._ref
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._moe_reference = self.saved
+
+
+def _p16_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _p16_batch(cfg, accum, dev, step=0):
+    from repro_torch.data import SyntheticLMData
+
+    b = SyntheticLMData(cfg, batch=P16_BATCH * accum, seq=P16_SEQ, seed=3,
+                        device=dev).batch_at(step)
+    if accum > 1:
+        b = {k: v.reshape((accum, v.shape[0] // accum) + tuple(v.shape[1:])) for k, v in b.items()}
+    return b
+
+
+def _p16_stats():
+    from repro_torch.parallel import collectives as col
+
+    return {k: dict(v) for k, v in col.STATS["ops"].items()}
+
+
+def _p16_bytes(tree):
+    from repro_torch.tree import flatten
+
+    return sum(t.numel() * t.element_size() for t in flatten(tree)[0])
+
+
+def _p16_max(t, mesh):
+    """The largest of ``t`` (a scalar) over every rank of ``mesh``."""
+    from repro_torch.parallel import collectives as col
+
+    return float(col.all_reduce_axes(t.float().reshape(1), mesh, ("data", "model"), "max"))
+
+
+def _p16_bf16(tree, keep):
+    """A stored parameter tree in bf16, the leaves named in ``keep`` (the
+    model's float32 leaves) as they are."""
+    return {k: (_p16_bf16(v, keep) if isinstance(v, dict)
+                else v if k in keep else v.to(torch.bfloat16)) for k, v in tree.items()}
+
+
+def _p16_step(step, opt, shards, batch, dev):
+    """One split step through ``gradients`` and ``update`` (the step's own
+    two halves): (loss, metrics, gradients, (params, opt state, opt
+    metrics), wall ms, collectives by op of the gradients' half)."""
+    from repro_torch.parallel import collectives as col
+
+    col.reset_stats()
+    _p16_sync(dev)
+    t0 = time.perf_counter()
+    loss, met, grads = step.gradients(shards, batch)
+    ops = _p16_stats()
+    new = step.update(grads, opt.init(shards), shards)
+    _p16_sync(dev)
+    return loss, met, grads, new, (time.perf_counter() - t0) * 1e3, ops
+
+
+def p16_case(rank, world, dev, arch, over, shape, ranks, accum, layers, reduced):
+    """One phase-16 case on every rank of the group: the single-device
+    float32 step (one rank at a time: the card holds one whole model beside
+    the ranks' shards), each rank keeping its shards of its result; the
+    split float32 step (and ZeRO-2's, for a zero2 config) against it; then
+    a bf16 split step's wall. What this rank found
+    (None outside the case's mesh)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import in_mesh, make_test_mesh
+    from repro_torch.models.model import FLOAT32_PARAMS, Model
+    from repro_torch.parallel import sharding
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.tree import flatten, map_tree
+
+    mesh = make_test_mesh(shape, ("data", "model"), device=dev, ranks=ranks)
+    inside = in_mesh(mesh)
+    base = get_config(arch)
+    cfg = dataclasses.replace(base.reduced() if reduced else base, num_layers=layers,
+                              dtype="float32", **over)
+    opt = AdamW(lr=1e-3, warmup_steps=2, total_steps=10)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the card's memory is the single-device step's in turn
+    batch = _p16_batch(cfg, accum, dev)
+    split = Model(cfg, device=dev, mesh=mesh) if inside else None
+    ref = shards = None
+    for turn in range(world):
+        if turn == rank and inside:
+            single = Model(cfg, device=dev)
+            whole = single.init(seed=5)
+            step = make_train_step(single, opt, accum_steps=accum)
+            with (_P16ShardedAux(math.prod(shape)) if cfg.family == "moe"
+                  else contextlib.nullcontext()):
+                loss, met, grads, (p1, _, om), wall, _ = _p16_step(step, opt, whole, batch, dev)
+            n = sum(t.numel() for t in flatten(whole)[0])
+            # this rank's shards of the results wait in host memory, so that
+            # the next rank's turn has the card to itself
+            ref = {"loss": float(loss), "grad_norm": float(om["grad_norm"]),
+                   "ce": float(met["ce"]), "wall_ms": wall,
+                   # a data-parallel rank's: the whole parameters and both moments
+                   "dp_bytes": _p16_bytes(whole) + 2 * 4 * n,
+                   "grads": map_tree(torch.Tensor.cpu, split.shard_params(grads)),
+                   "params": map_tree(torch.Tensor.cpu, split.shard_params(p1))}
+            del grads, p1, om
+            if cfg.family == "moe":  # ce does not depend on the aux semantics
+                ref["ce_plain"] = float(step.gradients(whole, batch)[1]["ce"])
+            shards = map_tree(torch.Tensor.cpu, split.shard_params(whole))
+            del whole, step, single, loss, met
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    if not inside:
+        return None
+    if rank == 0:
+        log(f"p16 {arch} {shape}: the single-device steps done")
+    shards = map_tree(lambda t: t.to(dev), shards)  # the reference's stay on the host
+    specs = flatten(split.train_split.storage, is_leaf=sharding.is_spec)[0]
+    wholes = [tuple(t.shape) for t in flatten(split.abstract_params()[0])[0]]
+    want_shapes = [tuple(d // sharding.axis_size(mesh, sharding.spec_axes(e))
+                         for d, e in zip(w, sp)) for w, sp in zip(wholes, specs)]
+    found = {"single": {k: v for k, v in ref.items() if k not in ("grads", "params")},
+             "split": {k: getattr(split.train_split, k)
+                       for k in ("attn", "mlp", "moe", "ssm", "vocab")}}
+    runs = {"plain": {}}
+    if cfg.zero2:
+        runs["zero2"] = {"zero2_axes": split.param_axes()}
+    for name, kw in runs.items():
+        step = make_train_step(split, opt, accum_steps=accum, **kw)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        loss, met, grads, (p2, o2, om), wall, ops = _p16_step(step, opt, shards, batch, dev)
+        rel = g_err = 0.0
+        for g, want in zip(flatten(grads)[0], flatten(ref["grads"])[0], strict=True):
+            err = _p16_max((g.cpu() - want).abs().max(), mesh)
+            top = _p16_max(want.abs().max(), mesh)
+            if err / max(top, 1e-30) >= rel:
+                rel, g_err = err / max(top, 1e-30), err
+        p_err = max(_p16_max((a.cpu() - b).abs().max(), mesh)
+                    for a, b in zip(flatten(p2)[0], flatten(ref["params"])[0], strict=True))
+        found[name] = {
+            "loss": float(loss), "grad_norm": float(om["grad_norm"]), "ce": float(met["ce"]),
+            "grad_rel": rel, "grad_err": g_err, "param_err": p_err, "wall_ms": wall, "ops": ops,
+            "held_bytes": _p16_bytes(p2) + _p16_bytes(o2.mu) + _p16_bytes(o2.nu),
+            "shapes_ok": [tuple(t.shape) for t in flatten(p2)[0]] == want_shapes == [
+                tuple(t.shape) for t in flatten(o2.mu)[0]],
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0}
+        del grads, p2, o2
+        # bf16: one split step's wall (the float32 step ran the same shapes)
+        bsplit = Model(dataclasses.replace(cfg, dtype="bfloat16"), device=dev, mesh=mesh)
+        bkw = {"zero2_axes": bsplit.param_axes()} if kw else {}
+        bstep = make_train_step(bsplit, opt, accum_steps=accum, **bkw)
+        bparams = _p16_bf16(shards, FLOAT32_PARAMS)
+        _, _, _, _, bwall, bops = _p16_step(bstep, opt, bparams, batch, dev)
+        found[name]["bf16_wall_ms"], found[name]["bf16_ops"] = bwall, bops
+        del bparams, bsplit, bstep
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return found
+
+
+def p16_elastic(rank, world, dev, reduced):
+    """16e: smollm-135m (depth 2, float32) stepped once on (2, 2) and
+    saved; the uninterrupted second step on (2, 2) against the checkpoint
+    restored onto (1, 3) (ranks 0-2) and onto one device (rank 0), each
+    stepping once more. What this rank found."""
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import in_mesh, make_test_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.train import AdamW, OptState, make_train_step
+    from repro_torch.tree import flatten
+
+    base = get_config("smollm-135m")
+    cfg = dataclasses.replace(base.reduced() if reduced else base, num_layers=P16_LAYERS,
+                              dtype="float32")
+    opt = AdamW(lr=1e-3, warmup_steps=2, total_steps=10)
+    b0, b1 = (_p16_batch(cfg, 1, dev, step) for step in (0, 1))
+    ckdir = os.path.join(P16_DIR, "ckpt")
+    found = {}
+
+    def tree_specs(model):
+        sp = model.train_split.storage
+        return {"params": sp, "opt": OptState(step=(), mu=sp, nu=sp)}
+
+    mesh22 = make_test_mesh((2, 2), ("data", "model"), device=dev)
+    m22 = Model(cfg, device=dev, mesh=mesh22)
+    whole = Model(cfg, device=dev).init(seed=5)
+    shards = m22.shard_params(whole)
+    del whole
+    step = make_train_step(m22, opt)
+    p1, o1, _ = step(shards, opt.init(shards), b0)
+    ckpt = CheckpointManager(ckdir, keep=1)
+    t0 = time.perf_counter()
+    ckpt.save(1, {"params": p1, "opt": o1}, mesh=mesh22, specs=tree_specs(m22), blocking=True)
+    found["save_ms"] = (time.perf_counter() - t0) * 1e3
+    saved = [t.cpu() for t in flatten(m22.gather_params(p1))[0]]
+    p2, _, met = step(p1, o1, b1)
+    want = [t.cpu() for t in flatten(m22.gather_params(p2))[0]]
+    found["uninterrupted"] = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])}
+    del p1, o1, p2, shards
+    dist.barrier()
+    mesh13 = make_test_mesh((1, 3), ("data", "model"), device=dev, ranks=(0, 1, 2))
+    if in_mesh(mesh13):
+        m13 = Model(cfg, device=dev, mesh=mesh13)
+        like = m13.shard_params(Model(cfg, device=dev).init(seed=9))
+        got, meta = ckpt.restore({"params": like, "opt": opt.init(like)}, mesh=mesh13,
+                                 specs=tree_specs(m13))
+        back = [t.cpu() for t in flatten(m13.gather_params(got["params"]))[0]]
+        p2, _, met = make_train_step(m13, opt)(got["params"], got["opt"], b1)
+        again = [t.cpu() for t in flatten(m13.gather_params(p2))[0]]
+        found["(1, 3)"] = {
+            "restored_bitwise": all(torch.equal(a, b) for a, b in zip(back, saved, strict=True)),
+            "step": meta["step"], "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+            "param_err": max(float((a - b).abs().max()) for a, b in zip(again, want))}
+        del got, p2, like
+    dist.barrier()
+    if rank == 0:
+        one = Model(cfg, device=dev)
+        like = one.init(seed=9)
+        got, meta = ckpt.restore({"params": like, "opt": opt.init(like)})
+        back = [t.cpu() for t in flatten(got["params"])[0]]
+        p2, _, met = make_train_step(one, opt)(got["params"], got["opt"], b1)
+        found["one device"] = {
+            "restored_bitwise": all(torch.equal(a, b) for a, b in zip(back, saved, strict=True)),
+            "step": meta["step"], "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+            "param_err": max(float((a.cpu() - b).abs().max())
+                             for a, b in zip(flatten(p2)[0], want))}
+        del got, p2, like, one
+    dist.barrier()
+    return found
+
+
+def p16_rank(rank, world, out, device="cuda", reduced=False):
+    """One of phase 16's ``P16_WORLD`` gloo ranks on the card: every case
+    of ``P16_CASES``, then 16e; saves what it found (every rank: its peak
+    memory is its own). ``device="cpu"`` with ``reduced`` rehearses it at
+    ``.reduced()`` width on the CPU."""
+    import pickle
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    found, t0 = {}, time.perf_counter()
+    for label, (arch, over, shape, ranks, accum, layers) in P16_CASES.items():
+        t = time.perf_counter()
+        found[label] = p16_case(rank, world, dev, arch, over, shape, ranks, accum, layers, reduced)
+        if found[label] is not None:
+            found[label]["case_s"] = time.perf_counter() - t
+        if rank == 0:
+            log(f"p16 {label} done at {time.perf_counter() - t0:.1f} s")
+    t = time.perf_counter()
+    found["16e"] = p16_elastic(rank, world, dev, reduced)
+    found["16e"]["case_s"] = time.perf_counter() - t
+    found["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(found, f)
+
+
+def _p16_ops(ops) -> str:
+    return ", ".join(f"{op} {v['calls']} calls {v['seconds'] * 1e3:.1f} ms "
+                     f"{v['bytes'] / 2**20:.1f} MiB" for op, v in sorted(ops.items()))
+
+
+def phase16_check(card, out, wall):
+    """Phase 16's lines and limits, from what the ranks saved under
+    ``out``."""
+    import pickle
+
+    found = []
+    for r in range(P16_WORLD):
+        with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+            found.append(pickle.load(f))
+    for label, (arch, over, shape, ranks, accum, layers) in P16_CASES.items():
+        mine = [f[label] for f in found if f[label] is not None]
+        f0, single = mine[0], mine[0]["single"]
+        sp = f0["split"]
+        for name in [k for k in ("plain", "zero2") if k in f0]:
+            got = f0[name]
+            dl = abs(got["loss"] - single["loss"]) / abs(single["loss"])
+            dg = abs(got["grad_norm"] - single["grad_norm"]) / single["grad_norm"]
+            log(f"p16[{label}{' zero2' if name == 'zero2' else ''}] float32 depth {layers}, "
+                f"B={P16_BATCH * accum} S={P16_SEQ} accum {accum}, split attn={sp['attn'] or '-'} "
+                f"mlp={sp['mlp']} vocab={sp['vocab']} experts={sp['moe']} ssm={sp['ssm']} on "
+                f"{card}: loss {got['loss']:.6f} vs single-device {single['loss']:.6f} (rel "
+                f"{dl:.2e}), grad_norm {got['grad_norm']:.6f} vs {single['grad_norm']:.6f} (rel "
+                f"{dg:.2e}); largest leaf gradient |delta| {got['grad_err']:.3e} = "
+                f"{got['grad_rel']:.2e} of its leaf's max; stepped params max |delta| "
+                f"{got['param_err']:.2e}; params + moments a rank "
+                f"{got['held_bytes'] / 2**20:.1f} MiB vs data-parallel "
+                f"{single['dp_bytes'] / 2**20:.1f} MiB; peak per rank "
+                + "/".join(f"{m[name]['peak_gb']:.2f}" for m in mine)
+                + f" GiB; float32 step {got['wall_ms']:.1f} ms (single-device "
+                f"{single['wall_ms']:.1f} ms), bf16 step {got['bf16_wall_ms']:.1f} ms; "
+                f"collectives a step (gradients, rank 0): {_p16_ops(got['ops'])}; bf16: "
+                f"{_p16_ops(got['bf16_ops'])}")
+            require(dl <= P16_RTOL and dg <= P16_RTOL, f"p16 {label} {name}: loss/grad_norm")
+            require(got["grad_rel"] <= P16_GRAD_TOL, f"p16 {label} {name}: gradients")
+            require(got["param_err"] < P16_PARAM_ATOL, f"p16 {label} {name}: params")
+            require(all(m[name]["shapes_ok"] for m in mine), f"p16 {label} {name}: shard shapes")
+            # every leaf a split region holds is split (the rehearsal's reduced
+            # widths may split none)
+            require(got["held_bytes"] < single["dp_bytes"]
+                    or not any(sp[k] for k in ("mlp", "moe", "ssm", "vocab")),
+                    f"p16 {label} {name}: bytes held")
+            if "ce_plain" in single:
+                require(abs(got["ce"] - single["ce_plain"]) <= P16_RTOL * single["ce_plain"],
+                        f"p16 {label}: ce {got['ce']} vs plain {single['ce_plain']}")
+        if "zero2" in f0:
+            pg, zg = (f0[k]["ops"].get("all_gather", {}) for k in ("plain", "zero2"))
+            log(f"p16[{label}] all-gathers a step (rank 0, float32): plain "
+                f"{pg.get('calls', 0)} calls {pg.get('bytes', 0) / 2**20:.1f} MiB, zero2 "
+                f"{zg.get('calls', 0)} calls {zg.get('bytes', 0) / 2**20:.1f} MiB")
+            require(0 < zg.get("calls", 0) < pg.get("calls", 0), "p16: zero2 gathers fewer")
+    e = found[0]["16e"]
+    u = e["uninterrupted"]
+    for where in ("(1, 3)", "one device"):
+        got = e[where]
+        dl = abs(got["loss"] - u["loss"]) / abs(u["loss"])
+        log(f"p16[16e smollm-135m elastic] saved on (2, 2) at step {got['step']} "
+            f"({e['save_ms']:.1f} ms, gathered whole, rank 0 writing), restored onto {where}: "
+            f"bitwise {got['restored_bitwise']}; the next step's loss {got['loss']:.6f} vs "
+            f"uninterrupted {u['loss']:.6f} (rel {dl:.2e}), params max |delta| "
+            f"{got['param_err']:.2e}")
+        require(got["restored_bitwise"] and got["step"] == 1, f"p16 16e {where}: restore")
+        require(dl <= P16_RTOL and got["param_err"] < P16_PARAM_ATOL, f"p16 16e {where}: step")
+    log(f"p16 ranks ({P16_WORLD} gloo processes on one {card}): wall {wall:.1f} s; per case "
+        + ", ".join(f"{k} {found[0][k]['case_s']:.1f} s" for k in list(P16_CASES) + ["16e"]
+                    if found[0][k] is not None))
+
+
+class Phase16:
+    """Phase 16's ``P16_WORLD`` gloo rank processes (``p16_rank``), started
+    on a thread of their own: beside phases 14 and 15 in the whole run, as
+    14e's ranks run beside 14a. ``finish`` joins them, re-raises what they
+    raised (a failure in any rank fails the phase) and makes the checks."""
+
+    def __init__(self, device="cuda", reduced=False):
+        import threading
+
+        from repro_torch.launch.mesh import run_ranks
+
+        os.makedirs(P16_DIR, exist_ok=True)
+        self.t0, self.error = time.perf_counter(), None
+
+        def ranks():
+            try:
+                run_ranks(p16_rank, P16_WORLD, P16_DIR, device, reduced,
+                          store=os.path.join(P16_DIR, "store"), timeout_s=600.0)
+            except BaseException as e:  # raised again by finish()
+                self.error = e
+
+        self.thread = threading.Thread(target=ranks, daemon=True)
+        self.thread.start()
+
+    def finish(self, card):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        phase16_check(card, P16_DIR, time.perf_counter() - self.t0)
+
+
+def phase16(card, device="cuda", reduced=False):
+    """Phase 16 alone (the CPU rehearsal's entry): its ranks, then the
+    checks."""
+    Phase16(device, reduced).finish(card)
+
+
 def main(argv=()) -> int:
     """Every phase with no arguments (the smoke run); ``--phases 3,11``
     runs the build and the listed phases only (3: kernels, 4: entry
     points, 5-6: serving and parity, 7: adviser, 8, 9, 10, 11, 12, 13, 14:
-    training, 15: the profiler), for
+    training, 15: the profiler, 16: training split over "model"), for
     a short development call, and prints the rows those phases made."""
-    phases = set(range(3, 16))
+    phases = set(range(3, 17))
     if len(argv) == 2 and argv[0] == "--phases":
         phases = {int(p) for p in argv[1].split(",")}
     elif argv:
@@ -5400,12 +5847,17 @@ def main(argv=()) -> int:
         p13_rows, p13_launches = phase13(card)
         rows.update(p13_rows)
         phase_done("13")
+    # phase 16's ranks (their own processes) run beside phases 14 and 15
+    p16 = Phase16() if 16 in phases else None
     if 14 in phases:
         phase14(card)
         phase_done("14")
     if 15 in phases:
         phase15(card)
         phase_done("15")
+    if p16 is not None:
+        p16.finish(card)
+        phase_done("16")
 
     bf16, f32 = torch.bfloat16, torch.float32
     table = []
@@ -5489,7 +5941,7 @@ def main(argv=()) -> int:
             ("p13_internlm2_tp4", bf16,
              "paged_decode_attention[internlm2-20b tp=4 rank-local T=1 H=12 KV=2 hd=128]",
              PAGED_SRC, PAGED_TPU)):
-        everything = phases == set(range(3, 16))
+        everything = phases == set(range(3, 17))
         if (key, dtype) not in rows:
             require(not everything, f"no row for {key}")
             continue

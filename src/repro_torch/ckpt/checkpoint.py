@@ -10,7 +10,12 @@ Port of the JAX package's ``ckpt/checkpoint.py``:
   runs on a daemon thread (``wait()`` joins it and raises what it raised,
   as every save and restore does first);
 * elastic restore — leaves are saved whole with their tree's order, and
-  ``restore`` casts each to the target's dtype and device.
+  ``restore`` casts each to the target's dtype and device; on a mesh
+  (``mesh=``, ``specs=``: the tree's sharding specs) a save gathers each
+  leaf whole, rank (0, …, 0) writes it and the others wait for it to be
+  published, and a restore slices each leaf for the rank it runs on, so a
+  checkpoint taken on one mesh restores onto another or onto one device
+  (the JAX package's ``restore(..., shardings=)``).
 
 numpy has no bfloat16: such a leaf is stored as its raw 16-bit pattern
 (``uint16``) with the dtype's name in ``meta.json``, so it restores bit for
@@ -29,6 +34,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel import sharding
 from repro_torch.tree import flatten, unflatten
 
 def _to_host(leaf) -> tuple[np.ndarray, str]:
@@ -58,6 +65,7 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None  # a failed background save
+        self._mesh = None  # the mesh of the last save: its ranks wait for rank 0's write
 
     # ------------------------------------------------------------------
     def _step_dir(self, step: int) -> str:
@@ -76,11 +84,27 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree: Any, *, meta: dict | None = None, blocking: bool = False):
+    def save(self, step: int, tree: Any, *, meta: dict | None = None, blocking: bool = False,
+             mesh=None, specs: Any = None):
         """Copy ``tree``'s leaves to the host now, then serialize them
-        (on a thread unless ``blocking``)."""
+        (on a thread unless ``blocking``). On ``mesh``, ``tree`` holds this
+        rank's shards and ``specs`` their specs (a tree of the same
+        structure, one spec tuple a leaf): every rank of the mesh calls it,
+        the leaves are gathered whole, rank (0, …, 0) writes them, and every
+        rank's next ``wait`` returns once they are published."""
         self.wait()
         leaves, _ = flatten(tree)
+        writer = True
+        if mesh is not None:
+            spec_leaves = flatten(specs, is_leaf=sharding.is_spec)[0]
+            leaves = [sharding.gather_leaf(t, sp, mesh) for t, sp in zip(leaves, spec_leaves,
+                                                                         strict=True)]
+            writer = not any(mesh.get_coordinate())
+            self._mesh = mesh
+        if not writer:
+            if blocking:
+                self.wait()
+            return
         host = [_to_host(leaf) for leaf in leaves]
         meta = dict(meta or {}, step=step, n_leaves=len(host), dtypes=[n for _, n in host])
 
@@ -105,15 +129,22 @@ class CheckpointManager:
 
         if blocking:
             work()
+            if mesh is not None:
+                self.wait()
         else:
             self._thread = threading.Thread(target=background, daemon=True)
             self._thread.start()
 
     def wait(self):
-        """Join the background save; raise what it raised, if anything."""
+        """Join the background save; raise what it raised, if anything.
+        After a save on a mesh, every rank of it waits here until rank (0,
+        …, 0) has published it."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            col.mesh_barrier(mesh)
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError(f"checkpoint save under {self.dir} failed") from err
@@ -123,12 +154,16 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # ------------------------------------------------------------------
-    def restore(self, tree_like: Any, step: int | None = None, *, device=None):
+    def restore(self, tree_like: Any, step: int | None = None, *, device=None, mesh=None,
+                specs: Any = None):
         """(the checkpoint of ``step`` — the latest by default — in the
         structure of ``tree_like``, its meta). Each leaf takes the dtype of
         ``tree_like``'s leaf (a float32 snapshot restores into bfloat16:
         the elastic path) and its device, or ``device`` where given (a meta
-        target restores on the CPU unless ``device`` says otherwise)."""
+        target restores on the CPU unless ``device`` says otherwise). On
+        ``mesh`` each whole leaf is sliced by its spec in ``specs`` for the
+        rank this runs on (``tree_like``'s leaves may be shards of any
+        mesh: only their dtypes and devices are read)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -141,10 +176,13 @@ class CheckpointManager:
         if len(refs) != meta["n_leaves"]:
             raise ValueError(f"checkpoint step {step} holds {meta['n_leaves']} leaves, the "
                              f"target tree {len(refs)}")
+        spec_leaves = (flatten(specs, is_leaf=sharding.is_spec)[0] if mesh is not None
+                       else [()] * len(refs))
         restored = []
         with np.load(os.path.join(d, "arrays.npz")) as data:
             for i, ref in enumerate(refs):
-                t = _from_host(data[f"leaf_{i}"], meta["dtypes"][i])
+                t = sharding.shard_leaf(_from_host(data[f"leaf_{i}"], meta["dtypes"][i]),
+                                        spec_leaves[i], mesh)
                 if isinstance(ref, torch.Tensor):
                     dev = device or (ref.device if ref.device.type != "meta" else "cpu")
                     t = t.to(device=dev, dtype=ref.dtype)

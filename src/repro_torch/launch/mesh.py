@@ -7,9 +7,11 @@ process group, one process a rank, every rank running the same code (the
 model ``torchrun`` launches). ``run_ranks`` starts such processes on this
 machine, joined into one gloo group over a file store: the CPU tests run
 their meshes this way, and so does ``chip_smoke.py`` on one card, where
-NCCL refuses two ranks on one device. (``make_production_mesh``, a
-256/512-chip TPU layout read only by the JAX package's dry run, is not
-ported.)
+NCCL refuses two ranks on one device. The same meshes serve split
+(``ServingEngine(..., mesh=)``) and train split (``Model(cfg, mesh=mesh)``).
+``make_production_mesh``, the 256/512-chip TPU layout that only the JAX
+package's dry run reads, has no Hopper counterpart yet: it comes with the
+port of that dry run.
 """
 from __future__ import annotations
 

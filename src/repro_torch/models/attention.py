@@ -28,6 +28,11 @@ tables, runs the partials mode over the blocks this rank holds and
 combines the partials across ``seq_axis`` (``distributed_softmax``); over a
 head split it gathers the head shards across ``tp_axis`` before the whole
 output projection.
+
+``attention_train_split`` is a rank's share of the training attention on a
+mesh (the reference route): its q heads when the heads divide the "model"
+axis, else its rows of queries (``seq_sp``, the sequence-parallel
+fallback); see its docstring.
 """
 from __future__ import annotations
 
@@ -39,6 +44,8 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels.ref import paged_partials_ref
+import torch.nn.functional as F
+
 from repro_torch.models.layers import apply_rope, rope_tables
 from repro_torch.parallel import collectives
 
@@ -460,3 +467,107 @@ def attention_block(
         return o2 @ params["wo"], new_kv
     out = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), params["wo"])
     return out, new_kv
+
+
+# ---------------------------------------------------------------------------
+# training split over a mesh axis
+
+
+def seq_rows(S: int, P: int, r: int) -> tuple:
+    """Rank r's rows [lo, hi) of S split over P ranks (equal when P | S)."""
+    return S * r // P, S * (r + 1) // P
+
+
+def rows_to_all(y, lo: int, S: int, mesh, axis, *, split_consumer: bool):
+    """Each rank's rows [lo, hi) of y [B, S, ...] → the whole [B, S, ...] on
+    every rank: a gather when the rows split evenly, else the rows placed
+    in zeros and summed. ``split_consumer``: each rank reads only part of
+    the result, so its gradient is summed back (else it is replicated)."""
+    P = collectives.group_size(mesh, axis)
+    if S % P == 0:
+        return collectives.gather(y, mesh, axis, dim=1,
+                                  backward="reduce_scatter" if split_consumer else "slice")
+    pad = [0, 0] * (y.dim() - 2) + [lo, S - lo - y.shape[1]]
+    full = F.pad(y, pad)
+    return (collectives.psum if split_consumer else collectives.leave)(full, mesh, axis)
+
+
+def attention_train_split(params, x, *, cfg, mesh, axis="model"):
+    """The training attention (causal, the reference route) as a rank's
+    share of a split over ``axis``: x [B, S, D] replicated over the axis in,
+    [B, S, D] replicated out.
+
+    - Head split (``n_heads`` divides the axis): the rank holds its q heads
+      [r·H/P, (r+1)·H/P) of ``wq`` and ``wo``, and its kv heads when
+      ``n_kv_heads`` divides too; otherwise ``wk``/``wv`` are whole, the
+      rank projects the kv heads its q heads read, and their gradients are
+      partial over the axis. The partial output projections are summed.
+    - ``seq_sp`` (the heads do not divide): every weight is whole; the
+      rank's queries are its rows of the sequence, attending over every
+      key before them (``q_offset``); the rows are gathered back.
+    - The flat layout (``wq`` [D, H·hd], ``wo`` [H·hd, D], ``attn_flat_tp``):
+      a weight whose flat columns split into whole heads is used as the
+      head split's; one split elsewhere (or read by ``seq_sp``) projects
+      its columns, and they are gathered into whole heads, the gradient
+      summed back.
+
+    Everything inside is entered through ``enter``, so each rank's share of
+    x's gradient is summed over the axis."""
+    B, S, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_rep = H // KV
+    P = collectives.group_size(mesh, axis)
+    r = collectives.axis_index(mesh, axis)
+    heads = H % P == 0
+    x = collectives.enter(x, mesh, axis)
+    cos, sin = rope_tables(torch.arange(S, device=x.device)[None, :], hd, cfg.rope_theta)
+    lo, hi = (0, S) if heads else seq_rows(S, P, r)
+
+    def project(w, n, rows):
+        """(the heads this rank holds of x[:, rows] @ w as [B, S', n', hd],
+        the first one's index)."""
+        if w.dim() == 3:
+            y = torch.einsum("bsd,dhk->bshk", x[:, rows], w)
+            return y, (r * w.shape[1] if w.shape[1] < n else 0)
+        cols = w.shape[1]
+        if cols == n * hd:
+            return (x[:, rows] @ w).reshape(B, -1, n, hd), 0
+        if heads and cols % hd == 0:
+            return (x[:, rows] @ w).reshape(B, -1, cols // hd, hd), r * (cols // hd)
+        y = collectives.gather(x @ w, mesh, axis, dim=2, backward="reduce_scatter")
+        return y.reshape(B, S, n, hd)[:, rows], 0
+
+    q_rows = slice(lo, hi)
+    q, q0 = project(params["wq"], H, q_rows)
+    k, k0 = project(params["wk"], KV, slice(None))
+    v, _ = project(params["wv"], KV, slice(None))
+    if heads:
+        h_l = H // P
+        q = q[:, :, r * h_l - q0:(r + 1) * h_l - q0]
+        # the kv head of each of this rank's q heads, among those it holds
+        need = torch.arange(r * h_l, (r + 1) * h_l, device=x.device) // n_rep - k0
+        if not (h_l % n_rep == 0 and k.shape[2] == h_l // n_rep
+                and k0 == r * h_l // n_rep):
+            k, v = k.index_select(2, need), v.index_select(2, need)
+    q = apply_rope(q, cos[:, lo:hi], sin[:, lo:hi])
+    k = apply_rope(k, cos, sin)
+    out = gqa_attention(q, k, v, q_offset=lo, chunk=cfg.attn_chunk, backend="reference")
+    out = out.to(x.dtype)
+    wo = params["wo"]
+    if heads:
+        if wo.dim() == 2:
+            y = out.reshape(B, S, -1) @ wo
+        else:
+            y = torch.einsum("bshk,hkd->bsd", out, wo)
+        return collectives.leave(y, mesh, axis)
+    if wo.dim() == 3:
+        return rows_to_all(torch.einsum("bshk,hkd->bsd", out, wo), lo, S, mesh, axis,
+                           split_consumer=False)
+    o2 = out.reshape(B, hi - lo, H * hd)
+    if wo.shape[0] == H * hd:
+        return rows_to_all(o2 @ wo, lo, S, mesh, axis, split_consumer=False)
+    # wo's rows split over the axis: every row of the output, this rank's
+    # columns of it, and the partial products summed
+    o_all = rows_to_all(o2, lo, S, mesh, axis, split_consumer=True)
+    c = wo.shape[0]
+    return collectives.leave(o_all[..., r * c:(r + 1) * c] @ wo, mesh, axis)

@@ -30,7 +30,10 @@ reference's do. ``jit_step`` compiles a step with its backend bound
 reference has ``jax.jit``). Serving drops the MoE's aux loss, as the
 reference's serving steps do. ``loss`` is the training objective (the
 reference route, remat a layer at a time, the MoE aux loss kept), with
-``param_axes`` and ``abstract_params`` beside ``init``.
+``param_axes`` and ``abstract_params`` beside ``init``; on a mesh it runs
+split over "model" (heads or ``seq_sp`` for attention, the hidden dim for
+SwiGLU, experts for a MoE, SSM heads for Mamba2, the vocabulary for the
+embedding and the loss), its FSDP leaves gathered over "data" at each use.
 """
 from __future__ import annotations
 
@@ -51,7 +54,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import step_graph
-from repro_torch.models.layers import chunked_softmax_xent, embed_tokens, rms_norm, swiglu
+from repro_torch.models.layers import (chunked_softmax_xent, chunked_softmax_xent_split,
+                                      embed_tokens, embed_tokens_split, rms_norm, swiglu,
+                                      swiglu_split)
+from repro_torch.parallel import collectives as col
 from repro_torch.parallel import sharding as sharding_mod
 from repro_torch.parallel.sharding import ShardingRules, mesh_shape
 
@@ -123,6 +129,59 @@ def _dots_policy(ctx, op, *args, **kwargs):
 _DOTS_SAVED = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
 
+def _as_is(tree, *path):
+    return tree
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainSplit:
+    """How a rank runs its share of a training step on a mesh: which
+    regions the "model" axis splits (a region whose dims it does not divide
+    runs whole on every rank), and the specs of the parameters as stored
+    (``rules``) and as computed with (``rules.tp_view()``: the FSDP "data"
+    axes gathered). ``attn``: "heads" (the q heads split), "seq" (the
+    sequence-parallel fallback ``seq_sp``) or "" (no split)."""
+
+    attn: str
+    mlp: bool
+    moe: bool
+    ssm: bool
+    vocab: bool
+    storage: dict
+    compute: dict
+    grad_axes: dict  # each leaf's ``sharding.grad_sum_axes``
+
+
+def _fsdp(t, stored, computed, mesh, how: str):
+    """``t`` (a stored shard, or its gradient) between the stored and the
+    compute layout: ``how`` "use" gathers the FSDP axes with the
+    reduce-scatter backward, "gather" gathers them without a gradient,
+    "scatter" reduce-scatters a compute-layout gradient back. Specs align
+    from the right, so a per-layer view of a stacked leaf takes its
+    stacked leaf's specs."""
+    off = len(stored) - t.dim()
+    for i in range(t.dim()):
+        keep = sharding_mod.spec_axes(computed[off + i])
+        axes = tuple(a for a in sharding_mod.spec_axes(stored[off + i]) if a not in keep)
+        if not axes:
+            continue
+        if how == "use":
+            t = col.gather(t, mesh, axes, dim=i, backward="reduce_scatter")
+        elif how == "gather":
+            t = col.all_gather_axes(t, mesh, axes, dim=i)
+        else:
+            t = col.reduce_scatter_axes(t, mesh, axes, dim=i)
+    return t
+
+
+def _map_paths(fn, tree, *rest, path=()):
+    """``fn(path, leaf, *matching leaves of rest)`` over a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, *(r[k] for r in rest), path=path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree, *rest)
+
+
 def _map_leaves(fn, tree, *rest, name=None):
     """``fn(key, leaf, *matching leaves of rest)`` over a nested dict,
     keeping its structure; ``key`` is the leaf's own dict key."""
@@ -136,7 +195,10 @@ class Model:
     ``device`` defaults to CUDA and raises when none is present.
 
     ``mesh``: a ``DeviceMesh`` (``launch/mesh.py``) whose ``ShardingRules``
-    the layers read (a MoE layer then runs its expert-parallel paths).
+    the layers read: a serving MoE layer then runs its expert-parallel
+    paths, and ``loss`` is this rank's share of the step split over the
+    mesh, on its shards of the parameters (``shard_params``,
+    ``train_split``).
     ``tp_axis`` / ``seq_axis`` make this model a rank's local view inside
     ``sharded_paged_step``: its cfg carries the rank's head counts, its
     paged attention gathers the head shards over ``tp_axis`` before the
@@ -157,6 +219,7 @@ class Model:
         # (set on the local view by sharded_paged_step)
         self.plan_kv_heads = None
         self._views = None  # (params, per-layer views) of the last params seen
+        self._split = None  # the TrainSplit of a model holding rules
         self._graph_pool = None  # (memory pool, side stream) of the captured steps
 
     # ------------------------------------------------------------------
@@ -189,12 +252,14 @@ class Model:
             """An attention layer and its SwiGLU MLP (``moe``: its routed
             expert MLP), each leaf with the leading dims ``lead`` (``(L,)``
             stacked, ``()`` shared)."""
+            # attn_flat_tp: the flat layout, q/kv dims flattened (h·hd)
+            q, kv = ((H * hd,), (KV * hd,)) if cfg.attn_flat_tp else ((H, hd), (KV, hd))
             block = {
                 "attn": {
-                    "wq": normal(lead + (D, H, hd), D**-0.5),
-                    "wk": normal(lead + (D, KV, hd), D**-0.5),
-                    "wv": normal(lead + (D, KV, hd), D**-0.5),
-                    "wo": normal(lead + (H, hd, D), (H * hd) ** -0.5),
+                    "wq": normal(lead + (D,) + q, D**-0.5),
+                    "wk": normal(lead + (D,) + kv, D**-0.5),
+                    "wv": normal(lead + (D,) + kv, D**-0.5),
+                    "wo": normal(lead + q + (D,), (H * hd) ** -0.5),
                 },
                 "attn_norm": ones(*lead, D),
                 "mlp_norm": ones(*lead, D),
@@ -303,15 +368,16 @@ class Model:
         G = self.cfg.num_layers // per
         return [[(i, views[i]) for i in range(gi * per, (gi + 1) * per)] for gi in range(G)]
 
-    def _embed_inputs(self, params, tokens, patch_embeds):
+    def _embed_inputs(self, params, tokens, patch_embeds, lookup=embed_tokens, use=_as_is):
         """Token embeddings [B,S,D]; a VLM's projected ``patch_embeds``
-        [B,P,D] lead them: [B,P+S,D]."""
-        x = embed_tokens(params["embed"], self._tokens(tokens))
+        [B,P,D] lead them: [B,P+S,D]. ``lookup`` / ``use``: a split training
+        step's table lookup and its FSDP gather of a leaf before its use."""
+        x = lookup(use(params["embed"], "embed"), self._tokens(tokens))
         if self.cfg.family == "vlm":
             if patch_embeds is None:
                 raise ValueError("a vlm prompt needs its patch_embeds [B, P, d_model]")
             pe = torch.as_tensor(patch_embeds, device=self.device).to(x.dtype)
-            x = torch.cat([pe @ params["patch_proj"], x], dim=1)
+            x = torch.cat([pe @ use(params["patch_proj"], "patch_proj"), x], dim=1)
         return x
 
     def forward(self, params, tokens, *, patch_embeds=None, backend=None):
@@ -345,46 +411,76 @@ class Model:
 
     # ------------------------------------------------------------------
     # training
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, gathered: bool = False):
         """The JAX package's ``Model.loss``: ``batch`` tokens [B,S], labels
         [B,S] and mask [B,S] (+ ``patch_embeds`` [B,P,D] for a VLM) →
         (loss, {"ce", "aux", "tokens"}). The forward runs on the reference
         route (no kernel has a backward), a layer at a time under
         ``cfg.remat``; a VLM's patch rows predict nothing; the head is
         ``embed.T`` when tied; loss = ce + 0.01 · aux, aux the MoE layers'
-        Switch losses summed (0 for the other families)."""
+        Switch losses summed (0 for the other families).
+
+        On a mesh (a model holding ``rules``) ``params`` are this rank's
+        shards (``shard_params``) and the forward is the rank's share of the
+        split step (``_forward_train``); the loss comes out replicated over
+        "model". An FSDP leaf is gathered over "data" at each use (in each
+        remat unit, so again in its recompute), unless ``gathered``: then
+        ``params`` are already in the compute layout (``fsdp_gather``)."""
         cfg = self.cfg
-        x, aux = self._forward_train(params, batch["tokens"], batch.get("patch_embeds"))
+        x, aux = self._forward_train(params, batch["tokens"], batch.get("patch_embeds"),
+                                     gathered=gathered)
         if cfg.family == "vlm":
             x = x[:, cfg.n_frontend_tokens:, :]
         labels = torch.as_tensor(batch["labels"], device=self.device)
         mask = torch.as_tensor(batch["mask"], device=self.device)
-        ce, cnt = chunked_softmax_xent(x, self._head(params), labels, mask)
+        sp = self.train_split
+        if sp is None:
+            ce, cnt = chunked_softmax_xent(x, self._head(params), labels, mask)
+        else:
+            use = _as_is if gathered else self._use
+            head = (use(params["embed"], "embed").T if cfg.tie_embeddings
+                    else use(params["lm_head"], "lm_head"))
+            ce, cnt = (chunked_softmax_xent_split(x, head, labels, mask, self.mesh)
+                       if sp.vocab else chunked_softmax_xent(x, head, labels, mask))
         return ce + 0.01 * aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
-    def _forward_train(self, params, tokens, patch_embeds=None):
+    def _forward_train(self, params, tokens, patch_embeds=None, gathered=False):
         """The training forward: (final-normed hidden [B,S',D], aux loss),
         with no cache. A layer — for the hybrid, a group of ``attn_every``
         SSM layers and the shared block after it — is one unit of
         ``_maybe_remat``, as a scan body is in the JAX package. The layers
         are ``unbind`` views of the stacked leaves, whose backward stacks
-        the layers' gradients once."""
+        the layers' gradients once. On a mesh each layer runs as the rank's
+        share of it (``_split_block``, ``ssm_block_split``), its FSDP leaves
+        gathered inside the unit."""
         cfg = self.cfg
-        x = self._embed_inputs(params, tokens, patch_embeds)
+        sp = self.train_split
+        use = self._use if sp is not None and not gathered else _as_is
+        lookup = embed_tokens
+        if sp is not None and sp.vocab:
+            lookup = functools.partial(embed_tokens_split, mesh=self.mesh)
+        x = self._embed_inputs(params, tokens, patch_embeds, lookup, use)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         layers = _unstack(params["layers"])
 
         def ssm(x, lp):
+            lp = use(lp, "layers")
+            if sp is not None and sp.ssm:
+                h = rms_norm(x, lp["norm"], cfg.norm_eps)
+                return x + ssm_mod.ssm_block_split(lp["ssm"], h, cfg, self.mesh)
             return self._ssm_layer(x, lp, "reference")[0]
+
+        def block(x, lp, path):
+            lp = use(lp, path)
+            if sp is None:
+                x, _, a = self._dense_layer(x, lp, "reference", want_aux=True)
+                return x, a
+            return self._split_block(x, lp, sp)
 
         def group(x, shared, lps):
             for lp in lps:
                 x = ssm(x, lp)
-            return self._dense_layer(x, shared, "reference")[0]
-
-        def dense(x, lp):
-            x, _, a = self._dense_layer(x, lp, "reference", want_aux=True)
-            return x, a
+            return block(x, shared, "shared")[0]
 
         if cfg.family == "ssm":
             body = self._maybe_remat(ssm)
@@ -395,12 +491,35 @@ class Model:
             for g in range(0, cfg.num_layers, per):
                 x = body(x, params["shared"], layers[g:g + per])
         else:
-            body = self._maybe_remat(dense)
+            body = self._maybe_remat(functools.partial(block, path="layers"))
             for lp in layers:
                 x, a = body(x, lp)
                 if a is not None:
                     aux = aux + a
-        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+        return rms_norm(x, use(params["final_norm"], "final_norm"), cfg.norm_eps), aux
+
+    def _split_block(self, x, lp, sp):
+        """An attention layer and its MLP (or MoE) as this rank's share of
+        the split over "model" → (x, aux or None); a region the axis does not
+        split (its dims do not divide) runs whole on every rank."""
+        cfg, mesh = self.cfg, self.mesh
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        if sp.attn:
+            h = attn.attention_train_split(lp["attn"], h, cfg=cfg, mesh=mesh)
+        else:
+            h = attn.attention_block(lp["attn"], h, cfg=cfg, backend="reference")[0]
+        x = x + h
+        hin = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        aux = None
+        if "moe" in lp:
+            if sp.moe:
+                h, aux = moe_mod.moe_train_split(hin, lp["moe"], cfg, mesh)
+            else:
+                h, aux = moe_mod.moe_block(hin, lp["moe"], cfg)
+        else:
+            mlp = (lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])
+            h = swiglu_split(hin, *mlp, mesh) if sp.mlp else swiglu(hin, *mlp)
+        return x + h, aux
 
     def _maybe_remat(self, fn):
         """``fn`` under ``cfg.remat``: "none" as it is, "full" under a
@@ -430,13 +549,16 @@ class Model:
         cfg = self.cfg
 
         def attn_block(moe):
+            if cfg.attn_flat_tp:
+                attn_axes = {"wq": ("embed", "qdim"), "wk": ("embed", "qdim"),
+                             "wv": ("embed", "qdim"), "wo": ("qdim", "embed")}
+            else:
+                attn_axes = {"wq": ("embed", "heads", "head_dim"),
+                             "wk": ("embed", "kv_heads", "head_dim"),
+                             "wv": ("embed", "kv_heads", "head_dim"),
+                             "wo": ("heads", "head_dim", "embed")}
             block = {
-                "attn": {
-                    "wq": ("embed", "heads", "head_dim"),
-                    "wk": ("embed", "kv_heads", "head_dim"),
-                    "wv": ("embed", "kv_heads", "head_dim"),
-                    "wo": ("heads", "head_dim", "embed"),
-                },
+                "attn": attn_axes,
                 "attn_norm": ("embed",),
                 "mlp_norm": ("embed",),
             }
@@ -466,6 +588,83 @@ class Model:
         and dtypes with no storage allocated (the JAX package's
         ``eval_shape`` of ``init``)."""
         return Model(self.cfg, device="meta").init(), self.param_axes()
+
+    # ------------------------------------------------------------------
+    # training split over a mesh
+    @property
+    def train_split(self) -> Optional[TrainSplit]:
+        """This model's ``TrainSplit`` on its mesh (None without rules)."""
+        if self.rules is None:
+            return None
+        if self._split is None:
+            self._split = self._make_split()
+        return self._split
+
+    def _make_split(self) -> TrainSplit:
+        cfg, rules = self.cfg, self.rules
+        shapes, axes = self.abstract_params()
+        storage = sharding_mod.tree_specs(shapes, axes, rules)
+        compute = sharding_mod.tree_specs(shapes, axes, rules.tp_view())
+        split = mesh_shape(self.mesh).get("model", 1) > 1
+        layer = compute["layers"]
+
+        def splits(spec, dim):
+            return split and "model" in sharding_mod.spec_axes(spec[dim])
+
+        attn_on = split and cfg.family != "ssm"
+        w1 = (compute.get("shared") or layer).get("mlp", {}).get("w1")
+        flags = dict(
+            attn=("heads" if rules.table["heads"] == "model" else "seq") if attn_on else "",
+            mlp=w1 is not None and splits(w1, -1),  # (…, "embed", "mlp")
+            moe=split and cfg.family == "moe",
+            ssm="ssm" in layer and splits(layer["ssm"]["wdt"], -1),  # (…, "ssm_heads")
+            vocab=splits(compute["embed"], 0),  # ("vocab", "embed")
+        )
+        region = {"attn": bool(flags["attn"]), "mlp": flags["mlp"], "moe": flags["moe"],
+                  "ssm": flags["ssm"]}
+
+        def sum_axes(path, spec):
+            # rule B: a leaf replicated over "model" inside a split region
+            # (the block's own sub-dict names its region)
+            inside = path[0] in ("layers", "shared") and region.get(path[1], False)
+            return sharding_mod.grad_sum_axes(spec, self.mesh, rules.table["batch"], inside)
+
+        return TrainSplit(storage=storage, compute=compute,
+                          grad_axes=_map_paths(sum_axes, storage), **flags)
+
+    def _use(self, tree, *path):
+        """``tree`` (stored shards under ``path`` of the parameters) in the
+        compute layout: its FSDP leaves gathered over "data" here, at their
+        use, the gradient reduce-scattered back."""
+        return self._fsdp_map("use", tree, path)
+
+    def _fsdp_map(self, how, tree, path=()):
+        """``_fsdp(leaf, …, how)`` over ``tree``, the parameters' sub-tree
+        under ``path``."""
+        st, ct = self.train_split.storage, self.train_split.compute
+        for k in path:
+            st, ct = st[k], ct[k]
+        return _map_leaves(lambda _, t, s_, c_: _fsdp(t, s_, c_, self.mesh, how), tree, st, ct)
+
+    def shard_params(self, params) -> dict:
+        """This rank's shard of every leaf of the whole ``params`` (or of an
+        optimizer moment tree in their structure), as ``rules`` places it."""
+        return sharding_mod.shard_tree(params, self.param_axes(), self.rules, self.mesh)
+
+    def gather_params(self, shards) -> dict:
+        """``shard_params``'s inverse: the whole leaves, on every rank."""
+        return sharding_mod.gather_tree(shards, self.train_split.storage, self.mesh)
+
+    def fsdp_gather(self, shards) -> dict:
+        """The stored shards in the compute layout (``rules.tp_view()``):
+        the FSDP "data" axes gathered, with no gradient (ZeRO-2's gather
+        once a step)."""
+        return self._fsdp_map("gather", shards)
+
+    def fsdp_scatter(self, grads) -> dict:
+        """Gradients in the compute layout reduce-scattered back to the
+        stored shards (``fsdp_gather``'s transpose)."""
+        return self._fsdp_map("scatter", grads)
 
     # ------------------------------------------------------------------
     # caches

@@ -36,6 +36,11 @@ shards of them:
   completes it: tokens move to the weights, the weights never move;
 - ``LEGACY_DENSE`` swaps in ``_moe_dense_legacy``, the baseline that needs
   each expert's whole F on its rank.
+
+``moe_train_split`` is the dispatch path inside a training step split over
+a mesh, with gradients: the arguments and the result are the rank's own
+(its batch shard's tokens, its E/ep experts), and every collective carries
+its transpose (``parallel/collectives.py``).
 """
 from __future__ import annotations
 
@@ -299,4 +304,39 @@ def moe_block(x, params, cfg, rules=None, path: str = "dispatch"):
         y, aux = impl(x2d, params, cfg, rules)
     else:
         y, aux = _moe_dispatch_sharded(x2d, params, cfg, rules)
+    return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def moe_train_split(x, params, cfg, mesh, axis="model"):
+    """The expert-parallel dispatch path of a training step split over
+    ``axis``, with gradients: x [B, S, D] (this rank's batch shard,
+    replicated over ``axis``) → (y [B, S, D], aux). ``params`` holds the
+    rank's E/ep experts (``we*`` [E/ep, D, F]) and the whole router.
+
+    The B·S tokens split over ``axis``: rank m routes its T_l = B·S/ep of
+    them (capacity ``moe_capacity(T_l)``; inside a step whose batch is
+    split over "data", T_l is the JAX package's T / (data · model)), an
+    all-to-all carries each expert's slots to its rank and back, and the
+    tokens' outputs are gathered. The router is read by every rank for its
+    own tokens, so its gradient is partial over ``axis``. The aux loss is
+    the mean of the ranks' (``pmean``); the step averages it over "data"."""
+    B, S, D = x.shape
+    ep = col.group_size(mesh, axis)
+    E = cfg.n_experts
+    if E % ep or (B * S) % ep:
+        raise ValueError(f"moe_train_split: {E} experts and {B * S} tokens over {ep} ranks")
+    el, T_l = E // ep, B * S // ep
+    m = col.axis_index(mesh, axis)
+    x2d = col.enter(x.reshape(B * S, D), mesh, axis)
+    x_loc = x2d[m * T_l:(m + 1) * T_l]
+    gates, idx, probs = _route(x_loc, params["router"], cfg.top_k)
+    C = moe_capacity(T_l, cfg)
+    buf, lin, gf = _dispatch_local(x_loc, gates, idx, E, C)
+    recv = col.all_to_all_grad(buf.reshape(ep, el, C, D), mesh, axis)  # [ep, el, C, D]
+    xe = recv.transpose(0, 1).reshape(el, ep * C, D)  # the rank's experts, every source
+    y = _expert_ffn(xe, params["we1"], params["we3"], params["we2"])
+    back = col.all_to_all_grad(y.reshape(el, ep, C, D).transpose(0, 1).contiguous(), mesh, axis)
+    out = _combine_local(back.reshape(E, C, D), lin, gf, T_l, cfg.top_k)
+    aux = col.leave(switch_aux(probs, idx), mesh, axis) / ep
+    y = col.gather(out, mesh, axis, dim=0, backward="slice")
     return y.reshape(B, S, D).to(x.dtype), aux

@@ -9,6 +9,9 @@ path's plain ``_ssd_chunk_scan``. Decode: the O(1) one-step recurrence in
 plain PyTorch ops, as the JAX package runs it in einsums.
 
 n_groups = 1 (B/C shared across heads); A is a per-head scalar (Mamba2).
+
+``ssm_block_split`` is a rank's share of the training block split over the
+SSM heads (see its docstring).
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.models.layers import gated_rms_norm
+from repro_torch.models.layers import gated_rms_norm, gated_rms_norm_split
+from repro_torch.parallel import collectives as col
 
 # the per-head SSM scalars are float32 in every model dtype
 FLOAT32_PARAMS = ("A_log", "dt_bias", "D")
@@ -149,6 +153,33 @@ def ssm_block(params, x, cfg, state=None, want_state=False, backend=None):
     y = y + params["D"][None, None, :, None].to(y.dtype) * xh
     y = gated_rms_norm(y.reshape(B, S, h * hd), z, params["norm"], cfg.norm_eps)
     return y @ params["out"], new_state
+
+
+def ssm_block_split(params, x, cfg, mesh, axis="model"):
+    """The training block (no state) as a rank's share of a split over the
+    SSM heads on ``axis``: x [B, S, D] replicated in and out. The rank holds
+    its slices of ``wx``, ``wz``, ``conv_x``, ``norm`` and ``out``
+    ("ssm_inner": heads [r·h/P, (r+1)·h/P) times their head dim) and of
+    ``wdt``, ``A_log``, ``dt_bias`` and ``D`` ("ssm_heads"); ``wB``, ``wC``
+    and their convs are whole, read by every rank for its own heads, so
+    their gradients are partial. The gated norm sums its squares over the
+    axis, and the partial output projections are summed."""
+    B, S, D = x.shape
+    hd = cfg.ssm_head_dim
+    x = col.enter(x, mesh, axis)
+    xz, _ = _causal_conv(x @ params["wx"], params["conv_x"])
+    b, _ = _causal_conv(x @ params["wB"], params["conv_B"])
+    c, _ = _causal_conv(x @ params["wC"], params["conv_C"])
+    z = x @ params["wz"]
+    dt = F.softplus((x @ params["wdt"]).float() + params["dt_bias"])
+    xz, b, c = F.silu(xz), F.silu(b), F.silu(c)
+    a = torch.exp(dt * -torch.exp(params["A_log"]))
+    xh = xz.reshape(B, S, -1, hd)
+    y, _ = _ssd_chunk_scan(xh, a, b, c, dt, cfg.ssm_chunk)
+    y = y + params["D"][None, None, :, None].to(y.dtype) * xh
+    y = gated_rms_norm_split(y.reshape(B, S, -1), z, params["norm"], cfg.norm_eps, mesh, axis,
+                             cfg.ssm_d_inner)
+    return col.leave(y @ params["out"], mesh, axis)
 
 
 def init_ssm_state(cfg, batch, dtype, device) -> dict:

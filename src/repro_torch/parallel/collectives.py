@@ -8,8 +8,9 @@ every rank is a process running the same code (``torchrun``'s model), so a
 - ``lax.axis_index(axis)`` is ``axis_index(mesh, axis)``
   (``DeviceMesh.get_local_rank``);
 - ``psum`` / ``pmax`` are ``all_reduce`` over ``mesh.get_group(axis)``;
-- ``all_gather``, ``all_to_all`` and ``ppermute`` (``ring_shift``) map to
-  their ``torch.distributed`` namesakes.
+- ``all_gather``, ``all_to_all``, ``psum_scatter`` (``reduce_scatter``)
+  and ``ppermute`` (``ring_shift``) map to their ``torch.distributed``
+  namesakes.
 
 Every collective of the port goes through this module, so the backend
 question is answered here once. Gloo runs a collective on CPU tensors; for
@@ -17,10 +18,15 @@ a CUDA tensor over a gloo group, an op in ``GLOO_CUDA_NATIVE`` is handed to
 gloo as it is, and every other op is staged through host memory explicitly
 (copy out, collective, copy back), logged once an op. Nothing switches
 backend silently. ``STATS`` counts the calls, the seconds spent inside them
-and the bytes staged, for the caller to read (``reset_stats``); each call
-also reports its op, under the JAX package's HLO name, and its result's
-bytes on this rank to every callable in ``OBSERVERS`` (the op counter of
-``core/op_cost.py`` while it counts).
+and the bytes staged, and each op's calls, seconds and result bytes under
+its JAX name (``STATS["ops"]``), for the caller to read (``reset_stats``);
+each call also reports its op, under the JAX package's HLO name, and its
+result's bytes on this rank to every callable in ``OBSERVERS`` (the op
+counter of ``core/op_cost.py`` while it counts).
+
+A training step split over a mesh differentiates through its collectives:
+``enter`` / ``leave`` / ``psum`` / ``gather`` / ``all_to_all_grad`` carry
+each one's transpose (the section below says which is which).
 
 ``distributed_softmax`` combines per-rank flash partials (the kv-sequence
 split); ``ring_allgather_matmul``, ``matmul_reducescatter`` and
@@ -51,25 +57,34 @@ log = logging.getLogger("repro_torch.parallel")
 # through host memory here
 GLOO_CUDA_NATIVE: frozenset = frozenset({"all_reduce", "all_gather", "all_to_all"})
 
-STATS = {"calls": 0, "seconds": 0.0, "staged_calls": 0, "staged_bytes": 0}
+# "ops": the JAX package's name of each op (psum, pmax, all_gather,
+# psum_scatter, all_to_all, ppermute, broadcast) → its calls, seconds and
+# result bytes on this rank
+STATS = {"calls": 0, "seconds": 0.0, "staged_calls": 0, "staged_bytes": 0, "ops": {}}
 _STAGED_LOGGED: set = set()
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 # callables told (op, result bytes on this rank) of each collective call;
-# ops under the JAX package's names: all-reduce, all-gather, all-to-all,
-# and a ring shift as collective-permute
+# ops under the JAX package's HLO names: all-reduce, all-gather,
+# reduce-scatter, all-to-all, and a ring shift as collective-permute
 OBSERVERS: list = []
 
 
-def _report(op: str, result: torch.Tensor) -> None:
+def _op_stats(name: str) -> dict:
+    return STATS["ops"].setdefault(name, {"calls": 0, "seconds": 0.0, "bytes": 0})
+
+
+def _report(op: str, result: torch.Tensor, name: str) -> None:
+    n = result.numel() * result.element_size()
+    _op_stats(name)["bytes"] += n
     for observe in OBSERVERS:
-        observe(op, result.numel() * result.element_size())
+        observe(op, n)
 
 
 def reset_stats() -> None:
     for k in STATS:
-        STATS[k] = 0.0 if k == "seconds" else 0
+        STATS[k] = {} if k == "ops" else 0.0 if k == "seconds" else 0
 
 
 def axis_index(mesh, axis: str) -> int:
@@ -100,24 +115,32 @@ def _staged(op: str, t: torch.Tensor, group) -> bool:
 
 
 class _Timed:
+    """Counts a call of the op ``name`` and the seconds spent inside it."""
+
+    def __init__(self, name: str):
+        self.name = name
+
     def __enter__(self):
         self.t0 = time.perf_counter()
         STATS["calls"] += 1
+        _op_stats(self.name)["calls"] += 1
 
     def __exit__(self, *exc):
-        STATS["seconds"] += time.perf_counter() - self.t0
+        dt = time.perf_counter() - self.t0
+        STATS["seconds"] += dt
+        _op_stats(self.name)["seconds"] += dt
 
 
 def all_reduce(t: torch.Tensor, mesh, axis: str, op: str = "sum") -> torch.Tensor:
     """``psum`` (``op="sum"``) or ``pmax`` (``"max"``) of ``t`` over
     ``axis``; ``t`` itself is left as it was."""
     group = _group(mesh, axis)
-    with _Timed():
+    with _Timed("psum" if op == "sum" else "pmax"):
         staged = _staged("all_reduce", t, group)
         x = (t.detach().cpu() if staged else t.detach()).clone(
             memory_format=torch.contiguous_format)
         dist.all_reduce(x, op=_OPS[op], group=group)
-        _report("all-reduce", x)
+        _report("all-reduce", x, "psum" if op == "sum" else "pmax")
         return x.to(t.device) if staged else x
 
 
@@ -125,13 +148,31 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """The ranks' ``t`` along ``axis`` concatenated on ``dim`` in rank
     order (``all_gather(..., tiled=True)``)."""
     group = _group(mesh, axis)
-    with _Timed():
+    with _Timed("all_gather"):
         staged = _staged("all_gather", t, group)
         x = (t.detach().cpu() if staged else t.detach()).contiguous()
         outs = [torch.empty_like(x) for _ in range(group.size())]
         dist.all_gather(outs, x, group=group)
         out = torch.cat(outs, dim=dim)
-        _report("all-gather", out)
+        _report("all-gather", out, "all_gather")
+        return out.to(t.device) if staged else out
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """The sum of the ranks' ``t`` along ``axis``, of which this rank keeps
+    its chunk along ``dim`` in rank order (``psum_scatter(...,
+    scatter_dimension=dim, tiled=True)``): the transpose of ``all_gather``."""
+    group = _group(mesh, axis)
+    p = group.size()
+    if t.shape[dim] % p:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} over {p} ranks")
+    with _Timed("psum_scatter"):
+        staged = _staged("reduce_scatter", t, group)
+        x = (t.detach().cpu() if staged else t.detach()).movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // p,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=group)
+        out = out.movedim(0, dim).contiguous()
+        _report("reduce-scatter", out, "psum_scatter")
         return out.to(t.device) if staged else out
 
 
@@ -140,12 +181,12 @@ def all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     ...] whose chunk j came from rank j (``all_to_all(split_axis=0,
     concat_axis=0)``)."""
     group = _group(mesh, axis)
-    with _Timed():
+    with _Timed("all_to_all"):
         staged = _staged("all_to_all", t, group)
         x = (t.detach().cpu() if staged else t.detach()).contiguous()
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=group)
-        _report("all-to-all", out)
+        _report("all-to-all", out, "all_to_all")
         return out.to(t.device) if staged else out
 
 
@@ -156,7 +197,7 @@ class _Shift:
         self.reqs, self.recv, self.device, self.staged = reqs, recv, device, staged
 
     def wait(self) -> torch.Tensor:
-        with _Timed():
+        with _Timed("ppermute"):
             for r in self.reqs:
                 r.wait()
         return self.recv.to(self.device) if self.staged else self.recv
@@ -168,7 +209,7 @@ def ring_shift_start(t: torch.Tensor, mesh, axis: str) -> _Shift:
     the matmul the caller runs meanwhile overlaps it."""
     group = _group(mesh, axis)
     p, idx = group.size(), axis_index(mesh, axis)
-    with _Timed():
+    with _Timed("ppermute"):
         staged = _staged("ring_shift", t, group)
         x = (t.detach().cpu() if staged else t.detach()).contiguous()
         recv = torch.empty_like(x)
@@ -176,7 +217,7 @@ def ring_shift_start(t: torch.Tensor, mesh, axis: str) -> _Shift:
         prv = dist.get_global_rank(group, (idx - 1) % p)
         reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, nxt, group),
                                        dist.P2POp(dist.irecv, recv, prv, group)])
-        _report("collective-permute", recv)
+        _report("collective-permute", recv, "ppermute")
     return _Shift(reqs, recv, t.device, staged)
 
 
@@ -218,6 +259,20 @@ def all_reduce_axes(t: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tenso
     return t
 
 
+def reduce_scatter_axes(t: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """``reduce_scatter`` over several axes: the transpose of
+    ``all_gather_axes`` (this rank keeps chunk ``shard_index(axes)``)."""
+    for a in present_axes(mesh, axes):
+        t = reduce_scatter(t, mesh, a, dim)
+    return t
+
+
+def mesh_barrier(mesh) -> None:
+    """Wait until every rank of ``mesh`` got here (a broadcast along each
+    axis in turn)."""
+    mesh_broadcast_value(0.0, mesh)
+
+
 def _host(group, values, dtype) -> torch.Tensor:
     dev = "cpu" if dist.get_backend(group) == "gloo" else "cuda"
     return torch.tensor(values, dtype=dtype, device=dev)
@@ -228,7 +283,7 @@ def mesh_broadcast_value(value: float, mesh) -> float:
     from local rank 0 along each axis in turn."""
     names = mesh.mesh_dim_names
     x = _host(_group(mesh, names[0]), [float(value)], torch.float64)
-    with _Timed():
+    with _Timed("broadcast"):
         for a in names:
             group = _group(mesh, a)
             dist.broadcast(x, dist.get_global_rank(group, 0), group=group)
@@ -238,7 +293,7 @@ def mesh_broadcast_value(value: float, mesh) -> float:
 def broadcast_object(obj, mesh):
     """Rank (0, …, 0)'s picklable ``obj`` on every rank of ``mesh``."""
     box = [obj]
-    with _Timed():
+    with _Timed("broadcast"):
         for a in mesh.mesh_dim_names:
             group = _group(mesh, a)
             dist.broadcast_object_list(box, dist.get_global_rank(group, 0), group=group)
@@ -254,7 +309,7 @@ def check_replicated(mesh, *arrays, what: str = "schedule") -> None:
         h = zlib.crc32(np.ascontiguousarray(a).tobytes(), h)
     names = mesh.mesh_dim_names
     x = _host(_group(mesh, names[0]), [h, -h], torch.int64)
-    with _Timed():
+    with _Timed("pmax"):
         for a in names:
             dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_group(mesh, a))
     hi, lo = int(x[0]), -int(x[1])
@@ -263,6 +318,125 @@ def check_replicated(mesh, *arrays, what: str = "schedule") -> None:
             f"ranks diverged: the {what} differs across the mesh (CRC-32 {lo:#x} .. {hi:#x}); "
             "every rank must run the same schedule on the same inputs"
         )
+
+
+# ---------------------------------------------------------------------------
+# collectives that carry gradients (a training step split over a mesh)
+#
+# ``torch.distributed`` collectives are outside autograd; these functions
+# give each one the transpose it has under JAX's autodiff. Megatron's pair
+# brackets every region a rank computes a share of: ``enter`` (identity
+# forward, the gradients' sum backward: each rank's share of the input's
+# gradient) and ``leave`` (the sum forward, identity backward: the result is
+# replicated, and so is its gradient). ``psum`` sums both ways, for a sum
+# whose consumers are split too (the gated norm's sum of squares). A gather
+# says what its consumer is: replicated (``backward="slice"``: every rank
+# holds the whole gradient, and keeps its chunk) or split
+# (``"reduce_scatter"``: each rank holds its share of it, as the FSDP
+# gather's consumer does). An axis of size 1 (or that the mesh does not
+# define) makes each of them the identity.
+
+
+def _live_axes(mesh, axes) -> tuple:
+    return tuple(a for a in present_axes(mesh, axes) if group_size(mesh, a) > 1)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_axes(g, ctx.mesh, ctx.axes), None, None
+
+
+class _Leave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return all_reduce_axes(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce_axes(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_axes(g, ctx.mesh, ctx.axes), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim, split_consumer):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.split = mesh, axes, dim, split_consumer
+        ctx.n = t.shape[dim]
+        return all_gather_axes(t, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.split:
+            return reduce_scatter_axes(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None, None
+        i = shard_index(ctx.mesh, ctx.axes)
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_to_all(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        # chunk j went to rank j, and its gradient comes back from there
+        return all_to_all(g, ctx.mesh, ctx.axis), None, None
+
+
+def enter(t: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+    """Enter a split region (Megatron's f): identity forward, the
+    gradients summed over ``axes`` backward."""
+    axes = _live_axes(mesh, axes)
+    return _Enter.apply(t, mesh, axes) if axes else t
+
+
+def leave(t: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+    """Leave a split region (Megatron's g): the ranks' shares summed over
+    ``axes`` forward, identity backward."""
+    axes = _live_axes(mesh, axes)
+    return _Leave.apply(t, mesh, axes) if axes else t
+
+
+def psum(t: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+    """The sum over ``axes`` forward and backward (JAX's ``psum``, whose
+    transpose is itself)."""
+    axes = _live_axes(mesh, axes)
+    return _Psum.apply(t, mesh, axes) if axes else t
+
+
+def gather(t: torch.Tensor, mesh, axes, dim: int = 0, *, backward: str) -> torch.Tensor:
+    """``all_gather_axes`` with a gradient: ``backward="slice"`` when what
+    reads the result is replicated over ``axes`` (each rank keeps its chunk
+    of the gradient), ``"reduce_scatter"`` when it is split (each rank's
+    share of the gradient summed, and its chunk kept)."""
+    if backward not in ("slice", "reduce_scatter"):
+        raise ValueError(f"gather: backward must be 'slice' or 'reduce_scatter', not {backward!r}")
+    axes = _live_axes(mesh, axes)
+    return _Gather.apply(t, mesh, axes, dim, backward == "reduce_scatter") if axes else t
+
+
+def all_to_all_grad(t: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """``all_to_all`` with a gradient (the same exchange backward)."""
+    if not _live_axes(mesh, axis):
+        return t
+    return _AllToAll.apply(t, mesh, axis)
 
 
 # ---------------------------------------------------------------------------

@@ -15,12 +15,20 @@ The rules read only the mesh's axis sizes (``mesh_shape``): a
 no GSPMD partitioner to hint, so ``constrain`` is the identity: in the port
 each rank runs its shard's code itself (``Model.sharded_paged_step``,
 ``models/moe.py``), and a spec says which shard that is.
+
+``shard_tree`` is the counterpart of ``tree_shardings`` plus
+``device_put``: each leaf of a whole tree becomes this rank's slice of it,
+by its spec; ``gather_tree`` puts the whole leaves back together on every
+rank; ``grad_sum_axes`` says over which mesh axes a leaf's gradient is a
+partial sum in a split training step.
 """
 from __future__ import annotations
 
 import copy
 import math
 from typing import Optional, Sequence, Tuple, Union
+
+import torch
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
@@ -171,3 +179,98 @@ def paged_pool_specs(axis: Optional[str] = "model", seq_axis: Optional[str] = No
         specs["k_scale"] = sc
         specs["v_scale"] = sc
     return specs
+
+
+# ---------------------------------------------------------------------------
+# trees of shards
+
+
+def is_spec(node) -> bool:
+    """Whether ``node`` is a spec (a plain tuple), the leaf of a spec tree."""
+    return isinstance(node, tuple) and not hasattr(node, "_fields")
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry (None, a name or a tuple of names)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def used_axes(spec) -> tuple:
+    """Every mesh axis a spec splits some dimension over."""
+    return tuple(a for entry in spec for a in spec_axes(entry))
+
+
+def map_dicts(fn, tree, *rest):
+    """``fn(leaf, *matching leaves of rest)`` over nested dicts (anything
+    else is a leaf, a spec tuple too)."""
+    if isinstance(tree, dict):
+        return {k: map_dicts(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_specs(tree, axes, rules) -> dict:
+    """The spec of each leaf of a whole tree (nested dicts of tensors, or of
+    anything with a ``shape``), by its logical axes in ``axes``."""
+    return map_dicts(lambda t, ax: rules.spec(ax, tuple(t.shape)), tree, axes)
+
+
+def shard_slices(spec, shape, mesh) -> tuple:
+    """This rank's slice of each dimension of a whole array of ``shape``."""
+    from repro_torch.parallel import collectives as col
+
+    out = []
+    for entry, dim in zip(spec, shape):
+        axes = spec_axes(entry)
+        if not axes:
+            out.append(slice(None))
+            continue
+        n = axis_size(mesh, axes)
+        i = col.shard_index(mesh, axes)
+        out.append(slice(i * (dim // n), (i + 1) * (dim // n)))
+    return tuple(out)
+
+
+def shard_leaf(t, spec, mesh):
+    """This rank's shard of the whole ``t`` (a copy: the whole leaf can go)."""
+    if not used_axes(spec):
+        return t
+    return t[shard_slices(spec, t.shape, mesh)].clone(memory_format=torch.contiguous_format)
+
+
+def shard_tree(tree, axes, rules, mesh) -> dict:
+    """Each leaf of the whole ``tree`` as this rank's shard of ``mesh`` by
+    ``rules.spec(axes, shape)``."""
+    return map_dicts(lambda t, ax: shard_leaf(t, rules.spec(ax, tuple(t.shape)), mesh),
+                     tree, axes)
+
+
+def gather_leaf(t, spec, mesh):
+    """The whole leaf back from this rank's shard ``t`` (every rank of the
+    mesh calls it), without a gradient."""
+    from repro_torch.parallel import collectives as col
+
+    for dim, entry in enumerate(spec):
+        if spec_axes(entry):
+            t = col.all_gather_axes(t, mesh, spec_axes(entry), dim)
+    return t
+
+
+def gather_tree(tree, specs, mesh) -> dict:
+    """``shard_tree``'s inverse: the whole leaves on every rank."""
+    return map_dicts(lambda t, sp: gather_leaf(t, sp, mesh), tree, specs)
+
+
+def grad_sum_axes(spec, mesh, batch_axes, partial_model: bool) -> tuple:
+    """The mesh axes over which a leaf's gradient is a partial sum in a
+    step split over ``mesh``: each batch axis that does not split the leaf
+    (each rank differentiated its own batch shard; an FSDP shard's
+    gradient was already summed over its axis by the gather's
+    reduce-scatter), and "model" where ``partial_model`` (a leaf
+    replicated over "model" but read inside a region split over it)."""
+    held = set(used_axes(spec))
+    axes = tuple(a for a in batch_axes if a in mesh_shape(mesh) and a not in held)
+    if partial_model and "model" in mesh_shape(mesh) and "model" not in held:
+        axes += ("model",)
+    return axes

@@ -15,6 +15,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.parallel import collectives as col
 from repro_torch.tree import flatten, map_tree, unflatten
 
 
@@ -58,16 +59,30 @@ class AdamW:
         return self.lr * warm * frac
 
     @torch.no_grad()
-    def update(self, grads, state: OptState, params):
+    def update(self, grads, state: OptState, params, *, mesh=None, norm_axes=None):
         """(new params, new state, {"grad_norm", "lr"}). The gradients are
         clipped to a global norm of ``clip_norm``; the rate is
         ``schedule(state.step)`` (the step before this update); weight decay
         applies to leaves of two or more dimensions only (norms and biases
         are exempt); each parameter is updated in float32 and cast back to
-        its dtype."""
+        its dtype.
+
+        Sharded leaves (a step split over ``mesh``): ``norm_axes`` lists, in
+        the leaves' order, the mesh axes that split each leaf; each leaf's
+        sum of squares is summed over them (leaves that share them in one
+        all-reduce), so the norm is the whole gradient's and a replicated
+        leaf counts once."""
         flat_p, spec = flatten(params)
         flat_g, flat_m, flat_v = (flatten(t)[0] for t in (grads, state.mu, state.nu))
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in flat_g))
+        sq = [torch.sum(torch.square(g.float())) for g in flat_g]
+        if norm_axes is None:
+            gnorm = torch.sqrt(sum(sq))
+        else:
+            by_axes: dict = {}
+            for q, axes in zip(sq, norm_axes, strict=True):
+                by_axes[axes] = by_axes.get(axes, 0) + q
+            gnorm = torch.sqrt(sum(col.all_reduce_axes(v, mesh, axes) if axes else v
+                                   for axes, v in by_axes.items()))
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
         step = state.step + 1
         lr = self.schedule(state.step)

@@ -9,7 +9,8 @@ package's ``train/trainer.py``:
 * straggler watchdog: an EWMA of the step's wall time (after a device
   synchronise on CUDA); a step slower than ``straggler_factor`` × the EWMA
   is logged and checkpointed at once;
-* elastic resume: checkpoints hold whole leaves (``ckpt/checkpoint.py``).
+* elastic resume: checkpoints hold whole leaves (``ckpt/checkpoint.py``),
+  so a run resumes on any mesh or on one device.
 
 The step is ``compiled_train_step``, the reference's ``jax.jit`` of
 ``make_train_step``: one CUDA graph a batch shape on the card (the first
@@ -19,6 +20,13 @@ The trainer owns the state storage that the graph updates in place, as
 a ``run(state)`` given a state copy into it, so a restart captures nothing
 new. The state ``run`` returns is that storage; the next ``run`` steps it
 in place (a checkpoint's host copy is taken before ``save`` returns).
+
+A model built on a mesh (``Model(cfg, mesh=mesh)``) trains split: every
+rank of the mesh runs the trainer, its state is the rank's shards
+(``model.shard_params``), the step is ``make_train_step``'s split step
+(ZeRO-2 for an FSDP config with ``zero2``), run eagerly as a gloo
+collective cannot be captured, and checkpoints are saved whole by rank (0,
+…, 0) and sliced for each rank on restore.
 """
 from __future__ import annotations
 
@@ -31,8 +39,8 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.ckpt.checkpoint import CheckpointManager
-from repro_torch.train.optimizer import AdamW
-from repro_torch.train.train_step import compiled_train_step
+from repro_torch.train.optimizer import AdamW, OptState
+from repro_torch.train.train_step import compiled_train_step, make_train_step
 from repro_torch.tree import flatten, map_tree
 
 
@@ -74,7 +82,13 @@ class Trainer:
         self.fail_at_step = fail_at_step
         self.log = log_fn
         self.ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
-        self.step_fn = compiled_train_step(model, opt, accum_steps=cfg.accum_steps)
+        self.split = model.train_split is not None
+        if self.split:
+            zero2 = bool(model.cfg.zero2) and model.cfg.param_sharding == "fsdp"
+            self.step_fn = make_train_step(model, opt, accum_steps=cfg.accum_steps,
+                                           zero2_axes=model.param_axes() if zero2 else None)
+        else:
+            self.step_fn = compiled_train_step(model, opt, accum_steps=cfg.accum_steps)
         self._storage: Optional[TrainerState] = None  # what the step updates in place
         self.events: list[str] = []
         self.step_times: list[float] = []  # wall seconds of each step run
@@ -85,6 +99,8 @@ class Trainer:
         """Fresh parameters and optimizer state, in the trainer's storage
         (made at the first call)."""
         params = self.model.init(seed)
+        if self.split:
+            params = self.model.shard_params(params)
         opt_state = self.opt.init(params)
         if self._storage is None:  # fresh tensors: they become the storage
             self._storage = TrainerState(params=params, opt_state=opt_state)
@@ -114,14 +130,23 @@ class Trainer:
         if latest is None:
             return state
         tree = {"params": state.params, "opt": state.opt_state}
-        restored, meta = self.ckpt.restore(tree, latest)
+        restored, meta = self.ckpt.restore(tree, latest, **self._on_mesh())
         self.events.append(f"restored step {latest}")
         self.log(f"[trainer] restored checkpoint at step {latest}")
         return self._store(restored["params"], restored["opt"], meta["step"])
 
+    def _on_mesh(self) -> dict:
+        """A split trainer's checkpoint arguments: its mesh, and the specs of
+        the checkpointed tree (the moments shard as their parameters)."""
+        if not self.split:
+            return {}
+        specs = self.model.train_split.storage
+        return {"mesh": self.model.mesh,
+                "specs": {"params": specs, "opt": OptState(step=(), mu=specs, nu=specs)}}
+
     def _save(self, state: TrainerState, blocking=False):
         self.ckpt.save(state.step, {"params": state.params, "opt": state.opt_state},
-                       meta={"step": state.step}, blocking=blocking)
+                       meta={"step": state.step}, blocking=blocking, **self._on_mesh())
 
     def _sync(self):
         if self.model.device.type == "cuda":

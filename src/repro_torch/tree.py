@@ -14,41 +14,48 @@ def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
-def flatten(tree) -> tuple[list, Any]:
-    """(leaves, spec): the leaves in order, and the structure ``unflatten``
-    takes."""
-    leaves: list = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", keys, [walk(node[k]) for k in keys])
-        if _is_namedtuple(node):
-            return ("namedtuple", type(node), [walk(c) for c in node])
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, None, [walk(c) for c in node])
+def _walk(node, leaves: list, is_leaf):
+    if is_leaf is not None and is_leaf(node):
         leaves.append(node)
         return None
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", keys, [_walk(node[k], leaves, is_leaf) for k in keys])
+    if _is_namedtuple(node):
+        return ("namedtuple", type(node), [_walk(c, leaves, is_leaf) for c in node])
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__, None, [_walk(c, leaves, is_leaf) for c in node])
+    leaves.append(node)
+    return None
 
-    return leaves, walk(tree)
+
+def flatten(tree, is_leaf: Callable | None = None) -> tuple[list, Any]:
+    """(leaves, spec): the leaves in order, and the structure ``unflatten``
+    takes. ``is_leaf(node)`` true makes ``node`` a leaf whatever it is (a
+    tree of sharding specs, whose leaves are tuples)."""
+    # module-level recursion: a recursive closure is a reference cycle, and
+    # it would hold the leaves (a step's gradients) until the next garbage
+    # collection
+    leaves: list = []
+    return leaves, _walk(tree, leaves, is_leaf)
+
+
+def _build(node, it):
+    if node is None:
+        return next(it)
+    kind, extra, children = node
+    built = [_build(c, it) for c in children]
+    if kind == "dict":
+        return dict(zip(extra, built))
+    if kind == "namedtuple":
+        return extra._make(built)
+    return tuple(built) if kind == "tuple" else built
 
 
 def unflatten(spec, leaves) -> Any:
     """The tree of ``spec`` with ``leaves`` in ``flatten``'s order."""
     it = iter(leaves)
-
-    def build(node):
-        if node is None:
-            return next(it)
-        kind, extra, children = node
-        built = [build(c) for c in children]
-        if kind == "dict":
-            return dict(zip(extra, built))
-        if kind == "namedtuple":
-            return extra._make(built)
-        return tuple(built) if kind == "tuple" else built
-
-    out = build(spec)
+    out = _build(spec, it)
     if next(it, None) is not None:
         raise ValueError("unflatten: more leaves than the structure holds")
     return out
