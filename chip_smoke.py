@@ -297,6 +297,43 @@ Phases, in order; any failure exits non-zero before the final line:
    smollm-135m step on (2, 2) saved, restored bitwise onto (1, 3) and onto
    one device, the next step against the uninterrupted one.
 
+17. prefill and slot decode split over "model" (``Model(cfg, mesh=mesh)``'s
+   ``prefill`` and ``decode_step`` on a rank's shards, PR 29) and the dry
+   run. 17a: 4 gloo rank processes on the card (``p17_rank``, started
+   after phase 14, beside 15 and 16's last cases), each case at full
+   width: smollm-135m on ("data", "model") = (1, 4)
+   (``seq_sp`` prefill, the cache along ``kv_seq``), phi3-medium-14b at
+   depth 1 on (1, 4) (the q heads split, the cache along ``kv_seq``),
+   stablelm-3b at depth 2 on (1, 4) (heads and kv heads, the int8 cache),
+   mamba2-370m at depth 2 on (1, 4) (SSM heads) and granite-moe-1b-a400m
+   at depth 2 on (2, 2) (capacity factor 4: nothing drops); a prefill of B
+   = 2, S = 512 (``max_seq`` 1024) and 8 decodes of fixed tokens: in
+   float32 on the kernel route every rank's logits within 1e-5 (relative
+   to the largest) of one device's kernel run and its cache shard within
+   1e-5 of its slice (an int8 code one apart at a rounding tie, at fewer
+   than 1e-3 of the codes, with the logits then within 1e-3); in bf16 the
+   split's kernel route no further from float32 on the same weights than
+   ``E2E_BF16_RATIO`` x one device's plain route (the root mean square of
+   the rows' relative L2 distances over the 9 calls; a MoE's float32 runs
+   routing on each bf16 run's own choices); exact launches:
+   flash once an attention site a prefill, the SSD scan once an SSM layer,
+   the paged kernel once a site a decode (its partials mode on a
+   ``kv_seq`` split). 17b: ``launch/dryrun.py``'s ``run_cell`` at (32, 8)
+   under a fake group of 256 in a process of its own (no card; started
+   with the run) for smollm-135m x every shape, phi3-medium-14b x
+   train_4k, dbrx-132b x decode_32k, zamba2-2.7b x long_500k and the
+   legacy smollm decode (more bytes than without): a line a cell. 17c:
+   rank 0 of (32, 8) on the card with real bf16 tensors under the fake
+   group, smollm-135m x decode_32k and x train_4k: the collective calls
+   counted on them (beside 17a's ranks) equal 17b's meta count; alone on
+   the card, ``max_memory_allocated`` beside the dry run's peak estimate
+   and device busy beside its bound. Then each kernel at the split path's
+   shapes against its plain version, timed (``p17_*`` rows). Rehearse
+   17a-b on the CPU from a guarded script: ``p17 =
+   chip_smoke.Phase17("cpu", reduced=True); p17.start_ranks();
+   p17.dry_records(); p17.finish("cpu")`` (``.reduced()`` configs keeping
+   each split, ``P17_REHEARSAL``; the plain kernels counted as launches).
+
 ``--phases 3,12`` runs the build and the listed phases only, for a short
 development call (5 runs phases 5 and 6 together); with no argument every
 phase runs. To rehearse phase 13 on the CPU at ``.reduced()`` width (the
@@ -401,6 +438,41 @@ def require(ok, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# the memory-heavy work of the processes that share the card: the phi3
+# cases of phases 16 and 17 (a rank group's float32 steps at 10-15 GiB a
+# rank) and phase 14's remat and family steps (up to 23 GiB) take turns, so
+# their peaks never meet (they did once, when the host ran slower, and the
+# card ran out of memory)
+HEAVY = ("phi3-medium-14b",)
+
+
+@contextlib.contextmanager
+def card_lock(what: str, rank: int = 0, barrier=None):
+    """Hold the card's lock (an exclusive ``flock`` on ``build/card.lock``)
+    for ``what``: taken by ``rank`` 0 only, the group's ``barrier`` (each
+    rank's ``torch.distributed.barrier``) before and after, so that a rank
+    group holds it as one; logs a wait longer than a second."""
+    import fcntl
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    f = open(os.path.join(ROOT, "build", "card.lock"), "a+") if rank == 0 else None
+    try:
+        if f is not None:
+            t0 = time.perf_counter()
+            fcntl.flock(f, fcntl.LOCK_EX)
+            if time.perf_counter() - t0 > 1.0:
+                log(f"{what}: waited {time.perf_counter() - t0:.1f} s for the card")
+        if barrier is not None:
+            barrier()
+        yield
+        if barrier is not None:
+            barrier()
+    finally:
+        if f is not None:
+            fcntl.flock(f, fcntl.LOCK_UN)
+            f.close()
 
 
 def gpu_line() -> str:
@@ -4326,16 +4398,20 @@ def p13_rank(rank, world, card, out, device="cuda", reduced=False):
 
 
 def p13_rehearsal_patches():
-    """The CPU rehearsal's stand-ins: ``require_cuda`` a no-op and the
-    kernel backend the default, so each kernel wrapper runs its plain
-    version on CPU tensors, counted as the wrapper counts a launch."""
+    """The CPU rehearsal's stand-ins (phases 13 and 17): ``require_cuda`` a
+    no-op and the kernel backend the default, so each kernel wrapper runs
+    its plain version on CPU tensors, counted as the wrapper counts a
+    launch."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kernel_ops
     from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import ssm  # noqa: F401  (its reference scan stays the plain one)
 
     kernel_ops.require_cuda = lambda t, what: None
     kernel_ops.set_attention_backend("kernel")
     plain_paged, plain_flash = pda.plain_paged_decode_attention, fa.plain_flash_attention
+    plain_ssd = ssd.plain_ssd_scan
 
     def paged(q, k_pool, *a, **kw):
         part = kw.get("partials") or (len(a) > 6 and a[6])
@@ -4349,7 +4425,12 @@ def p13_rehearsal_patches():
         fa.flash_attention.launches += 1
         return plain_flash(*a, **kw)
 
+    def scan(*a, **kw):
+        ssd.ssd_scan.launches += 1
+        return plain_ssd(*a, **kw)
+
     pda.plain_paged_decode_attention, fa.plain_flash_attention = paged, flash
+    ssd.plain_ssd_scan = scan
 
 
 def p13_kernels(card):
@@ -4713,41 +4794,42 @@ def phase14_train(card, device="cuda", reduced=False):
     # kernels and copies) against its wall alone
     batches = [_p14_accum(data.batch_at(i), cfg.train_accum) for i in range(2)]
     walls = {}
-    for remat in ("none", "full", "dots"):
-        m = Model(dataclasses.replace(cfg, remat=remat), device=device)
-        fn = compiled_train_step(m, opt, accum_steps=cfg.train_accum)
-        p, o = map_tree(torch.clone, trained), map_tree(torch.clone, ostate)
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        fn(p, o, batches[0])
-        torch.cuda.synchronize()
-        first = (time.perf_counter() - t1) * 1e3
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        reps = []
-        for i in range(P14_REPLAYS):
-            t1 = time.perf_counter()
-            fn(p, o, batches[i % 2])
+    with card_lock("p14a remat"):
+        for remat in ("none", "full", "dots"):
+            m = Model(dataclasses.replace(cfg, remat=remat), device=device)
+            fn = compiled_train_step(m, opt, accum_steps=cfg.train_accum)
+            p, o = map_tree(torch.clone, trained), map_tree(torch.clone, ostate)
+            torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
-            reps.append((time.perf_counter() - t1) * 1e3)
-        require(fn._cache_size() == 1, f"p14a remat {remat}: {fn._cache_size()} captures")
-        walls[remat] = (float(np.percentile(reps, 50)), first, peak, graph_pool_bytes(m) / 2**30)
-        if remat == "dots":
-            profile_busy("p14a train step replay, smollm-135m bf16 B=8 S=1024 accum 2 remat dots",
-                        lambda: fn(p, o, batches[0]), walls[remat][0], card)
-            # the same step eager, in this call, for the comparison
-            eager = []
-            with step_graph.disabled():
-                for i in range(2):
-                    t1 = time.perf_counter()
-                    fn(p, o, batches[i])
-                    torch.cuda.synchronize()
-                    eager.append((time.perf_counter() - t1) * 1e3)
-                profile_busy("p14a train step eager, smollm-135m bf16 B=8 S=1024 accum 2 remat "
-                            "dots", lambda: fn(p, o, batches[0]), eager[1], card)
-        del m, fn, p, o
-        gc.collect()
-        torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            fn(p, o, batches[0])
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t1) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            reps = []
+            for i in range(P14_REPLAYS):
+                t1 = time.perf_counter()
+                fn(p, o, batches[i % 2])
+                torch.cuda.synchronize()
+                reps.append((time.perf_counter() - t1) * 1e3)
+            require(fn._cache_size() == 1, f"p14a remat {remat}: {fn._cache_size()} captures")
+            walls[remat] = (float(np.percentile(reps, 50)), first, peak, graph_pool_bytes(m) / 2**30)
+            if remat == "dots":
+                profile_busy("p14a train step replay, smollm-135m bf16 B=8 S=1024 accum 2 remat dots",
+                            lambda: fn(p, o, batches[0]), walls[remat][0], card)
+                # the same step eager, in this call, for the comparison
+                eager = []
+                with step_graph.disabled():
+                    for i in range(2):
+                        t1 = time.perf_counter()
+                        fn(p, o, batches[i])
+                        torch.cuda.synchronize()
+                        eager.append((time.perf_counter() - t1) * 1e3)
+                    profile_busy("p14a train step eager, smollm-135m bf16 B=8 S=1024 accum 2 remat "
+                                "dots", lambda: fn(p, o, batches[0]), eager[1], card)
+            del m, fn, p, o
+            gc.collect()
+            torch.cuda.empty_cache()
     log(f"p14a remat on {card}: the captured step alone, replay wall p50 of {P14_REPLAYS}, its "
         f"first call (eager + capture), peak GiB over the first call (with what earlier phases "
         f"still hold) and graph pool GiB: " + ", ".join(
@@ -5060,7 +5142,8 @@ def phase14(card):
     log(f"p14a done at {time.perf_counter() - t0:.1f} s")
     phase14_parity(card)
     log(f"p14b done at {time.perf_counter() - t0:.1f} s")
-    phase14_families(card)
+    with card_lock("p14c"):
+        phase14_families(card)
     log(f"p14c done at {time.perf_counter() - t0:.1f} s")
     n = read_launches()
     require(not any(n.values()), f"phase 14a-c launched kernels: {n}")
@@ -5485,38 +5568,56 @@ def p16_case(rank, world, dev, arch, over, shape, ranks, accum, layers, reduced)
     if cfg.zero2:
         runs["zero2"] = {"zero2_axes": split.param_axes()}
     for name, kw in runs.items():
-        step = make_train_step(split, opt, accum_steps=accum, **kw)
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        loss, met, grads, (p2, o2, om), wall, ops = _p16_step(step, opt, shards, batch, dev)
-        rel = g_err = 0.0
-        for g, want in zip(flatten(grads)[0], flatten(ref["grads"])[0], strict=True):
-            err = _p16_max((g.cpu() - want).abs().max(), mesh)
-            top = _p16_max(want.abs().max(), mesh)
-            if err / max(top, 1e-30) >= rel:
-                rel, g_err = err / max(top, 1e-30), err
-        p_err = max(_p16_max((a.cpu() - b).abs().max(), mesh)
-                    for a, b in zip(flatten(p2)[0], flatten(ref["params"])[0], strict=True))
-        found[name] = {
-            "loss": float(loss), "grad_norm": float(om["grad_norm"]), "ce": float(met["ce"]),
-            "grad_rel": rel, "grad_err": g_err, "param_err": p_err, "wall_ms": wall, "ops": ops,
-            "held_bytes": _p16_bytes(p2) + _p16_bytes(o2.mu) + _p16_bytes(o2.nu),
-            "shapes_ok": [tuple(t.shape) for t in flatten(p2)[0]] == want_shapes == [
-                tuple(t.shape) for t in flatten(o2.mu)[0]],
-            "peak_gb": torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0}
-        del grads, p2, o2
-        # bf16: one split step's wall (the float32 step ran the same shapes)
-        bsplit = Model(dataclasses.replace(cfg, dtype="bfloat16"), device=dev, mesh=mesh)
-        bkw = {"zero2_axes": bsplit.param_axes()} if kw else {}
-        bstep = make_train_step(bsplit, opt, accum_steps=accum, **bkw)
-        bparams = _p16_bf16(shards, FLOAT32_PARAMS)
-        _, _, _, _, bwall, bops = _p16_step(bstep, opt, bparams, batch, dev)
-        found[name]["bf16_wall_ms"], found[name]["bf16_ops"] = bwall, bops
-        del bparams, bsplit, bstep
-        gc.collect()
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+        # ZeRO-2's gathered leaves are a heavy case's peak (14.9 GiB a rank
+        # for phi3): it takes its turn on the card with phase 14's
+        heavy = name == "zero2" and arch in HEAVY and dev.type == "cuda"
+        with card_lock(f"p16 {arch} zero2", rank, dist.barrier) if heavy else \
+                contextlib.nullcontext():
+            _p16_run(found, name, kw, split, opt, accum, shards, batch, dev, mesh, ref,
+                     want_shapes, cfg)
     return found
+
+
+def _p16_run(found, name, kw, split, opt, accum, shards, batch, dev, mesh, ref, want_shapes,
+             cfg):
+    """One of ``p16_case``'s split runs (``name``: plain or zero2): the
+    float32 step against the single-device one's results ``ref``, then a
+    bf16 step's wall."""
+    from repro_torch.models.model import FLOAT32_PARAMS, Model
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import flatten
+
+    step = make_train_step(split, opt, accum_steps=accum, **kw)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    loss, met, grads, (p2, o2, om), wall, ops = _p16_step(step, opt, shards, batch, dev)
+    rel = g_err = 0.0
+    for g, want in zip(flatten(grads)[0], flatten(ref["grads"])[0], strict=True):
+        err = _p16_max((g.cpu() - want).abs().max(), mesh)
+        top = _p16_max(want.abs().max(), mesh)
+        if err / max(top, 1e-30) >= rel:
+            rel, g_err = err / max(top, 1e-30), err
+    p_err = max(_p16_max((a.cpu() - b).abs().max(), mesh)
+                for a, b in zip(flatten(p2)[0], flatten(ref["params"])[0], strict=True))
+    found[name] = {
+        "loss": float(loss), "grad_norm": float(om["grad_norm"]), "ce": float(met["ce"]),
+        "grad_rel": rel, "grad_err": g_err, "param_err": p_err, "wall_ms": wall, "ops": ops,
+        "held_bytes": _p16_bytes(p2) + _p16_bytes(o2.mu) + _p16_bytes(o2.nu),
+        "shapes_ok": [tuple(t.shape) for t in flatten(p2)[0]] == want_shapes == [
+            tuple(t.shape) for t in flatten(o2.mu)[0]],
+        "peak_gb": torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0}
+    del grads, p2, o2
+    # bf16: one split step's wall (the float32 step ran the same shapes)
+    bsplit = Model(dataclasses.replace(cfg, dtype="bfloat16"), device=dev, mesh=mesh)
+    bkw = {"zero2_axes": bsplit.param_axes()} if kw else {}
+    bstep = make_train_step(bsplit, opt, accum_steps=accum, **bkw)
+    bparams = _p16_bf16(shards, FLOAT32_PARAMS)
+    _, _, _, _, bwall, bops = _p16_step(bstep, opt, bparams, batch, dev)
+    found[name]["bf16_wall_ms"], found[name]["bf16_ops"] = bwall, bops
+    del bparams, bsplit, bstep
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def p16_elastic(rank, world, dev, reduced):
@@ -5729,13 +5830,598 @@ def phase16(card, device="cuda", reduced=False):
     Phase16(device, reduced).finish(card)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: prefill and slot decode split over "model", and the dry run
+
+P17_WORLD = 4
+# label → (arch, overrides, ("data", "model") mesh): full width, depth cut
+P17_CASES = {
+    "smollm-135m": ("smollm-135m", {}, (1, 4)),  # 9 heads on 4: seq_sp, kv_seq
+    "phi3-medium-14b": ("phi3-medium-14b", {"num_layers": 1}, (1, 4)),  # heads, kv_seq
+    "stablelm-3b": ("stablelm-3b", {"num_layers": 2}, (1, 4)),  # heads and kv heads, int8
+    "mamba2-370m": ("mamba2-370m", {"num_layers": 2}, (1, 4)),  # SSM heads
+    "granite-moe-1b-a400m": ("granite-moe-1b-a400m", {"num_layers": 2, "capacity_factor": 4.0},
+                             (2, 2)),  # heads, kv heads, experts; nothing drops
+}
+# the CPU rehearsal's reduced configs keep each case's split
+P17_REHEARSAL = {"smollm-135m": {"n_heads": 3, "n_kv_heads": 1}, "stablelm-3b": {"n_kv_heads": 4}}
+P17_B, P17_S, P17_MAX_SEQ, P17_STEPS = 2, 512, 1024, 8
+P17_RTOL = 1e-5  # the split's float32 logits and cache against one device's
+# an int8 cache: the split sums in another order, so a value a float32 ulp
+# from a rounding tie may take the next code (at most one apart, at fewer
+# than P17_TIE_SHARE of the codes; its bf16 scale one bf16 ulp); where a
+# code differs, the logits are held to P17_TIE_RTOL
+P17_TIE_SHARE = 1e-3
+P17_TIE_RTOL = 1e-3
+P17_DIR = os.path.join(ROOT, "build", "phase17")
+# 17b: dry-run cells at (32, 8), counted in a process of their own
+P17B_CELLS = [("smollm-135m", s, False) for s in ("train_4k", "prefill_32k", "decode_32k",
+                                                    "long_500k")] + [
+    ("phi3-medium-14b", "train_4k", False), ("dbrx-132b", "decode_32k", False),
+    ("zamba2-2.7b", "long_500k", False), ("smollm-135m", "decode_32k", True)]
+P17B_SCRIPT = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch.dryrun import run_cell
+for arch, shape, legacy in json.loads(sys.argv[2]):
+    rec = run_cell(arch, shape, multi_pod=False, legacy=legacy, verbose=False)
+    print("P17B " + json.dumps(rec), flush=True)
+"""
+# 17c: rank 0 of (32, 8) on the card with real bf16 tensors
+P17C_CELLS = (("smollm-135m", "decode_32k"), ("smollm-135m", "train_4k"))
+P17C_LEN = 32000  # the decode cell's committed lengths (its cache holds 32768 positions)
+
+
+def _p17_cfg(arch, over, reduced, dtype):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if reduced:
+        cfg = dataclasses.replace(cfg.reduced(), **P17_REHEARSAL.get(arch, {}))
+        over = {k: v for k, v in over.items() if k != "num_layers"}
+    return dataclasses.replace(cfg, dtype=dtype, **over)
+
+
+def _p17_round(tree, keep):
+    """``tree``'s float32 leaves rounded to bf16 in place, the leaves named
+    in ``keep`` as they are; returns ``tree``."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _p17_round(v, keep)
+        elif k not in keep:
+            v.copy_(v.to(torch.bfloat16))
+    return tree
+
+
+def _p17_clone(tree):
+    return {k: _p17_clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _p17_run(model, params, prompt, steps, backend, routes=None, replay=None):
+    """A prefill (``max_seq`` P17_MAX_SEQ) and a decode of each column of
+    ``steps`` on ``backend`` → (float32 logits of each call, the cache
+    after the prefill and after the last decode, the launches); ``routes``
+    records a MoE's expert choices, ``replay`` routes on them."""
+    routing = (moe_routes(record=routes, replay=replay)
+               if routes is not None or replay is not None else contextlib.nullcontext())
+    reset_launches()
+    with torch.no_grad(), routing:
+        logits, cache = model.prefill(params, prompt, P17_MAX_SEQ, backend=backend)
+        outs, caches = [logits.float()], [_p17_clone(cache)]
+        for i in range(steps.shape[1]):
+            logits, cache = model.decode_step(params, cache, steps[:, i:i + 1], backend=backend)
+            outs.append(logits.float())
+        caches.append(cache)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    return outs, caches, read_launches()
+
+
+def _p17_rel(a, b) -> float:
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+def _p17_cache_errs(got, want, model, split):
+    """The split's caches against this rank's slices of one device's
+    (``cache_axes`` and the rules' spec): the float leaves' largest
+    relative error, the int8 codes apart (at most one each) and the bf16
+    scales' largest error in bf16 ulps."""
+    from repro_torch.parallel import sharding
+    from repro_torch.tree import flatten
+
+    e = {"cache": 0.0, "codes_off": 0, "codes": 0, "scale_ulps": 0.0}
+    for gt, wt in zip(got, want):
+        specs = flatten(sharding.tree_specs(wt, model.cache_axes(wt), split.rules),
+                        is_leaf=sharding.is_spec)[0]
+        for g, w, sp in zip(flatten(gt)[0], flatten(wt)[0], specs):
+            mine = w[sharding.shard_slices(sp, w.shape, split.mesh)]
+            require(g.shape == mine.shape,
+                    f"p17: a cache shard {tuple(g.shape)}, its slice {tuple(mine.shape)}")
+            if g.dtype == torch.int8:
+                off = (g.int() - mine.int()).abs()
+                require(int(off.max()) <= 1, "p17: an int8 code more than one apart")
+                e["codes_off"] += int((off > 0).sum())
+                e["codes"] += off.numel()
+            elif g.dtype == torch.bfloat16:  # an int8 cache's scales
+                d = (g.float() - mine.float()).abs() / mine.float().abs().clamp(min=1e-30)
+                e["scale_ulps"] = max(e["scale_ulps"], float(d.max()) / 2.0 ** -7)
+            elif g.is_floating_point():
+                e["cache"] = max(e["cache"], _p17_rel(g.float(), mine.float()))
+            else:
+                require(torch.equal(g, mine), "p17: the cache lengths differ")
+    return e
+
+
+def _p17_expected(cfg, kind):
+    """Launches of one prefill and P17_STEPS decodes on the kernel route:
+    flash once an attention site in the prefill, the SSD scan once an SSM
+    layer, and the paged kernel once a site a decode step: its partials
+    mode where the cache is split along its positions, its int8 mode on an
+    int8 cache."""
+    sites = (0 if cfg.family == "ssm" else
+             cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.num_layers)
+    want = {k: 0 for k in read_launches()}
+    want.update(flash=sites, ssd=cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0)
+    paged = "partials" if kind == "kv_seq" else "paged_int8" if cfg.kv_quant else "paged"
+    want[paged] += sites * P17_STEPS
+    return want
+
+
+def p17_case(rank, world, dev, label, reduced):
+    """One case of 17a on this rank: float32 on the kernel route, one
+    device's run and the split's (held together), then bf16, the split on
+    the kernel route and one device's plain route, each against float32 on
+    the same weights."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import FLOAT32_PARAMS, Model
+    from repro_torch.parallel import collectives as col
+
+    arch, over, shape = P17_CASES[label]
+    mesh = make_test_mesh(shape, ("data", "model"), device=dev.type)
+    cfg = _p17_cfg(arch, over, reduced, "float32")
+    single, split = Model(cfg, device=dev), Model(cfg, device=dev, mesh=mesh)
+    params = single.init(seed=17)
+    kind = "" if cfg.family == "ssm" else "kv_seq" if split._attn_split()["kv_seq"] else "heads"
+    rng = np.random.default_rng(17)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (P17_B, P17_S))).to(dev)
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (P17_B, P17_STEPS))).to(dev)
+    found = {"kind": kind, "mesh": shape, "layers": cfg.num_layers,
+             "expected": _p17_expected(cfg, kind)}
+    want, want_c, _ = _p17_run(single, params, prompt, steps, "kernel")
+    shards = split.shard_params(params)
+    col.reset_stats()
+    t0 = time.perf_counter()
+    got, got_c, found["f32_launches"] = _p17_run(split, shards, prompt, steps, "kernel")
+    found["f32_wall_s"] = time.perf_counter() - t0
+    found["collectives"] = {k: dict(v) for k, v in col.STATS["ops"].items()}
+    found["f32"] = _p17_cache_errs(got_c, want_c, single, split)
+    found["f32"]["logits"] = max(_p17_rel(g, w) for g, w in zip(got, want))
+    del want, want_c, got, got_c, shards
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    # the weights rounded to bf16 in place: float32 on them is the bf16
+    # runs' reference (one float32 copy a rank)
+    up = _p17_round(params, FLOAT32_PARAMS)
+    p16 = _p16_bf16(up, FLOAT32_PARAMS)
+    moe = cfg.family == "moe"
+    r_k, r_p = ([], []) if moe else (None, None)
+    single16, split16 = Model(cfg16, device=dev), Model(cfg16, device=dev, mesh=mesh)
+    plain, _, found["plain_launches"] = _p17_run(single16, p16, prompt, steps, "reference",
+                                                  routes=r_p)
+    s16 = split16.shard_params(p16)
+    t0 = time.perf_counter()
+    kern, _, found["bf16_launches"] = _p17_run(split16, s16, prompt, steps, "kernel", routes=r_k)
+    found["bf16_wall_s"] = time.perf_counter() - t0
+    ref_p, _, _ = _p17_run(single, up, prompt, steps, "reference", replay=r_p)
+    ref_k = ref_p
+    if moe:  # the split routes on its own shards: its float32 run replays them
+        ref_k, _, _ = _p17_run(split, split.shard_params(up), prompt, steps, "reference",
+                               replay=r_k)
+
+    def rows(a, b):
+        return ((a - b).norm(dim=-1) / b.norm(dim=-1)).tolist()
+
+    found["d_kernel"] = [rows(a, b) for a, b in zip(kern, ref_k)]
+    found["d_plain"] = [rows(a, b) for a, b in zip(plain, ref_p)]
+    found["finite"] = all(bool(torch.isfinite(t).all()) for t in kern)
+    if dev.type == "cuda":
+        found["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+    return found
+
+
+def p17_rank(rank, world, out, device="cuda", reduced=False):
+    """One of 17a's ``P17_WORLD`` gloo ranks: every case of ``P17_CASES``;
+    saves what it found. ``device="cpu"`` with ``reduced`` rehearses it at
+    ``.reduced()`` width on the CPU (the plain kernels counted as
+    launches)."""
+    import pickle
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        p13_rehearsal_patches()
+    found, t0 = {"entered": time.time()}, time.perf_counter()
+    import torch.distributed as dist
+
+    for label in P17_CASES:
+        t = time.perf_counter()
+        with (card_lock(f"p17 {label}", rank, dist.barrier)
+              if P17_CASES[label][0] in HEAVY and dev.type == "cuda" else contextlib.nullcontext()):
+            found[label] = p17_case(rank, world, dev, label, reduced)
+        found[label]["case_s"] = time.perf_counter() - t
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    found["seconds"] = time.perf_counter() - t0
+    found["left"] = time.time()
+    with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(found, f)
+
+
+def phase17a_check(card, out, wall, started):
+    """17a's lines and limits, from what the ranks saved under ``out``;
+    returns the bf16 split runs' launches summed over the ranks, by case."""
+    import pickle
+
+    found = []
+    for r in range(P17_WORLD):
+        with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+            found.append(pickle.load(f))
+    launches = {}
+    for label, (arch, over, shape) in P17_CASES.items():
+        mine = [f[label] for f in found]
+        f0 = mine[0]
+        errs = [m["f32"] for m in mine]
+        ties = any(e["codes_off"] or e["scale_ulps"] for e in errs)
+        lim = P17_TIE_RTOL if ties else P17_RTOL
+        worst = max(e["logits"] for e in errs)
+        codes = sum(e["codes"] for e in errs)
+        off = sum(e["codes_off"] for e in errs)
+        int8 = (f"; int8 codes one apart {off} of {codes}, scales at most "
+                f"{max(e['scale_ulps'] for e in errs):.1f} bf16 ulp" if codes else "")
+        log(f"p17[{label}] float32 kernel route, depth {f0['layers']} on (data, model) = "
+            f"{shape}, split {f0['kind'] or 'ssm heads'}, B={P17_B} S={P17_S} max_seq "
+            f"{P17_MAX_SEQ} + {P17_STEPS} decodes on {card}: logits max rel err {worst:.2e} "
+            f"(limit {lim:g}), cache shards max rel err "
+            f"{max(e['cache'] for e in errs):.2e}{int8}; split wall {f0['f32_wall_s']:.2f} s; "
+            f"collectives (rank 0): " + _p16_ops(f0["collectives"]))
+        require(worst <= lim and max(e["cache"] for e in errs) <= P17_RTOL,
+                f"p17 {label}: float32 split against one device: {errs}")
+        require(off <= P17_TIE_SHARE * max(codes, 1) and all(e["scale_ulps"] <= 1.0 for e in errs),
+                f"p17 {label}: int8 codes {off} of {codes} apart")
+        for name in ("f32_launches", "bf16_launches"):
+            for r, m in enumerate(mine):
+                require(m[name] == m["expected"],
+                        f"p17 {label} rank {r} {name}: {m[name]} launched, {m['expected']} expected")
+        require(not any(any(m["plain_launches"].values()) for m in mine),
+                f"p17 {label}: the plain route launched a kernel")
+        d_k = [x for call in f0["d_kernel"] for x in call]
+        d_p = [x for call in f0["d_plain"] for x in call]
+        rms_k, rms_p = (float(np.sqrt(np.mean(np.square(d)))) for d in (d_k, d_p))
+        log(f"p17[{label} bf16] the split's kernel route vs one device's plain route, each "
+            f"||. - float32||/||float32|| per row over the prefill and {P17_STEPS} decodes "
+            f"({len(d_k)} rows): root mean square kernels {rms_k:.3e}, plain {rms_p:.3e}, ratio "
+            f"{rms_k / rms_p:.3f} (limit {E2E_BF16_RATIO:g}); per row worst kernels "
+            f"{max(d_k):.3e}, plain {max(d_p):.3e}, worst row ratio "
+            f"{max(a / b for a, b in zip(d_k, d_p)):.3f}; launches a rank "
+            f"{f0['bf16_launches']}; split wall "
+            f"{f0['bf16_wall_s']:.2f} s; peak per rank "
+            + "/".join(f"{m.get('peak_gb', 0.0):.2f}" for m in mine) + " GiB")
+        require(all(m["finite"] for m in mine), f"p17 {label}: bf16 logits not finite")
+        require(rms_k <= E2E_BF16_RATIO * rms_p,
+                f"p17 {label}: bf16 kernel split {d_k} against plain {d_p}")
+        launches[label] = {k: sum(m["bf16_launches"][k] for m in mine) for k in f0["expected"]}
+    log(f"p17a ranks ({P17_WORLD} gloo processes on one {card}): wall {wall:.1f} s; the ranks "
+        f"entered their cases {min(f['entered'] for f in found) - started:.1f}-"
+        f"{max(f['entered'] for f in found) - started:.1f} s after the spawn and left them "
+        f"{min(f['left'] for f in found) - started:.1f}-{max(f['left'] for f in found) - started:.1f}"
+        f" s after it; per case (rank 0) "
+        + ", ".join(f"{k} {found[0][k]['case_s']:.1f} s" for k in P17_CASES))
+    return launches
+
+
+class Phase17:
+    """Phase 17's work that runs beside other phases: 17b's dry-run cells in
+    a process of their own (no card: meta tensors under a fake group),
+    started with the run, and 17a's ``P17_WORLD`` gloo rank processes on a
+    thread, started by ``start_ranks``. ``finish`` joins both, re-raises
+    what they raised and makes the checks."""
+
+    def __init__(self, device="cuda", reduced=False):
+        self.device, self.reduced = device, reduced
+        self.error, self.thread = None, None
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        cells = P17B_CELLS if not reduced else P17B_CELLS[2:4] + P17B_CELLS[-1:]
+        self.t_b = time.perf_counter()
+        # at the lowest priority: it takes the host's idle cores only
+        self.dry = subprocess.Popen(
+            [sys.executable, "-c", P17B_SCRIPT, os.path.join(ROOT, "src"), json.dumps(cells)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT,
+            preexec_fn=lambda: os.nice(19))
+
+    def start_ranks(self):
+        import threading
+
+        from repro_torch.launch.mesh import run_ranks
+
+        os.makedirs(P17_DIR, exist_ok=True)
+        self.t0, self.started = time.perf_counter(), time.time()
+
+        def ranks():
+            try:
+                run_ranks(p17_rank, P17_WORLD, P17_DIR, self.device, self.reduced,
+                          store=os.path.join(P17_DIR, "store"), timeout_s=600.0)
+            except BaseException as e:  # raised again by finish()
+                self.error = e
+
+        self.thread = threading.Thread(target=ranks, daemon=True)
+        self.thread.start()
+
+    def dry_records(self):
+        """17b's records (its process joined) and its checks."""
+        out, err = self.dry.communicate(timeout=900)
+        wall_b = time.perf_counter() - self.t_b
+        require(self.dry.returncode == 0, f"p17b dry run failed:\n{err[-4000:]}")
+        recs = [json.loads(line[5:]) for line in out.splitlines() if line.startswith("P17B ")]
+        return phase17b_check(recs, wall_b)
+
+    def finish(self, card):
+        """17a's ranks joined and checked → the launches of their bf16
+        split runs by case, summed over the ranks."""
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return phase17a_check(card, P17_DIR, time.perf_counter() - self.t0, self.started)
+
+
+def phase17b_check(recs, wall):
+    """17b's lines: a line a cell, priced on H100_HW (the H100 SXM data
+    sheet: counted, not measured)."""
+    out = {}
+    for rec in recs:
+        tag = f"{rec['arch']} x {rec['shape']}{' --legacy' if rec['legacy'] else ''}"
+        out[(rec["arch"], rec["shape"], rec["legacy"])] = rec
+        if rec["status"] != "ok":
+            log(f"p17b dry run [{tag}] on {rec['mesh']}: {rec['status']} ({rec.get('reason')})")
+            require(rec["status"] == "skipped", f"p17b {tag}: {rec['status']}")
+            continue
+        rf = rec["roofline"]
+        log(f"p17b dry run [{tag}] rank 0 of {rec['mesh']} ({rec['chips']} GPUs), counted on "
+            f"H100_HW: ok, {rec['memory']['peak_estimate_bytes'] / 2**30:.2f} GiB a rank, "
+            f"dominant {rf['dominant']}, bound {rf['bound_s'] * 1e3:.3f} ms (compute "
+            f"{rf['compute_s'] * 1e3:.3f}, memory {rf['memory_s'] * 1e3:.3f}, collective "
+            f"{rf['collective_s'] * 1e3:.3f}), useful {rec['useful_flops_ratio']:.3f}, "
+            f"{rec['flops_per_device']:.4g} FLOPs, {rec['bytes_per_device']:.4g} B, "
+            f"collectives {rec['collectives']}, fallbacks {rec['sharding_fallbacks'] or 'none'}; "
+            f"counted in {rec['count_s']} s")
+    legacy, plain = (out.get(("smollm-135m", "decode_32k", flag)) for flag in (True, False))
+    require(legacy is not None and plain is not None, "p17b: the legacy pair is missing")
+    log(f"p17b --legacy smollm-135m decode_32k: {legacy['bytes_per_device']:.4g} B a rank against "
+        f"{plain['bytes_per_device']:.4g} without (each layer's cache slice copied out and "
+        f"back); the cells' process took {wall:.1f} s")
+    require(legacy["bytes_per_device"] > plain["bytes_per_device"],
+            "p17b: the legacy decode moves no more bytes")
+    return out
+
+
+def _p17c_args(cell, shape, gen):
+    """Real tensors on the card for the meta arguments of ``cell``: floats
+    normal at scale 0.02 (the decode cache's keys and values at 1), token
+    ids in [0, 1000), the decode cache's committed lengths ``P17C_LEN``,
+    the train batch's mask ones and its optimizer step 0."""
+    from repro_torch.tree import flatten, unflatten
+
+    leaves, spec = flatten(cell.args)
+    real = []
+    for t in leaves:
+        if t.is_floating_point():
+            real.append((torch.randn(t.shape, generator=gen, device="cuda") * 0.02).to(t.dtype))
+        else:
+            real.append(torch.randint(0, 1000, t.shape, generator=gen, device="cuda",
+                                      dtype=t.dtype))
+    args = list(unflatten(spec, real))
+    if shape.startswith("decode"):
+        args[1]["len"].fill_(P17C_LEN)
+        for name in ("k", "v"):
+            args[1][name].normal_(generator=gen)
+    else:
+        args[1] = args[1]._replace(step=torch.zeros((), dtype=torch.int32, device="cuda"))
+        args[2]["mask"].fill_(1.0)
+    return args
+
+
+def phase17c_count(card, dry):
+    """17c's first half, beside 17a's ranks: rank 0 of (32, 8) with real
+    bf16 tensors on the card under a fake group of 256, for each of
+    ``P17C_CELLS``, counted once (``profile_step`` on real tensors): its
+    collective calls must equal 17b's meta count of the same cell. Dense
+    cells only: under a fake group no index may come from a collective's
+    result (uninitialised memory). Returns what 17c's second half times."""
+    from repro_torch.core.profiler import profile_step
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import fake_ranks, make_production_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    group = contextlib.ExitStack()  # closed by phase17c_time
+    group.enter_context(fake_ranks(256, 0))
+    mesh = make_production_mesh()
+    cells = []
+    for arch, shape in P17C_CELLS:
+        rec = dry[(arch, shape, False)]
+        cell = build_cell(arch, shape, mesh, device="cuda")
+        args = _p17c_args(cell, shape, gen)
+        real = dict(profile_step(cell.fn, *args, mesh=mesh).collectives.counts)
+        require(real == rec["collectives"], f"p17c {arch} {shape}: collectives {real} on "
+                f"real tensors, {rec['collectives']} on meta")
+        cells.append((arch, shape, cell, args, real, rec))
+    return group, cells
+
+
+def phase17c_time(card, counted):
+    """17c's second half, alone on the card: each cell's step once more
+    (synchronised wall, ``max_memory_allocated``) and once under the
+    profiler (device busy), beside the dry run's peak estimate and bound;
+    then the fake group closes."""
+    group, cells = counted
+    with group:
+        for arch, shape, cell, args, real, rec in cells:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cell.fn(*args)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            busy = profile_busy(f"p17c {arch} {shape} rank 0 of (32, 8) bf16",
+                                lambda: cell.fn(*args), wall, card)
+            est, bnd = rec["memory"]["peak_estimate_bytes"], rec["roofline"]["bound_s"]
+            log(f"p17c [{arch} x {shape}] rank 0 of (32, 8) under a fake group of 256, real bf16 "
+                f"tensors on {card}: collective calls {real} == 17b's meta count; "
+                f"max_memory_allocated {peak / 2**30:.3f} GiB (the dry run's peak estimate "
+                f"{est / 2**30:.3f} GiB); one call's wall {wall:.2f} ms, device busy "
+                f"{'not measured' if busy is None else f'{busy:.2f} ms'} (the dry run's bound "
+                f"{bnd * 1e3:.3f} ms, counted on H100_HW: the reference route on meta)")
+    cells.clear()
+    torch.cuda.empty_cache()
+
+
+def _p17_row(rows, counts, key, line, fn, plain_fn, check, w, lib=None):
+    """One kernel row of phase 17: ``check(out, plain out)`` → (error, text)
+    holds the kernel to its plain version, then both are timed beside the
+    bound of the work ``w``."""
+    dt = torch.bfloat16
+    out = fn()
+    torch.cuda.synchronize()
+    err, text = check(out, plain_fn())
+    ms, plain = cuda_ms(fn), cuda_ms(plain_fn, iters=5)
+    bms, by = bound(w, dt)
+    rows[(key, dt)] = kernel_row(err, ms, plain, bms, by, lib)
+    log(f"p17 {line}: {text}; ms={fmt_ms(ms)} plain_ms={fmt_ms(plain)} bound_ms={bms:.5f} "
+        f"({by}) library_ms={fmt_ms(lib) if lib else 'null'}; launches in 17a's bf16 split "
+        f"runs {counts.get(key)}")
+
+
+def p17_kernels(card, launches):
+    """The kernels at the shapes phase 17's split path gives them (a rank's
+    inputs, seeded), each held to its plain version and timed beside its
+    bound → (the bf16 rows, each row's launches in 17a's bf16 split runs
+    summed over the ranks)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import attention as attn
+
+    dt, rows, P = torch.bfloat16, {}, 4
+    B, S, S_l = P17_B, P17_S, P17_MAX_SEQ // P
+    g = torch.Generator(device="cuda").manual_seed(170)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    def n(label, kind):
+        return launches.get(label, {}).get(kind)
+
+    counts = {"p17_flash_smollm": n("smollm-135m", "flash"),
+              "p17_flash_phi3": n("phi3-medium-14b", "flash"),
+              "p17_flash_stablelm": n("stablelm-3b", "flash"),
+              "p17_flash_granite": n("granite-moe-1b-a400m", "flash"),
+              "p17_partials_smollm": n("smollm-135m", "partials"),
+              "p17_partials_phi3": n("phi3-medium-14b", "partials"),
+              "p17_paged_int8_stablelm": n("stablelm-3b", "paged_int8"),
+              "p17_paged_granite": n("granite-moe-1b-a400m", "paged"),
+              "p17_ssd_mamba2": n("mamba2-370m", "ssd")}
+
+    def flash_row(key, what, Bq, Sq, off, H, KV, hd):
+        q, k, v = rnd(Bq, Sq, H, hd), rnd(Bq, S, KV, hd), rnd(Bq, S, KV, hd)
+        _p17_row(rows, counts, key, f"flash_attention bf16 {what} B={Bq} Sq={Sq} Skv={S} "
+                 f"q_offset={off} H={H} KV={KV} hd={hd}",
+                 lambda: fa.flash_attention(q, k, v, off),
+                 lambda: fa.plain_flash_attention(q, k, v, off),
+                 lambda o, r: flash_check(o, r, dt, key), work.flash(q, k, off),
+                 sdpa_ms(q, k, v, off))
+
+    flash_row("p17_flash_smollm", "smollm-135m seq_sp rank 1's rows", B, S // P, S // P, 9, 3, 64)
+    flash_row("p17_flash_phi3", "phi3-medium-14b a rank's 10 q heads, their kv heads one a q head",
+              B, S, 0, 10, 10, 128)
+    flash_row("p17_flash_stablelm", "stablelm-3b a rank's heads", B, S, 0, 8, 8, 80)
+    flash_row("p17_flash_granite", "granite-moe-1b-a400m a (2, 2) rank's heads", 1, S, 0, 8, 4, 64)
+
+    def partials_check(o, r):
+        dm, dl, da = partials_err(o, r)
+        require(max(dm, dl, da) <= PARTIALS_TOL, f"p17 partials: {dm}, {dl}, {da}")
+        return max(dm, dl, da), f"max_abs_err m {dm:.3e}, l {dl:.3e}, acc {da:.3e}"
+
+    for key, name, H, KV, hd in (("p17_partials_smollm", "smollm-135m", 9, 3, 64),
+                                 ("p17_partials_phi3", "phi3-medium-14b", 40, 10, 128)):
+        q, kc, vc = rnd(B, 1, H, hd), rnd(B, S_l, KV, hd), rnd(B, S_l, KV, hd)
+        lens = torch.full((B,), S + 3, dtype=torch.int32, device="cuda")
+        kp, vp, tables, owned, _, _ = attn.seq_shard_view(kc, vc, 1, P)
+        owned = owned.to(torch.int32)
+        _p17_row(rows, counts, key, f"paged_decode_attention[partials] bf16 {name} rank 1 of a "
+                 f"kv_seq split of a {P17_MAX_SEQ}-position slot cache (its {S_l} positions as "
+                 f"{tables.shape[1]} table entries, H={H} KV={KV} hd={hd}, len {S + 3})",
+                 lambda: pda.paged_decode_attention(q, kp, vp, tables, lens, owned=owned,
+                                                    partials=True),
+                 lambda: pda.plain_paged_decode_attention(q, kp, vp, tables, lens, owned=owned,
+                                                          partials=True),
+                 partials_check, work.partials(q, kp, tables, lens, owned))
+
+    def paged_check(o, r):
+        err = (o.float() - r.float()).abs().max().item()
+        require(err <= TOL[dt], f"p17 paged: {err}")
+        return err, f"max_abs_err={err:.3e} (tol {TOL[dt]:.0e})"
+
+    for key, name, Bq, H, KV, hd, int8, kv_all in (
+            ("p17_paged_int8_stablelm", "stablelm-3b", B, 8, 8, 80, True, 32),
+            ("p17_paged_granite", "granite-moe-1b-a400m", 1, 8, 4, 64, False, 8)):
+        q, kc, vc = rnd(Bq, 1, H, hd), rnd(Bq, P17_MAX_SEQ, KV, hd), rnd(Bq, P17_MAX_SEQ, KV, hd)
+        ks = vs = None
+        if int8:
+            (kc, ks), (vc, vs) = attn.quantize_kv(kc), attn.quantize_kv(vc)
+        bs = attn._dense_block_size(P17_MAX_SEQ)
+        kp, vp = attn._dense_as_pool(kc, bs), attn._dense_as_pool(vc, bs)
+        ksp, vsp = ((attn._dense_as_pool(ks, bs), attn._dense_as_pool(vs, bs)) if int8
+                    else (None, None))
+        tables = torch.arange(Bq * (P17_MAX_SEQ // bs), dtype=torch.int32,
+                              device="cuda").view(Bq, -1)
+        lens = torch.full((Bq,), S + 3, dtype=torch.int32, device="cuda")
+        _p17_row(rows, counts, key, f"paged_decode_attention{'[int8]' if int8 else ''} bf16 "
+                 f"{name} a rank's heads of its slot cache's identity view (B={Bq} H={H} KV={KV} "
+                 f"hd={hd}, {P17_MAX_SEQ} positions, len {S + 3}, plan_kv_heads={kv_all})",
+                 lambda: pda.paged_decode_attention(q, kp, vp, tables, lens, ksp, vsp,
+                                                    plan_kv_heads=kv_all),
+                 lambda: pda.plain_paged_decode_attention(q, kp, vp, tables, lens, ksp, vsp),
+                 paged_check, work.paged(q, kp, tables, lens))
+
+    x, a, b, c, dtt = ssd_case(dt, B, S, H=8, hd=64, N=128)
+
+    def ssd_check(o, r):
+        err = (o[0].float() - r[0].float()).abs().max().item()
+        rel, absol = SSD_TOL[dt]
+        tol = rel * r[0].float().abs().max().item() + absol
+        require(err <= tol and torch.isfinite(o[0]).all(), f"p17 ssd: {err} > {tol}")
+        return err, f"y max_abs_err={err:.3e} (tol {tol:.2e})"
+
+    _p17_row(rows, counts, "p17_ssd_mamba2", f"ssd_scan bf16 mamba2-370m a rank's 8 of 32 heads "
+             f"B={B} S={S} hd=64 N=128 chunk=128",
+             lambda: ssd.ssd_scan(x, a, b, c, dtt, 128),
+             lambda: ssd.plain_ssd_scan(x, a, b, c, dtt, 128), ssd_check, work.ssd(x, b))
+    return rows, counts
+
+
 def main(argv=()) -> int:
     """Every phase with no arguments (the smoke run); ``--phases 3,11``
     runs the build and the listed phases only (3: kernels, 4: entry
     points, 5-6: serving and parity, 7: adviser, 8, 9, 10, 11, 12, 13, 14:
-    training, 15: the profiler, 16: training split over "model"), for
-    a short development call, and prints the rows those phases made."""
-    phases = set(range(3, 17))
+    training, 15: the profiler, 16: training split over "model", 17: prefill
+    and slot decode split over "model" and the dry run), for a short
+    development call, and prints the rows those phases made."""
+    phases = set(range(3, 18))
     if len(argv) == 2 and argv[0] == "--phases":
         phases = {int(p) for p in argv[1].split(",")}
     elif argv:
@@ -5764,6 +6450,8 @@ def main(argv=()) -> int:
     log(f"build and load: {time.perf_counter() - t0:.1f} s")
 
     start = time.perf_counter()
+    # 17b's dry-run cells need no card: their process runs beside every phase
+    p17 = Phase17() if 17 in phases else None
 
     def phase_done(name):
         log(f"phase {name} done at {time.perf_counter() - start:.1f} s")
@@ -5847,17 +6535,33 @@ def main(argv=()) -> int:
         p13_rows, p13_launches = phase13(card)
         rows.update(p13_rows)
         phase_done("13")
-    # phase 16's ranks (their own processes) run beside phases 14 and 15
+    # phase 16's ranks (their own processes) run beside phases 14 and 15,
+    # 17a's beside 15 and 16's last cases; the phi3 cases take turns on the
+    # card with phase 14's heavy steps (``card_lock``)
     p16 = Phase16() if 16 in phases else None
     if 14 in phases:
         phase14(card)
         phase_done("14")
+    if p17 is not None:
+        p17.start_ranks()
     if 15 in phases:
         phase15(card)
         phase_done("15")
+    p17_counts = {}
+    if p17 is not None:
+        # 17c's counting (host-bound) beside 17a's ranks and 16's last cases
+        dry = p17.dry_records()
+        p17c = phase17c_count(card, dry)
     if p16 is not None:
         p16.finish(card)
         phase_done("16")
+    if p17 is not None:
+        # then 17c's timings and the kernel rows alone on the card
+        p17_launches = p17.finish(card)
+        phase17c_time(card, p17c)
+        p17_rows, p17_counts = p17_kernels(card, p17_launches)
+        rows.update(p17_rows)
+        phase_done("17")
 
     bf16, f32 = torch.bfloat16, torch.float32
     table = []
@@ -5940,8 +6644,29 @@ def main(argv=()) -> int:
             # phase 13: a head split's rank (launches from its internlm2 tp = 4 serves)
             ("p13_internlm2_tp4", bf16,
              "paged_decode_attention[internlm2-20b tp=4 rank-local T=1 H=12 KV=2 hd=128]",
-             PAGED_SRC, PAGED_TPU)):
-        everything = phases == set(range(3, 17))
+             PAGED_SRC, PAGED_TPU),
+            # phase 17: the split prefill and slot decode (launches from 17a's
+            # bf16 kernel runs, summed over the ranks)
+            ("p17_flash_smollm", bf16,
+             "flash_attention[smollm-135m seq_sp rank rows Sq=128 Skv=512 q_offset=128]",
+             FLASH_SRC, FLASH_TPU),
+            ("p17_flash_phi3", bf16, "flash_attention[phi3-medium-14b rank heads H=10 KV=10 "
+             "hd=128 S=512]", FLASH_SRC, FLASH_TPU),
+            ("p17_flash_stablelm", bf16, "flash_attention[stablelm-3b rank heads H=8 KV=8 hd=80 "
+             "S=512]", FLASH_SRC, FLASH_TPU),
+            ("p17_flash_granite", bf16, "flash_attention[granite-moe-1b-a400m rank heads H=8 "
+             "KV=4 hd=64 S=512]", FLASH_SRC, FLASH_TPU),
+            ("p17_partials_smollm", bf16, "paged_decode_attention[partials smollm-135m kv_seq "
+             "rank shard of a 1024 slot cache]", PAGED_SRC, PARTIALS_TPU),
+            ("p17_partials_phi3", bf16, "paged_decode_attention[partials phi3-medium-14b kv_seq "
+             "rank shard of a 1024 slot cache]", PAGED_SRC, PARTIALS_TPU),
+            ("p17_paged_int8_stablelm", bf16, "paged_decode_attention[int8 stablelm-3b rank heads "
+             "H=8 KV=8 hd=80 slot view]", PAGED_SRC, PAGED_INT8_TPU),
+            ("p17_paged_granite", bf16, "paged_decode_attention[granite-moe-1b-a400m rank heads "
+             "H=8 KV=4 hd=64 slot view]", PAGED_SRC, PAGED_TPU),
+            ("p17_ssd_mamba2", bf16, "ssd_scan[mamba2-370m rank heads H=8 S=512]", SSD_SRC,
+             SSD_TPU)):
+        everything = phases == set(range(3, 18))
         if (key, dtype) not in rows:
             require(not everything, f"no row for {key}")
             continue
@@ -5970,6 +6695,8 @@ def main(argv=()) -> int:
             count = {"launches": p11_launches.get(key)}
         elif key.startswith("p12_"):
             count = {"launches": p12_launches.get(key)}
+        elif key.startswith("p17_"):
+            count = {"launches": p17_counts.get(key)}
         else:
             count = {"launches": launches.get(key)}
         require(not everything or count.get("launches", r.get("launches")) is not None,

@@ -282,7 +282,8 @@ def analyze(fn, *args, **kwargs) -> OpCost:
     compiled step eager (``step_graph.disabled()``) and return its
     ``OpCost``: on meta tensors the shapes' cost with nothing allocated or
     run, on real ones this run's (the kernels charged by the lengths these
-    inputs hold; on a mesh this rank's share)."""
+    inputs hold; on a mesh this rank's share, on real tensors or, under a
+    fake process group, on meta ones)."""
     with step_graph.disabled(), OpCounter() as counter:
         out = fn(*args, **kwargs)
     cost = counter.cost

@@ -13,7 +13,10 @@ JSON" the paper's wrapper tool feeds the LLM.
 - On real tensors the step runs once, eagerly, under the counter; the
   kernels are charged by the lengths these inputs hold. A ``mesh`` needs
   this (its collectives need a process group): each rank counts its own
-  share, a device's, as each device of JAX's SPMD program does.
+  share, a device's, as each device of JAX's SPMD program does. Under a
+  fake process group (``launch.mesh.fake_ranks``, the dry run) a mesh step
+  counts on meta tensors too: one process poses as one rank, and its
+  collectives return at once.
 - The roofline terms are priced with ``hw``, by default ``H100_HW``, the
   card the port runs on (the JAX package's default is its own device's
   preset).
@@ -30,6 +33,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_flatten
 
 from repro_torch.core import op_analysis, op_cost
@@ -101,6 +105,13 @@ class ProfiledStep:
         return json.dumps(self.report(), indent=2, default=float)
 
 
+def fake_group() -> bool:
+    """Whether the process group is a fake one (``launch.mesh.fake_ranks``):
+    its collectives return at once on any tensor, meta ones too, so one
+    process counts one rank's share of a mesh step."""
+    return dist.is_initialized() and dist.get_backend() == "fake"
+
+
 def profile_step(fn, *args, name: str = "step", mesh=None, hw: Optional[HwModel] = None,
                  **kwargs) -> ProfiledStep:
     """Count one run of ``fn(*args, **kwargs)`` (module docstring) and
@@ -108,9 +119,11 @@ def profile_step(fn, *args, name: str = "step", mesh=None, hw: Optional[HwModel]
     given). ``mesh``: the mesh whose collectives ``fn`` runs; its
     arguments must then be real tensors on this rank."""
     hw = hw or H100_HW
-    if mesh is not None and any(isinstance(t, torch.Tensor) and t.device.type == "meta"
-                                for t in tree_flatten((args, kwargs))[0]):
-        raise ValueError("profile_step: a mesh's collectives need real tensors, got meta ones")
+    if mesh is not None and not fake_group() and any(
+            isinstance(t, torch.Tensor) and t.device.type == "meta"
+            for t in tree_flatten((args, kwargs))[0]):
+        raise ValueError("profile_step: a mesh's collectives need real tensors, got meta ones "
+                         "(or a fake process group: launch.mesh.fake_ranks)")
     cost = op_cost.analyze(fn, *args, **kwargs)
     terms = RooflineTerms(
         compute_s=cost.flops / hw.peak_flops,

@@ -1,6 +1,6 @@
 """Serving meshes over ``torch.distributed``, and the rank processes.
 
-Port of the JAX package's ``launch/mesh.py::make_test_mesh``. In JAX a mesh
+Port of the JAX package's ``launch/mesh.py``. In JAX a mesh
 is a grid of devices driven by one program; here a mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the current
 process group, one process a rank, every rank running the same code (the
@@ -9,12 +9,17 @@ machine, joined into one gloo group over a file store: the CPU tests run
 their meshes this way, and so does ``chip_smoke.py`` on one card, where
 NCCL refuses two ranks on one device. The same meshes serve split
 (``ServingEngine(..., mesh=)``) and train split (``Model(cfg, mesh=mesh)``).
-``make_production_mesh``, the 256/512-chip TPU layout that only the JAX
-package's dry run reads, has no Hopper counterpart yet: it comes with the
-port of that dry run.
+``make_production_mesh`` is the Hopper production layout the dry run
+(``launch/dryrun.py``) counts cells on: the 8 NVLink GPUs of a node form
+"model", the nodes "data" (and two such clusters "pod"), over the current
+process group. ``fake_ranks`` opens that group without any other process:
+a "fake" backend over a ``FakeStore``, whose collectives return at once
+(their results are uninitialised memory), so that one process poses as one
+rank of 256 or 512 — the JAX dry run's placeholder devices.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import sys
@@ -42,6 +47,42 @@ def make_test_mesh(shape=(2, 4), axes=("data", "model"), *, device=None, ranks=N
     if dev.type == "cuda":
         torch.cuda.set_device(dev.index or 0)
     return DeviceMesh(dev.type, ids.view(tuple(shape)), mesh_dim_names=tuple(axes))
+
+
+# the Hopper production layout: 8 NVLink GPUs a node over "model", the
+# nodes over "data"; two clusters over "pod" (the JAX package's 256 and 512
+# chips, as 16×16 and 2×16×16 TPU meshes)
+GPUS_PER_NODE = 8
+PRODUCTION_SHAPES = {False: ((32, GPUS_PER_NODE), ("data", "model")),
+                     True: ((2, 32, GPUS_PER_NODE), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """("data", "model") = (32, 8), 256 GPUs, or with ``multi_pod`` ("pod",
+    "data", "model") = (2, 32, 8), 512 GPUs, over the ranks of the current
+    process group (which must hold that many: under ``fake_ranks`` one
+    process stands for all of them). ``device``: the mesh's device type,
+    CUDA unless "cpu" (the dry run's meta tensors take a CPU mesh)."""
+    shape, axes = PRODUCTION_SHAPES[bool(multi_pod)]
+    return make_test_mesh(shape, axes, device=device)
+
+
+@contextlib.contextmanager
+def fake_ranks(world: int, rank: int = 0):
+    """A process group of ``world`` ranks of which this process is
+    ``rank``, with no other process behind it: the "fake" backend over a
+    ``FakeStore``. Every collective returns at once and leaves its result
+    uninitialised, so what runs under it must read no value a collective
+    produced (meta tensors read none). The group is destroyed on exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_ranks: a process group is already open")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def in_mesh(mesh) -> bool:

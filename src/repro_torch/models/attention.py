@@ -32,7 +32,9 @@ output projection.
 ``attention_train_split`` is a rank's share of the training attention on a
 mesh (the reference route): its q heads when the heads divide the "model"
 axis, else its rows of queries (``seq_sp``, the sequence-parallel
-fallback); see its docstring.
+fallback); see its docstring. ``attention_split`` is a rank's share of the
+serving attention of a model split over a mesh (its prefill and slot
+decode, on either backend), over the same splits and the cache's.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ import torch
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import paged_decode_attention as _paged
-from repro_torch.kernels.ref import paged_partials_ref
+from repro_torch.kernels.ref import _masked_partials, paged_partials_ref
 import torch.nn.functional as F
 
 from repro_torch.models.layers import apply_rope, rope_tables
@@ -171,14 +173,16 @@ def _dense_block_size(smax, bs=256):
     return bs
 
 
-def _kernel_cached_attention(q, k_cache, v_cache, cache_len, k_scale=None, v_scale=None):
+def _kernel_cached_attention(q, k_cache, v_cache, cache_len, k_scale=None, v_scale=None,
+                             plan_kv_heads=None):
     """Dense-cache decode/verify through the block-paged kernel's wrapper
     with an identity block table; an int8 cache's scales [B,Smax,KV] take
     the same pool view. ``cache_len`` is the committed length — query
     t attends positions < cache_len + t + 1. Unlike the reference, which
     falls back to its jnp numerics when ``max_seq`` has no divisor ≥ 8,
     the kernel runs at whatever block size divides, down to 1: a
-    fallback here would hide the kernel."""
+    fallback here would hide the kernel. ``plan_kv_heads``: a head split's
+    unsharded kv heads (the kernel's plan)."""
     B, Smax = k_cache.shape[0], k_cache.shape[1]
     bs = _dense_block_size(Smax)
     tables = torch.arange(
@@ -187,7 +191,7 @@ def _kernel_cached_attention(q, k_cache, v_cache, cache_len, k_scale=None, v_sca
     scales = [None if s is None else _dense_as_pool(s, bs) for s in (k_scale, v_scale)]
     return _paged.paged_decode_call(
         q, _dense_as_pool(k_cache, bs), _dense_as_pool(v_cache, bs), tables,
-        cache_len.to(torch.int32), *scales,
+        cache_len.to(torch.int32), *scales, plan_kv_heads,
     )
 
 
@@ -232,7 +236,8 @@ def verify_attention(q, k_cache, v_cache, cache_len, *, backend=None):
 
 
 def _cached_attention(
-    q, k_cache, v_cache, cache_len, *, k_scale=None, v_scale=None, backend=None
+    q, k_cache, v_cache, cache_len, *, k_scale=None, v_scale=None, backend=None,
+    plan_kv_heads=None,
 ):
     """Dense decode-cache attention (``cache_len`` committed): the
     ``"kernel"`` backend views the cache as an identity-table block pool
@@ -241,7 +246,8 @@ def _cached_attention(
     dtype first."""
     if kernel_ops.resolve_attention_backend(backend, q.device) == "kernel":
         kernel_ops.require_cuda(q, "_cached_attention")
-        return _kernel_cached_attention(q, k_cache, v_cache, cache_len, k_scale, v_scale)
+        return _kernel_cached_attention(q, k_cache, v_cache, cache_len, k_scale, v_scale,
+                                        plan_kv_heads)
     if k_scale is not None:
         k_cache = dequantize_kv(k_cache, k_scale, q.dtype)
         v_cache = dequantize_kv(v_cache, v_scale, q.dtype)
@@ -315,6 +321,15 @@ def dequantize_kv(q, scale, dtype):
 
 # ---------------------------------------------------------------------------
 # full block
+
+
+def _slot_writes(k_all, v_all, ks_all, vs_all, k, v):
+    """The (stack, new rows) pairs of a slot-cache write: k and v, or for an
+    int8 cache (``ks_all`` given) their codes and bfloat16 scales."""
+    if ks_all is None:
+        return ((k_all, k), (v_all, v))
+    (kq, ksc), (vq, vsc) = quantize_kv(k), quantize_kv(v)
+    return ((k_all, kq), (ks_all, ksc), (v_all, vq), (vs_all, vsc))
 
 
 def _dead_rows_own_view(out, q, k, v, cache_len, codes):
@@ -443,12 +458,7 @@ def attention_block(
         # width for a prefill chunk)
         start = cache_len.long().clamp(max=k_all.shape[2] - T)
         pos = start[:, None] + torch.arange(T, device=x.device)[None, :]
-        if ks_all is None:
-            writes = ((k_all, k), (v_all, v))
-        else:
-            (kq, ksc), (vq, vsc) = quantize_kv(k), quantize_kv(v)
-            writes = ((k_all, kq), (ks_all, ksc), (v_all, vq), (vs_all, vsc))
-        for stack, val in writes:
+        for stack, val in _slot_writes(k_all, v_all, ks_all, vs_all, k, v):
             stack[li][rows, pos] = val.to(stack.dtype)
         ks = None if ks_all is None else ks_all[li]
         vs = None if vs_all is None else vs_all[li]
@@ -571,3 +581,178 @@ def attention_train_split(params, x, *, cfg, mesh, axis="model"):
     o_all = rows_to_all(o2, lo, S, mesh, axis, split_consumer=True)
     c = wo.shape[0]
     return collectives.leave(o_all[..., r * c:(r + 1) * c] @ wo, mesh, axis)
+
+
+# ---------------------------------------------------------------------------
+# serving split over a mesh axis (prefill and the slot decode)
+
+
+def _heads_of(w, n, hd, mesh, axis, *, out: bool, local: bool):
+    """A projection weight as [D, n', hd] (``out``: ``wo`` as [n', hd, D])
+    holding the heads this rank reads: its contiguous block of the ``n``
+    heads (``local``) or all of them. ``w`` is as the rank holds it: with
+    its heads (all, or its block) or flat ([D, n'·hd], [n'·hd, D]); a flat
+    shard that is no whole block of heads is gathered first."""
+    P = collectives.group_size(mesh, axis)
+    hdim = 0 if out else 1
+    if w.dim() == 2:
+        cols = w.shape[hdim]
+        if cols != n * hd and (cols % hd or (cols // hd) * P != n):
+            w = collectives.all_gather(w, mesh, axis, dim=hdim)
+            cols = w.shape[hdim]
+        w = w.reshape((cols // hd, hd, w.shape[1]) if out else (w.shape[0], cols // hd, hd))
+    held = w.shape[hdim]
+    if local and held == n and P > 1:
+        w = w.narrow(hdim, collectives.axis_index(mesh, axis) * (n // P), n // P)
+    elif not local and held < n:
+        w = collectives.all_gather(w, mesh, axis, dim=hdim)
+    return w
+
+
+def _local_partials(q, k, v, cache_len, base, k_scale=None, v_scale=None):
+    """Flash partials of q [B,T,H,hd] over a cache shard k, v [B,S_l,KV,hd]
+    holding the positions [base, base + S_l) (int8 with its scales):
+    query t attends the positions < cache_len + t + 1 among them → float32
+    m, l [B,T,H] and acc [B,T,H,hd], unnormalised; a query with none gives
+    (NEG, 0, 0). The reference route of the kv-sequence split's decode: its
+    work is the shard's, not the whole cache's."""
+    if k_scale is not None:
+        k, v = dequantize_kv(k, k_scale, q.dtype), dequantize_kv(v, v_scale, q.dtype)
+    B, T, H, hd = q.shape
+    S_l, KV = k.shape[1], k.shape[2]
+    s = torch.einsum("btkgd,bskd->bkgts", q.reshape(B, T, KV, H // KV, hd), k).float()
+    s = s * (1.0 / math.sqrt(hd))
+    pos = base + torch.arange(S_l, device=q.device)
+    lim = cache_len.long()[:, None] + torch.arange(T, device=q.device)[None, :] + 1
+    valid = (pos[None, None, :] < lim[:, :, None])[:, None, None]  # [B, 1, 1, T, S_l]
+    m, l, p = _masked_partials(s, valid)
+    acc = torch.einsum("bkgts,bskd->btkgd", p.to(v.dtype), v).float()
+    return (m.permute(0, 3, 1, 2).reshape(B, T, H), l.permute(0, 3, 1, 2).reshape(B, T, H),
+            acc.reshape(B, T, H, hd))
+
+
+def seq_shard_view(k, v, rank, P, k_scale=None, v_scale=None):
+    """Rank ``rank``'s shard (of P) of a dense cache split along its
+    positions, k, v [B, S_l, KV, hd] (and an int8 cache's scales), as the
+    paged kernel's partials mode reads it → (k pool, v pool, tables [B,
+    MB], owned [B, MB], k_scale pool, v_scale pool): the shard viewed as a
+    pool of S_l / bs blocks a row, through tables as wide as the whole
+    cache whose entries outside the shard are not owned (and point at a
+    block of the row's own, never read)."""
+    B, S_l = k.shape[0], k.shape[1]
+    bs = _dense_block_size(S_l)
+    mb = S_l // bs
+    j = torch.arange(mb * P, device=k.device)
+    entry = (j - rank * mb).clamp(0, mb - 1)
+    tables = (torch.arange(B, device=k.device)[:, None] * mb + entry[None, :]).to(torch.int32)
+    owned = (j // mb == rank)[None, :].expand(B, mb * P).contiguous()
+    pools = [None if t is None else _dense_as_pool(t, bs) for t in (k, v, k_scale, v_scale)]
+    return pools[0], pools[1], tables, owned, pools[2], pools[3]
+
+
+def _seq_shard_partials(q, k, v, cache_len, rank, P, k_scale=None, v_scale=None, backend=None):
+    """Partials of q over rank ``rank``'s shard (of P) of a dense cache
+    split along its positions: the kernel route runs the paged kernel's
+    partials mode over ``seq_shard_view``."""
+    if kernel_ops.resolve_attention_backend(backend, q.device) != "kernel":
+        return _local_partials(q, k, v, cache_len, rank * k.shape[1], k_scale, v_scale)
+    kernel_ops.require_cuda(q, "attention_split")
+    kp, vp, tables, owned, ks, vs = seq_shard_view(k, v, rank, P, k_scale, v_scale)
+    return paged_flash_partials(q, kp, vp, tables, cache_len, owned, k_scale=ks, v_scale=vs,
+                                backend="kernel")
+
+
+def attention_split(params, x, *, cfg, mesh, heads: bool, kv_heads: bool, kv_seq: bool,
+                    rows: bool, positions=None, cache=None, cache_len=None, backend=None,
+                    axis="model"):
+    """A rank's share of ``attention_block`` in a model split over ``axis``
+    (``Model(cfg, mesh=mesh)``'s prefill and slot decode): x [B, S, D]
+    replicated over the axis in, [B, S, D] replicated out → (out, new_kv).
+
+    - ``heads``: ``wq`` / ``wo`` hold the rank's block of q heads; the rank
+      attends with them and the partial output projections are summed.
+      ``kv_heads``: ``wk`` / ``wv`` and the cache hold its kv heads too
+      (the groups of its q heads); else they are whole and the rank reads
+      the kv heads its q heads need.
+    - ``rows`` (prefill, ``seq_sp``): every weight is whole; the rank's
+      queries are its rows of the sequence, attending every key before
+      them (``q_offset``); the rows are gathered back.
+    - ``kv_seq`` (decode): the cache holds the rank's contiguous range of
+      the positions, every kv head. Every rank computes every head's query
+      (gathered from the heads' ranks under ``heads``), attends over its
+      positions (``_seq_shard_partials``: the paged kernel's partials mode
+      on the kernel route) and ``distributed_softmax`` combines the
+      partials; only the rank that holds a row's new position writes it.
+    - Neither: the whole attention on every rank.
+
+    Prefill: cache None → ``new_kv`` the (k, v) [B, S, KV', hd] of the kv
+    heads the rank computed, every position (the caller keeps its cache
+    shard of them). Decode: ``cache`` = (k_all, v_all, k_scale, v_scale,
+    li), the rank's shards of the stacked cache, written in place; the
+    kernel route over a head split runs the paged kernel with the
+    unsharded plan (``plan_kv_heads``), as ``Model.sharded_paged_step``."""
+    B, S, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    P = collectives.group_size(mesh, axis)
+    r = collectives.axis_index(mesh, axis) if P > 1 else 0
+    h_l, n_rep = H // P, H // KV
+    wq = _heads_of(params["wq"], H, hd, mesh, axis, out=False, local=heads)
+    wk = _heads_of(params["wk"], KV, hd, mesh, axis, out=False, local=kv_heads)
+    wv = _heads_of(params["wv"], KV, hd, mesh, axis, out=False, local=kv_heads)
+    lo, hi = seq_rows(S, P, r) if rows else (0, S)
+    q = torch.einsum("bsd,dhk->bshk", x[:, lo:hi], wq)
+    k = torch.einsum("bsd,dhk->bshk", x, wk)
+    v = torch.einsum("bsd,dhk->bshk", x, wv)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos[:, lo:hi], sin[:, lo:hi])
+    k = apply_rope(k, cos, sin)
+
+    new_kv = None
+    if cache is None:
+        kq, vq = k, v
+        if heads and not kv_heads:
+            if h_l % n_rep == 0:  # whole groups: their kv heads
+                g0 = r * h_l // n_rep
+                kq, vq = k[:, :, g0:g0 + h_l // n_rep], v[:, :, g0:g0 + h_l // n_rep]
+            else:  # the kv head of each q head
+                need = torch.arange(r * h_l, (r + 1) * h_l, device=x.device) // n_rep
+                kq, vq = k.index_select(2, need), v.index_select(2, need)
+        out = gqa_attention(q, kq, vq, q_offset=lo, chunk=cfg.attn_chunk, backend=backend)
+        new_kv = (k, v)
+    else:
+        k_all, v_all, ks_all, vs_all, li = cache
+        S_l = k_all.shape[2]
+        smax = S_l * P if kv_seq else S_l
+        start = cache_len.long().clamp(max=smax - S)
+        pos = start[:, None] + torch.arange(S, device=x.device)[None, :]
+        rws = torch.arange(B, device=x.device)[:, None]
+        loc = (pos - r * S_l).clamp(0, S_l - 1) if kv_seq else pos
+        for stack, val in _slot_writes(k_all, v_all, ks_all, vs_all, k, v):
+            tgt = stack[li]
+            val = val.to(tgt.dtype)
+            if kv_seq:  # the row's position lies on one rank: the others keep theirs
+                mine = (pos // S_l == r).view(B, S, *(1,) * (val.dim() - 2))
+                val = torch.where(mine, val, tgt[rws, loc])
+            tgt[rws, loc] = val
+        ks = None if ks_all is None else ks_all[li]
+        vs = None if vs_all is None else vs_all[li]
+        if kv_seq:
+            qa = collectives.all_gather(q, mesh, axis, dim=2) if heads else q
+            m_p, l_p, acc_p = _seq_shard_partials(qa, k_all[li], v_all[li], cache_len, r, P,
+                                                  ks, vs, backend)
+            out = collectives.distributed_softmax(m_p, l_p, acc_p, mesh, axis).to(q.dtype)
+            if heads:
+                out = out[:, :, r * h_l:(r + 1) * h_l]
+        else:
+            out = _cached_attention(q, k_all[li], v_all[li], cache_len, k_scale=ks, v_scale=vs,
+                                    backend=backend, plan_kv_heads=KV if kv_heads else None)
+
+    wo = _heads_of(params["wo"], H, hd, mesh, axis, out=True, local=heads)
+    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), wo)
+    if heads:
+        return collectives.leave(y, mesh, axis), new_kv
+    if rows:
+        return rows_to_all(y, lo, S, mesh, axis, split_consumer=False), new_kv
+    return y, new_kv

@@ -33,7 +33,10 @@ reference route, remat a layer at a time, the MoE aux loss kept), with
 ``param_axes`` and ``abstract_params`` beside ``init``; on a mesh it runs
 split over "model" (heads or ``seq_sp`` for attention, the hidden dim for
 SwiGLU, experts for a MoE, SSM heads for Mamba2, the vocabulary for the
-embedding and the loss), its FSDP leaves gathered over "data" at each use.
+embedding and the loss), its FSDP leaves gathered over "data" at each use,
+and so do ``prefill`` and the slot layout's ``decode_step``, on the rank's
+shard of the cache (its kv heads, or its range of positions where the kv
+heads do not divide, its SSM heads).
 """
 from __future__ import annotations
 
@@ -89,6 +92,31 @@ CHUNKED_PREFILL_FAMILIES = ("dense", "audio")
 
 # leaves kept float32 whatever the model dtype, as the JAX package keeps them
 FLOAT32_PARAMS = ssm_mod.FLOAT32_PARAMS + moe_mod.FLOAT32_PARAMS
+
+# the baseline switch (``launch/dryrun.py --legacy``): the slot decode of the
+# attention families and of the hybrid's shared site copies each layer's
+# cache slice out and writes the whole slice back, where the default writes
+# one token into the stack in place (the JAX package's pre-optimisation
+# decode scan, whose xs/ys slice the cache a layer)
+LEGACY_CACHE_SCAN = False
+
+
+def _cache_site(cache, li, legacy):
+    """(k_all, v_all, k_scale, v_scale, li) for the attention site ``li`` of
+    a slot cache, and the function to call after it: the stacks themselves
+    (nothing to do after), or under ``legacy`` a copy of the site's slice
+    of each ([1, ...], index 0), written back whole after."""
+    stacks = [cache.get(n) for n in ("k", "v", "k_scale", "v_scale")]
+    if not legacy:
+        return tuple(stacks) + (li,), lambda: None
+    copies = [None if t is None else t[li:li + 1].clone() for t in stacks]
+
+    def write_back():
+        for t, c in zip(stacks, copies):
+            if t is not None:
+                t[li:li + 1].copy_(c)
+
+    return tuple(copies) + (0,), write_back
 
 
 def prefill_bucket(n: int, cap: Optional[int] = None) -> int:
@@ -162,7 +190,9 @@ def _fsdp(t, stored, computed, mesh, how: str):
     off = len(stored) - t.dim()
     for i in range(t.dim()):
         keep = sharding_mod.spec_axes(computed[off + i])
-        axes = tuple(a for a in sharding_mod.spec_axes(stored[off + i]) if a not in keep)
+        # an axis of one rank holds the whole dim: nothing to gather
+        axes = tuple(a for a in sharding_mod.spec_axes(stored[off + i])
+                     if a not in keep and col.group_size(mesh, a) > 1)
         if not axes:
             continue
         if how == "use":
@@ -195,10 +225,10 @@ class Model:
     ``device`` defaults to CUDA and raises when none is present.
 
     ``mesh``: a ``DeviceMesh`` (``launch/mesh.py``) whose ``ShardingRules``
-    the layers read: a serving MoE layer then runs its expert-parallel
-    paths, and ``loss`` is this rank's share of the step split over the
-    mesh, on its shards of the parameters (``shard_params``,
-    ``train_split``).
+    the layers read: ``loss``, ``prefill`` and ``decode_step`` are then this
+    rank's share of the step split over the mesh, on its shards of the
+    parameters (``shard_params``, ``train_split``), and a paged step's MoE
+    layer runs its expert-parallel paths.
     ``tp_axis`` / ``seq_axis`` make this model a rank's local view inside
     ``sharded_paged_step``: its cfg carries the rank's head counts, its
     paged attention gathers the head shards over ``tp_axis`` before the
@@ -219,7 +249,9 @@ class Model:
         # (set on the local view by sharded_paged_step)
         self.plan_kv_heads = None
         self._views = None  # (params, per-layer views) of the last params seen
-        self._split = None  # the TrainSplit of a model holding rules
+        # the TrainSplit of a model holding rules, made here: a step counted
+        # on meta tensors must not count the abstract init it reads
+        self._split = self._make_split() if self.rules is not None else None
         self._graph_pool = None  # (memory pool, side stream) of the captured steps
 
     # ------------------------------------------------------------------
@@ -467,7 +499,7 @@ class Model:
             lp = use(lp, "layers")
             if sp is not None and sp.ssm:
                 h = rms_norm(x, lp["norm"], cfg.norm_eps)
-                return x + ssm_mod.ssm_block_split(lp["ssm"], h, cfg, self.mesh)
+                return x + ssm_mod.ssm_block_split(lp["ssm"], h, cfg, self.mesh)[0]
             return self._ssm_layer(x, lp, "reference")[0]
 
         def block(x, lp, path):
@@ -594,10 +626,6 @@ class Model:
     @property
     def train_split(self) -> Optional[TrainSplit]:
         """This model's ``TrainSplit`` on its mesh (None without rules)."""
-        if self.rules is None:
-            return None
-        if self._split is None:
-            self._split = self._make_split()
         return self._split
 
     def _make_split(self) -> TrainSplit:
@@ -811,7 +839,7 @@ class Model:
     # ------------------------------------------------------------------
     # prefill
     def prefill(self, params, tokens, max_seq, prompt_len=None, *, patch_embeds=None,
-                backend=None, into=None):
+                backend=None, into=None, batch_size=None):
         """Run the prompt: (next-token logits [B,V], filled cache).
         ``prompt_len`` [B] marks real lengths when ``tokens`` is
         right-padded to a ``prefill_bucket``: logits come from each row's
@@ -823,8 +851,20 @@ class Model:
         cache holds each layer's final state, and so does the hybrid's,
         beside its per-site KV. ``into``: a cache of B rows and ``max_seq``
         to write the new cache into (zeroed first) instead of a new one: a
-        compiled prefill then keeps no cache of its own."""
+        compiled prefill then keeps no cache of its own.
+
+        A model that holds rules (``Model(cfg, mesh=mesh)``) runs this
+        rank's share of the prefill on its shards of the parameters
+        (``_prefill_split``): ``tokens`` (and ``patch_embeds``) are the whole
+        batch, or with ``batch_size`` (the whole batch's rows) this rank's
+        rows of it; the logits come back whole, the cache as this rank's
+        shard."""
         cfg = self.cfg
+        if self.rules is not None:
+            if prompt_len is not None or into is not None:
+                raise ValueError("a split prefill takes no prompt_len and no into= cache")
+            return self._prefill_split(params, tokens, max_seq, patch_embeds, backend,
+                                       batch_size)
         if prompt_len is not None and cfg.family not in PAD_PREFILL_FAMILIES:
             raise ValueError(
                 f"padded prefill is only token-identical for "
@@ -967,14 +1007,23 @@ class Model:
         """Slot layout: tokens [B,1] → (logits [B,V], cache with each
         row's token written at its own length and ``len`` + 1; for the SSM
         family and the hybrid, each layer's state advanced one step). The
-        cache tensors are updated in place."""
-        logits = self._step_slot(params, cache, tokens, backend)
+        cache tensors are updated in place. With ``LEGACY_CACHE_SCAN`` an
+        attention layer (or the hybrid's shared site) works on a copy of its
+        cache slice and writes the whole slice back: the same values, more
+        bytes moved (the baseline the dry run's ``--legacy`` counts). A model
+        that holds rules runs this rank's share (``_decode_split``): its
+        shards of the parameters and of the cache, ``len`` whole, the tokens
+        whole or this rank's rows; the logits come back whole."""
+        if self.rules is not None:
+            return self._decode_split(params, cache, tokens, backend, LEGACY_CACHE_SCAN)
+        logits = self._step_slot(params, cache, tokens, backend, LEGACY_CACHE_SCAN)
         return logits[:, 0], {**cache, "len": cache["len"] + 1}
 
-    def _step_slot(self, params, cache, tokens, backend):
+    def _step_slot(self, params, cache, tokens, backend, legacy=False):
         """The slot layout's layer loop: tokens [B,T] at positions
         ``len + arange(T)`` → logits [B,T,V], the cache written in place
-        (T = 1 for the SSM family and the hybrid)."""
+        (T = 1 for the SSM family and the hybrid); ``legacy``: each
+        attention site on a copy of its slice (``_cache_site``)."""
         backend = kernel_ops.resolve_attention_backend(backend, self.device)
         tokens = self._tokens(tokens)
         x = embed_tokens(params["embed"], tokens)
@@ -991,11 +1040,12 @@ class Model:
             return x
 
         def attn_step(x, li, lp):
-            kv = (cache["k"], cache["v"], cache.get("k_scale"), cache.get("v_scale"), li)
+            kv, write_back = _cache_site(cache, li, legacy)
             x, _, _ = self._dense_layer(
                 x, lp, backend, path="dense", positions=positions, cache=kv,
                 cache_len=cache_len,
             )
+            write_back()
             return x
 
         if family == "hybrid":
@@ -1009,6 +1059,231 @@ class Model:
                 x = step(x, li, lp)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return x @ self._head(params)
+
+    # ------------------------------------------------------------------
+    # prefill and slot decode split over the mesh
+    def _note(self, axes, shape) -> tuple:
+        """The rules' spec of an activation of the whole ``shape``: what the
+        JAX package's ``constrain`` asks at the same point of its forward,
+        and records as it does when a mapping does not divide."""
+        return self.rules.spec(axes, shape)
+
+    def _batch_split(self, B):
+        """(mesh axes, shards, this rank's shard) of a batch of ``B`` rows as
+        the rules place it (replicated, and recorded, where it does not
+        divide)."""
+        axes = sharding_mod.spec_axes(self._note(("batch",), (B,))[0])
+        return axes, sharding_mod.axis_size(self.mesh, axes), col.shard_index(self.mesh, axes)
+
+    def _my_rows(self, t, B, n, i):
+        """This rank's rows of a batch-leading ``t``: ``t`` holds all ``B``
+        rows, or already this rank's ``B / n``."""
+        t = torch.as_tensor(t, device=self.device)
+        if t.shape[0] == B // n:
+            return t
+        if t.shape[0] != B:
+            raise ValueError(f"{t.shape[0]} rows: neither the batch of {B} nor a shard of it")
+        return t.narrow(0, i * (B // n), B // n)
+
+    def _compute(self, tree, *path, keep=()):
+        """``tree`` (stored shards under ``path`` of the parameters) in the
+        compute layout, its FSDP "data" axes gathered, without a gradient;
+        the sub-dicts named in ``keep`` stay as stored."""
+        if keep and isinstance(tree, dict):
+            return {k: v if k in keep else self._fsdp_map("gather", v, path + (k,))
+                    for k, v in tree.items()}
+        return self._fsdp_map("gather", tree, path)
+
+    def _attn_split(self) -> dict:
+        """How attention splits over "model": the q heads (``heads``), the
+        kv heads with them (``kv_heads``: the cache's kv heads too), or the
+        cache along its positions (``kv_seq``: the kv heads do not divide)."""
+        heads = self.train_split.attn == "heads"
+        return dict(heads=heads, kv_heads=heads and self.rules.kv_heads_ok,
+                    kv_seq=bool(self.train_split.attn) and self.rules.table["kv_seq"] == "model")
+
+    def _serve_block(self, x, lp, ppath, backend, path, B, **kw):
+        """An attention layer and its MLP as this rank's share (x [B_l, S, D]
+        of a batch of ``B`` rows) → (x, new kv of prefill or None). ``path``:
+        the MoE path ("dispatch" for prefill, "dense" for decode, as the
+        reference's callers pass it); the dense path keeps its expert F
+        shards, every other FSDP leaf is gathered here."""
+        cfg, mesh, sp = self.cfg, self.mesh, self.train_split
+        lp = self._compute(lp, *ppath, keep=("moe",) if path == "dense" else ())
+        if path == "dense" and "moe" in lp:  # the router whole, the experts' F as stored
+            lp["moe"] = dict(lp["moe"], router=self._compute(lp["moe"]["router"], *ppath, "moe",
+                                                             "router"))
+        S = x.shape[1]
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        qspec = self._note(("batch", "seq_sp", "heads", None), (B, S, H, hd))
+        self._note(("batch", None, "kv_heads", None), (B, S, KV, hd))
+        rows = sp.attn == "seq" and "model" in sharding_mod.spec_axes(qspec[1])
+        h, kv = attn.attention_split(lp["attn"], rms_norm(x, lp["attn_norm"], cfg.norm_eps),
+                                     cfg=cfg, mesh=mesh, rows=rows, backend=backend,
+                                     **self._attn_split(), **kw)
+        self._note(("batch", "seq_sp", None), (B, S, cfg.d_model))
+        x = x + h
+        hin = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        if "moe" in lp:
+            if sp.moe:
+                st = sp.storage[ppath[0]]["moe"]["we1"][-1]  # F of (…, "experts", None, "expert_mlp")
+                f_axes = sharding_mod.spec_axes(st) if path == "dense" else ()
+                baxes = sharding_mod.spec_axes(self._note(("batch",), (B,))[0])
+                h = moe_mod.moe_serve_split(hin, lp["moe"], cfg, mesh, path, baxes, f_axes)
+            else:
+                h = moe_mod.moe_mlp(hin, lp["moe"], cfg)
+        else:
+            self._note((None, None, "mlp"), (B, S, cfg.d_ff))
+            mlp = (lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])
+            h = swiglu_split(hin, *mlp, mesh) if sp.mlp else swiglu(hin, *mlp)
+        return x + h, kv
+
+    def _serve_ssm(self, x, lp, backend, B, state=None, want_state=False):
+        """A Mamba2 layer as this rank's share → (x, its state or None)."""
+        cfg = self.cfg
+        lp = self._compute(lp, "layers")
+        S = x.shape[1]
+        self._note(("batch", "seq", "ssm_inner"), (B, S, cfg.ssm_d_inner))
+        self._note(("batch", "seq", "ssm_heads", None), (B, S, cfg.ssm_heads, cfg.ssm_head_dim))
+        h = rms_norm(x, lp["norm"], cfg.norm_eps)
+        if self.train_split.ssm:
+            y, st = ssm_mod.ssm_block_split(lp["ssm"], h, cfg, self.mesh, state=state,
+                                            want_state=want_state, backend=backend)
+        else:
+            y, st = ssm_mod.ssm_block(lp["ssm"], h, cfg, state=state, want_state=want_state,
+                                      backend=backend)
+        return x + y, st
+
+    def _logits_split(self, params, x, baxes, B):
+        """x [B_l, D] (final-normed) → the whole logits [B, V] on every rank:
+        the rank's vocabulary columns gathered over "model", its rows over
+        the batch axes."""
+        cfg = self.cfg
+        head = (self._compute(params["embed"], "embed").T if cfg.tie_embeddings
+                else self._compute(params["lm_head"], "lm_head"))
+        logits = x @ head
+        self._note(("batch", "vocab"), (B, cfg.padded_vocab))
+        if self.train_split.vocab:
+            logits = col.all_gather(logits, self.mesh, "model", dim=1)
+        return col.all_gather_axes(logits, self.mesh, baxes, dim=0)
+
+    def _embed_split(self, params, tokens, patch_embeds, B, prompt=True):
+        """The rank's rows embedded (the vocabulary split where the rules
+        split it); a prompt (``prompt``) leads with a VLM's patch rows."""
+        lookup = embed_tokens
+        if self.train_split.vocab:
+            lookup = functools.partial(embed_tokens_split, mesh=self.mesh)
+        if prompt:
+            x = self._embed_inputs(params, tokens, patch_embeds, lookup, self._compute)
+        else:
+            x = lookup(self._compute(params["embed"], "embed"), tokens)
+        self._note(("batch", "seq", None), (B, x.shape[1], self.cfg.d_model))
+        return x
+
+    def _prefill_split(self, params, tokens, max_seq, patch_embeds, backend, batch_size):
+        """``prefill`` as this rank's share of a model split over its mesh:
+        each layer as ``_serve_block`` / ``_serve_ssm`` splits it, on the
+        rank's shards of the parameters (``shard_params``) → (the whole
+        logits [B, V], this rank's shard of the cache as ``cache_axes`` and
+        the rules lay it out: its batch rows, its kv heads or its range of
+        positions, its SSM heads; ``len`` whole)."""
+        cfg, mesh = self.cfg, self.mesh
+        backend = kernel_ops.resolve_attention_backend(backend, self.device)
+        tokens = self._tokens(tokens)
+        B = batch_size or tokens.shape[0]
+        baxes, nb, bi = self._batch_split(B)
+        tokens = self._my_rows(tokens, B, nb, bi)
+        if patch_embeds is not None:
+            patch_embeds = self._my_rows(patch_embeds, B, nb, bi)
+        x = self._embed_split(params, tokens, patch_embeds, B)
+        S = x.shape[1]
+        P = col.group_size(mesh, "model")
+        r = col.axis_index(mesh, "model") if P > 1 else 0
+        split = self._attn_split()
+        if split["kv_seq"] and max_seq % P:
+            raise ValueError(f"max_seq {max_seq} does not split over the 'model' axis ({P}): "
+                             "the cache's positions are split there")
+        kvs, states = [], []
+        if cfg.family == "hybrid":
+            for group in self._hybrid_groups(params):
+                for _, lp in group:
+                    x, st = self._serve_ssm(x, lp, backend, B, want_state=True)
+                    states.append(st)
+                x, kv = self._serve_block(x, params["shared"], ("shared",), backend, "dispatch",
+                                          B)
+                kvs.append(kv)
+        else:
+            for lp in self._layer_params(params):
+                if cfg.family == "ssm":
+                    x, st = self._serve_ssm(x, lp, backend, B, want_state=True)
+                    states.append(st)
+                else:
+                    x, kv = self._serve_block(x, lp, ("layers",), backend, "dispatch", B)
+                    kvs.append(kv)
+        x = rms_norm(x, self._compute(params["final_norm"], "final_norm"), cfg.norm_eps)
+        logits = self._logits_split(params, x[:, -1], baxes, B)
+        cache = {"len": torch.full((B,), S, dtype=torch.int32, device=self.device)}
+        if kvs:
+            S_l = max_seq // P if split["kv_seq"] else max_seq
+            lo = r * S_l if split["kv_seq"] else 0
+            k0 = kvs[0][0]
+            shape = (len(kvs), k0.shape[0], S_l, k0.shape[2], cfg.head_dim)
+            for name in self.kv_names:
+                dt = torch.bfloat16 if name.endswith("_scale") else (
+                    torch.int8 if cfg.kv_quant else k0.dtype)
+                cache[name] = torch.zeros(shape[:4] if name.endswith("_scale") else shape,
+                                          dtype=dt, device=self.device)
+            for li, (k, v) in enumerate(kvs):
+                vals = {"k": k[:, lo:lo + S_l], "v": v[:, lo:lo + S_l]}
+                if cfg.kv_quant:
+                    (vals["k"], vals["k_scale"]), (vals["v"], vals["v_scale"]) = (
+                        attn.quantize_kv(vals["k"]), attn.quantize_kv(vals["v"]))
+                for name, val in vals.items():
+                    cache[name][li, :, :val.shape[1]] = val
+        if states:
+            cache["ssm_state"] = {k: torch.stack([st[k] for st in states]) for k in states[0]}
+        return logits, cache
+
+    def _decode_split(self, params, cache, tokens, backend, legacy):
+        """``decode_step`` as this rank's share of a model split over its
+        mesh, on its shards of the parameters and of the cache (written in
+        place; ``len`` whole): the whole logits [B, V] and the cache with
+        ``len`` + 1."""
+        cfg = self.cfg
+        backend = kernel_ops.resolve_attention_backend(backend, self.device)
+        B = cache["len"].shape[0]
+        baxes, nb, bi = self._batch_split(B)
+        tokens = self._my_rows(self._tokens(tokens), B, nb, bi)
+        cache_len = self._my_rows(cache["len"], B, nb, bi) if nb > 1 else cache["len"]
+        x = self._embed_split(params, tokens, None, B, prompt=False)
+        positions = cache_len[:, None].long()
+
+        def ssm_step(x, li, lp):
+            st = {k: v[li] for k, v in cache["ssm_state"].items()}
+            x, new_st = self._serve_ssm(x, lp, backend, B, state=st)
+            for k, v in new_st.items():
+                st[k].copy_(v)
+            return x
+
+        def attn_step(x, li, lp, ppath):
+            kv, write_back = _cache_site(cache, li, legacy)
+            x, _ = self._serve_block(x, lp, ppath, backend, "dense", B, positions=positions,
+                                     cache=kv, cache_len=cache_len)
+            write_back()
+            return x
+
+        if cfg.family == "hybrid":
+            for gi, group in enumerate(self._hybrid_groups(params)):
+                for li, lp in group:
+                    x = ssm_step(x, li, lp)
+                x = attn_step(x, gi, params["shared"], ("shared",))
+        else:
+            for li, lp in enumerate(self._layer_params(params)):
+                x = (ssm_step(x, li, lp) if cfg.family == "ssm"
+                     else attn_step(x, li, lp, ("layers",)))
+        x = rms_norm(x, self._compute(params["final_norm"], "final_norm"), cfg.norm_eps)
+        logits = self._logits_split(params, x[:, 0], baxes, B)
+        return logits, {**cache, "len": cache["len"] + 1}
 
     # ------------------------------------------------------------------
     # speculative verify and chunked prefill

@@ -40,7 +40,9 @@ shards of them:
 ``moe_train_split`` is the dispatch path inside a training step split over
 a mesh, with gradients: the arguments and the result are the rank's own
 (its batch shard's tokens, its E/ep experts), and every collective carries
-its transpose (``parallel/collectives.py``).
+its transpose (``parallel/collectives.py``). ``moe_serve_split`` is the
+serving layer of a model split over a mesh on the same shards: dispatch
+for prefill, the dense path for decode.
 """
 from __future__ import annotations
 
@@ -218,28 +220,46 @@ def _mean_aux(probs, idx, mesh, axes):
 
 
 def _moe_dispatch_sharded(x2d, params, cfg, rules):
-    """The expert-parallel all-to-all path: x [T, D] → (y [T, D], aux)."""
+    """The expert-parallel all-to-all path: x [T, D] → (y [T, D], aux):
+    each batch shard's tokens through ``_dispatch_split`` on the rank's
+    experts, the aux loss the token shards' mean, the shards gathered
+    back."""
     mesh = rules.mesh
-    ep, mine = _local_experts(mesh, cfg)
-    token_axes = rules.table["tokens_ep"]
-    T = x2d.shape[0]
-    n_shards = _axes_size(mesh, token_axes)
-    T_l = T // n_shards
-    C = moe_capacity(T_l, cfg)
-    i = col.shard_index(mesh, token_axes)
-    x_loc = x2d[i * T_l:(i + 1) * T_l]
-    gates, idx, probs = _route(x_loc, params["router"], cfg.top_k)
-    buf, lin, gf = _dispatch_local(x_loc, gates, idx, cfg.n_experts, C)
-    el = cfg.n_experts // ep
-    recv = col.all_to_all(buf.reshape(ep, el, C, -1), mesh, "model")  # [ep, el, C, D]
-    # the rank's experts over every source's slots: [el, ep·C, D]
-    xe = recv.transpose(0, 1).reshape(el, ep * C, -1)
-    y = _expert_ffn(xe, params["we1"][mine], params["we3"][mine], params["we2"][mine])
-    y = y.reshape(el, ep, C, -1).transpose(0, 1).contiguous()
-    back = col.all_to_all(y, mesh, "model")
-    out = _combine_local(back.reshape(cfg.n_experts, C, -1), lin, gf, T_l, cfg.top_k)
-    aux = _mean_aux(probs, idx, mesh, token_axes)
-    return col.all_gather_axes(out, mesh, token_axes, dim=0), aux
+    _, mine = _local_experts(mesh, cfg)
+    batch_axes = rules.table["batch"]
+    local = {"router": params["router"], **{k: params[k][mine] for k in ("we1", "we3", "we2")}}
+    y, aux = _dispatch_split(_batch_rows(x2d, mesh, batch_axes)[None], local, cfg, mesh, "model",
+                             want_aux=True)
+    aux = col.all_reduce_axes(aux, mesh, batch_axes) / _axes_size(mesh, batch_axes)
+    return col.all_gather_axes(y[0], mesh, batch_axes, dim=0), aux
+
+
+def _dense_experts(x_rows, router, we1, we3, we2, cfg, mesh, batch_axes, f_axes):
+    """The decode path's expert products on this rank: x_rows [T_l, D] its
+    rows of the batch (split over ``batch_axes``), ``we*`` its experts'
+    slices (their F split over ``f_axes``) → (every token's output [T, D],
+    probs, idx): the few tokens gathered to the experts' shards, each
+    rank's (experts × F shard) share of every token, summed over "model"
+    and ``f_axes``; the weights never move."""
+    _, mine = _local_experts(mesh, cfg)
+    x_all = col.all_gather_axes(x_rows, mesh, batch_axes, dim=0)
+    out, probs, idx = _masked_ffn(x_all, router, we1, we3, we2, cfg, mine)
+    return col.all_reduce_axes(out, mesh, ("model",) + tuple(f_axes)), probs, idx
+
+
+def _legacy_experts(x_rows, router, we1, we3, we2, cfg, mesh):
+    """The baseline's: this rank's rows over its experts' whole F, summed
+    over "model" → (out [T_l, D], probs, idx)."""
+    _, mine = _local_experts(mesh, cfg)
+    out, probs, idx = _masked_ffn(x_rows, router, we1, we3, we2, cfg, mine)
+    return col.all_reduce(out, mesh, "model"), probs, idx
+
+
+def _batch_rows(x2d, mesh, batch_axes):
+    """This rank's rows of the global tokens x2d [T, D] over ``batch_axes``."""
+    T_l = x2d.shape[0] // _axes_size(mesh, batch_axes)
+    i = col.shard_index(mesh, batch_axes)
+    return x2d[i * T_l:(i + 1) * T_l]
 
 
 # the baseline switch: the pre-optimisation dense path needs each expert's
@@ -253,41 +273,31 @@ def _moe_dense_legacy(x2d, params, cfg, rules):
     mesh = rules.mesh
     _, mine = _local_experts(mesh, cfg)
     batch_axes = rules.table["batch"]
-    n_b = _axes_size(mesh, batch_axes)
-    T_l = x2d.shape[0] // n_b
-    i = col.shard_index(mesh, batch_axes)
-    x_loc = x2d[i * T_l:(i + 1) * T_l]
-    out, probs, idx = _masked_ffn(x_loc, params["router"], params["we1"][mine],
-                                  params["we3"][mine], params["we2"][mine], cfg, mine)
-    out = col.all_reduce(out, mesh, "model")
+    out, probs, idx = _legacy_experts(_batch_rows(x2d, mesh, batch_axes), params["router"],
+                                      params["we1"][mine], params["we3"][mine],
+                                      params["we2"][mine], cfg, mesh)
     aux = _mean_aux(probs, idx, mesh, batch_axes)
     return col.all_gather_axes(out, mesh, batch_axes, dim=0), aux
 
 
 def _moe_dense_sharded(x2d, params, cfg, rules):
-    """The decode path: x [T, D] → (y [T, D], aux). The (few) tokens are
-    gathered from the batch shards, each rank computes its (expert slice ×
-    F slice) share of every token, and a sum over 'model' (and the FSDP
-    axis) completes them; the weights stay where they are."""
+    """The decode path: x [T, D] → (y [T, D], aux) (``_dense_experts``);
+    every rank holds every token's output after the sum: the reference
+    slices its own token shard back out and shard_map gathers them, which
+    gives this."""
     mesh = rules.mesh
     _, mine = _local_experts(mesh, cfg)
     batch_axes = rules.table["batch"]
-    n_b = _axes_size(mesh, batch_axes)
-    T_l = x2d.shape[0] // n_b
-    i = col.shard_index(mesh, batch_axes)
-    x_all = col.all_gather_axes(x2d[i * T_l:(i + 1) * T_l], mesh, batch_axes, dim=0)
     fsdp = rules.cfg.param_sharding == "fsdp" and "data" in mesh_shape(mesh)
     f = slice(None)
     if fsdp:
         nd, di = mesh_shape(mesh)["data"], col.axis_index(mesh, "data")
         f_l = params["we1"].shape[-1] // nd
         f = slice(di * f_l, (di + 1) * f_l)
-    out, probs, idx = _masked_ffn(x_all, params["router"], params["we1"][mine][:, :, f],
-                                  params["we3"][mine][:, :, f], params["we2"][mine][:, f],
-                                  cfg, mine)
-    out = col.all_reduce_axes(out, mesh, ("model", "data") if fsdp else ("model",))
-    # every rank now holds every token's output: the reference slices its
-    # own token shard back out and shard_map gathers them, which gives this
+    out, probs, idx = _dense_experts(
+        _batch_rows(x2d, mesh, batch_axes), params["router"], params["we1"][mine][:, :, f],
+        params["we3"][mine][:, :, f], params["we2"][mine][:, f], cfg, mesh, batch_axes,
+        ("data",) if fsdp else ())
     return out, _mean_aux(probs, idx, mesh, batch_axes)
 
 
@@ -320,11 +330,15 @@ def moe_train_split(x, params, cfg, mesh, axis="model"):
     tokens' outputs are gathered. The router is read by every rank for its
     own tokens, so its gradient is partial over ``axis``. The aux loss is
     the mean of the ranks' (``pmean``); the step averages it over "data"."""
+    return _dispatch_split(x, params, cfg, mesh, axis, want_aux=True)
+
+
+def _dispatch_split(x, params, cfg, mesh, axis, want_aux):
     B, S, D = x.shape
     ep = col.group_size(mesh, axis)
     E = cfg.n_experts
     if E % ep or (B * S) % ep:
-        raise ValueError(f"moe_train_split: {E} experts and {B * S} tokens over {ep} ranks")
+        raise ValueError(f"moe dispatch split: {E} experts and {B * S} tokens over {ep} ranks")
     el, T_l = E // ep, B * S // ep
     m = col.axis_index(mesh, axis)
     x2d = col.enter(x.reshape(B * S, D), mesh, axis)
@@ -337,6 +351,37 @@ def moe_train_split(x, params, cfg, mesh, axis="model"):
     y = _expert_ffn(xe, params["we1"], params["we3"], params["we2"])
     back = col.all_to_all_grad(y.reshape(el, ep, C, D).transpose(0, 1).contiguous(), mesh, axis)
     out = _combine_local(back.reshape(E, C, D), lin, gf, T_l, cfg.top_k)
-    aux = col.leave(switch_aux(probs, idx), mesh, axis) / ep
+    aux = col.leave(switch_aux(probs, idx), mesh, axis) / ep if want_aux else None
     y = col.gather(out, mesh, axis, dim=0, backward="slice")
     return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def moe_serve_split(x, params, cfg, mesh, path: str, batch_axes=(), f_axes=()):
+    """The serving MoE layer as a rank's share of a model split over the
+    mesh (``Model(cfg, mesh=mesh)``'s prefill and slot decode): x [B_l, S,
+    D] this rank's rows of the batch (split over ``batch_axes``),
+    replicated over "model" → y [B_l, S, D]; ``params`` the rank's stored
+    shards: ``we*`` its E/ep experts, their F over ``f_axes`` where the
+    FSDP layout keeps them split. The aux loss is dropped, as serving
+    drops it.
+
+    - ``"dispatch"`` (prefill): ``_moe_dispatch_sharded``'s all-to-all path
+      over the rank's rows (its F gathered by the caller);
+    - ``"dense"`` (decode): ``_moe_dense_sharded``: the tokens gathered over
+      ``batch_axes``, each rank's (experts × F shard) share of every token
+      summed over "model" and ``f_axes``, the rank's rows kept; with
+      ``LEGACY_DENSE``, ``_moe_dense_legacy``'s: the rank's own rows over its
+      experts' whole F (gathered here), summed over "model"."""
+    if path != "dense":
+        return _dispatch_split(x, params, cfg, mesh, "model", want_aux=False)[0]
+    B, S, D = x.shape
+    x2d = x.reshape(B * S, D)
+    we = [params["we1"], params["we3"], params["we2"]]
+    if LEGACY_DENSE:
+        we = [col.all_gather_axes(w, mesh, f_axes, dim=2 if i < 2 else 1)
+              for i, w in enumerate(we)]
+        out = _legacy_experts(x2d, params["router"], *we, cfg, mesh)[0]
+    else:
+        out = _dense_experts(x2d, params["router"], *we, cfg, mesh, batch_axes, f_axes)[0]
+        out = _batch_rows(out, mesh, batch_axes)
+    return out.reshape(B, S, D).to(x.dtype)

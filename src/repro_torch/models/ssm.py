@@ -10,8 +10,8 @@ plain PyTorch ops, as the JAX package runs it in einsums.
 
 n_groups = 1 (B/C shared across heads); A is a per-head scalar (Mamba2).
 
-``ssm_block_split`` is a rank's share of the training block split over the
-SSM heads (see its docstring).
+``ssm_block_split`` is a rank's share of the block split over the SSM heads,
+in training and in serving (see its docstring).
 """
 from __future__ import annotations
 
@@ -110,8 +110,16 @@ def ssm_block(params, x, cfg, state=None, want_state=False, backend=None):
     Decode: state = dict(ssm [B,H,hd,N] fp32, conv_x, conv_B, conv_C)
     → one-step update, returns (y, new_state).
     """
+    return _ssm_core(params, x, cfg, state, want_state, backend,
+                     lambda y, z: gated_rms_norm(y, z, params["norm"], cfg.norm_eps))
+
+
+def _ssm_core(params, x, cfg, state, want_state, backend, norm):
+    """``ssm_block``'s body over the heads ``params`` hold (all of them, or
+    a rank's slice: the head count is read off ``wdt``), the gated norm
+    ``norm(y, z)`` given."""
     B, S, D = x.shape
-    h, hd = cfg.ssm_heads, cfg.ssm_head_dim
+    h, hd = params["wdt"].shape[-1], cfg.ssm_head_dim
     xz = x @ params["wx"]
     z = x @ params["wz"]
     b = x @ params["wB"]
@@ -151,35 +159,32 @@ def ssm_block(params, x, cfg, state=None, want_state=False, backend=None):
         new_state["ssm"] = s_new
 
     y = y + params["D"][None, None, :, None].to(y.dtype) * xh
-    y = gated_rms_norm(y.reshape(B, S, h * hd), z, params["norm"], cfg.norm_eps)
+    y = norm(y.reshape(B, S, h * hd), z)
     return y @ params["out"], new_state
 
 
-def ssm_block_split(params, x, cfg, mesh, axis="model"):
-    """The training block (no state) as a rank's share of a split over the
-    SSM heads on ``axis``: x [B, S, D] replicated in and out. The rank holds
-    its slices of ``wx``, ``wz``, ``conv_x``, ``norm`` and ``out``
-    ("ssm_inner": heads [r·h/P, (r+1)·h/P) times their head dim) and of
-    ``wdt``, ``A_log``, ``dt_bias`` and ``D`` ("ssm_heads"); ``wB``, ``wC``
-    and their convs are whole, read by every rank for its own heads, so
-    their gradients are partial. The gated norm sums its squares over the
-    axis, and the partial output projections are summed."""
-    B, S, D = x.shape
-    hd = cfg.ssm_head_dim
+def ssm_block_split(params, x, cfg, mesh, axis="model", *, state=None, want_state=False,
+                    backend="reference"):
+    """``ssm_block`` as a rank's share of a split over the SSM heads on
+    ``axis``: x [B, S, D] replicated in and out → (y, state or None). The
+    rank holds its slices of ``wx``, ``wz``, ``conv_x``, ``norm`` and
+    ``out`` ("ssm_inner": heads [r·h/P, (r+1)·h/P) times their head dim)
+    and of ``wdt``, ``A_log``, ``dt_bias`` and ``D`` ("ssm_heads"); ``wB``,
+    ``wC`` and their convs are whole, read by every rank for its own heads,
+    so their gradients are partial. The gated norm sums its squares over
+    the axis, and the partial output projections are summed. A state (the
+    one-step decode's input, and what a prefill returns with
+    ``want_state``) is the rank's: ``ssm`` over its heads, ``conv_x`` over
+    its inner slice, ``conv_B`` / ``conv_C`` whole. Training takes the
+    reference scan; serving passes its backend."""
     x = col.enter(x, mesh, axis)
-    xz, _ = _causal_conv(x @ params["wx"], params["conv_x"])
-    b, _ = _causal_conv(x @ params["wB"], params["conv_B"])
-    c, _ = _causal_conv(x @ params["wC"], params["conv_C"])
-    z = x @ params["wz"]
-    dt = F.softplus((x @ params["wdt"]).float() + params["dt_bias"])
-    xz, b, c = F.silu(xz), F.silu(b), F.silu(c)
-    a = torch.exp(dt * -torch.exp(params["A_log"]))
-    xh = xz.reshape(B, S, -1, hd)
-    y, _ = _ssd_chunk_scan(xh, a, b, c, dt, cfg.ssm_chunk)
-    y = y + params["D"][None, None, :, None].to(y.dtype) * xh
-    y = gated_rms_norm_split(y.reshape(B, S, -1), z, params["norm"], cfg.norm_eps, mesh, axis,
-                             cfg.ssm_d_inner)
-    return col.leave(y @ params["out"], mesh, axis)
+
+    def norm(y, z):
+        return gated_rms_norm_split(y, z, params["norm"], cfg.norm_eps, mesh, axis,
+                                    cfg.ssm_d_inner)
+
+    y, new_state = _ssm_core(params, x, cfg, state, want_state, backend, norm)
+    return col.leave(y, mesh, axis), new_state
 
 
 def init_ssm_state(cfg, batch, dtype, device) -> dict:

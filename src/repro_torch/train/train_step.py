@@ -63,7 +63,8 @@ BATCH_AXES = ("pod", "data")
 
 
 def make_train_step(model, opt: AdamW, *, accum_steps: int = 1,
-                    compress_pod_grads: bool = False, mesh=None, zero2_axes=None):
+                    compress_pod_grads: bool = False, mesh=None, zero2_axes=None,
+                    local_batch: bool = False):
     """Returns step(params, opt_state, batch) → (params, opt_state,
     metrics), or with ``compress_pod_grads`` step(params, opt_state, batch,
     err) → (params, opt_state, metrics, err), ``err`` the float32
@@ -80,7 +81,10 @@ def make_train_step(model, opt: AdamW, *, accum_steps: int = 1,
     ``gradients(params, batch)`` → (loss, metrics, gradients) is the step
     without the optimizer, its gradients reduced as the optimizer takes
     them, and its ``update(grads, opt_state, params)`` the optimizer's
-    update as the step makes it."""
+    update as the step makes it. ``local_batch``: the batch is this rank's
+    shard of it already (a dry-run cell's arguments: the rows the rules
+    give the rank, all of them where the batch does not divide the batch
+    axes), and the step takes it as it is."""
     sp = model.train_split
     if sp is not None:
         mesh = model.mesh
@@ -95,7 +99,7 @@ def make_train_step(model, opt: AdamW, *, accum_steps: int = 1,
         norm_axes = [sharding.used_axes(s) for s in specs]
 
     def shard(batch):
-        if not split_axes:
+        if not split_axes or local_batch:
             return batch
         n = math.prod(col.group_size(mesh, a) for a in split_axes)
         i = col.shard_index(mesh, split_axes)

@@ -43,10 +43,12 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.parallel.compression, repro_torch.parallel.pipeline\n"
         "import repro_torch.core.profiler, repro_torch.core.op_cost\n"
         "import repro_torch.core.op_analysis, repro_torch.kernels.work\n"
+        "import repro_torch.launch.cells, repro_torch.launch.dryrun\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items() if v is not None]\n"
         "import torch\n"
         "assert not torch.cuda.is_available()\n"
+        "assert not torch.distributed.is_initialized()  # the dry run opens its group itself\n"
     )
     # no CUDA device visible: the port imports without one
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
