@@ -80,7 +80,8 @@ Phases, in order; any failure exits non-zero before the final line:
    kernel: the prefill's and the first decode step's logits through the
    kernels, each row no further from the float32 plain path's (same
    weights, upcast) than ``E2E_BF16_RATIO`` times the bf16 plain path's;
-7. the adviser — ``advise_suite(hw=CPU_HW)`` over the ten benchmarks with
+7. the adviser (in a process of its own, started after phase 6 and
+   joined after phase 12: host-bound work) — ``advise_suite(hw=CPU_HW)`` over the ten benchmarks with
    their data on the card: decisions equal to
    ``tests/golden_aira_decisions.json`` and geomeans equal to
    ``BENCH_aira.json``'s within 1e-6; each accepted plan's ``execute``
@@ -175,7 +176,8 @@ Phases, in order; any failure exits non-zero before the final line:
    tokens, ties aside; bf16 prefill and first-decode logits within
    ``E2E_BF16_RATIO`` of the plain path's distance from float32, at the
    same depths; then
-   each config in bf16 at full depth and width on the paged layout (8
+   each config in bf16 at full width and ``SERVE_DEPTH`` (8) layers on the
+   paged layout (8
    rows, ``max_seq`` 2048, 12 open-loop requests of 128-1024 tokens, at
    most 32 new), plain and with K = 4 n-gram speculation (stablelm's with
    ``chunk_size`` 256 over a shared 512-token prefix), served once to
@@ -204,7 +206,8 @@ Phases, in order; any failure exits non-zero before the final line:
    distance held to ``INT8_WITNESS_RATIO`` times that of a plain run with
    every ``wo`` one ulp up; bf16 against float32 (a MoE against
    float32 on each path's own routing); each config served in bf16 at full
-   width (dbrx at depth 4: 14.3 B parameters), plain and, where the family
+   width and ``SERVE_DEPTH`` layers (dbrx at depth 4: 14.3 B parameters),
+   plain and, where the family
    speculates, with K = 4 (musicgen's chunked over a shared 512-token
    prefix), captured then primed: no capture, exact launches, the peak
    memory, and the decode step and prefill eager and graphed. Each phase
@@ -333,6 +336,36 @@ Phases, in order; any failure exits non-zero before the final line:
    chip_smoke.Phase17("cpu", reduced=True); p17.start_ranks();
    p17.dry_records(); p17.finish("cpu")`` (``.reduced()`` configs keeping
    each split, ``P17_REHEARSAL``; the plain kernels counted as launches).
+18. the entry points (``repro_torch.examples``), started after phase 4,
+   beside phases 5-17 (phases 11-13 and 18b's zamba2-2.7b take turns on
+   the card), and checked after phase 17. 18a: ``python -m
+   repro_torch.examples.serve_decode`` as a user types it, in processes of
+   its own (``P18_WORKERS`` at a time): ci.yml's invocations (``--backend
+   interpret`` as ``kernel``), ``--int8-kv --paged`` and ``--mesh 2
+   --paged --open-loop 4`` (2 gloo ranks sharing the card); each one's
+   reference run (``--backend reference``, one device) in 18b's process:
+   exit 0, streams equal the reference run's but for ties (``count_ties``
+   on the rebuilt model), the paged (or int8 paged), flash (not in a
+   chunked run) and (zamba2) SSD kernels launched in each kernel run,
+   none in a reference run. 18b: ``serve_decode.main(argv, cfg=...)`` at full
+   width in a process of its own (``p18_full``): smollm-135m fixed batch,
+   ``--open-loop 8 --paged --spec 4 --chunk 256``, ``--aira``, ``--online
+   --paged --open-loop 8`` and ``--mesh 3 --paged --open-loop 4`` (9 heads
+   over 3), and zamba2-2.7b's fixed batch (under ``card_lock``): a float32
+   copy against the plain route (ties only), launches exact where the
+   formula is known (paged = layers x decode, verify and chunk steps,
+   flash = attention sites x prefills, SSD = layers x prefills), then bf16
+   with TTFT / TPOT / step p50 and p99. 18c: ``train_smollm --full`` (300
+   steps, B = 8, S = 128) uninterrupted, and a second run killed once a
+   checkpoint at step 150 or later is published, run again over the same
+   ``--ckpt``: it resumes at the newest checkpoint and ends on the
+   uninterrupted run's losses bit for bit; the loss falls; step p50 and
+   tokens/s. 18d: ``quickstart`` prints ``restructured == serial: True``
+   and the band the overlap model gives on the CPU;
+   ``parallelize_with_aira`` its exact check and plan reuse. Rehearse on
+   the CPU from a guarded script: ``chip_smoke.phase18("cpu",
+   device="cpu", reduced=True)`` (~3.5 min: ``.reduced()`` configs,
+   training 150 steps of B = 2, S = 16 killed past step 50).
 
 ``--phases 3,12`` runs the build and the listed phases only, for a short
 development call (5 runs phases 5 and 6 together); with no argument every
@@ -352,6 +385,8 @@ import gc
 import json
 import math
 import os
+import re
+import shlex
 import subprocess
 import sys
 import time
@@ -2139,6 +2174,49 @@ def adviser_suite(card):
             f"{', regressed' if r['regressed'] else ''})")
 
 
+P7_SCRIPT = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke\n"
+    "chip_smoke.phase7(sys.argv[2])\n"
+)
+
+
+def phase7(card):
+    """Phase 7 (the adviser suite and serving through a decode plan), in a
+    process of its own beside phases 8-13 (``Phase7``): host-bound work
+    that needs little of the card. As in phases 5-12, no call may reach the
+    partials mode's entry point."""
+    from repro_torch.kernels import ops as kernel_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    entry, calls = kernel_ops.paged_attention_partials, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return entry(*a, **kw)
+
+    kernel_ops.paged_attention_partials = counted
+    t0 = time.perf_counter()
+    adviser_suite(card)
+    serve_decode_plan(card)
+    require(calls[0] == 0, f"phase 7 called the partials mode {calls[0]} times")
+    log(f"phase 7 took {time.perf_counter() - t0:.1f} s (its own process)")
+
+
+class Phase7:
+    """``phase7`` in a process of its own, started after phase 6 (its lines
+    go to this run's output as they come); ``finish`` waits for it."""
+
+    def __init__(self, card):
+        self.proc = subprocess.Popen([sys.executable, "-c", P7_SCRIPT, ROOT, card], cwd=ROOT)
+
+    def finish(self):
+        rc = self.proc.wait()
+        require(rc == 0, f"phase 7 exited {rc}")
+
+
 def _plan_schedule(plan, n):
     """(granularity, chunks per stream) of ``plan`` over n items, as
     relic_pfor deals them (the last chunk padded by repeating an item)."""
@@ -3224,6 +3302,10 @@ def phase10_serving(card):
 # full depth): the float32 plain path of a full-depth 14B or 20B model would
 # not fit the card beside the kernels'
 P11 = (("stablelm-3b", None), ("phi3-medium-14b", 4), ("internlm2-20b", 4))
+# phases 11-12 serve each config in bf16 at this depth, to keep the script
+# within its time limit (a layer's shapes, and so the kernels' launches at
+# each shape, do not depend on it)
+SERVE_DEPTH = 8
 P11_PREFIX = 512  # stablelm's shared prefix in the speculative, chunked run
 
 
@@ -3720,7 +3802,7 @@ def phase11(card):
     """Phase 11: the paged kernel's int8 mode and flash at hd 128 at the
     three dense configs' shapes; float32 kernel-against-plain parity and
     bf16 against float32 (depth 4 for the 14B and 20B models); each config
-    served in bf16 at full depth and width."""
+    served in bf16 at full width, ``SERVE_DEPTH`` layers."""
     rows, entry = phase11_kernels(card)
     for arch, layers in P11:
         phase11_parity(card, arch, layers)
@@ -3731,7 +3813,7 @@ def phase11(card):
         torch.cuda.empty_cache()
     launches = {}
     for arch, _ in P11:
-        shape = serve_bf16(card, arch)
+        shape = serve_bf16(card, arch, SERVE_DEPTH)
         name = arch.split("-")[0]
         if arch == "stablelm-3b":
             launches.update(p11_int8=shape["decode"], p11_int8_verify=shape["verify"],
@@ -3756,8 +3838,8 @@ P12_PARITY = (("granite-moe-1b-a400m", None, ("slot", "paged"), (("plain", {}),)
               ("dbrx-132b", 2, ("paged",), (("plain", {}),), False))
 # (arch, depth cut) of the bf16 serving; dbrx-132b (131.6 B parameters, 263
 # GB in bf16) at depth 4: 14.3 B, 28.6 GB
-P12_SERVE = (("granite-moe-1b-a400m", None), ("internvl2-2b", None), ("musicgen-large", None),
-             ("dbrx-132b", 4))
+P12_SERVE = (("granite-moe-1b-a400m", SERVE_DEPTH), ("internvl2-2b", SERVE_DEPTH),
+             ("musicgen-large", SERVE_DEPTH), ("dbrx-132b", 4))
 
 
 def phase12_kernels(card):
@@ -3878,7 +3960,7 @@ def phase12(card):
     """Phase 12: the paged kernel and flash at the four configs' shapes;
     the MoE layer at granite's and dbrx's widths; float32 kernel-against-
     plain parity and bf16 against float32 (dbrx at depth 2); each config
-    served in bf16 at full width (dbrx at depth 4)."""
+    served in bf16 at full width, ``SERVE_DEPTH`` layers (dbrx 4)."""
     rows = phase12_kernels(card)
     phase12_moe(card)
     for arch, layers, layouts, runs, shared in P12_PARITY:
@@ -6414,14 +6496,509 @@ def p17_kernels(card, launches):
     return rows, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the system's entry points (``repro_torch.examples``), as a user
+# runs them
+
+P18_DIR = os.path.join(ROOT, "build", "phase18")
+# 18a: ci.yml's serve_decode invocations (its "--backend interpret" as
+# "kernel"), then the int8 paged pool and a 2-rank mesh; each is also run
+# with "--backend reference", and its streams must equal that run's
+P18_CLI = (
+    "--tokens 8",
+    "--arch smollm-135m --tokens 8 --open-loop 6 --aira",
+    "--arch smollm-135m --tokens 8 --open-loop 6 --paged",
+    "--arch smollm-135m --tokens 16 --open-loop 4 --spec 4",
+    "--arch smollm-135m --tokens 16 --open-loop 4 --spec 4 --paged",
+    "--arch smollm-135m --tokens 8 --open-loop 6 --paged --chunk 16",
+    "--arch smollm-135m --tokens 8 --open-loop 4 --paged --backend kernel",
+    "--arch smollm-135m --tokens 8 --open-loop 4 --spec 4 --backend kernel",
+    "--arch smollm-135m --tokens 8 --open-loop 4 --paged --spec 2 --trace TRACE",
+    "--arch smollm-135m --tokens 8 --open-loop 6 --paged --online",
+    "--arch smollm-135m --tokens 8 --open-loop 6 --int8-kv --paged",
+    "--arch smollm-135m --tokens 8 --open-loop 4 --paged --mesh 2",
+)
+# 18b: (label, argv) at full width through ``serve_decode.main(cfg=...)``:
+# float32 against the plain route, then bf16 with its latencies (the mesh
+# in float32, against one device's plain route; smollm's 9 heads over 3)
+P18_FULL = (
+    ("smollm fixed", "--arch smollm-135m"),
+    ("smollm paged spec chunk", "--arch smollm-135m --open-loop 8 --paged --spec 4 --chunk 256"),
+    ("smollm aira", "--arch smollm-135m --aira"),
+    ("smollm online", "--arch smollm-135m --online --paged --open-loop 8"),
+    ("smollm mesh 3", "--arch smollm-135m --mesh 3 --paged --open-loop 4"),
+    ("zamba2 fixed", ""),
+)
+# 18c: full-width smollm-135m training (300 steps, B = 8, S = 128), one run
+# uninterrupted, one killed once its step-150 checkpoint is published and
+# run again over the same directory
+P18_TRAIN = {False: (["--full"], 150),
+             True: (["--steps", "150", "--batch", "2", "--seq", "16"], 50)}
+P18_WORKERS = 2  # entry-point processes at a time, beside phases 5-17
+
+
+def _p18_env():
+    """The environment a user's command gets (``PYTHONPATH=src``), with one
+    intra-op thread: the processes share the host's cores with phases
+    5-17."""
+    src = os.path.join(ROOT, "src")
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=src + (os.pathsep + path if path else ""),
+                OMP_NUM_THREADS="1")
+
+
+# phase 18's processes, each the leader of its own process group (a mesh's
+# ranks join their parent's): the ones still running when the script exits
+# are killed with their groups
+_P18_LIVE = []
+
+
+def _p18_popen(cmd, **kw):
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=_p18_env(), start_new_session=True, **kw)
+    _P18_LIVE.append(proc)
+    return proc
+
+
+def _p18_kill(proc):
+    import signal
+
+    if proc.poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _p18_reap():
+    for proc in _P18_LIVE:
+        _p18_kill(proc)
+
+
+def _p18_run(module, argv, device, timeout=900):
+    """``python -m repro_torch.examples.<module> argv`` as a user types it
+    (``--device cpu`` added in the CPU rehearsal): its exit code, output
+    and wall."""
+    cmd = [sys.executable, "-m", f"repro_torch.examples.{module}", *argv]
+    if device == "cpu":
+        cmd += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = _p18_popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        _p18_kill(proc)
+    return {"cmd": " ".join(["python", "-m", f"repro_torch.examples.{module}", *argv]),
+            "rc": proc.returncode, "out": out, "err": err, "wall": time.perf_counter() - t0}
+
+
+def _p18_cli_argv(i, backend, device):
+    """18a's invocation ``i``, on the kernel route, or its reference run
+    (``--backend reference`` on one device, without the trace: a mesh's
+    streams are one device's), writing its record (and trace) under
+    ``P18_DIR``."""
+    line = P18_CLI[i].replace("TRACE", os.path.join(P18_DIR, f"trace{i}.json"))
+    argv = shlex.split(line)
+    drop = ("--backend",) + (("--mesh", "--trace") if backend == "reference" else ())
+    for flag in drop:
+        if flag in argv:
+            del argv[argv.index(flag):argv.index(flag) + 2]
+    if backend == "reference" or device == "cpu":
+        # the CPU rehearsal has no kernel route: both runs take the plain one
+        argv += ["--backend", "reference"]
+    return argv + ["--record", os.path.join(P18_DIR, f"cli{i}_{backend}.json")]
+
+
+def _p18_train(reduced, device):
+    """18c: the uninterrupted run, and the run killed once its checkpoint
+    at the kill step is published, then run again over its directory."""
+    argv, kill_at = P18_TRAIN[reduced]
+    a_dir, b_dir = os.path.join(P18_DIR, "ckpt_a"), os.path.join(P18_DIR, "ckpt_b")
+    rec = {k: os.path.join(P18_DIR, f"train_{k}.json") for k in ("a", "b")}
+    cmd = [sys.executable, "-m", "repro_torch.examples.train_smollm", *argv]
+    dev = ["--device", "cpu"] if device == "cpu" else []
+    out = {}
+    logs = {k: open(os.path.join(P18_DIR, f"train_{k}.log"), "w+") for k in ("a", "b")}
+    uninterrupted = _p18_popen(cmd + ["--ckpt", a_dir, "--record", rec["a"]] + dev,
+                               stdout=logs["a"], stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+    killed = _p18_popen(cmd + ["--ckpt", b_dir] + dev, stdout=logs["b"],
+                        stderr=subprocess.STDOUT)
+
+    def published():
+        names = os.listdir(b_dir) if os.path.isdir(b_dir) else ()
+        return sorted(int(n[5:]) for n in names if re.fullmatch(r"step_\d+", n))
+
+    # killed once a checkpoint at the kill step or later is published (the
+    # straggler watchdog's own checkpoints may already have retired it)
+    while max(published(), default=-1) < kill_at and killed.poll() is None:
+        time.sleep(0.02)
+    _p18_kill(killed)
+    out["killed"] = {"rc": killed.returncode, "wall": time.perf_counter() - t0,
+                     "published": published()}
+    out["resumed"] = _p18_run("train_smollm", argv + ["--ckpt", b_dir, "--record", rec["b"]],
+                              device)
+    try:
+        uninterrupted.wait(timeout=900)
+    finally:
+        _p18_kill(uninterrupted)
+    out["a"] = {"rc": uninterrupted.returncode, "wall": time.perf_counter() - t0}
+    for k, f in logs.items():
+        f.seek(0)
+        out[f"log_{k}"] = f.read()
+        f.close()
+    out["records"] = rec
+    return out
+
+
+def p18_full(out, device="cuda", reduced=False):
+    """18b, in a process of its own beside phases 5-17: first the reference
+    run of each 18a command, in process (``--backend reference`` on one
+    device: the command's weights, prompts and requests are seeded, so
+    they are the command's own), then each ``P18_FULL`` case through
+    ``serve_decode.main`` at full width (``reduced``: the CPU rehearsal's
+    ``.reduced()`` configs, the kernels' plain versions counted as
+    launches); the runs' own report lines go to ``out``/full.log, the
+    findings to ``out``/full.json."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import clear_plan_cache
+    from repro_torch.examples import serve_decode as sd
+
+    if device == "cpu":
+        p13_rehearsal_patches()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = gpu_line() if device == "cuda" else "cpu"
+    start = time.perf_counter()
+    report = open(os.path.join(out, "full.log"), "w")
+    for i in range(len(P18_CLI)):
+        clear_plan_cache()
+        with contextlib.redirect_stdout(report):
+            sd.main(_p18_cli_argv(i, "reference", device), device=device)
+    found = {}
+    for label, line in P18_FULL:
+        if reduced:  # the reduced smollm's 2 kv heads split over 2
+            line = line.replace("--mesh 3", "--mesh 2")
+        argv = shlex.split(line)
+        args = sd.build_parser().parse_args(argv)
+        cfg = get_config(args.arch)
+        cfg = cfg.reduced() if reduced else cfg
+        heavy = contextlib.nullcontext() if args.arch != "zamba2-2.7b" else card_lock(
+            f"p18b {label}")
+        t0 = time.perf_counter()
+        with heavy:
+            found[label] = _p18_case(label, argv, args, cfg, device, card, reduced, report)
+        found[label]["wall_s"] = time.perf_counter() - t0
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    report.close()
+    with open(os.path.join(out, "full.json"), "w") as f:
+        json.dump(found, f)
+    log(f"p18b took {time.perf_counter() - start:.1f} s (its own process)")
+
+
+def _p18_serve(report, *args, **kw):
+    """``serve_decode.main``, its report lines to ``report``."""
+    from repro_torch.examples import serve_decode as sd
+
+    with contextlib.redirect_stdout(report):
+        return sd.main(*args, **kw)
+
+
+def _p18_prompts(sd, args, cfg):
+    if args.open_loop:
+        return [r.prompt for r in sd.open_loop_requests(args, cfg)]
+    return list(sd.make_prompts(cfg, args.batch))
+
+
+def _p18_case(label, argv, args, cfg, device, card, reduced, report):
+    """One 18b case: the float32 copy of ``cfg`` on the kernel route, its
+    launches exact where the formula is known (non-zero else) and its
+    streams equal to the plain route's but for ties; then ``cfg`` itself
+    (bf16) with its latencies from ``serving_summary()``."""
+    from repro_torch.core.plan import clear_plan_cache
+    from repro_torch.examples import serve_decode as sd
+    from repro_torch.models.model import Model
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    dev = torch.device(device)
+    L = cfg.num_layers
+    res = {}
+    if args.mesh > 1:  # each rank counts its own launches
+        rec = _p18_serve(report, argv, device=device, cfg=cfg32)
+        model = Model(cfg32, dev)
+        params = model.init(seed=0)
+        i = argv.index("--mesh")
+        ref = _p18_serve(report, argv[:i] + argv[i + 2:] + ["--backend", "reference"],
+                         device=device, model=model, params=params)
+        ties = count_ties(model, params, _p18_prompts(sd, args, cfg32), ref["streams"],
+                          rec["streams"], f"p18b[{label}]")
+        ranks = rec["rank_launches"]
+        require(not rec["mesh_fallbacks"], f"p18b[{label}]: fell back: {rec['mesh_fallbacks']}")
+        require(reduced or all(r["paged"] > 0 and r["flash"] > 0 and r["partials"] == 0
+                               for r in ranks),
+                f"p18b[{label}]: a rank missed the paged or flash kernel: {ranks}")
+        log(f"p18b[{label} float32]: {args.mesh} ranks, streams == one device's plain route "
+            f"({ties} ties), launches a rank {ranks}")
+        return {"ties": ties, "rank_launches": ranks}
+    model = Model(cfg32, dev)
+    params = model.init(seed=0)
+    watch = StepLog(model)
+    reset_launches()
+    rec = _p18_serve(report, argv, device=device, model=model, params=params)
+    n = read_launches()
+    decodes = watch.n("decode_step", "decode_step_paged", "verify_step", "verify_step_paged",
+                      "prefill_chunk")
+    prefills = watch.n("prefill", "prefill_with_prefix")
+    require(all(rec["launches"][k] == n[k] for k in rec["launches"]),
+            f"p18b[{label}]: main's launches {rec['launches']} against the wrappers' {n}")
+    if cfg.family == "hybrid":
+        G = L // cfg.attn_every
+        expect = {"paged_int8" if cfg.kv_quant else "paged": G * decodes, "flash": G * prefills,
+                  "ssd": L * prefills}
+    elif args.aira:
+        # the region's prefill runs outside the step families, and the plan's
+        # decodes too (30 launches a chunk of requests, phase 7): counted > 0
+        expect = {"paged": n["paged"], "flash": L * (prefills + 1)}
+        require(n["paged"] > 0, f"p18b[{label}]: the decode plan launched no paged kernel")
+    else:
+        expect = {"paged_int8" if cfg.kv_quant else "paged": L * decodes, "flash": L * prefills}
+    check_launches(n, expect, f"p18b[{label}]")
+    # a chunked run prefills through the paged kernel (``prefill_chunk``), a
+    # decode plan decodes outside the step families
+    require((decodes > 0 or args.aira) and (prefills > 0 or args.chunk) and not bool(watch.bad),
+            f"p18b[{label}]: {decodes} decodes, {prefills} prefills, non-finite logits "
+            f"{bool(watch.bad)}")
+    reset_launches()
+    # the plan cache keys a region by its name and items, not by the engine
+    # that built its function: with equal items the reference run would
+    # take the kernel run's plan (the JAX package's cache does the same)
+    clear_plan_cache()
+    ref = _p18_serve(report, argv + ["--backend", "reference"], device=device, model=model,
+                     params=params)
+    require(not any(read_launches().values()), f"p18b[{label}]: the plain route launched")
+    ties = count_ties(model, params, _p18_prompts(sd, args, cfg32), ref["streams"],
+                      rec["streams"], f"p18b[{label}]")
+    log(f"p18b[{label} float32]: {decodes} decode/verify/chunk steps, {prefills} prefills -> "
+        f"launches {rec['launches']}; streams == plain route ({ties} ties)")
+    res.update(ties=ties, launches=rec["launches"], decodes=decodes, prefills=prefills)
+    del model, params, watch, rec, ref
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = _p18_serve(report, argv, device=device, cfg=cfg)
+    wall = time.perf_counter() - t0
+    s = rec["summary"]
+    keys = ("p50_ttft_ms", "p99_ttft_ms", "p50_tpot_ms", "p99_tpot_ms", "p50_step_ms",
+            "p99_step_ms")
+    log(f"p18b[{label} {cfg.dtype}] on {card}: wall {wall:.2f} s, "
+        + json.dumps({k: s[k] for k in ("n_requests", "n_steps") + keys})
+        + (f", acceptance {s['speculative']['acceptance_rate']:.3f}" if "speculative" in s
+           else ""))
+    res.update(bf16={k: s[k] for k in keys}, bf16_wall_s=wall, bf16_launches=rec["launches"])
+    return res
+
+
+P18_FULL_SCRIPT = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke\n"
+    "chip_smoke.p18_full(sys.argv[2], sys.argv[3], sys.argv[4] == '1')\n"
+)
+
+
+class Phase18:
+    """Phase 18's processes, started beside phases 5-17: 18a's commands,
+    18c's training runs and 18d's adviser commands, ``P18_WORKERS`` at a
+    time on a thread, and 18b's full-width cases in a process of its own.
+    ``finish`` joins them and makes the checks."""
+
+    def __init__(self, device="cuda", reduced=False):
+        import atexit
+        import shutil
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+
+        shutil.rmtree(P18_DIR, ignore_errors=True)
+        os.makedirs(P18_DIR)
+        atexit.register(_p18_reap)
+        self.device, self.reduced = device, reduced
+        self.t0, self.results, self.error = time.perf_counter(), {}, None
+        self.full = _p18_popen([sys.executable, "-c", P18_FULL_SCRIPT, ROOT, P18_DIR, device,
+                                "1" if reduced else "0"])
+
+        jobs = [("train", lambda: _p18_train(reduced, device))]
+        jobs += [(("cli", i), lambda i=i: _p18_run(
+            "serve_decode", _p18_cli_argv(i, "kernel", device), device))
+            for i in range(len(P18_CLI))]
+        jobs += [(name, lambda name=name: _p18_run(name, [], device))
+                 for name in ("quickstart", "parallelize_with_aira")]
+
+        def run():
+            try:
+                with ThreadPoolExecutor(P18_WORKERS) as pool:
+                    futures = [(key, pool.submit(fn)) for key, fn in jobs]
+                    for key, fut in futures:
+                        self.results[key] = fut.result()
+            except BaseException as e:  # raised again by finish()
+                self.error = e
+            self.wall = time.perf_counter() - self.t0
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def finish(self, card):
+        """Join, check each part, and return the launches of 18a's kernel
+        runs and 18b's float32 kernel runs, summed."""
+        self.thread.join()
+        rc = self.full.wait()
+        if self.error is not None:
+            raise self.error
+        require(rc == 0, f"p18b exited {rc}")
+        log(f"p18: entry-point processes {self.wall:.1f} s from the phase's start")
+        totals, failed = collections.Counter(), []
+
+        def check(fn, *args):
+            # every part is checked and logged; the phase fails after them
+            try:
+                return fn(*args)
+            except SystemExit as e:
+                log(str(e))
+                failed.append(str(e))
+
+        for i, line in enumerate(P18_CLI):
+            totals.update(check(self._check_cli, i, line) or {})
+        with open(os.path.join(P18_DIR, "full.json")) as f:
+            full = json.load(f)
+        for label, found in full.items():
+            totals.update(found.get("launches", {}))
+            for r in found.get("rank_launches", ()):
+                totals.update(r)
+        check(self._check_train)
+        check(self._check_adviser)
+        require(not failed, f"phase 18: {len(failed)} check(s) failed")
+        return dict(totals)
+
+    def _check_cli(self, i, line):
+        from repro_torch.examples import serve_decode as sd
+
+        run = self.results[("cli", i)]
+        require(run["rc"] == 0, f"p18a `{run['cmd']}` exited {run['rc']}:\n{run['err'][-3000:]}")
+        recs = {}
+        for b in ("kernel", "reference"):
+            with open(os.path.join(P18_DIR, f"cli{i}_{b}.json")) as f:
+                recs[b] = json.load(f)
+        args = sd.build_parser().parse_args(shlex.split(line.replace("TRACE", "t.json")))
+        kernel, ref = recs["kernel"], recs["reference"]
+        want = [np.asarray(s) for s in ref["streams"]]
+        got = [np.asarray(s) for s in kernel["streams"]]
+        ties = 0
+        if any(len(a) != len(b) or not np.array_equal(a, b) for a, b in zip(want, got)):
+            from repro_torch.models.model import Model
+
+            cfg = sd.model_config(args)
+            model = Model(cfg, torch.device(self.device))
+            ties = count_ties(model, model.init(seed=0), _p18_prompts(sd, args, cfg), want, got,
+                              f"p18a[{i}]")
+        ranks = kernel.get("rank_launches", [kernel["launches"]])
+        ref_ranks = ref.get("rank_launches", [ref["launches"]])
+        require(not any(v for r in ref_ranks for v in r.values()),
+                f"p18a[{i}]: the plain route launched a kernel: {ref_ranks}")
+        if self.device == "cuda":
+            cfg = sd.model_config(args)
+            # a chunked prefill runs through the paged kernel, not flash
+            need = (("paged_int8" if cfg.kv_quant else "paged",)
+                    + (() if args.chunk else ("flash",))
+                    + (("ssd",) if cfg.family == "hybrid" else ()))
+            require(all(r[k] > 0 for r in ranks for k in need) and
+                    all(r["partials"] == 0 for r in ranks),
+                    f"p18a[{i}]: launches {ranks}, each of {need} expected > 0")
+            require("backend=kernel" in run["out"], f"p18a[{i}]: not on the kernels")
+            require("kernels: paged_decode_attention" in run["out"], f"p18a[{i}]: no launch line")
+        if args.trace:
+            require(kernel["trace"]["spans"] > 0 and kernel["trace"]["async_spans"] > 0,
+                    f"p18a[{i}]: trace {kernel['trace']}")
+        if args.online:
+            require(kernel["audit"] and kernel["summary"]["controller"]["decisions"] > 0,
+                    f"p18a[{i}]: no controller decisions")
+        if args.spec:
+            require("speculative" in kernel["summary"], f"p18a[{i}]: no verify round ran")
+        if args.aira:
+            require(kernel["aira"]["accepted"], f"p18a[{i}]: the decode plan was not accepted")
+        s = kernel["summary"]
+        cmd = run["cmd"][:run["cmd"].index(" --record")]
+        log(f"p18a[{i}] `{cmd}`: exit 0 in {run['wall']:.1f} s; streams == the reference "
+            f"run's ({ties} ties); "
+            f"launches {ranks if len(ranks) > 1 else ranks[0]}; step p50/p99 "
+            f"{s['p50_step_ms']:.2f}/{s['p99_step_ms']:.2f} ms")
+        return collections.Counter() if len(ranks) > 1 else collections.Counter(ranks[0])
+
+    def _check_train(self):
+        found = self.results["train"]
+        a, resumed, killed = found["a"], found["resumed"], found["killed"]
+        require(a["rc"] == 0,
+                f"p18c uninterrupted run exited {a['rc']}:\n{found['log_a'][-3000:]}")
+        require(resumed["rc"] == 0, f"p18c resumed run exited {resumed['rc']}:\n"
+                                    f"{resumed['err'][-3000:]}")
+        with open(found["records"]["a"]) as f:
+            ra = json.load(f)
+        with open(found["records"]["b"]) as f:
+            rb = json.load(f)
+        kill_at = P18_TRAIN[self.reduced][1]
+        first = rb["first_step"]
+        require(killed["published"] and first == killed["published"][-1] >= kill_at,
+                f"p18c: resumed at {first}, published {killed['published']}")
+        require(first < ra["step"], f"p18c: killed after the last step ({killed})")
+        require(rb["events"] == [f"restored step {first}"], f"p18c: events {rb['events']}")
+        require(rb["losses"] == ra["losses"][first:] and rb["loss"] == ra["loss"],
+                f"p18c: the resumed run's losses differ from the uninterrupted run's "
+                f"(final {rb['loss']!r} against {ra['loss']!r})")
+        head, tail = np.mean(ra["losses"][:20]), np.mean(ra["losses"][-20:])
+        require(tail < head, f"p18c: the loss did not fall ({head:.4f} -> {tail:.4f})")
+        log(f"p18c train_smollm {' '.join(P18_TRAIN[self.reduced][0])}: {ra['step']} steps in "
+            f"{a['wall']:.1f} s, loss {ra['losses'][0]:.4f} -> {ra['loss']:.4f} (mean of the "
+            f"first 20 {head:.4f}, last 20 {tail:.4f}); step p50 {ra['step_ms_p50']:.2f} ms, "
+            f"{ra['tokens_per_s']:.0f} tokens/s; killed at published steps "
+            f"{killed['published']} ({killed['wall']:.1f} s in), resumed at {first}, final loss "
+            f"{rb['loss']!r} == {ra['loss']!r} bitwise; ops without a deterministic "
+            f"implementation: {ra['nondeterministic'] or 'none'}")
+
+    def _check_adviser(self):
+        from repro_torch.core.overlap_model import CPU_HW, OverlapModel
+        from repro_torch.examples import quickstart
+
+        q, p = self.results["quickstart"], self.results["parallelize_with_aira"]
+        for r in (q, p):
+            require(r["rc"] == 0, f"p18d `{r['cmd']}` exited {r['rc']}:\n{r['err'][-3000:]}")
+        band = [f"  n={n:5d}: smt2 {a*100:+6.1f}%   smp2 {b*100:+6.1f}%"
+                for n, a, b in quickstart.band(OverlapModel(CPU_HW))]
+        lines = q["out"].splitlines()
+        require("restructured == serial: True" in lines, "p18d quickstart: plan != serial")
+        require([x for x in lines if x.startswith("  n=")] == band, "p18d quickstart: band")
+        schedule = [x for x in lines if x.startswith("chosen schedule")]
+        require("restructured output verified on 2048 items" in p["out"] and
+                "plan reused on new items; cache: {'hits': 1, 'misses': 1, 'size': 1}"
+                in p["out"], "p18d parallelize_with_aira: no exact output or no plan reuse")
+        log(f"p18d quickstart: exit 0 in {q['wall']:.1f} s, restructured == serial: True, "
+            f"{schedule[0] if schedule else 'no schedule'}, band {band}")
+        log(f"p18d parallelize_with_aira: exit 0 in {p['wall']:.1f} s; "
+            + p["out"].splitlines()[-1])
+
+
+def phase18(card, device="cuda", reduced=False):
+    """Phase 18 alone (the CPU rehearsal's entry, from a guarded script)."""
+    return Phase18(device, reduced).finish(card)
+
+
 def main(argv=()) -> int:
     """Every phase with no arguments (the smoke run); ``--phases 3,11``
     runs the build and the listed phases only (3: kernels, 4: entry
     points, 5-6: serving and parity, 7: adviser, 8, 9, 10, 11, 12, 13, 14:
     training, 15: the profiler, 16: training split over "model", 17: prefill
-    and slot decode split over "model" and the dry run), for a short
-    development call, and prints the rows those phases made."""
-    phases = set(range(3, 18))
+    and slot decode split over "model" and the dry run, 18: the entry
+    points), for a short development call, and prints the rows those phases
+    made."""
+    phases = set(range(3, 19))
     if len(argv) == 2 and argv[0] == "--phases":
         phases = {int(p) for p in argv[1].split(",")}
     elif argv:
@@ -6482,6 +7059,10 @@ def main(argv=()) -> int:
         return partials_entry(*a, **kw)
 
     kernel_ops.paged_attention_partials = counted_partials
+    # phase 18's entry-point processes run beside phases 5-17 (their launches
+    # are counted in their own processes); the heavy models of phases 11-13
+    # and 18b's zamba2-2.7b take turns on the card (``card_lock``)
+    p18 = Phase18() if 18 in phases else None
     if 5 in phases:
         launches, params = serve_full_width(card)
         launches["ssd"], params = serve_mamba2(card)
@@ -6502,10 +7083,8 @@ def main(argv=()) -> int:
         parity_bf16("zamba2-2.7b")
         torch.cuda.empty_cache()
         phase_done("6")
-    if 7 in phases:
-        adviser_suite(card)
-        serve_decode_plan(card)
-        phase_done("7")
+    # phase 7 is host-bound: it runs in a process of its own beside 8-13
+    p7 = Phase7(card) if 7 in phases else None
     if 8 in phases:
         phase8_launches, phase8_rows = phase8(card)
         rows.update(phase8_rows)
@@ -6519,20 +7098,26 @@ def main(argv=()) -> int:
         phase10_serving(card)
         phase_done("10")
     if 11 in phases:
-        p11_rows, p11_launches, p11_entry = phase11(card)
+        with card_lock("phase 11"):
+            p11_rows, p11_launches, p11_entry = phase11(card)
         rows.update(p11_rows)
         phase_done("11")
     if 12 in phases:
-        p12_rows, p12_launches = phase12(card)
+        with card_lock("phase 12"):
+            p12_rows, p12_launches = phase12(card)
         rows.update(p12_rows)
         phase_done("12")
     kernel_ops.paged_attention_partials = partials_entry
+    if p7 is not None:
+        p7.finish()
+        phase_done("7")
     require(single_device_partials[0] == 0,
             f"phases 5-12 called the partials mode {single_device_partials[0]} times")
     log(f"partials mode calls in phases {sorted(phases & set(range(5, 13)))}: 0")
     p13_launches = {}
     if 13 in phases:
-        p13_rows, p13_launches = phase13(card)
+        with card_lock("phase 13"):
+            p13_rows, p13_launches = phase13(card)
         rows.update(p13_rows)
         phase_done("13")
     # phase 16's ranks (their own processes) run beside phases 14 and 15,
@@ -6562,6 +7147,10 @@ def main(argv=()) -> int:
         p17_rows, p17_counts = p17_kernels(card, p17_launches)
         rows.update(p17_rows)
         phase_done("17")
+    p18_launches = {}
+    if p18 is not None:
+        p18_launches = p18.finish(card)
+        phase_done("18")
 
     bf16, f32 = torch.bfloat16, torch.float32
     table = []
@@ -6666,7 +7255,7 @@ def main(argv=()) -> int:
              "H=8 KV=4 hd=64 slot view]", PAGED_SRC, PAGED_TPU),
             ("p17_ssd_mamba2", bf16, "ssd_scan[mamba2-370m rank heads H=8 S=512]", SSD_SRC,
              SSD_TPU)):
-        everything = phases == set(range(3, 18))
+        everything = phases == set(range(3, 19))
         if (key, dtype) not in rows:
             require(not everything, f"no row for {key}")
             continue
@@ -6701,7 +7290,14 @@ def main(argv=()) -> int:
             count = {"launches": launches.get(key)}
         require(not everything or count.get("launches", r.get("launches")) is not None,
                 f"no launch count for {key}")
+        if key in ("paged", "paged_int8", "flash", "ssd") and 18 in phases:
+            # phase 18: the entry points' kernel runs (18a's commands on one
+            # device and 18b's float32 runs, each counted from 0 in its process)
+            count["entry_point_launches"] = p18_launches.get(key, 0)
+            require(count["entry_point_launches"] > 0, f"phase 18 launched no {key} kernel")
         table.append({"name": name, "route": "cuda", "source": src, "replaces": tpu, **count, **r})
+    log(f"chip_smoke: {time.perf_counter() - start:.1f} s after the build, "
+        f"{time.perf_counter() - t0:.1f} s with it")
     log(json.dumps({"kernels": table}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

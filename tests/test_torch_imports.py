@@ -44,6 +44,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.core.profiler, repro_torch.core.op_cost\n"
         "import repro_torch.core.op_analysis, repro_torch.kernels.work\n"
         "import repro_torch.launch.cells, repro_torch.launch.dryrun\n"
+        "import repro_torch.examples.serve_decode, repro_torch.examples.train_smollm\n"
+        "import repro_torch.examples.quickstart, repro_torch.examples.parallelize_with_aira\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items() if v is not None]\n"
         "import torch\n"
@@ -61,3 +63,35 @@ def test_port_imports_with_jax_and_repro_blocked():
 def test_no_jax_or_repro_import_in_source(path):
     hits = FORBIDDEN.findall(path.read_text())
     assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+EXAMPLES = ["repro_torch.examples", "repro_torch.examples.serve_decode",
+            "repro_torch.examples.train_smollm", "repro_torch.examples.quickstart",
+            "repro_torch.examples.parallelize_with_aira"]
+EXAMPLE_FORBIDDEN = re.compile(r"^\s*(import\s+benchmarks\b|from\s+benchmarks\b)", re.M)
+
+
+@pytest.mark.parametrize("module", EXAMPLES)
+def test_entry_point_imports_alone(module):
+    """Each entry point imports, and builds what its command line reaches,
+    with ``jax``, ``repro`` and ``benchmarks`` blocked and no CUDA device
+    visible; its source names none of them."""
+    path = ROOT / "src" / Path(*module.split("."))
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    text = path.read_text()
+    assert not FORBIDDEN.findall(text) and not EXAMPLE_FORBIDDEN.findall(text)
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'repro', 'benchmarks'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
+        f"mod = importlib.import_module({module!r})\n"
+        "if hasattr(mod, 'build_parser'):\n"
+        "    mod.build_parser().parse_args([])\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items() if v is not None}\n"
+        "assert not loaded & {'jax', 'repro', 'benchmarks'}, loaded\n"
+    )
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
+                       env=env)
+    assert r.returncode == 0, r.stderr
