@@ -61,11 +61,10 @@ class BlockAllocator:
         # from the divergence tails inward, not root-first)
         self.is_leaf = is_leaf
         # optional telemetry.MetricsRegistry (DESIGN.md §8): alloc /
-        # share / park / evict rates. Counter handles are cached here so
+        # park / evict rates. Counter handles are cached here so
         # the instrumented path is one predictable branch + inc; with
         # metrics=None (telemetry off) nothing is recorded.
         self._m_alloc = metrics.counter("pool.alloc") if metrics else None
-        self._m_share = metrics.counter("pool.share") if metrics else None
         self._m_park = metrics.counter("pool.park") if metrics else None
         self._m_evict = metrics.counter("pool.evict") if metrics else None
 
@@ -128,8 +127,6 @@ class BlockAllocator:
                 raise RuntimeError(f"sharing free block {block}")
             del self._parked[block]
         self.refcount[block] += 1
-        if self._m_share is not None:
-            self._m_share.inc()
 
     def free(self, block: int, park: bool = False) -> None:
         """Drop one referent. At refcount 0 the block returns to the free

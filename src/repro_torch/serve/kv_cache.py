@@ -301,10 +301,7 @@ class PagedKVCache:
         self.prefix = (PrefixCache(self.block_size)
                        if prefix_cache and model.cfg.family in PREFIX_FAMILIES else None)
         # an optional telemetry MetricsRegistry: the allocator records its
-        # alloc/share/park/evict counts, this layer the trie's lookups and
-        # hit blocks; None (telemetry off) records nothing
-        self._m_lookups = metrics.counter("prefix.lookups") if metrics else None
-        self._m_hit_blocks = metrics.counter("prefix.hit_blocks") if metrics else None
+        # alloc/park/evict counts; None (telemetry off) records nothing
         self.allocator = BlockAllocator(
             self.num_blocks,
             on_evict=self.prefix.drop_block if self.prefix is not None else None,
@@ -372,11 +369,7 @@ class PagedKVCache:
         """Block ids of the longest cached full-block prefix of ``tokens``."""
         if self.prefix is None:
             return []
-        hits = self.prefix.match(tokens)
-        if self._m_lookups is not None:
-            self._m_lookups.inc()
-            self._m_hit_blocks.inc(len(hits))
-        return hits
+        return self.prefix.match(tokens)
 
     def try_admit(self, rid: int, tokens, budget: int, n_tokens: Optional[int] = None,
                   register: bool = True):

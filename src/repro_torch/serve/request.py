@@ -46,6 +46,8 @@ class Request:
     state: str = QUEUED
     slot: Optional[int] = None  # slot index (slotted) / decode row (paged)
     prefix_hit: int = 0  # prompt tokens served from the prefix cache
+    prefill_tokens: int = 0  # prompt positions its prefills computed (resumes too)
+    prefill_pad: int = 0  # pad positions those prefills computed past them
     tokens: list = field(default_factory=list)
     t_admit: Optional[float] = None  # prefill started (slot allocated)
     t_first: Optional[float] = None  # first token available

@@ -49,11 +49,22 @@ scheduler served with. With telemetry on, the retrace watch samples the
 families' compile counts at every step boundary and ticks
 ``engine.retraces`` by their growth, as the reference's does.
 
-With ``telemetry`` enabled, each working step records its span and phase
-spans, each request its lifecycle events, into the flight recorder
-(``serve/telemetry.py``), sets the queue and pool gauges and ticks the
-metrics registry. With a ``controller`` attached (``serve/controller.py``),
-every ``decision_interval`` working steps the scheduler reads
+With ``telemetry`` enabled, each working step records a tree of spans into
+the flight recorder (``serve/telemetry.py``: ``StepTrace``): the step, and
+the phases that tile it — ``admit`` (holding a ``prefill`` span a
+monolithic or prefix-suffix prefill call, which covers its first token's
+sampling), ``prefill_chunk`` (with ``chunk_size``), ``decode`` (tiled by
+``decode.prep``, the inputs' uploads; ``decode.launch``, the step
+function's call; ``decode.wait``, the synchronise) or ``draft`` and
+``verify``, then ``sample`` (the readback) and ``commit`` (appends and
+retirements). The step span carries its host time (its duration less its
+device waits), the waits, the launches and its device time (CUDA events
+on the card). Each request records its lifecycle events; the step sets the queue and pool
+gauges and ticks the metrics registry. Every request counts the prompt
+positions its prefills computed and the pads among them
+(``Request.prefill_tokens`` / ``prefill_pad``), recorder on or off. With a
+``controller`` attached (``serve/controller.py``), every
+``decision_interval`` working steps the scheduler reads
 ``window_summary``, lets the controller price its arms and applies the
 decision: the live speculation depth K (within ``spec.k``, which sizes
 the admission margin and the drafter), the attention backend and an
@@ -99,7 +110,7 @@ from repro_torch.serve.request import (
     Request,
     ServeStats,
 )
-from repro_torch.serve.telemetry import TID_ADVISER, Telemetry, get_telemetry
+from repro_torch.serve.telemetry import TID_ADVISER, StepTrace, Telemetry, get_telemetry
 
 
 def sorted_cache(tree):
@@ -199,6 +210,12 @@ class Scheduler:
             self._c_retraces = reg.counter("engine.retraces")
             self._s_chunk_util = reg.series("sched.chunk_util")
         self._step_seq = 0
+        self._st: Optional[StepTrace] = None  # the step being recorded
+        # the device time's timing pair, reused a step; none with the recorder off
+        self._step_events = None
+        if self._ton and self.device.type == "cuda":
+            self._step_events = (torch.cuda.Event(enable_timing=True),
+                                 torch.cuda.Event(enable_timing=True))
         if kv_layout not in ("slot", "paged"):
             raise ValueError(f"kv_layout must be 'slot' or 'paged', got {kv_layout!r}")
         self.kv_layout = kv_layout
@@ -654,7 +671,11 @@ class Scheduler:
         """Sample the first token from the prefill logits (TTFT is this
         instant) and arm the decode row."""
         gen = self._generator(self._ordinals.pop(req.rid))
+        st = self._st
+        t = time.perf_counter() if st is not None else 0.0
         tok0 = self._sample_row(logits_row, gen)
+        if st is not None:
+            st.waited(t)
         req.t_first = self._clock()
         if self._ton:
             self.tel.tracer.async_instant("first_token", req.rid, "request")
@@ -703,6 +724,18 @@ class Scheduler:
         W = prefill_bucket(S) if self._bucket else S
         return S if n_lead + W > self.max_seq else W
 
+    def _launch(self, fn, *args, **kw):
+        """A step function's call, timed as a launch of the step being
+        recorded."""
+        st = self._st
+        return fn(*args, **kw) if st is None else st.launch(fn, *args, **kw)
+
+    def _count_prefill(self, req: Request, real: int, width: int) -> None:
+        """A prefill call computed ``real`` of the request's prompt
+        positions at ``width``: the rest are pads, counted on the request."""
+        req.prefill_tokens += real
+        req.prefill_pad += width - real
+
     def _admit(self, reqs: list, now: float) -> None:
         """Slotted admission of a wave: effective prompts of one pow2
         bucket (of one length, without bucketing) and one patch shape
@@ -717,24 +750,31 @@ class Scheduler:
             pe = None if req.patch_embeds is None else tuple(np.shape(req.patch_embeds))
             W = self._width(len(eff), self._n_patches(req))
             groups.setdefault((W, pe), []).append((req, eff))
+        st = self._st
         for (W, pe), group in groups.items():
+            if st is not None:
+                st.open("prefill", rid=[r.rid for r, _ in group],
+                        tokens=sum(len(eff) for _, eff in group), W=W, hit=0)
             toks, lens = self._padded([eff for _, eff in group], W)
             kw = {}
             if pe is not None:
                 kw["patch_embeds"] = torch.stack(
                     [torch.as_tensor(np.asarray(r.patch_embeds)) for r, _ in group])
             self.widths["prefill"][W] += 1
-            with self.tel.annotate("serve.prefill"):
-                logits, cache = self._prefill(
-                    self.params, toks, self.max_seq, prompt_len=lens if self._bucket else None,
-                    into=self._staging_rows(len(group)), **kw)
+            logits, cache = self._launch(
+                self._prefill, self.params, toks, self.max_seq,
+                prompt_len=lens if self._bucket else None,
+                into=self._staging_rows(len(group)), **kw)
             for i, (req, eff) in enumerate(group):
+                self._count_prefill(req, len(eff), W)
                 slot = self.kv.alloc(req.rid)
                 req.slot = slot
                 self.kv.write(slot, self.model.read_cache_slot(cache, i))
                 if req.tokens:
                     self.stats.recomputed_tokens += len(eff)
                 self._arm(req, slot, logits[i])
+            if st is not None:
+                st.close()
 
     def _start_chunk_slot(self, req: Request, now: float) -> None:
         """Slotted chunked admission: claim the slot now, prefill later in
@@ -795,28 +835,31 @@ class Scheduler:
             self._chunking[row] = _ChunkState(
                 req=req, cache=cache, prompt=eff, pos=hit, skip_blocks=len(hit_ids))
             return True
+        # a hit leaves no patch rows (they take no prefix matching)
+        suffix = eff[hit:]
+        W = self._width(len(suffix), hit + n_lead)
+        st = self._st
+        if st is not None:
+            st.open("prefill", rid=req.rid, tokens=len(suffix), W=W, hit=hit)
+        toks, lens = self._padded([suffix], W)
         if hit:
-            suffix = eff[hit:]
-            W = self._width(len(suffix), hit)
-            toks, lens = self._padded([suffix], W)
             pk, pv = self.kv.gather_prefix(hit_ids)
-            with self.tel.annotate("serve.prefill"):
-                logits, cache = self._prefill_prefix(
-                    self.params, toks, pk, pv, self.max_seq, suffix_len=lens,
-                    into=self._staging_rows(1))
+            logits, cache = self._launch(
+                self._prefill_prefix, self.params, toks, pk, pv, self.max_seq,
+                suffix_len=lens, into=self._staging_rows(1))
         else:
             kw = {}
             if n_lead:
                 kw["patch_embeds"] = torch.as_tensor(np.asarray(req.patch_embeds))[None]
-            W = self._width(len(eff), n_lead)
-            toks, lens = self._padded([eff], W)
-            with self.tel.annotate("serve.prefill"):
-                logits, cache = self._prefill(
-                    self.params, toks, self.max_seq, prompt_len=lens if self._bucket else None,
-                    into=self._staging_rows(1), **kw)
+            logits, cache = self._launch(
+                self._prefill, self.params, toks, self.max_seq,
+                prompt_len=lens if self._bucket else None, into=self._staging_rows(1), **kw)
         self.widths["prefill"][W] += 1
+        self._count_prefill(req, len(suffix), W)
         self.kv.write_prefill(row, cache, skip_blocks=len(hit_ids))
         self._arm(req, row, logits[0])
+        if st is not None:
+            st.close()
         return True
 
     # ------------------------------------------------------------------
@@ -876,24 +919,37 @@ class Scheduler:
 
     # ------------------------------------------------------------------
     def _decode_pool(self):
-        """One batched decode over the full row pool; returns the logits."""
+        """One batched decode over the full row pool; returns the logits.
+        Recorded, its span is tiled by ``decode.prep`` (the tail blocks,
+        the schedule check, the inputs' uploads), ``decode.launch`` and
+        ``decode.wait``."""
+        st = self._st
+        if st is not None:
+            st.open("decode.prep", st.lap("decode"))
         tok = torch.from_numpy(self._tok[:, None].copy()).to(self.device)
         if self.kv_layout == "paged":
             for row in self._active:
                 self.kv.ensure_tail(row)
             self._check_schedule(self._tok)
-            pool, tables, lens = self.kv.kernel_inputs()
-            with self.tel.annotate("serve.decode"):
-                logits, self.kv.pool = self._decode_paged(self.params, pool, tables, lens, tok)
+            fn, args = self._decode_paged, (self.params, *self.kv.kernel_inputs(), tok)
         elif self._decode_plan is not None:
             mask = torch.zeros((self.kv.max_batch,), dtype=torch.bool)
             mask[list(self._active)] = True
-            with self.tel.annotate("serve.decode"):
-                logits, _ = self._plan_decode(self.kv.cache, tok[:, 0], mask)
+            fn, args = self._plan_decode, (self.kv.cache, tok[:, 0], mask)
         else:
-            with self.tel.annotate("serve.decode"):
-                logits, self.kv.cache = self._decode(self.params, self.kv.cache, tok)
+            fn, args = self._decode, (self.params, self.kv.cache, tok)
+        if st is not None:
+            st.lap("decode.launch", kind="launch")
+        logits, state = fn(*args)
+        if self.kv_layout == "paged":
+            self.kv.pool = state
+        elif self._decode_plan is None:
+            self.kv.cache = state
+        if st is not None:
+            st.lap("decode.wait", kind="wait")
         self._sync()
+        if st is not None:
+            st.close(st.close())  # decode.wait, then the decode at the same instant
         return logits
 
     def _spec_step(self) -> None:
@@ -907,10 +963,14 @@ class Scheduler:
         drafter rolls back by the same per-row vector. K is the live depth
         (``spec.k`` is its ceiling)."""
         K = self._live_k
+        st = self._st
         t_start = time.perf_counter()
-        with self.tel.annotate("serve.draft"):
-            drafts = self._drafter.propose(self._active, self._tok)
+        if st is not None:
+            st.lap("draft", t_start, k=K)
+        drafts = self._drafter.propose(self._active, self._tok)
         t_draft = time.perf_counter()
+        if st is not None:
+            st.lap("verify", t_draft, k=K)
         self.stats.draft_ms.append((t_draft - t_start) * 1e3)
         host_in = np.concatenate([self._tok[:, None], np.asarray(drafts, np.int64)], axis=1)
         tokens_in = torch.from_numpy(host_in).to(self.device)
@@ -919,21 +979,18 @@ class Scheduler:
             for row in self._active:
                 self.kv.ensure_tail_n(row, K + 1)
             self._check_schedule(host_in)
-            pool, tables, lens = self.kv.kernel_inputs()
-            with self.tel.annotate("serve.verify"):
-                logits, self.kv.pool = self._verify_paged(
-                    self.params, pool, tables, lens, tokens_in)
+            logits, self.kv.pool = self._launch(
+                self._verify_paged, self.params, *self.kv.kernel_inputs(), tokens_in)
         else:
-            with self.tel.annotate("serve.verify"):
-                logits, self.kv.cache = self._verify(self.params, self.kv.cache, tokens_in)
+            logits, self.kv.cache = self._launch(
+                self._verify, self.params, self.kv.cache, tokens_in)
+        t = time.perf_counter()
         greedy = torch.argmax(logits, dim=-1).cpu().numpy()  # [max_batch, K+1]
         now = time.perf_counter()
         self.stats.verify_ms.append((now - t_draft) * 1e3)
-        if self._ton:
-            tr = self.tel.tracer
-            a, b = tr.to_us(t_start), tr.to_us(t_draft)
-            tr.complete("draft", "sched", a, b - a, args={"k": K})
-            tr.complete("verify", "sched", b, tr.to_us(now) - b, args={"k": K})
+        if st is not None:
+            st.waited(t)
+            st.lap("commit", now)
         self.stats.spec_k = K
         self.stats.spec_steps += 1
 
@@ -1030,9 +1087,10 @@ class Scheduler:
             toks = np.zeros((1, W), np.int64)
             toks[0, :n] = st.prompt[st.pos : st.pos + n]
             self.widths["chunk"][W] += 1
-            with self.tel.annotate("serve.prefill_chunk"):
-                logits, st.cache = self._prefill_chunk(
-                    self.params, st.cache, torch.from_numpy(toks).to(self.device), [n])
+            logits, st.cache = self._launch(
+                self._prefill_chunk, self.params, st.cache,
+                torch.from_numpy(toks).to(self.device), [n])
+            self._count_prefill(st.req, n, W)
             st.pos += n
             budget -= n
             if self._ton:
@@ -1084,24 +1142,16 @@ class Scheduler:
             self._storage.give_back(self.model, self.max_seq, cache)
         self._sync()
 
-    def _finish_step(self, t0: float, phases) -> None:
+    def _finish_step(self, st: StepTrace) -> None:
         """Telemetry's step boundary (reached only with the recorder on):
-        the step span and its non-empty phase spans, the queue and pool
-        gauges, the retrace watch (the step families' compile counts: growth
-        is a retrace), and one registry tick so every counter lands in its
+        the step's spans into the tracer, the queue and pool gauges, the
+        retrace watch (the step families' compile counts: growth is a
+        retrace), and one registry tick so every counter lands in its
         window ring. Host bookkeeping only, no device synchronise beyond the
         step's own."""
-        end = time.perf_counter()
-        tr = self.tel.tracer
-        ts0 = tr.to_us(t0)
+        self._st = None
         self._step_seq += 1
-        tr.complete("step", "sched", ts0, tr.to_us(end) - ts0,
-                    args={"seq": self._step_seq, "active": len(self._active),
-                          "queued": len(self._queue)})
-        for name, a, b, did in phases:
-            if did:
-                ta = tr.to_us(a)
-                tr.complete(name, "sched", ta, tr.to_us(b) - ta)
+        st.end(active=len(self._active), queued=len(self._queue))
         self._g_queue.set(len(self._queue))
         self._g_active.set(len(self._active))
         self._g_occ.set(self.kv.occupancy)
@@ -1110,14 +1160,9 @@ class Scheduler:
         size = cache_size(self._traced_fns)
         if size > self._cache_size_seen:
             self._c_retraces.inc(size - self._cache_size_seen)
-            tr.instant("retrace", "sched", args={"new": size - self._cache_size_seen})
+            self.tel.tracer.instant("retrace", "sched", args={"new": size - self._cache_size_seen})
         self._cache_size_seen = size
         self.stats.registry.tick()
-
-    @staticmethod
-    def _early(t0, t_admit, t_chunk, admitted, chunked):
-        """The admit and chunk phases of a step, as ``_finish_step`` takes them."""
-        return (("admit", t0, t_admit, admitted), ("prefill_chunk", t_admit, t_chunk, chunked))
 
     def step(self, now: Optional[float] = None) -> bool:
         """Admit arrived requests, spend the chunked-prefill budget, then
@@ -1127,7 +1172,12 @@ class Scheduler:
         cause. With a controller attached, every working step also
         advances the observe → decide → apply loop (after the telemetry
         tick, so the decision prices a window that holds this step)."""
-        did = self._step_inner(now)
+        try:
+            did = self._step_inner(now)
+        finally:
+            if self._st is not None:  # a step that did nothing, or raised
+                self._st.discard()
+                self._st = None
         if did and self.controller is not None:
             self._controller_tick()
         return did
@@ -1138,46 +1188,56 @@ class Scheduler:
         if self._mesh is not None:
             # one clock for the whole mesh: admission reads it
             now = collectives.mesh_broadcast_value(now, self._mesh)
-        t0 = time.perf_counter()
-        ton = self._ton
+        st = None
+        if self._ton:
+            st = self._st = StepTrace(self.tel.tracer, self._step_seq + 1,
+                                      ranges=self.tel.profiler_annotations,
+                                      events=self._step_events)
+            t0 = st.open("admit", st.t)
+        else:
+            t0 = time.perf_counter()
         admitted = self._admit_phase(now)
-        t_admit = time.perf_counter() if ton else 0.0
+        if st is not None and self.chunk_size is not None:
+            st.lap("prefill_chunk")
         chunked = self._prefill_phase()
-        t_chunk = time.perf_counter() if ton else 0.0
         if not self._active:
             if admitted or chunked:
+                t = time.perf_counter()
                 self._sync()
+                if st is not None:
+                    st.waited(t)
                 self.stats.step_ms.append((time.perf_counter() - t0) * 1e3)
-                if ton:
-                    self._finish_step(t0, self._early(t0, t_admit, t_chunk, admitted, chunked))
+                if st is not None:
+                    self._finish_step(st)
                 return True
             return False
         if self.spec is not None and self._live_k > 0:
             self._spec_step()
             self.stats.step_ms.append((time.perf_counter() - t0) * 1e3)
-            if ton:  # the draft and verify spans were recorded in _spec_step
-                self._finish_step(t0, self._early(t0, t_admit, t_chunk, admitted, chunked))
+            if st is not None:
+                self._finish_step(st)
             return True
         logits = self._decode_pool()
-        t_decode = time.perf_counter() if ton else 0.0
         self.stats.step_ms.append((time.perf_counter() - t0) * 1e3)
-        if self.kv_layout == "paged":
-            for row in self._active:
-                self.kv.advance(row)
+        if st is not None:
+            st.open("sample", st.t, kind="wait")
         if self.temperature <= 0.0:
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         else:
             nxt = {row: self._sample_row(logits[row], self._gens[row]) for row in self._active}
+        if st is not None:
+            st.lap("commit")
+        if self.kv_layout == "paged":
+            for row in self._active:
+                self.kv.advance(row)
         for row, req in list(self._active.items()):
             tok = int(nxt[row])
             req.tokens.append(tok)
             self._tok[row] = tok
             if len(req.tokens) >= req.max_new_tokens or tok == req.eos_id:
                 self._retire(req, self._clock())
-        if ton:
-            self._finish_step(t0, self._early(t0, t_admit, t_chunk, admitted, chunked) + (
-                ("decode", t_chunk, t_decode, True),
-                ("sample", t_decode, time.perf_counter(), True)))
+        if st is not None:
+            self._finish_step(st)
         return True
 
     def run(self, requests=None, *, reset_stats: bool = True) -> dict:

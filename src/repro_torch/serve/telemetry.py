@@ -12,7 +12,16 @@ imports nothing of that package:
     trace-event JSON: per-step phase spans on the scheduler lane, each
     request's lifecycle as async ``"b"``/``"n"``/``"e"`` events keyed by
     its rid, the adviser's pipeline stages and decisions with their priced
-    inputs, and backend resolutions as instant events.
+    inputs, and backend resolutions as instant events. Its timestamps lie
+    on ``torch.profiler``'s timeline (Unix-time µs), so an export lays over
+    a device trace.
+
+``StepTrace``
+    One scheduler step as a tree of spans (the step, its phases, the
+    prefills inside admission, the decode's prep, launch and wait), made
+    only with the recorder on: it splits the step's time into host work,
+    device waits and launches, and times its device work with two CUDA
+    events that the step's own synchronise completes.
 
 ``MetricsRegistry``
     Counters, gauges and sample series shared with ``ServeStats``. The
@@ -30,8 +39,8 @@ imports nothing of that package:
     sites with no engine handle (the backend registry, the adviser tools);
     engines and schedulers take an explicit ``telemetry=``.
 
-Standard library only (``torch.profiler`` is imported inside
-``annotate``), so ``core/`` and ``kernels/`` can reach it without an
+Standard library only (``torch.profiler`` is imported where a range
+is opened), so ``core/`` and ``kernels/`` can reach it without an
 import cycle through the serving package.
 """
 from __future__ import annotations
@@ -49,6 +58,7 @@ __all__ = [
     "Series",
     "MetricsRegistry",
     "Tracer",
+    "StepTrace",
     "Telemetry",
     "get_telemetry",
     "configure",
@@ -329,21 +339,33 @@ class Tracer:
     Events are stored as tuples ``(ph, name, cat, ts_us, dur_us, tid,
     id, args)`` in a ``deque(maxlen=capacity)`` — appending is O(1) and
     the buffer can never exceed its bound (oldest events are dropped
-    first, like a flight recorder).  Timestamps are microseconds from
-    the tracer's own ``perf_counter`` epoch."""
+    first, like a flight recorder).  Timestamps are microseconds on
+    ``torch.profiler``'s clock, Unix time: ``perf_counter`` readings
+    are carried over by one pairing of the two clocks, taken when the
+    tracer starts and again at every ``clear()``, so a span and a
+    ``record_function`` range of the same phase line up in one view."""
 
     def __init__(self, capacity: int = 65536):
         self.capacity = int(capacity)
         self._events: deque = deque(maxlen=self.capacity)
-        self._t0 = time.perf_counter()
+        self._anchor()
+
+    def _anchor(self) -> None:
+        """Pair a ``perf_counter`` reading with the Unix clock: the
+        midpoint of two counter readings around one ``time_ns()``."""
+        a = time.perf_counter()
+        unix_ns = time.time_ns()
+        b = time.perf_counter()
+        self._t0 = (a + b) / 2
+        self._epoch_us = unix_ns / 1e3
 
     # -- recording ---------------------------------------------------
     def now_us(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e6
+        return self.to_us(time.perf_counter())
 
     def to_us(self, t: float) -> float:
         """Convert a raw ``time.perf_counter()`` reading to trace µs."""
-        return (t - self._t0) * 1e6
+        return self._epoch_us + (t - self._t0) * 1e6
 
     def complete(self, name, cat, ts_us, dur_us, tid=TID_STEP, args=None) -> None:
         self._events.append(("X", name, cat, ts_us, max(0.0, dur_us), tid, None, args))
@@ -374,6 +396,7 @@ class Tracer:
 
     def clear(self) -> None:
         self._events.clear()
+        self._anchor()
 
     def chrome_events(self) -> list[dict[str, Any]]:
         """Render the ring to Chrome trace-event dicts, prefixed by
@@ -428,16 +451,144 @@ class Tracer:
         return trace
 
 
+class StepTrace:
+    """One scheduler step as a tree of spans, made only with the recorder on.
+
+    The step span is the root. ``open`` nests a span in the open one and
+    ``close`` ends the innermost; ``lap`` ends it and opens the next at one
+    clock reading, so a step's phases tile the step and the decode's parts
+    tile the decode. A span of kind ``"wait"`` is a device wait, one of kind
+    ``"launch"`` a step function's call; ``launch(fn, ...)`` and
+    ``waited(t)`` count the same inside another span (a prefill's call, its
+    first token's readback). With ``ranges`` every span but a launch is
+    also a ``torch.profiler.record_function`` range ``serve.<name>``: the
+    profiler puts a kernel on the device under the innermost range it was
+    launched in, so a launch opens none and its kernels lie in their
+    phase's range (``serve.decode``, ``serve.verify``).
+
+    ``end()`` writes the spans into the tracer, each with the step's
+    ``seq`` (one that held others also with its ``self_ms``), and gives the
+    step span ``host_ms`` (its duration less the waits), ``wait_ms``,
+    ``launch_ms`` and ``device_ms``: with ``events`` (a reusable pair of
+    timing CUDA events) the stream's time from the start of the step's first
+    launch to the end of its last (the first event recorded before the
+    first launch, the second again after each), read once the step's own
+    synchronise has completed them (None where they have not); without,
+    ``launch_ms`` (eager work on the CPU is synchronous)."""
+
+    __slots__ = ("tracer", "seq", "ranges", "events", "marked", "stack", "spans", "t",
+                 "wait_s", "launch_s")
+
+    def __init__(self, tracer: Tracer, seq: int, ranges: bool = False, events=None):
+        self.tracer, self.seq, self.ranges, self.events = tracer, seq, ranges, events
+        self.marked = False
+        self.wait_s = self.launch_s = 0.0
+        self.stack: list = []  # open: [name, start, kind, range, args, children's seconds]
+        self.spans: list = []  # closed: (name, start, end, args)
+        self.t = self.open("step")  # the last clock reading taken
+
+    def _range(self, name: str):
+        if not self.ranges:
+            return None
+        from torch.profiler import record_function  # lazy: keep the module stdlib-only
+
+        rf = record_function("serve." + name)
+        rf.__enter__()
+        return rf
+
+    def open(self, name: str, t: float | None = None, kind: str | None = None, **args) -> float:
+        # entered before the clock is read, left before it is read
+        rf = None if kind == "launch" else self._range(name)
+        t = time.perf_counter() if t is None else t
+        if kind == "launch":
+            self._mark()
+        self.stack.append([name, t, kind, rf, args, 0.0])
+        self.t = t
+        return t
+
+    def close(self, t: float | None = None) -> float:
+        name, a, kind, rf, args, inner = self.stack.pop()
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        t = time.perf_counter() if t is None else t
+        if kind == "wait":
+            self.wait_s += t - a
+        elif kind == "launch":
+            self._launched(t - a)
+        if inner:
+            args["self_ms"] = (t - a - inner) * 1e3
+        if self.stack:
+            self.stack[-1][5] += t - a
+        self.spans.append((name, a, t, args))
+        self.t = t
+        return t
+
+    def lap(self, name: str, t: float | None = None, kind: str | None = None, **args) -> float:
+        """End the innermost span and open ``name`` at the same instant: the
+        clock is read between the old range's end and the new one's start,
+        so a range's own cost splits between the two."""
+        return self.open(name, self.close(t), kind, **args)
+
+    def _mark(self) -> None:
+        if not self.marked and self.events is not None:
+            self.events[0].record()
+        self.marked = True
+
+    def _launched(self, seconds: float) -> None:
+        self.launch_s += seconds
+        if self.events is not None:
+            self.events[1].record()
+
+    def launch(self, fn, *args, **kw):
+        """``fn(*args, **kw)``, timed as a launch."""
+        self._mark()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        self._launched(time.perf_counter() - t)
+        return out
+
+    def waited(self, t0: float) -> None:
+        """Count the time since ``t0`` as a device wait."""
+        self.wait_s += time.perf_counter() - t0
+
+    def end(self, t: float | None = None, **args) -> None:
+        """Close every open span, the step's last, and write them all."""
+        self.stack[0][4].update(args)
+        while self.stack:
+            t = self.close(t)
+        _, a, b, step = self.spans[-1]
+        ev = self.events
+        device_ms = self.launch_s * 1e3 if ev is None else None
+        if ev is not None and self.marked and ev[1].query():
+            device_ms = ev[0].elapsed_time(ev[1])
+        step.update(host_ms=(b - a - self.wait_s) * 1e3, wait_ms=self.wait_s * 1e3,
+                    launch_ms=self.launch_s * 1e3, device_ms=device_ms)
+        tr, seq = self.tracer, self.seq
+        for name, a, b, args in self.spans:
+            ts = tr.to_us(a)
+            tr.complete(name, "sched", ts, tr.to_us(b) - ts, args={"seq": seq, **args})
+
+    def discard(self) -> None:
+        """Drop the step (it did nothing, or raised): end its open ranges."""
+        while self.stack:
+            rf = self.stack.pop()[3]
+            if rf is not None:
+                rf.__exit__(None, None, None)
+
+
 class Telemetry:
     """Tracer (and optional profiler ranges) behind one hard off switch.
 
     ``enabled=False`` (the default, and the module global's state) leaves
     the serving hot path as it is: every instrumentation site guards on
     ``tel.enabled`` (or on a cached metric handle that exists only when
-    enabled). ``profiler_annotations=True`` also wraps each device-launching
-    phase in ``torch.profiler.record_function(name)``, so a
-    ``torch.profiler`` trace shows the phase around its kernels — off by
-    default even when tracing, since it adds a profiler range a launch."""
+    enabled). ``profiler_annotations=True`` also makes each of the
+    scheduler's spans but a launch a ``torch.profiler.record_function`` range
+    ``serve.<span>`` (and ``annotate`` a range elsewhere), so a
+    ``torch.profiler`` trace names the phase around its kernels and the
+    device's idle gaps — off by default even when tracing, since it adds a
+    profiler range a span. It is read at every step, so it may be set
+    mid-run, when a profiler starts."""
 
     def __init__(
         self,

@@ -179,14 +179,188 @@ def test_profiler_annotations_wrap_the_serving_phases(pair):
 
 
 # ---------------------------------------------------------------------------
+# the step as a tree of spans, the padding counters, the shared clock
+
+
+STEP_PHASES = {"admit", "prefill_chunk", "decode", "draft", "verify", "sample", "commit"}
+DECODE_PARTS = {"decode.prep", "decode.launch", "decode.wait"}
+SERVE_KW = {"plain": {}, "spec": {"spec": SpecConfig(k=2)}, "chunk": {"chunk_size": 8}}
+
+
+def _spans(tel):
+    """seq → [(name, ts, end, args)] of the step lane's spans."""
+    out = collections.defaultdict(list)
+    for ph, name, _, ts, dur, tid, _, args in tel.tracer.events:
+        if ph == "X" and tid == ttel.TID_STEP:
+            out[args["seq"]].append((name, ts, ts + dur, args))
+    return out
+
+
+def _tile(parts, a, b, tol=1.0):
+    """``parts`` (sorted by start) abut and cover [a, b] within ``tol`` µs."""
+    parts = sorted(parts, key=lambda p: p[1])
+    assert parts and abs(parts[0][1] - a) <= tol and abs(parts[-1][2] - b) <= tol
+    for p, q in zip(parts, parts[1:]):
+        assert abs(p[2] - q[1]) <= tol, (p[0], q[0])
+
+
+@pytest.mark.parametrize("mode", list(SERVE_KW))
+def test_phase_spans_tile_each_step(pair, mode):
+    """Each step's phases tile its span (a decode's parts tile the decode,
+    each prefill lies inside admission), every span carries the step's
+    seq, and host_ms is the step's duration less its waits: the decode's
+    wait, the readbacks and each first token's sampling. On the CPU the
+    device time is the launches' host time."""
+    cfg, _, _, _, _, te = pair
+    tel = Telemetry(enabled=True)
+    drive(te.scheduler(2, telemetry=tel, **SERVE_KW[mode]), _workload(Request, cfg.vocab_size))
+    steps = _spans(tel)
+    assert steps and sorted(steps) == list(range(1, len(steps) + 1))
+    seen = set()
+    for seq, spans in steps.items():
+        (step,) = [s for s in spans if s[0] == "step"]
+        _, a, b, args = step
+        phases = [s for s in spans if s[0] in STEP_PHASES]
+        _tile(phases, a, b)
+        seen |= {s[0] for s in spans}
+        for dec in (s for s in spans if s[0] == "decode"):
+            _tile([s for s in spans if s[0] in DECODE_PARTS], dec[1], dec[2])
+        (admit,) = [s for s in phases if s[0] == "admit"]
+        pre = [s for s in spans if s[0] == "prefill"]
+        assert all(admit[1] <= p[1] and p[2] <= admit[2] for p in pre)
+        # trace µs are Unix time: a quarter of a µs apart at today's dates
+        if pre:
+            assert admit[3]["self_ms"] == pytest.approx(
+                (admit[2] - admit[1] - sum(p[2] - p[1] for p in pre)) / 1e3, abs=2e-3)
+        assert args["host_ms"] == pytest.approx((b - a) / 1e3 - args["wait_ms"], abs=2e-3)
+        waits = sum(s[2] - s[1] for s in spans if s[0] in ("decode.wait", "sample")) / 1e3
+        assert args["wait_ms"] >= waits - 2e-3
+        assert args["device_ms"] == args["launch_ms"] > 0
+        launch = sum(s[2] - s[1] for s in spans if s[0] == "decode.launch") / 1e3
+        assert args["launch_ms"] >= launch - 2e-3
+    want = {"plain": {"decode", "sample", "commit", "prefill"} | DECODE_PARTS,
+            "spec": {"draft", "verify", "commit", "prefill"},
+            "chunk": {"prefill_chunk", "decode", "sample"}}[mode]
+    assert want <= seen
+
+
+def _prompt(n, seed):
+    return np.random.default_rng(seed).integers(0, 250, size=n).astype(np.int32)
+
+
+@pytest.mark.parametrize("mode,lengths,pads", [
+    ("plain", (9, 12, 16, 5), (7, 4, 0, 3)),  # each prompt to its pow2 width
+    ("chunk", (9, 13), (0, 3)),  # chunks of 8: 8 + 1 at widths 8 and 1; 8 + 5 at 8 and 8
+])
+def test_prefill_pad_counters_exact(pair, mode, lengths, pads):
+    """Pads = width less real tokens at every padded call, counted on the
+    request, recorder on or off; a recorded monolithic prefill's span gives
+    its real tokens and width."""
+    _, _, _, _, _, te = pair
+    kw = {"chunk_size": 8} if mode == "chunk" else {}
+    for on in (False, True):
+        reqs = [Request(prompt=_prompt(n, i), max_new_tokens=3, arrival_time=0.05 * i)
+                for i, n in enumerate(lengths)]
+        tel = Telemetry(enabled=on)
+        drive(te.scheduler(2, telemetry=tel, **kw), reqs)
+        assert [r.prefill_tokens for r in reqs] == list(lengths)
+        assert [r.prefill_pad for r in reqs] == list(pads)
+    pre = [s[3] for spans in _spans(tel).values() for s in spans if s[0] == "prefill"]
+    if mode == "plain":
+        assert sum(a["tokens"] for a in pre) == sum(lengths)
+        assert sum(a["W"] * len(np.atleast_1d(a["rid"])) - a["tokens"] for a in pre) == sum(pads)
+
+
+def test_prefix_suffix_prefill_counts_its_suffix(pair):
+    """A prefix hit prefills only the suffix, padded to its own width: 8
+    cached tokens and 3 more run at width 4, one pad."""
+    _, _, _, _, _, te = pair
+    first = _prompt(12, 0)
+    reqs = [Request(prompt=first, max_new_tokens=2),
+            Request(prompt=np.concatenate([first[:8], _prompt(3, 1)]), max_new_tokens=2,
+                    arrival_time=0.2)]
+    tel = Telemetry(enabled=True)
+    drive(te.scheduler(2, telemetry=tel), reqs)
+    assert reqs[1].prefix_hit == 8
+    assert (reqs[1].prefill_tokens, reqs[1].prefill_pad) == (3, 1)
+    (pre,) = [s for spans in _spans(tel).values() for s in spans
+              if s[0] == "prefill" and s[3]["rid"] == reqs[1].rid]
+    assert (pre[3]["tokens"], pre[3]["W"], pre[3]["hit"]) == (3, 4, 8)
+
+
+def test_spans_and_profiler_ranges_share_a_clock(pair):
+    """With ``profiler_annotations`` every span but the decode's launch is
+    also a ``serve.<name>`` range (the launch's kernels lie in
+    ``serve.decode``); exported span and range of the same phase agree
+    within 100 µs on the profiler's clock (the median over a phase's spans,
+    so that a worker descheduled between a range's start and the span's
+    clock reading does not decide it)."""
+    cfg, _, _, _, _, te = pair
+    tel = Telemetry(enabled=True, profiler_annotations=True)
+    sched = te.scheduler(2, telemetry=tel)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        drive(sched, _workload(Request, cfg.vocab_size))
+    ranges = collections.defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("serve."):
+            ranges[e.name()[len("serve."):]].append((e.start_ns() / 1e3, e.end_ns() / 1e3))
+    spans = collections.defaultdict(list)
+    for e in tel.tracer.to_chrome_trace()["traceEvents"]:
+        if e["ph"] == "X":
+            spans[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
+    assert set(spans) == set(ranges) | {"decode.launch"}
+    assert set(ranges) >= {"step", "admit", "prefill", "sample", "commit", "decode",
+                           "decode.prep", "decode.wait"}
+    for name, want in ranges.items():
+        got, want = sorted(spans[name]), sorted(want)
+        assert len(got) == len(want), name
+        starts = [abs(a - c) for (a, _), (c, _) in zip(got, want)]
+        ends = [abs(b - d) for (_, b), (_, d) in zip(got, want)]
+        assert np.median(starts) < 100 and np.median(ends) < 100, (name, starts, ends)
+
+
+def test_recorder_off_records_nothing(pair, monkeypatch):
+    """Off, a step creates no span, no trace event and no CUDA event, and
+    the tokens are those of a recorded run."""
+    cfg, _, _, _, _, te = pair
+    made = []
+    monkeypatch.setattr(torch.cuda, "Event", lambda *a, **k: made.append(1))
+    monkeypatch.setattr(ttel.StepTrace, "__init__",
+                        lambda *a, **k: pytest.fail("a step was recorded"))
+    off = Telemetry(enabled=False, profiler_annotations=True)
+    sched = te.scheduler(2, telemetry=off)
+    got = drive(sched, _workload(Request, cfg.vocab_size))
+    assert len(off.tracer) == 0 and not made
+    assert sched._st is None and sched._step_events is None
+    monkeypatch.undo()
+    on = drive(te.scheduler(2, telemetry=Telemetry(enabled=True)),
+               _workload(Request, cfg.vocab_size))
+    for a, b in zip(got, on):
+        np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
 # the same workload, both packages: summary schema and metric names
+
+
+# the registry's counters and the step lane's spans against the JAX
+# engine's: three of its counters that nothing read are gone from the port,
+# which records the phases of a step that the JAX trace leaves in one span
+# (a prefill inside admission, the decode's parts, the commit after
+# sampling) and an admit span on every working step; the spans whose
+# meaning both share are held one for one
+REMOVED_COUNTERS = {"prefix.lookups", "prefix.hit_blocks", "pool.share"}
+PORT_SPANS = {"prefill", "decode.prep", "decode.launch", "decode.wait", "commit"}
+SHARED_SPANS = {"step", "decode", "sample", "draft", "verify"}
 
 
 def test_golden_serving_summary_schema(pair):
     """The port's serving_summary() has the keys, the speculative section
     and the deterministic counts the JAX engine gives the same workload on
     this tree (a step clock for both); the registry holds the same metric
-    names; the trace holds the same events by name."""
+    names but ``REMOVED_COUNTERS``; the trace holds the same request and
+    instant events and ``SHARED_SPANS`` by name and count, and the other
+    spans by name with ``PORT_SPANS``."""
     cfg, jm, jp, tm, tp, _ = pair
     te, je = ServingEngine(tm, tp, device="cpu", **KW), JEngine(jm, jp, **KW)  # fresh registries
     V = cfg.vocab_size
@@ -207,14 +381,32 @@ def test_golden_serving_summary_schema(pair):
             if key.startswith(("p50_", "p99_")):
                 assert s[key] is None or isinstance(s[key], float), key
         snap, jsnap = te.stats.registry.snapshot(), je.stats.registry.snapshot()
+        want = {"counters": set(jsnap["counters"]), "gauges": set(jsnap["gauges"]),
+                "series": set(jsnap["series"])}
+        if telemetry:
+            want["counters"] -= REMOVED_COUNTERS
         for part in ("counters", "gauges", "series"):
-            assert sorted(snap[part]) == sorted(jsnap[part]), part
+            assert set(snap[part]) == want[part], part
         assert snap["ticks"] == jsnap["ticks"]
         if telemetry:
-            names = collections.Counter((e[0], e[1]) for e in t.tracer.events)
-            jnames = collections.Counter((e[0], e[1]) for e in jt.tracer.events
-                                         if e[1] != "retrace")
-            assert names == jnames
+            # the lifecycle and instant events and the shared spans one for
+            # one (the speculative run, then a plain decode run, whose new
+            # step family the port's retrace watch counts), the other spans
+            # by name
+            def counts(events, skip=("retrace",)):
+                return collections.Counter((e[0], e[1]) for e in events if e[1] not in skip
+                                           and (e[0] != "X" or e[1] in SHARED_SPANS))
+
+            assert counts(t.tracer.events, ()) == counts(jt.tracer.events)
+            n, jn = len(t.tracer), len(jt.tracer)
+            drive(te.scheduler(2, telemetry=t), _workload(Request, V))
+            drive(je.scheduler(2, telemetry=jt), _workload(JRequest, V))
+            plain, jplain = list(t.tracer.events)[n:], list(jt.tracer.events)[jn:]
+            assert counts(plain) == counts(jplain)
+            assert {e[1] for e in t.tracer.events} >= SHARED_SPANS
+            spans = {e[1] for e in t.tracer.events if e[0] == "X"}
+            jspans = {e[1] for e in jt.tracer.events if e[0] == "X"}
+            assert spans == jspans | PORT_SPANS
     # a controller adds its section, with the JAX engine's keys
     drive(te.scheduler(2, spec=SpecConfig(k=2), controller=PinnedController(2)),
           _workload(Request, V))
